@@ -21,6 +21,12 @@ def params_for(arch: str):
     return _PARAMS_CACHE[arch]
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips without one"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
