@@ -6,37 +6,51 @@
 Phases, each failing loudly (nothing is caught):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the four kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-   per source, all at once) and print each one's ptxas report;
+2. build the kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   source, all at once) and print each one's ptxas report;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, and time kernel, plain version, one
-   library call computing the same function, and the card's bound;
-4. run the main path: ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at its
+   library call computing the same function (for the int8/int4 bodies of
+   the grouped matmul no single call does: a composite of dequantize +
+   ``index_select`` + ``bmm`` stands in), and the card's bound;
+4. run three paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at its
    published widths, cut to the first 8 of its 48 layers (the depth is the
    only cut: 8 layers of host warehouse are 9.7 GB, the whole model's would
    be 58 GB, made at random on every run), rotary residency with 96 of 128
-   expert slots, 2 requests of 512 prompt tokens and 64 new tokens at batch
-   1, greedy, cache_len 1024; the kernels' launch counters are zeroed just
-   before and read just after, and every kernel must have launched;
-5. check the engine's prefill logits and its decode logits against a plain
-   full-residency forward of the same weights on the card (``kernels/ref.py``
-   called directly), and that every miss was corrected on the host; then a
-   control: the first request again, fed the same tokens, with the host miss
-   correction switched off, must fail that check (so the check can see a
-   broken engine);
+   expert slots, batch 1, greedy, cache_len 1024:
+   * ``bf16`` slots, 2 requests of 512 prompt tokens and 64 new tokens;
+   * ``int4`` slots (groups of 64), the same requests;
+   * ``int8`` slots, 1 request of 512 + 16 tokens.
+   Each path starts from the same random weights and frees its engine, and
+   its warehouse, before the next; the kernels' launch counters are zeroed
+   just before each path and read just after, and every kernel must have
+   launched on some path. A quantized path also checks that the card's
+   quantization of layer 0 equals the CPU quantizer's byte for byte, and
+   that every upload shipped exactly one packed expert (2,654,208 bytes
+   int4, 4,732,928 int8);
+5. after each path, check the engine's prefill logits and its decode logits
+   against a plain full-residency forward of the same weights on the card
+   (``kernels/ref.py`` called directly; for a quantized path the weights
+   are dequant(quant(w))), and that every miss was corrected on the host;
+   for ``bf16`` and ``int4`` a control follows: the first request again, fed
+   the same tokens, with the host miss correction switched off, must fail
+   that check (so the check can see a broken engine);
 6. print the kernels' JSON line, the card line, and last the result line.
 
 Tolerances. Kernel vs plain version (phase 3), outputs in bf16: |kernel -
 plain| <= 2e-2 + 2e-2 |plain| (f32 sums in another order, one more bf16
-rounding of outputs of magnitude ~1); the gate's ids exactly, wherever the
-k-th and (k+1)-th probabilities differ. Engine vs reference (phase 5): the
-engine computes in bf16 like the model it serves, so it is held to the f32
-forward of the same weights ("truth") as tightly as a plain bf16 forward
-is: per request, the RMS over all positions and vocabulary entries of
-(engine - truth) may exceed that of (plain bf16 - truth) by at most a factor
-1.5 plus 0.01, the largest per-position error by at most a factor 1.5 plus
-0.05, and the engine's greedy id must equal the truth's wherever the
-truth's top-2 margin exceeds twice the plain bf16 forward's largest error.
+rounding of outputs of magnitude ~1); the int8/int4 bodies give f32 outputs
+from the same planes, held to 1e-4 + 1e-4 (f32 sums in another order); the
+gate's ids exactly, wherever the k-th and (k+1)-th probabilities differ.
+Engine vs reference (phase 5): the engine computes in bf16 like the model it
+serves, so it is held to the f32 forward of the same weights ("truth") as
+tightly as a plain bf16 forward is (for a quantized path: the dequantized
+weights cast to bf16, what the reference's main path runs): per request,
+the RMS over all positions and vocabulary entries of (engine - truth) may
+exceed that of (plain bf16 - truth) by at most a factor 1.5 plus 0.01, the
+largest per-position error by at most a factor 1.5 plus 0.05, and the
+engine's greedy id must equal the truth's wherever the truth's top-2 margin
+exceeds twice the plain bf16 forward's largest error.
 """
 from __future__ import annotations
 
@@ -53,11 +67,23 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor peak (data sheet
 LAYERS = 8
 PROMPT, NEW, REQUESTS, CACHE = 512, 64, 2, 1024
 SLOTS = 96
+PATHS = (                 # label, slot format, requests, new tokens, control run
+    ("bf16", None, REQUESTS, NEW, True),
+    ("int4", "int4", REQUESTS, NEW, True),
+    ("int8", "int8", 1, 16, False),
+)
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
+QUANT_TOL = dict(atol=1e-4, rtol=1e-4)
+GROUP = 64
+EXPERT_BYTES = {"int4": 2_654_208, "int8": 4_732_928}     # one packed expert on the link
 ERR_RATIO, RMS_SLACK, MAX_SLACK = 1.5, 0.01, 0.05
 REPLACES = {
     "slot_gmm": "src/repro/kernels/moe_gmm.py:111",
     "slot_gmm_tiled": "src/repro/kernels/moe_gmm.py:111",
+    "slot_gmm_int8": "src/repro/kernels/moe_gmm.py:59",
+    "slot_gmm_int8_tiled": "src/repro/kernels/moe_gmm.py:59",
+    "slot_gmm_int4": "src/repro/kernels/moe_gmm.py:78",
+    "slot_gmm_int4_tiled": "src/repro/kernels/moe_gmm.py:78",
     "decode_attention": "src/repro/kernels/decode_attention.py:70",
     "topk_gate": "src/repro/kernels/topk_gate.py:81",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
@@ -65,6 +91,10 @@ REPLACES = {
 SOURCE = {
     "slot_gmm": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "slot_gmm_tiled": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    "slot_gmm_int8": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    "slot_gmm_int8_tiled": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    "slot_gmm_int4": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    "slot_gmm_int4_tiled": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "topk_gate": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -191,6 +221,11 @@ def kernel_phase(dev):
               f"tokens grouped by slot ({rows_used} rows; prefill gate/up)",
     )
 
+    # --- K1 int8 / int4 bodies: the same stores quantized as the manager does -
+    for kind in ("int8", "int4"):
+        rows.update(quant_rows(kind, dict(up=w_up, down=w_down), luts, lut_next, distinct,
+                               (x_dec, h_dec), (x_pre, h_pre), used, rows_used))
+
     # --- K2 decode_attention: B=1, H=32, Hkv=4, dh=128, S=1024 ----------------
     h, hkv, dh, s = 32, 4, 128, CACHE
     caches = [(randn(1, s, hkv, dh), randn(1, s, hkv, dh)) for _ in range(LAYERS)]
@@ -281,13 +316,105 @@ def kernel_phase(dev):
     return rows
 
 
+def quant_rows(kind, stores, luts, lut_next, distinct, dec, pre, used, rows_used):
+    """Phase 3 for the int8 or int4 bodies of K1: ``stores`` (bf16 [S+1, D, F]
+    up and down matrices) quantized on the card, the GEMV body at the decode
+    shapes (8 picks, C = 1, four LUTs of which one reads the MISS slot) and
+    the tiled body at the prefill grouping, each against the plain version;
+    timed on the gate/up store beside the plain version, a library
+    composite (``index_select`` + dequantize to bf16 + ``bmm``) and the bound.
+    Returns the two kernel rows."""
+    import torch
+
+    from repro_torch.core.slots import quantize_int8_batch
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    from repro_torch.quant import dequantize_int4, quantize_int4_batch
+
+    planes = {}                               # name -> (w, scale, mn or None)
+    for name, w in stores.items():
+        q = quantize_int8_batch(w) if kind == "int8" else quantize_int4_batch(w, GROUP)
+        planes[name] = tuple(q) + (None,) * (3 - len(q))
+
+    def both(label, x, name, lut):
+        w, scale, mn = planes[name]
+        return check_close(f"slot_gmm_{kind} {label} {name}", gmm.slot_gmm(x, w, lut, scale, mn),
+                           ref.slot_gmm_ref(x, w, lut, scale, mn), **QUANT_TOL)
+
+    err_dec = max(both("decode", x, name, lut) for lut in luts[:4]
+                  for name, x in zip(("up", "down"), dec))
+    err_pre = max(both("prefill", x, name, used) for name, x in zip(("up", "down"), pre))
+    w, scale, mn = planes["up"]
+    d, f = stores["up"].shape[1:]
+
+    def library(x, lut):                      # one composite of library calls
+        idx = lut.long()
+        if kind == "int8":
+            wg = w.index_select(0, idx).to(x.dtype)
+            return torch.bmm(x, wg) * scale.index_select(0, idx)[:, None, :]
+        wg = dequantize_int4(w.index_select(0, idx), scale.index_select(0, idx),
+                             mn.index_select(0, idx), x.dtype)
+        return torch.bmm(x, wg)
+
+    per_slot = sum(t[0].numel() * t.element_size() for t in (w, scale, mn) if t is not None)
+    x_dec, x_pre = dec[0], pre[0]
+    out = {}
+    nbytes = distinct * per_slot + 8 * d * 2 + 8 * f * 4 + 8 * 4
+    b_ms, b_by = bound(nbytes, 2 * 8 * d * f)
+    out[f"slot_gmm_{kind}"] = dict(
+        max_abs_err=err_dec,
+        ms=time_ms(lambda: gmm.slot_gmm(x_dec, w, lut_next(), scale, mn)),
+        plain_ms=time_ms(lambda: ref.slot_gmm_ref(x_dec, w, lut_next(), scale, mn)),
+        library_ms=time_ms(lambda: library(x_dec, lut_next())),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"x [8,1,{d}] bf16 @ {kind} w {list(w.shape)} through an 8-entry LUT (decode "
+              f"gate/up), f32 out; library: index_select + dequantize + bmm (a composite)",
+    )
+    pre_bytes = used.numel() * per_slot + rows_used * (d * 2 + f * 4)
+    b_ms, b_by = bound(pre_bytes, 2 * rows_used * d * f)
+    out[f"slot_gmm_{kind}_tiled"] = dict(
+        max_abs_err=err_pre,
+        ms=time_ms(lambda: gmm.slot_gmm(x_pre, w, used, scale, mn), 20),
+        plain_ms=time_ms(lambda: ref.slot_gmm_ref(x_pre, w, used, scale, mn), 20),
+        library_ms=time_ms(lambda: library(x_pre, used), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"x {list(x_pre.shape)} bf16 @ {kind} w {list(w.shape)}, the picks of {PROMPT} "
+              f"tokens grouped by slot ({rows_used} rows; prefill gate/up), f32 out; library: "
+              f"index_select + dequantize + bmm (a composite)",
+    )
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the plain full-residency forward
 # ---------------------------------------------------------------------------
+def float_experts(engine, li, dtype):
+    """Layer ``li``'s routed experts on the card in ``dtype``: the bf16
+    warehouse as it is (or in f32), or a packed warehouse dequantized in f32
+    (int4 ``q * s + m``, int8 ``q * scale``) and then cast."""
+    import torch
+
+    from repro_torch.core.slots import dequantize_int8
+    from repro_torch.quant import dequantize_int4
+
+    hw = {n: t.to(engine.device) for n, t in engine.host_experts[li].items()}
+    out = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        if f"min_{name}" in hw:
+            w = dequantize_int4(hw[name], hw[f"scale_{name}"], hw[f"min_{name}"])
+        elif f"scale_{name}" in hw:
+            w = dequantize_int8(hw[name], hw[f"scale_{name}"][:, None, :])
+        else:
+            w = hw[name]
+        out[name] = w.to(dtype)
+    return out
+
+
 def reference_logits(cfg, engine, tokens, dtype):
     """Logits at every position of ``tokens`` [1, S] from a plain forward with
-    every expert resident, in ``dtype``, on the engine's weights cast to it,
-    calling ``kernels/ref.py`` directly."""
+    every expert resident, in ``dtype``, on the engine's weights cast to it
+    (a quantized warehouse dequantized first), calling ``kernels/ref.py``
+    directly."""
     import torch
     import torch.nn.functional as F
 
@@ -315,7 +442,7 @@ def reference_logits(cfg, engine, tokens, dtype):
         h2 = apply_norm(cfg.norm, p["ln2"], x).reshape(s, d)
         ids, w = ref.topk_gate_ref(h2.float() @ p["moe"]["router"], m.top_k,
                                    normalize=m.norm_topk_prob)
-        experts = cast({n: t.to(dev) for n, t in engine.host_experts[li].items()})
+        experts = float_experts(engine, li, dtype)
         flat = ids.reshape(-1).long()
         counts = torch.bincount(flat, minlength=m.num_experts)
         used = torch.nonzero(counts).flatten()
@@ -362,6 +489,122 @@ def judge(label, got, truth, plain) -> bool:
                 and e_eng.max() <= ERR_RATIO * e_pl.max() + MAX_SLACK and agree[sure].all())
 
 
+def run_path(dev, cfg, depth, label, quantization, requests, new, control):
+    """Phase 4 and 5 for one path: build the engine (its slots in
+    ``quantization``), drive ``requests`` prompts of PROMPT tokens and
+    ``new`` greedy tokens each with the launch counters zeroed just before,
+    check the logits against the plain forward (and the control), free the
+    engine. Returns the path's launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ResidencyConfig
+    from repro_torch.core.engine import RotaryEngine
+    from repro_torch.core.slots import quantize_experts
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime, init_params
+
+    log(f"[4/{label}] {cfg.name} at published widths, {LAYERS} of {depth} layers, rotary "
+        f"residency {SLOTS}/{cfg.moe.num_experts} slots in {quantization or 'bf16'}"
+        f"{f' (groups of {GROUP})' if quantization == 'int4' else ''}, {requests} request(s) x "
+        f"({PROMPT} prompt + {new} new), batch 1, greedy, cache_len {CACHE}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, dev, expert_device="cpu")
+    rescfg = ResidencyConfig(mode="rotary", num_slots=SLOTS, quantization=quantization,
+                             quant_group_size=GROUP)
+    engine = RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=CACHE), batch=1, seed=0,
+                          device=dev)
+    warehouse = sum(t.numel() * t.element_size() for hw in engine.host_experts
+                    for t in hw.values())
+    log(f"  set-up {time.perf_counter() - t0:.1f} s (weights on the card, warehouse to pinned "
+        f"host memory{', quantized on the card' if quantization else ''}, first residency); "
+        f"link {engine.cost.host_link_gbs:.1f} GB/s measured; warehouse {warehouse / 1e9:.2f} GB")
+    if quantization:                   # the card's quantizer against the CPU's, one layer
+        t0 = time.perf_counter()
+        layer0 = params["layers"][0]["moe"]["experts"]
+        cpu = quantize_experts({n: w.cpu() for n, w in layer0.items()}, quantization, GROUP,
+                               device="cpu")
+        for name, plane in cpu.items():
+            if not torch.equal(plane, engine.host_experts[0][name]):
+                raise AssertionError(f"layer 0 {name}: the card's {quantization} bytes differ "
+                                     f"from the CPU quantizer's")
+        log(f"  layer 0 quantized on the card equals the CPU quantizer byte for byte "
+            f"({len(cpu)} planes, CPU pass {time.perf_counter() - t0:.1f} s)")
+    del params
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
+               for _ in range(requests)]
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for prompt in prompts:
+        t0 = time.perf_counter()
+        logits = engine.prefill(prompt)
+        t_prefill = time.perf_counter() - t0
+        step_logits, toks = [logits], []
+        t0 = time.perf_counter()
+        for _ in range(new):
+            toks.append(int(engine.decode(step_logits[-1], 1)[0, 0]))
+            step_logits.append(engine.last_logits)
+        t_decode = time.perf_counter() - t0
+        runs.append((prompt, toks, np.stack([l[0] for l in step_logits[:-1]]),
+                     t_prefill, t_decode))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    host_computed = sum(l.host_computed for l in st.layers.values())
+    loads = sum(l.loads for l in st.layers.values())
+    for i, (_, toks, _, tp, td) in enumerate(runs):
+        log(f"  request {i}: prefill {tp * 1e3:.1f} ms, decode {new / td:.2f} tok/s, "
+            f"first tokens {toks[:8]}")
+    log(f"  misses {st.misses}, replayed steps {st.replayed_steps}, host_computed "
+        f"{host_computed}, loads {loads}, uploaded {st.bytes_uploaded / 2**20:.1f} MB "
+        f"({st.bytes_uploaded / max(loads, 1):.0f} bytes per loaded expert), sync pulls "
+        f"{st.sync_pulls}, peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  host weight conversion for missed experts: {st.host_dequant_s:.3f} s over "
+        f"{st.host_dequant_experts} experts "
+        f"({1e3 * st.host_dequant_s / max(st.host_dequant_experts, 1):.3f} ms each)")
+    log(f"  kernel launches on this path: {counts}")
+    if quantization and st.bytes_uploaded != loads * EXPERT_BYTES[quantization]:
+        raise AssertionError(f"{st.bytes_uploaded} bytes uploaded for {loads} loads: not "
+                             f"{EXPERT_BYTES[quantization]} per {quantization} expert")
+
+    log(f"[5/{label}] engine vs plain full-residency forward on the card")
+    if host_computed != st.misses:
+        raise AssertionError(f"host_computed {host_computed} != misses {st.misses}")
+    refs = []
+    for i, (prompt, toks, got, _, _) in enumerate(runs):
+        if not np.isfinite(got).all() or got.shape != (new, cfg.vocab_size):
+            raise AssertionError(f"request {i}: logits not finite or of shape {got.shape}")
+        seq = np.concatenate([prompt[0], np.asarray(toks[:-1], np.int32)])[None]
+        truth = reference_logits(cfg, engine, seq, torch.float32)[PROMPT - 1:].cpu().numpy()
+        plain = reference_logits(cfg, engine, seq, torch.bfloat16)[PROMPT - 1:].cpu().numpy()
+        refs.append((truth, plain))
+        if not judge(f"request {i}", got, truth, plain):
+            raise AssertionError(f"{label} request {i}: engine logits farther from the truth "
+                                 f"than bf16")
+    if control:        # request 0 again, fed the same tokens, its misses left uncorrected
+        engine.rescfg = dataclasses.replace(engine.rescfg, host_compute_misses=False)
+        prompt, toks = runs[0][0], runs[0][1]
+        rows_ctl = [engine.prefill(prompt)[0]]
+        for tok in toks[:-1]:
+            forced = np.zeros((1, cfg.vocab_size), np.float32)
+            forced[0, tok] = 1.0                   # decode takes the argmax: this token
+            engine.decode(forced, 1)
+            rows_ctl.append(engine.last_logits[0])
+        if judge("control (request 0, misses uncorrected)", np.stack(rows_ctl), *refs[0]):
+            raise AssertionError(f"{label}: the logit check passed an engine that drops its "
+                                 f"misses")
+    del engine, refs, runs
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -400,85 +643,22 @@ def main() -> int:
     log("[3] kernels vs plain versions at the main path's shapes")
     rows = kernel_phase(dev)
 
-    # phase 4 ---------------------------------------------------------------
-    import numpy as np
-
-    from repro_torch.config import ResidencyConfig, get_config
-    from repro_torch.core.engine import RotaryEngine
+    # phases 4 and 5, path by path -------------------------------------------
+    from repro_torch.config import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import Runtime, init_params
 
     full = get_config("qwen36-35b-a3b")
     cfg = dataclasses.replace(full, segments=((("attn_moe",), LAYERS),))
-    log(f"[4] main path: {cfg.name} at published widths, {LAYERS} of {full.num_layers} layers, "
-        f"rotary residency {SLOTS}/{cfg.moe.num_experts} slots, {REQUESTS} requests x "
-        f"({PROMPT} prompt + {NEW} new), batch 1, greedy, cache_len {CACHE}")
-    t0 = time.perf_counter()
-    params = init_params(cfg, 0, dev, expert_device="cpu")
-    engine = RotaryEngine(cfg, params, ResidencyConfig(mode="rotary", num_slots=SLOTS),
-                          rt=Runtime(cache_len=CACHE), batch=1, seed=0, device=dev)
-    del params
-    log(f"  set-up {time.perf_counter() - t0:.1f} s (weights on the card, warehouse to pinned "
-        f"host memory, first residency); link {engine.cost.host_link_gbs:.1f} GB/s measured")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
-               for _ in range(REQUESTS)]
-    runs = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    for prompt in prompts:
-        t0 = time.perf_counter()
-        logits = engine.prefill(prompt)
-        t_prefill = time.perf_counter() - t0
-        step_logits, toks = [logits], []
-        t0 = time.perf_counter()
-        for _ in range(NEW):
-            toks.append(int(engine.decode(step_logits[-1], 1)[0, 0]))
-            step_logits.append(engine.last_logits)
-        t_decode = time.perf_counter() - t0
-        runs.append((prompt, toks, np.stack([l[0] for l in step_logits[:-1]]),
-                     t_prefill, t_decode))
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    st = engine.stats
-    host_computed = sum(l.host_computed for l in st.layers.values())
-    for i, (_, toks, _, tp, td) in enumerate(runs):
-        log(f"  request {i}: prefill {tp * 1e3:.1f} ms, decode {NEW / td:.2f} tok/s, "
-            f"first tokens {toks[:8]}")
-    log(f"  misses {st.misses}, replayed steps {st.replayed_steps}, host_computed "
-        f"{host_computed}, uploaded {st.bytes_uploaded / 2**20:.1f} MB, sync pulls "
-        f"{st.sync_pulls}, peak device memory {peak / 2**30:.2f} GiB")
-    log(f"  kernel launches on the main path: {counts}")
+    counts = {name: 0 for name in ops.KERNELS}
+    for label, quantization, requests, new, control in PATHS:
+        path_counts = run_path(dev, cfg, full.num_layers, label, quantization, requests, new,
+                               control)
+        for name, n in path_counts.items():
+            counts[name] += n
+    log(f"  kernel launches over the three paths: {counts}")
     for name, n in counts.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
-
-    # phase 5 ---------------------------------------------------------------
-    log("[5] engine vs plain full-residency forward on the card")
-    if host_computed != st.misses:
-        raise AssertionError(f"host_computed {host_computed} != misses {st.misses}")
-    refs = []
-    for i, (prompt, toks, got, _, _) in enumerate(runs):
-        if not np.isfinite(got).all() or got.shape != (NEW, cfg.vocab_size):
-            raise AssertionError(f"request {i}: logits not finite or of shape {got.shape}")
-        seq = np.concatenate([prompt[0], np.asarray(toks[:-1], np.int32)])[None]
-        truth = reference_logits(cfg, engine, seq, torch.float32)[PROMPT - 1:].cpu().numpy()
-        plain = reference_logits(cfg, engine, seq, torch.bfloat16)[PROMPT - 1:].cpu().numpy()
-        refs.append((truth, plain))
-        if not judge(f"request {i}", got, truth, plain):
-            raise AssertionError(f"request {i}: engine logits farther from the truth than bf16")
-    # control: request 0 again, fed the same tokens, its misses left uncorrected
-    engine.rescfg = dataclasses.replace(engine.rescfg, host_compute_misses=False)
-    prompt, toks = runs[0][0], runs[0][1]
-    rows_ctl = [engine.prefill(prompt)[0]]
-    for tok in toks[:-1]:
-        forced = np.zeros((1, cfg.vocab_size), np.float32)
-        forced[0, tok] = 1.0                       # decode takes the argmax: this token
-        engine.decode(forced, 1)
-        rows_ctl.append(engine.last_logits[0])
-    if judge("control (request 0, misses uncorrected)", np.stack(rows_ctl), *refs[0]):
-        raise AssertionError("the logit check passed an engine that drops its misses")
+            raise AssertionError(f"kernel {name} never launched on any path")
 
     # phase 6 ---------------------------------------------------------------
     kernels = []

@@ -111,7 +111,9 @@ class ResidencyConfig:
       * ``rotary`` — slot-group residency with cyclic forward/reverse rotation (the paper).
       * ``lru``    — least-recently-used eviction baseline the paper contrasts against.
       * ``static`` — fixed top-frequency resident set, never rotated.
-    ``quantization`` other than None is not ported yet (``check_feasibility`` refuses it).
+    ``quantization``: None (the model's type), ``int8`` (per-output-channel
+    f32 scale) or ``int4`` (two nibbles per byte with an f16 scale and min per
+    ``quant_group_size`` rows; ``repro_torch.quant``).
     """
 
     mode: str = "full"
@@ -123,9 +125,12 @@ class ResidencyConfig:
     hbm_budget_bytes: Optional[int] = None
     host_compute_misses: bool = True    # paper's n-cpu-moe: misses run on host
     quantization: Optional[str] = None  # None | "int8" | "int4"
+    quant_group_size: int = 64          # int4 rows per scale/min group
 
     def __post_init__(self) -> None:
         if self.mode not in ("full", "rotary", "lru", "static"):
             raise ValueError(f"unknown residency mode {self.mode!r}")
         if self.quantization not in (None, "int8", "int4"):
             raise ValueError(f"unknown quantization {self.quantization!r}")
+        if self.quant_group_size < 2 or self.quant_group_size % 2:
+            raise ValueError("quant_group_size must be an even integer >= 2")

@@ -31,10 +31,18 @@ each MoE layer's slot group are device-resident.
 Greedy tokens do not depend on residency: a miss is corrected exactly on
 the host, so full and rotary residency emit the same tokens.
 
+Quantized stores (``ResidencyConfig.quantization`` int8 / int4): the
+warehouse is quantized once, at start, into packed planes in pinned memory
+(on the card, one layer at a time), and the float warehouse is not kept.
+Uploads ship packed rows, the grouped-matmul kernel reads them straight from
+the slots, and a miss dequantizes only its expert from the packed warehouse
+with the plain version's arithmetic, so it adds what a resident slot would
+have computed and full and rotary residency still emit the same tokens.
+
 Not ported yet: speculative windows (``spec_k > 1``), chunked prefill,
 predictive prefetch and the miss relaunch, the per-layer hot walk and the
-host-routing baseline, LRU's mid-step loads on the fused path, sampled
-decode, and quantized stores.
+host-routing baseline, LRU's mid-step loads on the fused path and sampled
+decode.
 """
 from __future__ import annotations
 
@@ -56,29 +64,49 @@ from repro_torch.models.layers import Params
 from repro_torch.models.transformer import Runtime
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import resolve_tracer
+from repro_torch.quant import dequantize_int4
 
 
 def _host_ffn(hw: Dict[str, torch.Tensor], e: int, x: torch.Tensor,
-              scratch: Dict[str, torch.Tensor]) -> torch.Tensor:
+              scratch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, float]:
     """Host expert GEMM in f32 (the paper's CPU-resident expert execution):
-    x [n, D] f32 on the host -> [n, D]. The reference's ``_np_ffn`` in torch
-    CPU ops, so the host path runs on one thread pool; only the missed
-    expert's weights leave the warehouse's type, converted into ``scratch``
-    (one f32 buffer per weight tensor, reused across calls)."""
-
-    def w(name: str) -> torch.Tensor:
+    x [n, D] f32 on the host -> ([n, D], seconds spent converting weights).
+    The reference's ``_np_ffn`` in torch CPU ops, so the host path runs on one
+    thread pool. Only the missed expert leaves the warehouse, converted into
+    ``scratch`` (one f32 buffer per weight tensor, reused across calls) as the
+    plain grouped matmul sees it: int4 dequantized (``q * s + m``), int8 as
+    its integers with the per-channel scale applied to the product."""
+    t0 = time.perf_counter()
+    w: Dict[str, torch.Tensor] = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        if name not in hw:
+            continue
         buf = scratch.get(name)
         if buf is None:
-            buf = scratch[name] = torch.empty(hw[name].shape[1:], dtype=torch.float32)
-        return buf.copy_(hw[name][e])
+            shape = tuple(hw[name].shape[1:])
+            if f"min_{name}" in hw:                     # int4 rows are packed two a byte
+                shape = shape[:-2] + (2 * shape[-2], shape[-1])
+            buf = scratch[name] = torch.empty(shape, dtype=torch.float32)
+        if f"min_{name}" in hw:
+            w[name] = buf.copy_(dequantize_int4(hw[name][e], hw[f"scale_{name}"][e],
+                                                hw[f"min_{name}"][e]))
+        else:
+            w[name] = buf.copy_(hw[name][e])
+    convert_s = time.perf_counter() - t0
+
+    def mm(a: torch.Tensor, name: str) -> torch.Tensor:
+        y = a @ w[name]
+        if hw[name].dtype == torch.int8:
+            y = y * hw[f"scale_{name}"][e]
+        return y
 
     if "w_gate" in hw:
-        g = x @ w("w_gate")
-        h = (g / (1.0 + torch.exp(-g))) * (x @ w("w_up"))
+        g = mm(x, "w_gate")
+        h = (g / (1.0 + torch.exp(-g))) * mm(x, "w_up")
     else:
-        u = x @ w("w_up")
+        u = mm(x, "w_up")
         h = 0.5 * u * (1.0 + torch.tanh(math.sqrt(2 / math.pi) * (u + 0.044715 * u**3)))
-    return h @ w("w_down")
+    return mm(h, "w_down"), convert_s
 
 
 def resolve_device(device) -> torch.device:
@@ -135,16 +163,15 @@ class RotaryEngine:
         host = torch.device("cpu")
         pin = torch.cuda.is_available()
         self.layers: List[Params] = []
-        self.host_experts: List[Dict[str, torch.Tensor]] = []
+        experts: List[Dict[str, torch.Tensor]] = []
         routers: List[np.ndarray] = []
         for p_l in params["layers"]:
-            hw = {}
-            for n, w in p_l["moe"]["experts"].items():
-                if w.device == host and (not pin or w.is_pinned()):
-                    hw[n] = w
-                else:
-                    hw[n] = torch.empty(w.shape, dtype=w.dtype, pin_memory=pin).copy_(w)
-            self.host_experts.append(hw)
+            hw = dict(p_l["moe"]["experts"])
+            if rescfg.quantization is None:         # else the manager packs them
+                for n, w in hw.items():
+                    if w.device != host or (pin and not w.is_pinned()):
+                        hw[n] = torch.empty(w.shape, dtype=w.dtype, pin_memory=pin).copy_(w)
+            experts.append(hw)
             routers.append(p_l["moe"]["router"].float().cpu().numpy())
             moe_p = {k: v for k, v in p_l["moe"].items() if k != "experts"}
             self.layers.append(_to_device({**p_l, "moe": moe_p}, dev))
@@ -156,11 +183,14 @@ class RotaryEngine:
 
         self.predictor = DemandPredictor(routers, ema=rescfg.predictor_ema)
         self.manager = RotaryResidencyManager(
-            cfg, rescfg, self.host_experts,
+            cfg, rescfg, experts,
             batch=batch, cache_len=self.rt.cache_len, device=dev,
             cost=self.cost, stats=self.stats, seed=seed,
             tracer=self._tr, metrics=self.metrics,
         )
+        del experts
+        # the warehouse: float stacks, or packed planes when quantized
+        self.host_experts: List[Dict[str, torch.Tensor]] = self.manager.host_experts
         # stacked next-layer routers [L, D, E] for the on-device demand GEMM
         self._routers_next = torch.as_tensor(self.predictor.next_layer_routers()).to(dev)
         n_l, k = self.num_moe_layers, cfg.moe.top_k
@@ -193,18 +223,13 @@ class RotaryEngine:
         return tfm.lm_logits(self.cfg, self.embed_params, h)
 
     # ------------------------------------------------------------------
-    def _correction_weights(self, moe_li: int) -> Dict[str, torch.Tensor]:
-        """Host weights the miss correction GEMMs against: the warehouse
-        itself (unquantized stores)."""
-        return self.host_experts[moe_li]
-
     def _host_correct(self, x: torch.Tensor, moe_li: int, h2: torch.Tensor,
                       ids: np.ndarray, weights: np.ndarray,
                       miss: np.ndarray) -> torch.Tensor:
         """Exact host GEMM correction for missed experts."""
         h2_host = h2.detach().cpu().float().reshape(ids.shape[0], -1)
         corr = torch.zeros_like(h2_host)
-        hw = self._correction_weights(moe_li)
+        hw = self.host_experts[moe_li]
         picks = list(zip(*np.nonzero(miss)))
         # one host GEMM per missed expert over all its rows (each expert's
         # weights leave the warehouse's type once), summed in pick order
@@ -213,7 +238,9 @@ class RotaryEngine:
             by_expert.setdefault(int(ids[t_i, j]), []).append((t_i, j))
         outs: Dict[Tuple[int, int], torch.Tensor] = {}
         for e, tj in by_expert.items():
-            y = _host_ffn(hw, e, h2_host[[t_i for t_i, _ in tj]], self._f32_scratch)
+            y, convert_s = _host_ffn(hw, e, h2_host[[t_i for t_i, _ in tj]], self._f32_scratch)
+            self.stats.host_dequant_s += convert_s
+            self.stats.host_dequant_experts += 1
             outs.update(zip(tj, y))
         for t_i, j in picks:
             corr[t_i] += float(weights[t_i, j]) * outs[(t_i, j)]

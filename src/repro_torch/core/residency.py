@@ -3,18 +3,19 @@ accounting, and the startup feasibility check.
 
 The counterpart of ``repro/core/residency.py`` for the synchronous rotation
 path. The manager owns the host warehouse (every routed expert, in host
-memory, pinned when a card is present) and a ``SlotStore`` per MoE layer
-(the rotating device-resident subset). ``prepare_layer`` runs the policy's
-proactive transition and uploads; ``resolve`` maps routed ids through the
-LUT and classifies hits/misses; ``rotate_from_telemetry`` is the host half
-of one fused decode step.
+memory, pinned when a card is present; under int8/int4 quantized once, when
+the manager is built, into the stores' packed planes) and a ``SlotStore``
+per MoE layer (the rotating device-resident subset). ``prepare_layer`` runs
+the policy's proactive transition and uploads; ``resolve`` maps routed ids
+through the LUT and classifies hits/misses; ``rotate_from_telemetry`` is the
+host half of one fused decode step.
 
 The reference re-stacks every layer's slots into per-segment planes because
 its fused step is one ``lax.scan``; the port's step loops over layers and
 reads each layer's store and device LUT where they lie, so nothing is
 stacked and an upload patches only the store it targets.
 
-Not ported yet: quantized stores, predictive prefetch (shadow generations,
+Not ported yet: predictive prefetch (shadow generations,
 ``begin_prefetch``, the miss relaunch's ``ensure_resident``) and speculative
 window rotation.
 """
@@ -28,7 +29,12 @@ import torch
 
 from repro_torch.config.base import ModelConfig, ResidencyConfig
 from repro_torch.core.policies import ResidencyPolicy, make_policy
-from repro_torch.core.slots import SlotStore, gather_rows
+from repro_torch.core.slots import (
+    SlotStore,
+    gather_rows,
+    quantize_experts,
+    quantized_expert_bytes,
+)
 from repro_torch.core.stats import EngineStats
 from repro_torch.core.transfer import CostModel, TransferClock
 from repro_torch.obs.metrics import BYTES_BUCKETS
@@ -79,12 +85,14 @@ def check_feasibility(
         fit ``hbm_budget_bytes``, or, when no budget is set and ``device`` is
         a card, the card's free memory (``torch.cuda.mem_get_info``).
     """
-    if rescfg.quantization is not None:
-        raise NotImplementedError("quantized slot stores are not ported yet")
     m = cfg.moe
     moe_layers = cfg.num_layers
-    mats = 3 if cfg.mlp == "swiglu" else 2
-    expert_bytes = mats * cfg.d_model * m.expert_d_ff * dtype_bytes
+    # exact packed bytes per expert (int4 includes its group scale/min planes)
+    shapes = {"w_up": (cfg.d_model, m.expert_d_ff), "w_down": (m.expert_d_ff, cfg.d_model)}
+    if cfg.mlp == "swiglu":
+        shapes["w_gate"] = (cfg.d_model, m.expert_d_ff)
+    expert_bytes = quantized_expert_bytes(shapes, rescfg.quantization, dtype_bytes,
+                                          rescfg.quant_group_size)
     slots = rescfg.num_slots or m.num_experts
     min_slots = m.top_k + rescfg.prefetch_margin
     slot_bytes = moe_layers * (slots + 1) * expert_bytes
@@ -120,7 +128,7 @@ class RotaryResidencyManager:
         self,
         cfg: ModelConfig,
         rescfg: ResidencyConfig,
-        host_experts: List[Dict[str, torch.Tensor]],   # per MoE layer: {w_*: [E, ...]} on host
+        host_experts: List[Dict[str, torch.Tensor]],   # per MoE layer: {w_*: [E, ...]} float
         *,
         batch: int,
         cache_len: int,
@@ -144,23 +152,29 @@ class RotaryResidencyManager:
         self.stats = stats or EngineStats()
         self.tracer = resolve_tracer(tracer)
         self.metrics = metrics
-        self.host_experts = host_experts
         m = cfg.moe
         slots = rescfg.num_slots or m.num_experts
         if rescfg.mode == "full":
             slots = m.num_experts
         self.num_slots = slots
+        q = rescfg.quantization
+        self.host_experts: List[Dict[str, torch.Tensor]] = []
         self.stores: List[SlotStore] = []
         self.policies: List[ResidencyPolicy] = []
-        for li, hw in enumerate(host_experts):
-            shapes = {name: tuple(w.shape[1:]) for name, w in hw.items()}
-            dtype = next(iter(hw.values())).dtype
-            store = SlotStore(slots, shapes, dtype, self.device)
+        for li, experts in enumerate(host_experts):
+            shapes = {name: tuple(w.shape[1:]) for name, w in experts.items()}
+            dtype = next(iter(experts.values())).dtype
+            # a quantized warehouse keeps only the packed planes, made on the
+            # engine's device one layer at a time
+            hw = experts if q is None else quantize_experts(
+                experts, q, rescfg.quant_group_size, device=self.device)
+            self.host_experts.append(hw)
+            store = SlotStore(slots, shapes, dtype, self.device, q, rescfg.quant_group_size)
             policy = make_policy(rescfg.mode, m.num_experts, slots, rescfg, seed=seed + li)
             if rescfg.mode == "full":
-                experts = list(range(m.num_experts))
+                every = list(range(m.num_experts))
                 self.stats.bytes_uploaded += store.write_batch(
-                    experts, {n: gather_rows(w, experts) for n, w in hw.items()}
+                    every, {n: gather_rows(w, every) for n, w in hw.items()}
                 )
             self.stores.append(store)
             self.policies.append(policy)
@@ -267,7 +281,7 @@ class RotaryResidencyManager:
 
     def layer_residency(self, layer: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """(slot buffers, device LUT) that layer's MoE half reads."""
-        return self.stores[layer].as_dict(), self.device_lut(layer)
+        return self.stores[layer].raw_dict(), self.device_lut(layer)
 
     def residency(self) -> List[Tuple[Dict[str, torch.Tensor], torch.Tensor]]:
         return [self.layer_residency(l) for l in range(len(self.stores))]

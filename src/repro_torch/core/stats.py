@@ -84,6 +84,11 @@ class EngineStats:
                                     # under in-flight window compute (dispatch
                                     # happens between the launch and its
                                     # queue-draining pull)
+    host_dequant_s: float = 0.0     # measured host wall time turning missed
+                                    # experts' weights into the f32 operands of
+                                    # the host GEMM (dequantization when the
+                                    # warehouse is int8/int4)
+    host_dequant_experts: int = 0   # expert weight sets so converted
     relaunched_steps: int = 0       # compiled re-launches that replaced the
                                     # per-layer suffix replay (prefetch mode:
                                     # missed experts uploaded, planes patched

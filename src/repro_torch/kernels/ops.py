@@ -24,6 +24,10 @@ from repro_torch.kernels import topk_gate as _tk
 KERNELS = {
     "slot_gmm": _gmm.KERNEL,
     "slot_gmm_tiled": _gmm.TILED,
+    "slot_gmm_int8": _gmm.INT8,
+    "slot_gmm_int8_tiled": _gmm.INT8_TILED,
+    "slot_gmm_int4": _gmm.INT4,
+    "slot_gmm_int4_tiled": _gmm.INT4_TILED,
     "decode_attention": _dec.KERNEL,
     "topk_gate": _tk.KERNEL,
     "flash_attention": _fa.KERNEL,
@@ -47,11 +51,14 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
-    """x [G, C, D] @ w[lut[g]] -> [G, C, F] (f32 accumulation, x's type)."""
+def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
+             scale: Optional[torch.Tensor] = None,
+             mn: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [G, C, D] @ w[lut[g]] -> [G, C, F], f32 accumulation: x's type for
+    bf16/f32 slots, f32 for int8 (``scale``) and int4 (``scale``, ``mn``)."""
     if _on_card(x):
-        return _gmm.slot_gmm(x, w, lut)
-    return ref.slot_gmm_ref(x, w, lut)
+        return _gmm.slot_gmm(x, w, lut, scale, mn)
+    return ref.slot_gmm_ref(x, w, lut, scale, mn)
 
 
 def decode_attention(

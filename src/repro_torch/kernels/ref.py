@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels, in the reference's layouts.
+"""Plain PyTorch versions of the kernels, in the reference's layouts.
 
 Each function computes what its CUDA kernel computes, written for clarity:
 the CPU path of ``kernels/ops.py`` runs these, the tests hold them against
@@ -13,17 +13,32 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.quant import dequantize_int4
+
 NEG_INF = -1e30
 
 
 def slot_gmm_ref(
     x: torch.Tensor,           # [G, C, D] per-group token rows
-    w: torch.Tensor,           # [S+1, D, F] slot weights (slot S = zero MISS slot)
+    w: torch.Tensor,           # [S+1, D, F] slot weights ([S+1, D/2, F] u8 if int4)
     lut: torch.Tensor,         # [G] int: the slot each group reads
+    scale: Optional[torch.Tensor] = None,   # int8: [S+1, F] f32 | int4: [S+1, D/G, F] f16
+    mn: Optional[torch.Tensor] = None,      # int4: [S+1, D/G, F] f16 group mins
 ) -> torch.Tensor:
-    """out[g] = x[g] @ w[lut[g]], f32 accumulation, output in x's type."""
-    wg = w.index_select(0, lut.long()).float()                 # [G, D, F]
-    return torch.bmm(x.float(), wg).to(x.dtype)
+    """out[g] = x[g] @ w[lut[g]], f32 accumulation. bf16/f32 weights: output
+    in x's type. int8: the per-channel scale multiplies the f32 product; int4:
+    the slots dequantize (``q * s + m`` in f32) before the product; both give
+    f32 outputs."""
+    idx = lut.long()
+    if w.dtype == torch.uint8:
+        wg = dequantize_int4(w.index_select(0, idx), scale.index_select(0, idx),
+                             mn.index_select(0, idx))
+        return torch.bmm(x.float(), wg)
+    wg = w.index_select(0, idx).float()                       # [G, D, F]
+    out = torch.bmm(x.float(), wg)
+    if w.dtype == torch.int8:
+        return out * scale.index_select(0, idx)[:, None, :]
+    return out.to(x.dtype)
 
 
 def decode_attention_ref(

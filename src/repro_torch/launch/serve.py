@@ -4,8 +4,9 @@ The ``--engine rotary`` path of ``repro.launch.serve`` on the card: host
 warehouse, rotating device slots, pre-gated rotation, host miss correction.
 Weights are random from ``--seed``. Like the reference CLI it runs the
 reduced config by default; ``--full-width`` keeps the published widths and
-``--layers N`` cuts the depth to the first N layers. ``--device`` defaults to
-``cuda``; a missing card is an error.
+``--layers N`` cuts the depth to the first N layers. ``--quantization
+int8|int4`` (with ``--quant-group``) serves from quantized slot stores.
+``--device`` defaults to ``cuda``; a missing card is an error.
 """
 from __future__ import annotations
 
@@ -13,6 +14,10 @@ import argparse
 import dataclasses
 
 import numpy as np
+
+
+# CLI spelling -> ResidencyConfig.quantization
+QUANT_CHOICES = {"none": None, "int8": "int8", "int4": "int4"}
 
 
 def main() -> None:
@@ -30,6 +35,11 @@ def main() -> None:
                     help="run the config's published widths (default: reduced)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to the first N layers (0 = the config's)")
+    ap.add_argument("--quantization", default="none", choices=sorted(QUANT_CHOICES),
+                    help="slot-store weight format (int4 = grouped "
+                         "two-nibbles-per-byte, ~4x smaller rotations)")
+    ap.add_argument("--quant-group", type=int, default=64,
+                    help="int4 rows per scale/min group (Q4_K_M-style)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -49,7 +59,9 @@ def main() -> None:
     slots = args.slots or cfg.moe.num_experts * 3 // 4
     b = max(1, args.batch)
     eng = RotaryEngine(
-        cfg, params, ResidencyConfig(mode=args.residency, num_slots=slots),
+        cfg, params, ResidencyConfig(mode=args.residency, num_slots=slots,
+                                     quantization=QUANT_CHOICES[args.quantization],
+                                     quant_group_size=args.quant_group),
         rt=Runtime(cache_len=args.cache_len), batch=b, seed=args.seed, device=device,
     )
     rng = np.random.default_rng(args.seed)

@@ -101,12 +101,18 @@ def shared_ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def expert_ffn(src: Params, xs: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """Grouped expert FFN through the store: xs [G, C, D], lut [G] -> [G, C, D]
-    (the reference's ``moe_slot_ffn``: three K1 calls + the gate)."""
+    (the reference's ``moe_slot_ffn``: three K1 calls + the gate). ``src``
+    holds ``w_*`` and, for quantized slots, their ``scale_w_*`` / ``min_w_*``
+    planes; those give f32 gate/up outputs, and the hidden returns to x's
+    type before the down matrix. The output is f32 when quantized."""
+    def gmm(name: str, x: torch.Tensor) -> torch.Tensor:
+        return ops.slot_gmm(x, src[name], lut, src.get(f"scale_{name}"), src.get(f"min_{name}"))
+
     if "w_gate" in src:
-        h = F.silu(ops.slot_gmm(xs, src["w_gate"], lut)) * ops.slot_gmm(xs, src["w_up"], lut)
+        h = F.silu(gmm("w_gate", xs)) * gmm("w_up", xs)
     else:
-        h = gelu(ops.slot_gmm(xs, src["w_up"], lut))
-    return ops.slot_gmm(h, src["w_down"], lut)
+        h = gelu(gmm("w_up", xs))
+    return gmm("w_down", h.to(xs.dtype))
 
 
 def moe_apply_routed(
@@ -161,9 +167,8 @@ def _grouped(src: Params, x2d: torch.Tensor, gidx: torch.Tensor, miss: torch.Ten
     if miss_slot is not None:
         counts_h[miss_slot] = 0
     used = torch.nonzero(counts_h > 0).flatten()
-    out = torch.zeros((t * k, d), dtype=x2d.dtype, device=x2d.device)
     if used.numel() == 0:
-        return out
+        return torch.zeros((t * k, d), dtype=x2d.dtype, device=x2d.device)
     c_max = int(counts_h.max())
     group_of = torch.full((n_store,), -1, dtype=torch.long)
     group_of[used] = torch.arange(used.numel())
@@ -177,5 +182,6 @@ def _grouped(src: Params, x2d: torch.Tensor, gidx: torch.Tensor, miss: torch.Ten
     xs = torch.zeros((used.numel(), c_max, d), dtype=x2d.dtype, device=x2d.device)
     xs[grp, pos] = x2d[order // k]
     ys = expert_ffn(src, xs, used.to(device=x2d.device, dtype=torch.int32))
+    out = torch.zeros((t * k, d), dtype=ys.dtype, device=x2d.device)
     out[order] = ys[grp, pos]
     return out

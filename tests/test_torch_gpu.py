@@ -67,6 +67,60 @@ def test_slot_gmm_kernel_matches_plain(card, dtype, g, c, d, f):
     torch.testing.assert_close(out.float(), ref.slot_gmm_ref(x, w, lut).float(), **TOL[dtype])
 
 
+def _quant_store(kind, s1, d, f, group, device, seed):
+    """A random [s1, d, f] store quantized as the manager does, its last
+    slot the zero MISS slot in every plane."""
+    from repro_torch.core.slots import quantize_int8_batch
+    from repro_torch.quant import quantize_int4_batch
+
+    w = _randn((s1, d, f), torch.float32, seed, "cpu", scale=d ** -0.5)
+    planes = list(quantize_int8_batch(w) if kind == "int8" else quantize_int4_batch(w, group))
+    for p in planes:
+        p[s1 - 1] = 0
+    return [p.to(device) for p in planes] + [None] * (3 - len(planes))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,c,d,f,group", [
+    (8, 1, 256, 96, 64),       # GEMV, decode
+    (5, 4, 132, 70, 6),        # GEMV at its largest C, a group of 6, F not a tile multiple
+    (4, 5, 200, 72, 8),        # tiled at its smallest C, D not a multiple of 32
+    (3, 64, 768, 130, 64),     # tiled, w_down's depth: 12 groups
+    (6, 37, 96, 33, 6),        # tiled, odd F, groups of 6 straddling every 32-row step
+])
+def test_quantized_slot_gmm_kernels_match_plain(card, kind, dtype, g, c, d, f, group):
+    """The int8/int4 bodies against the plain version on the same planes:
+    f32 outputs, 1e-4 + 1e-4 (f32 sums in another order); a group that
+    reads the MISS slot gives exactly 0."""
+    x = _randn((g, c, d), dtype, 0, card)
+    w, scale, mn = _quant_store(kind, 7, d, f, group, card, 1)
+    lut = torch.tensor([(3 * i + 1) % 7 for i in range(g)], dtype=torch.int32, device=card)
+    lut[-1] = 6
+    ops.reset_launch_counts()
+    out = ops.slot_gmm(x, w, lut, scale, mn)
+    torch.cuda.synchronize()
+    body = f"slot_gmm_{kind}" + ("" if c <= 4 else "_tiled")
+    assert ops.launch_counts()[body] == 1
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref.slot_gmm_ref(x, w, lut, scale, mn), atol=1e-4, rtol=1e-4)
+    assert not out[-1].abs().sum()
+
+
+def test_quantized_wrapper_refuses_mismatched_planes(card):
+    from repro_torch.kernels import moe_gmm as gmm
+
+    x = torch.zeros((2, 1, 64), device=card)
+    lut = torch.zeros(2, dtype=torch.int32, device=card)
+    w, scale, mn = _quant_store("int4", 3, 64, 16, 16, card, 0)
+    with pytest.raises(ValueError):
+        gmm.slot_gmm(x, w, lut, scale)                     # no min plane
+    with pytest.raises(ValueError):
+        gmm.slot_gmm(x, w, lut, scale.float(), mn)         # scale in the wrong type
+    with pytest.raises(ValueError):                       # an int8 store takes no min
+        gmm.slot_gmm(x[..., :32].contiguous(), w.view(torch.int8), lut, scale[:, 0], mn)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("soft_cap", [None, 30.0])
 def test_decode_attention_kernel_matches_plain(card, dtype, soft_cap):
@@ -125,5 +179,31 @@ def test_engine_on_card_matches_cpu(card):
         out[dev] = (eng.generate(prompt, 8), eng.stats.replayed_steps, ops.launch_counts())
     np.testing.assert_array_equal(out["cpu"][0], out["cuda"][0])
     assert out["cuda"][1] > 0
-    assert all(n > 0 for n in out["cuda"][2].values()), out["cuda"][2]
+    bf16_kernels = {n: c for n, c in out["cuda"][2].items() if "_int" not in n}
+    assert all(n > 0 for n in bf16_kernels.values()), out["cuda"][2]
     assert all(n == 0 for n in out["cpu"][2].values())
+
+
+@pytest.mark.parametrize("quantization", ["int8", "int4"])
+def test_quantized_engine_on_card_matches_cpu(card, quantization):
+    """Reduced f32 qwen36 with int8/int4 slots: the card's tokens equal the
+    CPU engine's, through both bodies of the format's K1."""
+    from repro_torch.config import ResidencyConfig, get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.core.engine import RotaryEngine
+    from repro_torch.models.transformer import Runtime, init_params
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype="float32")
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 40)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = RotaryEngine(cfg, init_params(cfg, 0, "cpu"),
+                           ResidencyConfig(mode="rotary", num_slots=3, prefetch_margin=1,
+                                           quantization=quantization, quant_group_size=16),
+                           rt=Runtime(cache_len=64), batch=2, device=dev)
+        ops.reset_launch_counts()
+        out[dev] = (eng.generate(prompt, 8), ops.launch_counts())
+    np.testing.assert_array_equal(out["cpu"][0], out["cuda"][0])
+    counts = out["cuda"][1]
+    assert counts[f"slot_gmm_{quantization}"] > 0 and counts[f"slot_gmm_{quantization}_tiled"] > 0
+    assert counts["slot_gmm"] == counts["slot_gmm_tiled"] == 0

@@ -141,3 +141,28 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_other_devices():
     with pytest.raises(ValueError):
         ops.topk_gate(torch.zeros((3, 8), device="meta"), 2)
     assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
+
+
+def test_quantized_wrapper_refuses_cpu_tensors_and_bad_planes():
+    """The int8/int4 bodies' wrapper: CPU tensors are refused (ops sends
+    them to the plain version and counts nothing); planes are checked."""
+    x = torch.zeros((2, 1, 16))
+    lut = torch.zeros(2, dtype=torch.int32)
+    q8, s8 = torch.zeros((3, 16, 8), dtype=torch.int8), torch.zeros((3, 8))
+    q4 = torch.zeros((3, 8, 8), dtype=torch.uint8)
+    s4 = torch.zeros((3, 2, 8), dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tgmm.slot_gmm(x, q8, lut, s8)
+    with pytest.raises(ValueError):
+        tgmm.slot_gmm(x, q4, lut, s4, s4)
+    meta = dict(device="meta")
+    xm, lm = torch.zeros((2, 1, 16), **meta), torch.zeros(2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError):
+        ops.slot_gmm(xm, q8.to("meta"), lm, s8.to("meta"))
+    ops.reset_launch_counts()
+    out8 = ops.slot_gmm(x, q8, lut, s8)
+    out4 = ops.slot_gmm(x, q4, lut, s4, s4)
+    assert out8.dtype == out4.dtype == torch.float32
+    assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
+    assert {"slot_gmm_int8", "slot_gmm_int8_tiled", "slot_gmm_int4",
+            "slot_gmm_int4_tiled"} <= set(ops.KERNELS)

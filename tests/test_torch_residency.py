@@ -86,6 +86,65 @@ def test_feasibility_prices_the_same_bytes(arch, slots):
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
 
 
+@pytest.mark.parametrize("arch", ["qwen36-35b-a3b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("quantization,group", [("int8", 64), ("int4", 64), ("int4", 16)])
+def test_feasibility_prices_quantized_bytes_the_same(arch, quantization, group):
+    res = dict(mode="rotary", num_slots=64, hbm_budget_bytes=40 << 30,
+               quantization=quantization, quant_group_size=group)
+    j = jcheck(get_config(arch), JRes(**res), batch=1, cache_len=1024)
+    t = tcheck(tget(arch), TRes(**res), batch=1, cache_len=1024)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    bf16 = tcheck(tget(arch), TRes(mode="rotary", num_slots=64), batch=1, cache_len=1024)
+    assert t.slot_bytes < bf16.slot_bytes
+
+
+def _host_experts(cfg, rng, layers=2):
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_d_ff
+    return [{"w_gate": rng.standard_normal((e, d, f)).astype(np.float32),
+             "w_up": rng.standard_normal((e, d, f)).astype(np.float32),
+             "w_down": rng.standard_normal((e, f, d)).astype(np.float32)} for _ in range(layers)]
+
+
+@pytest.mark.parametrize("quantization,group", [("int8", 64), ("int4", 64), ("int4", 16)])
+def test_quantized_manager_planes_match_reference(quantization, group):
+    """Identical warm start and telemetry under int8/int4: the port's
+    manager packs its warehouse once and uploads packed rows; its planes
+    equal the reference stores' ``raw_pytree`` byte for byte, with the same
+    bytes uploaded."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype="float32")
+    tcfg = dataclasses.replace(treduce(tget("qwen36-35b-a3b")), dtype="float32")
+    rng = np.random.default_rng(5)
+    host = _host_experts(cfg, rng)
+    e = cfg.moe.num_experts
+    kw = dict(mode="rotary", num_slots=4, prefetch_margin=1, quantization=quantization,
+              quant_group_size=group)
+    jm = JManager(cfg, JRes(**kw), host, batch=1, cache_len=32)
+    tm = TManager(tcfg, TRes(**kw), [{n: torch.from_numpy(w) for n, w in hw.items()}
+                                     for hw in host], batch=1, cache_len=32, device="cpu")
+    routers = [rng.standard_normal((cfg.d_model, e)).astype(np.float32) for _ in range(2)]
+    jp, tp = JPredictor(routers), TPredictor(routers)
+    for l in range(2):
+        jm.prepare_layer(l, jp.smoothed[l])
+        tm.prepare_layer(l, tp.smoothed[l])
+    for step in range(5):
+        ids = rng.integers(0, e, (2, 1, 2))
+        w = rng.random((2, 1, 2)).astype(np.float32)
+        miss = rng.random((2, 1, 2)) < 0.3
+        demand = rng.dirichlet(np.ones(e), size=2)
+        jm.rotate_from_telemetry(jp, ids, w, miss, demand)
+        tm.rotate_from_telemetry(tp, ids, w, miss, demand)
+    assert jm.stats.bytes_uploaded == tm.stats.bytes_uploaded > 0
+    for l in range(2):
+        np.testing.assert_array_equal(jm.policies[l].lut.e2s, tm.policies[l].lut.e2s)
+        want = jm.stores[l].raw_pytree()
+        got = tm.stores[l].raw_dict()
+        assert set(got) == set(want)
+        for name, plane in got.items():
+            ref = np.asarray(want[name])
+            assert plane.numpy().dtype == ref.dtype and plane.numpy().tobytes() == ref.tobytes()
+        assert set(tm.host_experts[l]) == set(got)          # only the packed warehouse is kept
+
+
 def test_manager_rotation_matches_reference_from_identical_telemetry():
     """Identical warm start and per-step telemetry: the same LUTs, the same
     bytes uploaded, and the port's device slots hold exactly the experts the
@@ -142,5 +201,8 @@ def test_slot_store_write_batch_and_manager_guards():
     hw = [{"w_up": torch.zeros((8, 64, 48))}]
     with pytest.raises(InitializationError):
         TManager(cfg, TRes(mode="rotary", num_slots=2), hw, batch=1, cache_len=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcheck(cfg, TRes(mode="rotary", num_slots=6, quantization="int4"), batch=1, cache_len=8)
+    # quantized stores are priced, not refused: the reference's packed bytes
+    res = dict(mode="rotary", num_slots=6, quantization="int4", quant_group_size=16)
+    assert dataclasses.asdict(tcheck(cfg, TRes(**res), batch=1, cache_len=8)) == \
+        dataclasses.asdict(jcheck(reduce_for_smoke(get_config("qwen36-35b-a3b")), JRes(**res),
+                                  batch=1, cache_len=8))
