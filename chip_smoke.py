@@ -12,7 +12,14 @@ Phases, each failing loudly (nothing is caught):
    shapes the main path gives it, and time kernel, plain version, one
    library call computing the same function (for the int8/int4 bodies of
    the grouped matmul no single call does: a composite of dequantize +
-   ``index_select`` + ``bmm`` stands in), and the card's bound;
+   ``index_select`` + ``bmm`` stands in), and the card's bound. Each is
+   timed two ways: ``ms`` is the wall time per call issued back to back
+   from Python between CUDA events (the device time, or the host's cost of
+   a call where that is larger: the yardstick of every earlier run), and
+   ``device_ms`` the device time alone (the calls captured in a CUDA graph
+   and replayed). The GB/s, TFLOP/s and share of the bound each kernel
+   reached are printed for both. The GEMV bodies are also timed at the
+   decode down-projection;
 4. run three paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at its
    published widths, cut to the first 8 of its 48 layers (the depth is the
    only cut: 8 layers of host warehouse are 9.7 GB, the whole model's would
@@ -55,6 +62,7 @@ exceeds twice the plain bf16 forward's largest error.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -114,7 +122,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 50) -> float:
-    """Mean ms per call over ``iters`` calls between CUDA events, after warm-up."""
+    """Wall ms per call of ``fn`` issued back to back from Python between CUDA
+    events after warm-up: the device time, or the host's cost of a call where
+    that is larger."""
     import torch
 
     for _ in range(3):
@@ -127,6 +137,53 @@ def time_ms(fn, iters: int = 50) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+_SIDE = []                         # the one side stream every graph warms up and captures on
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device ms per call: ``iters`` calls captured in one CUDA graph (after
+    a warm-up on a side stream) and the graph replayed between CUDA events,
+    so the host's cost of a call (the Python wrapper, the launch) is left
+    out. One side stream serves every capture: cuBLAS keeps a workspace per
+    stream it runs on, which would otherwise pile up and show in the paths'
+    peak memory."""
+    import torch
+
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / iters
+
+
+def timed(iters: int = 50, **fns) -> dict:
+    """``{name}_ms`` (wall per call) and ``{name}_device_ms`` for each of
+    ``fns``; the kernel's own entry is named ``kernel`` and gives ``ms`` and
+    ``device_ms``."""
+    out = {}
+    for name, fn in fns.items():
+        key = "" if name == "kernel" else f"{name}_"
+        out[f"{key}ms"] = time_ms(fn, iters)
+        out[f"{key}device_ms"] = device_ms(fn, iters)
+    return out
 
 
 def bound(nbytes: float, flops: float):
@@ -202,21 +259,24 @@ def kernel_phase(dev):
     b_ms, b_by = bound(nbytes, 2 * 8 * d * f)
     rows["slot_gmm"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: gmm.slot_gmm(x_dec, w_up, lut_next())),
-        plain_ms=time_ms(lambda: ref.slot_gmm_ref(x_dec, w_up, lut_next())),
-        library_ms=time_ms(lambda: torch.bmm(x_dec, w_up.index_select(0, lut_next().long()))),
-        bound_ms=b_ms, bound_by=b_by,
+        **timed(kernel=lambda: gmm.slot_gmm(x_dec, w_up, lut_next()),
+                plain=lambda: ref.slot_gmm_ref(x_dec, w_up, lut_next()),
+                library=lambda: torch.bmm(x_dec, w_up.index_select(0, lut_next().long()))),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=2 * 8 * d * f,
         shape=f"x [8,1,{d}] @ w [{s1},{d},{f}] bf16 through an 8-entry LUT (decode gate/up)",
+        down=gemv_down(lambda: gmm.slot_gmm(h_dec, w_down, lut_next()),
+                       distinct * d * f * 2 + 8 * f * 2 + 8 * d * 2 + 8 * 4, d, f,
+                       f"x [8,1,{f}] @ w [{s1},{f},{d}] bf16 (decode down)"),
     )
     rows_used = int(counts.sum())                  # the picks' rows; padding is not work
     pre_bytes = used.numel() * d * f * 2 + rows_used * (d + f) * 2
     b_ms, b_by = bound(pre_bytes, 2 * rows_used * d * f)
     rows["slot_gmm_tiled"] = dict(
         max_abs_err=err_pre,
-        ms=time_ms(lambda: gmm.slot_gmm(x_pre, w_up, used), 20),
-        plain_ms=time_ms(lambda: ref.slot_gmm_ref(x_pre, w_up, used), 20),
-        library_ms=time_ms(lambda: torch.bmm(x_pre, w_up.index_select(0, used.long())), 20),
-        bound_ms=b_ms, bound_by=b_by,
+        **timed(20, kernel=lambda: gmm.slot_gmm(x_pre, w_up, used),
+                plain=lambda: ref.slot_gmm_ref(x_pre, w_up, used),
+                library=lambda: torch.bmm(x_pre, w_up.index_select(0, used.long()))),
+        bound_ms=b_ms, bound_by=b_by, nbytes=pre_bytes, flops=2 * rows_used * d * f,
         shape=f"x [{used.numel()},{c_max},{d}] @ w [{s1},{d},{f}] bf16, the picks of {PROMPT} "
               f"tokens grouped by slot ({rows_used} rows; prefill gate/up)",
     )
@@ -255,10 +315,9 @@ def kernel_phase(dev):
     b_ms, b_by = bound(nbytes, 4 * length * h * dh)
     rows["decode_attention"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: dec.decode_attention(q, *kv(), lens)),
-        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, *kv(), lens)),
-        library_ms=time_ms(sdpa),
-        bound_ms=b_ms, bound_by=b_by,
+        **timed(kernel=lambda: dec.decode_attention(q, *kv(), lens),
+                plain=lambda: ref.decode_attention_ref(q, *kv(), lens), library=sdpa),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * length * h * dh,
         shape=f"q [1,{h},{dh}] vs cache [1,{s},{hkv},{dh}] bf16 at length {length}",
     )
 
@@ -285,10 +344,9 @@ def kernel_phase(dev):
     b_ms, b_by = bound(128 * 4 + 8 * 8, 128 * 4)
     rows["topk_gate"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: tk.topk_gate(lg1, 8)),
-        plain_ms=time_ms(lambda: ref.topk_gate_ref(lg1, 8)),
-        library_ms=time_ms(lib_gate),
-        bound_ms=b_ms, bound_by=b_by,
+        **timed(kernel=lambda: tk.topk_gate(lg1, 8), plain=lambda: ref.topk_gate_ref(lg1, 8),
+                library=lib_gate),
+        bound_ms=b_ms, bound_by=b_by, nbytes=128 * 4 + 8 * 8, flops=128 * 4,
         shape="logits [1,128] f32, k=8, renormalized (decode)",
     )
 
@@ -302,18 +360,44 @@ def kernel_phase(dev):
     qt, kt, vt = qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
     rows["flash_attention"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: fa.flash_attention(qf, kf, vf), 20),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(qf, kf, vf), 20),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
-        bound_ms=b_ms, bound_by=b_by,
+        **timed(20, kernel=lambda: fa.flash_attention(qf, kf, vf),
+                plain=lambda: ref.flash_attention_ref(qf, kf, vf),
+                library=lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * pairs * h * dh,
         shape=f"q [1,{PROMPT},{h},{dh}] k/v [1,{PROMPT},{hkv},{dh}] bf16, causal (prefill)",
     )
     for name, r in rows.items():
-        log(f"  {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3e}, "
-            f"kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
-            f"library_ms {r['library_ms']:.4f}, bound_ms {r['bound_ms']:.5f} ({r['bound_by']})")
+        log(f"  {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3e}, per call (wall): "
+            f"kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+            f"{r['library_ms']:.4f}; device: kernel {r['device_ms']:.4f}, plain "
+            f"{r['plain_device_ms']:.4f}, library {r['library_device_ms']:.4f}; bound_ms "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}); {rate(r)}")
+        if "down" in r:
+            dn = r["down"]
+            log(f"    {name} at {dn['shape']}: kernel_ms {dn['ms']:.4f} per call (wall), "
+                f"{dn['device_ms']:.4f} device; bound_ms {dn['bound_ms']:.5f} "
+                f"({dn['bound_by']}); {rate(dn)}")
     return rows
+
+
+def rate(r) -> str:
+    """What a timed row achieved: GB/s and TFLOP/s of its counted bytes and
+    operations, and the share of the bound (bound_ms / time), in device time
+    and in wall time per call."""
+    return "; ".join(
+        f"{label}: {r['nbytes'] / r[key] / 1e6:.1f} GB/s, {r['flops'] / r[key] / 1e9:.2f} "
+        f"TFLOP/s, {100 * r['bound_ms'] / r[key]:.1f}% of the bound"
+        for label, key in (("device", "device_ms"), ("per call", "ms")))
+
+
+def gemv_down(fn, nbytes, d, f, shape):
+    """A GEMV body timed at the decode down-projection, x [8,1,F] against
+    [S+1, F, D] through the LUT: ``nbytes`` it must move, 2 x 8 x D x F
+    operations."""
+    b_ms, b_by = bound(nbytes, 2 * 8 * d * f)
+    return dict(**timed(kernel=fn), bound_ms=b_ms, bound_by=b_by, nbytes=nbytes,
+                flops=2 * 8 * d * f, shape=shape)
 
 
 def quant_rows(kind, stores, luts, lut_next, distinct, dec, pre, used, rows_used):
@@ -356,28 +440,33 @@ def quant_rows(kind, stores, luts, lut_next, distinct, dec, pre, used, rows_used
                              mn.index_select(0, idx), x.dtype)
         return torch.bmm(x, wg)
 
-    per_slot = sum(t[0].numel() * t.element_size() for t in (w, scale, mn) if t is not None)
-    x_dec, x_pre = dec[0], pre[0]
+    w_dn, scale_dn, mn_dn = planes["down"]
+    per_slot, per_slot_dn = (sum(t[0].numel() * t.element_size() for t in ts if t is not None)
+                             for ts in (planes["up"], planes["down"]))
+    x_dec, h_dec, x_pre = dec[0], dec[1], pre[0]
     out = {}
     nbytes = distinct * per_slot + 8 * d * 2 + 8 * f * 4 + 8 * 4
     b_ms, b_by = bound(nbytes, 2 * 8 * d * f)
     out[f"slot_gmm_{kind}"] = dict(
         max_abs_err=err_dec,
-        ms=time_ms(lambda: gmm.slot_gmm(x_dec, w, lut_next(), scale, mn)),
-        plain_ms=time_ms(lambda: ref.slot_gmm_ref(x_dec, w, lut_next(), scale, mn)),
-        library_ms=time_ms(lambda: library(x_dec, lut_next())),
-        bound_ms=b_ms, bound_by=b_by,
+        **timed(kernel=lambda: gmm.slot_gmm(x_dec, w, lut_next(), scale, mn),
+                plain=lambda: ref.slot_gmm_ref(x_dec, w, lut_next(), scale, mn),
+                library=lambda: library(x_dec, lut_next())),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=2 * 8 * d * f,
         shape=f"x [8,1,{d}] bf16 @ {kind} w {list(w.shape)} through an 8-entry LUT (decode "
               f"gate/up), f32 out; library: index_select + dequantize + bmm (a composite)",
+        down=gemv_down(lambda: gmm.slot_gmm(h_dec, w_dn, lut_next(), scale_dn, mn_dn),
+                       distinct * per_slot_dn + 8 * f * 2 + 8 * d * 4 + 8 * 4, d, f,
+                       f"x [8,1,{f}] bf16 @ {kind} w {list(w_dn.shape)} (decode down)"),
     )
     pre_bytes = used.numel() * per_slot + rows_used * (d * 2 + f * 4)
     b_ms, b_by = bound(pre_bytes, 2 * rows_used * d * f)
     out[f"slot_gmm_{kind}_tiled"] = dict(
         max_abs_err=err_pre,
-        ms=time_ms(lambda: gmm.slot_gmm(x_pre, w, used, scale, mn), 20),
-        plain_ms=time_ms(lambda: ref.slot_gmm_ref(x_pre, w, used, scale, mn), 20),
-        library_ms=time_ms(lambda: library(x_pre, used), 20),
-        bound_ms=b_ms, bound_by=b_by,
+        **timed(20, kernel=lambda: gmm.slot_gmm(x_pre, w, used, scale, mn),
+                plain=lambda: ref.slot_gmm_ref(x_pre, w, used, scale, mn),
+                library=lambda: library(x_pre, used)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=pre_bytes, flops=2 * rows_used * d * f,
         shape=f"x {list(x_pre.shape)} bf16 @ {kind} w {list(w.shape)}, the picks of {PROMPT} "
               f"tokens grouped by slot ({rows_used} rows; prefill gate/up), f32 out; library: "
               f"index_select + dequantize + bmm (a composite)",
@@ -495,7 +584,6 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
     ``new`` greedy tokens each with the launch counters zeroed just before,
     check the logits against the plain forward (and the control), free the
     engine. Returns the path's launch counts."""
-    import gc
 
     import numpy as np
     import torch
@@ -642,6 +730,9 @@ def main() -> int:
     # phase 3 ---------------------------------------------------------------
     log("[3] kernels vs plain versions at the main path's shapes")
     rows = kernel_phase(dev)
+    gc.collect()
+    log(f"  device memory still allocated after phase 3: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     # phases 4 and 5, path by path -------------------------------------------
     from repro_torch.config import get_config
@@ -667,7 +758,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
         })
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -122,9 +122,11 @@ class CudaKernel:
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fns[symbol] = fn
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*args, stream)
+        if device.index in (None, torch.cuda.current_device()):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             name = load(self.source).repro_error_name(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error {rc} ({name})")

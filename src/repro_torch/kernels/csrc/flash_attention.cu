@@ -6,27 +6,52 @@
 // (pallas_call at flash_attention.py:114). q is [B, Sq, H, dh], k/v
 // [B, Skv, Hkv, dh], out [B, Sq, H, dh], all in the model's layout.
 //
-// Bound on this card: operations (512 positions x 32 heads x dh 128 is about
-// 4.3 GFLOP per layer with the causal half skipped, against 6 MB of q/k/v/out).
-// The TPU carried the softmax state across sequential grid steps in VMEM; here
-// one block owns a 64-row query tile of one head and loops over the KV tiles
-// itself, with the running max, sum and 64 x dh accumulator in registers
-// (4 rows x dh/16 columns per thread) and Q, K, V and the probability tile in
-// shared memory (about 115 KB, so the block asks for dynamic shared memory
-// above 48 KB). CUDA cores only; a TMA + wgmma pipeline is later work.
+// Bound on this card at the main path's shape (512 positions, 32 heads, 4 KV
+// heads, dh 128, causal): bytes. The causal half is 2.15 GFLOP (4.3 GFLOP
+// without the skip), 2.2 us at the bf16 tensor rate, against 9.4 MB of
+// q/k/v/out, 2.8 us at 3.35 TB/s; the two are close, so the kernel has to
+// keep the tensor cores busy and the loads overlapped to come near either.
+//
+// bf16 entry, the main path's body: tensor cores (mma.sync.m16n8k16, bf16
+// operands, f32 accumulation; mma.sync rather than wgmma, whose descriptors
+// buy little at 64-row tiles). A block of 4 warps owns a 64-row query tile of
+// one head, 16 rows per warp, and loops over 64-row KV tiles itself:
+//  * Q, K and V stay bf16 in shared memory, rows padded by 16 bytes so the
+//    ldmatrix loads of the mma fragments are free of bank conflicts; Q's
+//    fragments are loaded into registers once;
+//  * K/V tiles arrive by cp.async into a ring of 2 stages: tile j+1 loads
+//    while tile j is computed, and V_j while K_j is used; ragged rows are
+//    zero-filled by the copy;
+//  * S = Q K^T lands in registers; the online softmax runs on those
+//    fragments (row max and sum across the 4 lanes of a quad, exp2 with the
+//    log2(e) factor folded in), masks only tiles that cross the causal
+//    diagonal, the window edge or the end of the keys, and P, rounded to
+//    bf16, feeds P V as the A operand straight from registers (the Pallas
+//    body's f32 dot rounds its operands to bf16 on the TPU's matrix unit);
+//  * the grid runs the heaviest causal query tiles (the last ones) first;
+//  * a query row that no key reaches (a window past the last key) gives
+//    zeros;
+//  * the output goes through the warp's own rows of the Q tile in shared
+//    memory so each row leaves in 16-byte stores.
+// The kernel is templated on dh, every multiple of 16 up to 128.
+//
+// f32 entry: the first port's CUDA-core body (f32 on tensor cores would be
+// TF32, which the f32 tolerance rejects); f32 is not on the main path.
 #include "common.cuh"
 
 using namespace repro;
 
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, 64-row tiles in f32 shared memory
+// ---------------------------------------------------------------------------
 constexpr int FA_B = 64;        // query rows and key rows per tile
 constexpr int FA_THREADS = 256;
 constexpr int FA_MAXDC = 8;     // dh / 16 <= 8, i.e. head_dim <= 128
 
-template <typename T>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ out, int Sq, int Skv, int H, int Hkv, int dh, float scale,
-          int causal, int window, float soft_cap) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv, int H,
+              int Hkv, int dh, float scale, int causal, int window, float soft_cap) {
     extern __shared__ float smem[];
     const int ld = dh + 1;
     float* Qs = smem;                   // [FA_B, ld]
@@ -40,7 +65,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
     for (int i = tid; i < FA_B * dh; i += FA_THREADS) {
         const int r = i / dh, d = i % dh, s = q0 + r;
-        Qs[r * ld + d] = s < Sq ? to_f(q[(((size_t)b * Sq + s) * H + h) * dh + d]) : 0.f;
+        Qs[r * ld + d] = s < Sq ? q[(((size_t)b * Sq + s) * H + h) * dh + d] : 0.f;
     }
     float m[4], l[4], o[4][FA_MAXDC];
 #pragma unroll
@@ -58,8 +83,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         for (int i = tid; i < FA_B * dh; i += FA_THREADS) {
             const int r = i / dh, d = i % dh, s = k0 + r;
             const size_t src = (((size_t)b * Skv + s) * Hkv + hk) * dh + d;
-            Ks[r * ld + d] = s < Skv ? to_f(k[src]) : 0.f;
-            Vs[r * dh + d] = s < Skv ? to_f(v[src]) : 0.f;
+            Ks[r * ld + d] = s < Skv ? k[src] : 0.f;
+            Vs[r * dh + d] = s < Skv ? v[src] : 0.f;
         }
         __syncthreads();
         float sc[4][4];
@@ -137,37 +162,291 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         for (int c = 0; c < FA_MAXDC; ++c) {
             if (c < dc) {
                 const int d = tx + 16 * c;
-                out[(((size_t)b * Sq + qpos) * H + h) * dh + d] = from_f<T>(o[r][c] * inv_l);
+                out[(((size_t)b * Sq + qpos) * H + h) * dh + d] = o[r][c] * inv_l;
             }
         }
     }
 }
 
-template <typename T>
-static int launch_flash(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                        int Skv, int H, int Hkv, int dh, float scale, int causal, int window,
-                        float soft_cap, void* stream) {
-    const size_t smem = (size_t)(2 * FA_B * (dh + 1) + FA_B * dh + FA_B * (FA_B + 1)) * sizeof(float);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 64;          // query rows per block, 16 per warp
+constexpr int BN = 64;          // key rows per tile
+constexpr int THREADS = BM / 16 * 32;
+constexpr int PAD = 8;          // bf16 elements (16 bytes) of padding per shared row
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when ``valid`` is false
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 operands, f32 accumulator
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + 64) of a [rows, ld] bf16 matrix into a [64, DH + PAD] tile;
+// rows at or past ``nrows`` read as zeros
+template <int DH>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t ld, int r0, int nrows,
+                                          int tid) {
+    constexpr int CH = DH / 8;
+    for (int i = tid; i < 64 * CH; i += THREADS) {
+        const int r = i / CH, c = i % CH;
+        const bool ok = r0 + r < nrows;
+        cp_async16(s + r * (DH + PAD) + c * 8, g + (size_t)(ok ? r0 + r : 0) * ld + c * 8, ok);
+    }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          bf16* __restrict__ out, int Sq, int Skv, int H, int Hkv, float scale, int causal,
+          int window, float soft_cap) {
+    constexpr int LDS = DH + PAD, KD = DH / 16, ND = DH / 8, NT = BN / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // [BM, LDS]
+    bf16* Ks = Qs + BM * LDS;                           // [2, BN, LDS]
+    bf16* Vs = Ks + 2 * BN * LDS;                       // [2, BN, LDS]
+    const int h = blockIdx.x, b = blockIdx.z;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // the heaviest causal tiles first
+    const int hk = h / (H / Hkv);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int gq = lane >> 2, t4 = lane & 3;            // quad (row) and lane in the quad
+    const size_t ldq = (size_t)H * DH, ldk = (size_t)Hkv * DH;
+    const bf16* qg = q + ((size_t)b * Sq * H + h) * DH;
+    const bf16* kg = k + ((size_t)b * Skv * Hkv + hk) * DH;
+    const bf16* vg = v + ((size_t)b * Skv * Hkv + hk) * DH;
+
+    const int q_last = min(q0 + BM, Sq) - 1;
+    const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+    const int k_begin = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
+    const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+
+    // commit groups in order: Q + K_0, V_0, K_1, V_1, ...
+    load_tile<DH>(Qs, qg, ldq, q0, Sq, tid);
+    if (n_tiles > 0) load_tile<DH>(Ks, kg, ldk, k_begin, Skv, tid);
+    cp_async_commit();
+    if (n_tiles > 0) load_tile<DH>(Vs, vg, ldk, k_begin, Skv, tid);
+    cp_async_commit();
+
+    uint32_t qf[KD][4];
+    float o[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    const int row0 = q0 + warp * 16 + gq;               // row of c0/c1; c2/c3 are row0 + 8
+
+    for (int j = 0; j < n_tiles; ++j) {
+        const int k0 = k_begin + j * BN;
+        const int st = (j + 1) & 1;
+        if (j + 1 < n_tiles) load_tile<DH>(Ks + st * BN * LDS, kg, ldk, k0 + BN, Skv, tid);
+        cp_async_commit();
+        if (j + 1 < n_tiles) load_tile<DH>(Vs + st * BN * LDS, vg, ldk, k0 + BN, Skv, tid);
+        cp_async_commit();
+        cp_async_wait<3>();                             // K_j (and Q) have landed
+        __syncthreads();
+        if (j == 0) {
+#pragma unroll
+            for (int kk = 0; kk < KD; ++kk)
+                ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+        }
+        const bf16* Kt = Ks + (j & 1) * BN * LDS;
+        const bf16* Vt = Vs + (j & 1) * BN * LDS;
+
+        // S = Q K^T
+        float s[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+            for (int nn = 0; nn < NT / 2; ++nn) {
+                uint32_t kb[4];
+                ldmatrix_x4(kb, Kt + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16
+                                    + ((lane >> 3) & 1) * 8);
+                mma(s[2 * nn], qf[kk], kb[0], kb[1]);
+                mma(s[2 * nn + 1], qf[kk], kb[2], kb[3]);
+            }
+        }
+
+        // scale, soft-cap, mask (only where the tile crosses an edge), row max
+        const bool full = k0 + BN <= Skv && (!causal || k0 + BN - 1 <= q0)
+                          && (window <= 0 || k0 > q_last - window);
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float x = s[n][e] * scale;
+                if (soft_cap > 0.f) x = soft_cap * tanhf(x / soft_cap);
+                x *= LOG2E;
+                if (!full) {
+                    const int qpos = row0 + (e >> 1) * 8, kpos = k0 + n * 8 + t4 * 2 + (e & 1);
+                    bool valid = kpos < Skv;
+                    if (causal) valid = valid && kpos <= qpos;
+                    if (window > 0) valid = valid && kpos > qpos - window;
+                    if (!valid) x = NEG_INF;
+                }
+                s[n][e] = x;
+                mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            }
+        }
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            const float m_new = fmaxf(m[r], mx[r]);
+            corr[r] = exp2f(m[r] - m_new);
+            m[r] = m_new;
+            l[r] *= corr[r];
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                const float p = s[n][e] > NEG_INF ? exp2f(s[n][e] - m[r]) : 0.f;
+                l[r] += p;                               // this lane's share of the row sum
+                s[n][e] = p;
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+            o[n][0] *= corr[0];
+            o[n][1] *= corr[0];
+            o[n][2] *= corr[1];
+            o[n][3] *= corr[1];
+        }
+
+        // O += P V, P as the A operand from registers
+        cp_async_wait<2>();                             // V_j has landed
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+            const uint32_t a[4] = {
+                pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+            for (int nd = 0; nd < DH / 16; ++nd) {
+                uint32_t vb[4];
+                ldmatrix_x4_trans(vb, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS
+                                          + nd * 16 + (lane >> 4) * 8);
+                mma(o[2 * nd], a, vb[0], vb[1]);
+                mma(o[2 * nd + 1], a, vb[2], vb[3]);
+            }
+        }
+        __syncthreads();                                 // stage j & 1 is free for tile j + 2
+    }
+    cp_async_wait<0>();
+    __syncthreads();     // every thread's copies into Q have landed (no KV tile: none waited)
+
+    // normalize, stage the warp's 16 rows in its own rows of the Q tile, store
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    bf16* Os = Qs + warp * 16 * LDS;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+        *reinterpret_cast<uint32_t*>(Os + gq * LDS + n * 8 + t4 * 2) =
+            pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(Os + (gq + 8) * LDS + n * 8 + t4 * 2) =
+            pack_bf16(o[n][2] * inv[1], o[n][3] * inv[1]);
+    }
+    __syncwarp();
+    constexpr int CH = DH / 8;
+    for (int i = lane; i < 16 * CH; i += 32) {
+        const int r = i / CH, c = i % CH, qpos = q0 + warp * 16 + r;
+        if (qpos < Sq)
+            *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qpos) * H + h) * DH + c * 8) =
+                *reinterpret_cast<const uint4*>(Os + r * LDS + c * 8);
+    }
+}
+
+template <int DH>
+static int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                  int Skv, int H, int Hkv, float scale, int causal, int window, float soft_cap,
+                  cudaStream_t stream) {
+    const size_t smem = (size_t)(BM + 4 * BN) * (DH + PAD) * sizeof(bf16);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)            // shared memory for 2 blocks per SM
+        err = cudaFuncSetAttribute(flash_fwd<DH>,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((Sq + FA_B - 1) / FA_B, H, B);
-    flash_fwd<T><<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), Sq, Skv, H, Hkv, dh, scale, causal, window, soft_cap);
+    const dim3 grid(H, (Sq + BM - 1) / BM, B);
+    flash_fwd<DH><<<grid, THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(out), Sq, Skv, H, Hkv, scale, causal, window, soft_cap);
     return (int)cudaGetLastError();
 }
+
+}  // namespace tc
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int B, int Sq, int Skv, int H, int Hkv, int dh, float scale,
                                     int causal, int window, float soft_cap, void* stream) {
-    return launch_flash<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, Hkv, dh, scale, causal,
-                                       window, soft_cap, stream);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_DH_CASE(D)                                                                      \
+    case D:                                                                                \
+        return tc::launch<D>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, causal, window,      \
+                             soft_cap, st);
+    switch (dh) {
+        FA_DH_CASE(16) FA_DH_CASE(32) FA_DH_CASE(48) FA_DH_CASE(64)
+        FA_DH_CASE(80) FA_DH_CASE(96) FA_DH_CASE(112) FA_DH_CASE(128)
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef FA_DH_CASE
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                                    int B, int Sq, int Skv, int H, int Hkv, int dh, float scale,
                                    int causal, int window, float soft_cap, void* stream) {
-    return launch_flash<float>(q, k, v, out, B, Sq, Skv, H, Hkv, dh, scale, causal, window,
-                               soft_cap, stream);
+    const size_t smem = (size_t)(2 * FA_B * (dh + 1) + FA_B * dh + FA_B * (FA_B + 1)) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((Sq + FA_B - 1) / FA_B, H, B);
+    flash_fwd_f32<<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), Sq, Skv, H, Hkv, dh, scale, causal, window, soft_cap);
+    return (int)cudaGetLastError();
 }

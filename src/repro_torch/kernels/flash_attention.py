@@ -3,8 +3,12 @@
 Replaces ``repro/kernels/flash_attention.py:flash_attention`` (Pallas
 ``_flash_kernel``): causal attention with optional sliding window and tanh
 soft-cap, GQA (q head h reads KV head h // g), online softmax, unreachable
-KV tiles skipped. One block per 64-row query tile of one head. Bound:
-operations. Plain version: ``kernels.ref.flash_attention_ref``.
+KV tiles skipped. bf16 runs on tensor cores (``mma.sync`` with bf16
+operands and f32 sums, P rounded to bf16 before P V; a 64-row query tile
+per block, K/V tiles through a 2-stage ``cp.async`` ring, one kernel per
+head_dim); f32 keeps a CUDA-core body. Bound: bytes at the main path's
+prefill shape, operations at longer prompts. Plain version:
+``kernels.ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -47,7 +51,9 @@ def flash_attention(
         raise ValueError(f"head_dim {dh} must be a multiple of 16 and at most 128")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 body copies 16-byte rows: a view that starts off that grid is copied
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     if b and sq:
         KERNEL(_SYMBOL[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -9,13 +9,26 @@ the accumulator) and int4 slots (``_gmm_kernel_int4``: nibbles dequantized
 from the store. Bound: bytes at decode (C = 1, every weight byte read once),
 operations at large C. Plain version: ``kernels.ref.slot_gmm_ref``.
 
-Two bodies per format, each with its own launch count: the GEMV body for
-C <= 4 (the decode step and the replay) and the tiled body (64x64 tiles: the
-prefill walk's grouping of a prompt's picks by slot).
+Two bodies per format, each with its own launch count:
+
+* the GEMV body for C <= 4 (the decode step and the replay) streams the
+  weights in 16-byte loads per lane (8 bytes for int8 and int4), with the
+  stored rows cut into up to 8 splits across the blocks of a thread block
+  cluster, which sum the splits in split order through distributed shared
+  memory. Its plan (:func:`gemv_plan`: rows per warp, splits, vector or
+  element loads) is made here alone, from D, F and the format, never C or
+  G, so the output is the same bits on every launch and row c does not
+  depend on C; the kernel only checks it. Rows whose width is not a
+  multiple of a lane's bytes (or a store not 16-byte aligned) take the
+  same kernel's element loads: a dispatch by shape, never a retry;
+* the tiled body (64x64 tiles: the prefill walk's grouping of a prompt's
+  picks by slot).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -23,16 +36,26 @@ import torch
 from repro_torch.kernels.build import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P]                  # x, w, lut, G, C, D, F, out
-_ARGS_INT8 = [_P, _P, _P, _P, _I, _I, _I, _I, _P]         # x, w, scale, lut, ...
-_ARGS_INT4 = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # x, w, scale, mn, lut, .., group, out
-KERNEL = CudaKernel("slot_gmm", "moe_gmm.cu", _ARGS)
-TILED = CudaKernel("slot_gmm_tiled", "moe_gmm.cu", _ARGS)
-INT8 = CudaKernel("slot_gmm_int8", "moe_gmm.cu", _ARGS_INT8)
-INT8_TILED = CudaKernel("slot_gmm_int8_tiled", "moe_gmm.cu", _ARGS_INT8)
-INT4 = CudaKernel("slot_gmm_int4", "moe_gmm.cu", _ARGS_INT4)
-INT4_TILED = CudaKernel("slot_gmm_int4_tiled", "moe_gmm.cu", _ARGS_INT4)
+
+
+def _argtypes(planes: int, gemv: bool):
+    """x, w, the store's ``planes`` (int8: scale; int4: scale, mn), lut, G, C,
+    D, F, [group (int4),] then out (tiled) or rows_per_warp, splits, vector,
+    out."""
+    return [_P] * (3 + planes) + [_I] * (4 + (planes == 2) + 3 * gemv) + [_P]
+
+
+KERNEL = CudaKernel("slot_gmm", "moe_gmm.cu", _argtypes(0, True))
+TILED = CudaKernel("slot_gmm_tiled", "moe_gmm.cu", _argtypes(0, False))
+INT8 = CudaKernel("slot_gmm_int8", "moe_gmm.cu", _argtypes(1, True))
+INT8_TILED = CudaKernel("slot_gmm_int8_tiled", "moe_gmm.cu", _argtypes(1, False))
+INT4 = CudaKernel("slot_gmm_int4", "moe_gmm.cu", _argtypes(2, True))
+INT4_TILED = CudaKernel("slot_gmm_int4_tiled", "moe_gmm.cu", _argtypes(2, False))
 GEMV_MAX_C = 4                      # GV_MAXC in csrc/moe_gmm.cu
+GEMV_WARPS = 8                      # GV_WARPS: runs of rows per block
+GEMV_MAX_SPLITS = 8                 # GV_MAXSPLITS: the blocks of one (portable) cluster
+GEMV_RUN = 32                       # rows a warp's run aims at (16 for int4, which
+GEMV_RUN_INT4 = 16                  # costs twice the ALU work per weight)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _BODIES = {                         # weight type -> (GEMV kernel, tiled kernel, symbol stem)
     torch.bfloat16: (KERNEL, TILED, "slot_gmm"),
@@ -40,6 +63,39 @@ _BODIES = {                         # weight type -> (GEMV kernel, tiled kernel,
     torch.int8: (INT8, INT8_TILED, "slot_gmm_int8"),
     torch.uint8: (INT4, INT4_TILED, "slot_gmm_int4"),
 }
+
+
+@dataclass(frozen=True)
+class GemvPlan:
+    """How the GEMV body cuts one group's work: a block's 8 warps take
+    ``rows_per_warp`` stored rows each (D, or D/2 packed int4 rows, in all),
+    ``splits`` blocks (one cluster) cover them. ``vector``: rows are whole
+    lane loads (16 bytes; 8 for int8 and int4), so lanes load whole chunks
+    (else element loads)."""
+
+    rows_per_warp: int
+    splits: int
+    vector: bool
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(d: int, f: int, w_dtype: torch.dtype) -> GemvPlan:
+    """The GEMV body's plan for depth ``d``, width ``f`` and a store of
+    ``w_dtype`` (uint8: packed int4). It reads neither C nor G, so the sum
+    over D is taken in one order whatever the batch. A warp's run is
+    ``GEMV_RUN`` rows (``GEMV_RUN_INT4`` for int4), longer where 8 splits
+    (one cluster) would not cover D; the splits follow from the run."""
+    quant = w_dtype in (torch.int8, torch.uint8)
+    elem = 1 if quant else torch.finfo(w_dtype).bits // 8
+    rows = d // 2 if w_dtype == torch.uint8 else d
+    run = GEMV_RUN_INT4 if w_dtype == torch.uint8 else GEMV_RUN
+    rw = max(run, _cdiv(rows, GEMV_WARPS * GEMV_MAX_SPLITS))
+    return GemvPlan(rows_per_warp=rw, splits=_cdiv(rows, GEMV_WARPS * rw),
+                    vector=(f * elem) % (8 if quant else 16) == 0)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _check_plane(name: str, t: Optional[torch.Tensor], shape, dtype, device) -> torch.Tensor:
@@ -99,9 +155,15 @@ def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
     out = torch.empty((g, c, f), dtype=out_dtype, device=x.device)
     if g and c and f:
         gemv, tiled, stem = _BODIES[w.dtype]
-        kernel, body = (gemv, "gemv") if c <= GEMV_MAX_C else (tiled, "tiled")
         ptrs = [p.data_ptr() for p in planes]
-        tail = (group, out.data_ptr()) if group else (out.data_ptr(),)
-        kernel(f"{stem}_{body}_{_SUFFIX[x.dtype]}", x.device, x.data_ptr(), w.data_ptr(),
-               *ptrs, lut.data_ptr(), g, c, d, f, *tail)
+        lead = (x.data_ptr(), w.data_ptr(), *ptrs, lut.data_ptr(), g, c, d, f)
+        lead += (group,) if group else ()
+        symbol = _SUFFIX[x.dtype]
+        if c <= GEMV_MAX_C:
+            plan = gemv_plan(d, f, w.dtype)
+            aligned = all(p % 16 == 0 for p in (w.data_ptr(), *ptrs))
+            gemv(f"{stem}_gemv_{symbol}", x.device, *lead, plan.rows_per_warp, plan.splits,
+                 int(plan.vector and aligned), out.data_ptr())
+        else:
+            tiled(f"{stem}_tiled_{symbol}", x.device, *lead, out.data_ptr())
     return out

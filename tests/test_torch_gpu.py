@@ -13,6 +13,7 @@ version, and bf16 outputs round once more, so bf16 outputs are held to 2e-2
 absolute + 2e-2 relative and f32 outputs to 1e-4 + 1e-4.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -148,6 +149,122 @@ def test_flash_attention_kernel_matches_plain(card, dtype, window, soft_cap):
     torch.cuda.synchronize()
     exp = ref.flash_attention_ref(q, k, v, causal=True, window=window, soft_cap=soft_cap)
     torch.testing.assert_close(out.float(), exp.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("s,dh,window,soft_cap", [
+    (512, 128, None, None),          # the main path's prefill: 32 heads on 4 KV heads
+    (200, 128, 48, None),            # ragged length (not a tile multiple), sliding window
+    (200, 128, None, 20.0),          # ragged length, tanh soft-cap
+])
+def test_flash_attention_bf16_tensor_core_body(card, s, dh, window, soft_cap):
+    """The bf16 tensor-core body at dh 128 against the plain version: bf16
+    tolerance (P is rounded to bf16 before P V, as the TPU's matrix unit
+    rounds the Pallas body's f32 operands)."""
+    h, hkv = 32, 4
+    q = _randn((1, s, h, dh), torch.bfloat16, 0, card)
+    k = _randn((1, s, hkv, dh), torch.bfloat16, 1, card)
+    v = _randn((1, s, hkv, dh), torch.bfloat16, 2, card)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, window=window, soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    exp = ref.flash_attention_ref(q, k, v, causal=True, window=window, soft_cap=soft_cap)
+    torch.testing.assert_close(out.float(), exp.float(), **TOL[torch.bfloat16])
+
+
+def test_flash_attention_bf16_query_tiles_with_no_keys(card):
+    """Fewer keys than queries with a window: rows 147.. of 200 reach no key,
+    and the last query tile no KV tile at all, so only the final barrier
+    orders the warps' copies of Q before the output is staged over them.
+    Rows with keys hold the plain version's values; rows without give
+    zeros (the plain version spreads them evenly over the masked keys).
+    Repeated, since a missing barrier shows only now and then."""
+    h, hkv, dh, sq, skv, window = 32, 4, 128, 200, 100, 48
+    q = _randn((1, sq, h, dh), torch.bfloat16, 0, card)
+    k = _randn((1, skv, hkv, dh), torch.bfloat16, 1, card)
+    v = _randn((1, skv, hkv, dh), torch.bfloat16, 2, card)
+    exp = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    reach = skv - 1 + window                                   # first row past every key
+    for _ in range(20):
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[:, :reach].float(), exp[:, :reach].float(),
+                                   **TOL[torch.bfloat16])
+        assert not out[:, reach:].float().abs().sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _main_store(kind, d, f, device):
+    """A [97, d, f] store as the main path holds it: bf16, or int8 / int4
+    (groups of 64) quantized from it, slot 96 the zero MISS slot."""
+    if kind == "bf16":
+        w = _randn((97, d, f), torch.bfloat16, 1, device, scale=d ** -0.5)
+        w[96] = 0
+        return w, None, None
+    w, scale, mn = _quant_store(kind, 97, d, f, 64, "cpu", 1)
+    return w.to(device), scale.to(device), None if mn is None else mn.to(device)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("d,f", [(2048, 768), (768, 2048)])
+@pytest.mark.parametrize("c", [1, 4])
+def test_slot_gmm_gemv_at_the_main_path_widths(card, kind, d, f, c):
+    """The GEMV bodies at the decode gate/up and down widths, 8 picks, one
+    of them the MISS slot: bf16 out at the bf16 tolerance, f32 out at 1e-4."""
+    x = _randn((8, c, d), torch.bfloat16, 0, card)
+    w, scale, mn = _main_store(kind, d, f, str(card))
+    lut = torch.tensor([3, 17, 96, 40, 41, 0, 95, 63], dtype=torch.int32, device=card)
+    ops.reset_launch_counts()
+    out = ops.slot_gmm(x, w, lut, scale, mn)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["slot_gmm" + ("" if kind == "bf16" else f"_{kind}")] == 1
+    want = ref.slot_gmm_ref(x, w, lut, scale, mn)
+    tol = TOL[torch.bfloat16] if kind == "bf16" else dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    assert not out[2].float().abs().sum()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("d,f", [(2048, 768), (768, 2048)])
+def test_slot_gmm_gemv_is_bitwise_stable_and_independent_of_c(card, kind, d, f):
+    """No atomics and a plan that ignores C: two launches give the same bits,
+    and row 0 of a C = 4 launch equals the C = 1 launch of that row."""
+    x = _randn((8, 4, d), torch.bfloat16, 0, card)
+    w, scale, mn = _main_store(kind, d, f, str(card))
+    lut = torch.tensor([5, 6, 7, 8, 9, 10, 11, 96], dtype=torch.int32, device=card)
+    first = ops.slot_gmm(x, w, lut, scale, mn)
+    again = ops.slot_gmm(x, w, lut, scale, mn)
+    one = ops.slot_gmm(x[:, :1].contiguous(), w, lut, scale, mn)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first[:, :1], one)
+
+
+@pytest.mark.parametrize("kind,g,c,d,f", [
+    ("bf16", 3, 4, 4104, 768),      # 4104 stored rows: runs of 65, two staged chunks
+    ("bf16", 2, 2, 9000, 70),       # element loads, runs of 141 in three chunks
+    ("int8", 3, 1, 5000, 72),
+    ("int4", 3, 3, 8320, 768),      # 4160 packed rows, groups of 64
+])
+def test_slot_gmm_gemv_past_4096_stored_rows(card, kind, g, c, d, f):
+    """Stores deeper than 8 splits x 8 warps x 64 rows keep the GEMV body at
+    C <= 4 (longer runs; a warp stages its x 64 rows at a time), held to the
+    plain version like the shallow stores."""
+    x = _randn((g, c, d), torch.bfloat16, 0, card)
+    if kind == "bf16":
+        w = _randn((5, d, f), torch.bfloat16, 1, card, scale=d ** -0.5)
+        w[4] = 0
+        scale = mn = None
+    else:
+        w, scale, mn = _quant_store(kind, 5, d, f, 64, card, 1)
+    lut = torch.tensor([2, 0, 4][:g], dtype=torch.int32, device=card)
+    ops.reset_launch_counts()
+    out = ops.slot_gmm(x, w, lut, scale, mn)
+    torch.cuda.synchronize()
+    body = "slot_gmm" + ("" if kind == "bf16" else f"_{kind}")
+    assert ops.launch_counts()[body] == 1 and ops.launch_counts()[body + "_tiled"] == 0
+    tol = TOL[torch.bfloat16] if kind == "bf16" else dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out.float(), ref.slot_gmm_ref(x, w, lut, scale, mn).float(), **tol)
 
 
 def test_wrapper_refuses_a_bad_launch_loudly(card):

@@ -7,6 +7,8 @@ Tolerances: f32 results agree to 1e-5 absolute + 1e-5 relative (the two
 frameworks sum in different orders); bf16 results to 1e-2 + 1e-2 (one bf16
 rounding of f32 sums that differ in the last bits). Routing ids are exact.
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -166,3 +168,57 @@ def test_quantized_wrapper_refuses_cpu_tensors_and_bad_planes():
     assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
     assert {"slot_gmm_int8", "slot_gmm_int8_tiled", "slot_gmm_int4",
             "slot_gmm_int4_tiled"} <= set(ops.KERNELS)
+
+
+_PLAN_SHAPES = [
+    (2048, 768, torch.bfloat16), (768, 2048, torch.bfloat16),   # main path: gate/up, down
+    (2048, 768, torch.int8), (768, 2048, torch.int8),
+    (2048, 768, torch.uint8), (768, 2048, torch.uint8),         # uint8: packed int4
+    (256, 96, torch.float32), (132, 70, torch.uint8), (96, 33, torch.int8),
+]
+
+
+@pytest.mark.parametrize("d,f,w_dtype", _PLAN_SHAPES)
+def test_gemv_plan_covers_every_row_once_whatever_c(d, f, w_dtype):
+    """K1's GEMV plan: ``splits`` consecutive spans of 8 warps' runs cover
+    the stored rows (D, or D/2 packed int4 rows), none of them empty, in at
+    most one cluster of splits, so each row falls in exactly one run (the
+    check the launcher makes before it launches); the plan takes only D, F
+    and the format (never C or G), so the order of the sum over D is the
+    same at every C."""
+    assert list(inspect.signature(tgmm.gemv_plan).parameters) == ["d", "f", "w_dtype"]
+    plan = tgmm.gemv_plan(d, f, w_dtype)
+    rows = d // 2 if w_dtype == torch.uint8 else d
+    span = tgmm.GEMV_WARPS * plan.rows_per_warp
+    assert 1 <= plan.splits <= tgmm.GEMV_MAX_SPLITS
+    assert plan.splits * span >= rows > (plan.splits - 1) * span
+    if (d, f) in ((2048, 768), (768, 2048)):     # the decode shapes split D across blocks
+        assert plan.splits > 1
+
+
+@pytest.mark.parametrize("f,w_dtype,vector", [
+    (768, torch.bfloat16, True), (2048, torch.bfloat16, True), (768, torch.int8, True),
+    (768, torch.uint8, True), (96, torch.float32, True), (70, torch.bfloat16, False),
+    (72, torch.bfloat16, True), (72, torch.int8, True), (68, torch.int8, False),
+    (33, torch.uint8, False),
+    (70, torch.float32, False), (72, torch.uint8, True), (68, torch.uint8, False),
+])
+def test_gemv_plan_takes_whole_chunk_loads_only_where_rows_are_whole_chunks(f, w_dtype, vector):
+    """The vector/element choice follows F x element bytes alone: lanes load
+    16 bytes, 8 for int8 and int4."""
+    assert tgmm.gemv_plan(64, f, w_dtype).vector is vector
+
+
+@pytest.mark.parametrize("d,w_dtype,fits", [
+    (4096, torch.bfloat16, True), (4104, torch.bfloat16, False),
+    (8192, torch.uint8, True), (8208, torch.uint8, False),
+])
+def test_gemv_plan_reaches_4096_stored_rows(d, w_dtype, fits):
+    """Runs of up to 64 rows cover 8 splits x 8 warps x 64 = 4096 stored
+    rows; deeper stores keep the GEMV body with longer runs (a warp stages
+    its x 64 rows at a time), still in one cluster of 8 splits."""
+    plan = tgmm.gemv_plan(d, 256, w_dtype)
+    rows = d // 2 if w_dtype == torch.uint8 else d
+    assert (plan.rows_per_warp <= 64) is fits
+    assert plan.splits == tgmm.GEMV_MAX_SPLITS
+    assert plan.splits * tgmm.GEMV_WARPS * plan.rows_per_warp >= rows

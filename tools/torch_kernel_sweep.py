@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Sweep the plans of two of the port's CUDA kernels on one card.
+
+    python3 tools/torch_kernel_sweep.py
+
+* K1's GEMV body (``slot_gmm`` with C = 1, 8 picks through the LUT, 97 slots
+  cycled over 16 LUTs as in ``chip_smoke.py``) at the decode gate/up and
+  down widths of qwen36-35b-a3b, in bf16, int8 and int4 (groups of 64): the
+  device time of the wrapper's plan and of every other run length a warp
+  could take (the splits follow from the run, at most a cluster of 8).
+* K4 (``flash_attention``, bf16, dh 128, 32 heads on 4 KV heads) at the
+  prefill shape and longer prompts, beside one
+  ``scaled_dot_product_attention`` call on the same inputs.
+* The host's cost of one call of K1's bf16 GEMV at the decode gate/up
+  shape, and of its parts: the wrapper (``ops.slot_gmm``), the launcher
+  object with its arguments ready (``CudaKernel.__call__``), the bare
+  ctypes launch, ``torch.empty`` of the output and
+  ``torch.cuda.current_stream().cuda_stream`` (median of 5 rounds of 200
+  calls on the host clock, no synchronization inside a round).
+
+Kernel times are device times from ``chip_smoke.device_ms`` (repeated
+calls in a CUDA graph). The card's ``nvidia-smi`` name and power limit come first.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_sweep: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import chip_smoke as cs
+    from repro_torch.core.slots import quantize_int8_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels.build import build
+    from repro_torch.quant import quantize_int4_batch
+
+    print(cs.card_line(), flush=True)
+    build(["moe_gmm.cu", "flash_attention.cu"])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    luts = [torch.randperm(96, generator=g, device=dev)[:8].to(torch.int32) for _ in range(16)]
+    cyc = iter(range(10 ** 9))
+    plan_of = gmm.gemv_plan
+    for d, f in ((2048, 768), (768, 2048)):
+        w = randn(97, d, f, scale=d ** -0.5)
+        stores = {"bf16": (w, None, None), "int8": tuple(quantize_int8_batch(w)) + (None,),
+                  "int4": tuple(quantize_int4_batch(w, 64))}
+        x = randn(8, 1, d)
+        for kind, (ww, sc, mn) in stores.items():
+            base = plan_of(d, f, ww.dtype)
+            cells = []
+            for rw in (4, 8, 12, 16, 24, 32, 48, 64):
+                rows = d // 2 if kind == "int4" else d
+                splits = -(-rows // (gmm.GEMV_WARPS * rw))
+                if splits > gmm.GEMV_MAX_SPLITS:
+                    continue
+                plan = dataclasses.replace(base, rows_per_warp=rw, splits=splits)
+                gmm.gemv_plan = lambda *_, p=plan: p
+                try:
+                    ms = cs.device_ms(lambda: gmm.slot_gmm(x, ww, luts[next(cyc) % 16], sc, mn))
+                finally:
+                    gmm.gemv_plan = plan_of
+                mark = "*" if rw == base.rows_per_warp else ""
+                cells.append(f"{mark}run {rw}/{splits} splits {ms:.4f}")
+            print(f"gemv {kind} x [8,1,{d}] @ [97,{d},{f}]: " + ", ".join(cells) + " ms "
+                  "(* the wrapper's plan)", flush=True)
+    for s, causal in ((512, True), (512, False), (1024, True), (2048, True)):
+        q, k, v = randn(1, s, 32, 128), randn(1, s, 4, 128), randn(1, s, 4, 128)
+        t = cs.device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ts = cs.device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        flops = 4 * 32 * 128 * (s * (s + 1) // 2 if causal else s * s)
+        print(f"flash_attention s={s} causal={causal}: {t:.4f} ms ({flops / t / 1e9:.1f} "
+              f"TFLOP/s), sdpa {ts:.4f} ms ({flops / ts / 1e9:.1f} TFLOP/s)", flush=True)
+
+    x, w, lut = randn(8, 1, 2048), randn(97, 2048, 768), luts[0]
+    out = torch.empty((8, 1, 768), dtype=torch.bfloat16, device=dev)
+    plan = gmm.gemv_plan(2048, 768, torch.bfloat16)
+    args = (x.data_ptr(), w.data_ptr(), lut.data_ptr(), 8, 1, 2048, 768, plan.rows_per_warp,
+            plan.splits, int(plan.vector), out.data_ptr())
+    gmm.KERNEL("slot_gmm_gemv_bf16", dev, *args)
+    launcher = gmm.KERNEL._fns["slot_gmm_gemv_bf16"]
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {
+        "ops.slot_gmm": lambda: ops.slot_gmm(x, w, lut),
+        "CudaKernel call, arguments ready": lambda: gmm.KERNEL("slot_gmm_gemv_bf16", dev, *args),
+        "ctypes launch": lambda: launcher(*args, stream),
+        "torch.empty": lambda: torch.empty((8, 1, 768), dtype=torch.bfloat16, device=dev),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+    }
+    for name, fn in parts.items():
+        print(f"host per call, bf16 GEMV x [8,1,2048] @ [97,2048,768], {name}: "
+              f"{host_us(fn):.2f} us", flush=True)
+    return 0
+
+
+def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the host's microseconds per call of ``fn``,
+    ``calls`` calls a round, the card synchronized between rounds."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(per)[rounds // 2]
+
+
+if __name__ == "__main__":
+    sys.exit(main())
