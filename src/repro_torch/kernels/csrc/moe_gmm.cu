@@ -45,10 +45,19 @@
 //    with element loads (the ``VEC`` flag, set by the wrapper from F).
 //    Bytes become floats through their bit patterns (``byte_as_float``),
 //    not by conversion.
-//  * C > 4, the tiled body: 64x64 output tiles, D in steps of 32 through
-//    shared memory as f32 (int4: dequantized while staged, the group of
-//    each row computed per row, since a group need not align with the
-//    step), 4x4 outputs per thread. CUDA cores, no tensor cores yet.
+//  * C > 4, the tiled body (prefill: a prompt's picks grouped by slot; at
+//    the main path's shape it streams 302 MB of bf16 weights, so bytes
+//    bound it too). With bf16 x, on tensor cores (``tiled::gmm_tc``):
+//    mma.sync m16n8k16 with f32 sums, blocks of 64 rows of x by 64 or 128
+//    columns, D in steps of 32 or 64 through a 3-stage cp.async ring; int8
+//    and int4 bytes become exact bf16 integers in shared memory, int8's
+//    scale multiplies the accumulator at the store and int4's group affine
+//    is folded in per group (see the note at ``gmm_tc``). f32 x, and shapes
+//    whose rows are not whole 16-byte copies or whose int4 group is not
+//    32, 64 or 128, take the CUDA-core body (``gmm_tiled``): 64x64 output
+//    tiles, D in steps of 32 through shared memory as f32 (int4 dequantized
+//    while staged), 4x4 outputs per thread. The plan (tensor cores or not,
+//    the tile) is the wrapper's, from D, F and the types alone.
 // The LUT indirection is one load per block: rotation rewrites the LUT and
 // the compute never changes, as in the reference.
 #include <cooperative_groups.h>
@@ -361,6 +370,11 @@ gmm_gemv(const T* __restrict__ x, W wt, const int32_t* __restrict__ lut, int D, 
     if (splits > 1) cluster.sync();                         // keep part alive for the readers
 }
 
+// ---------------------------------------------------------------------------
+// Tiled body on CUDA cores: f32 x, and shapes the tensor-core body does not
+// take (rows that are not whole 16-byte copies, int4 groups that are not a
+// multiple of 16)
+// ---------------------------------------------------------------------------
 constexpr int TL_B = 64;   // output tile rows and columns
 constexpr int TL_K = 32;   // reduction step
 
@@ -415,6 +429,348 @@ gmm_tiled(const T* __restrict__ x, W wt, const int32_t* __restrict__ lut,
     }
 }
 
+// ---------------------------------------------------------------------------
+// Tiled body on tensor cores (bf16 x; bf16, int8 and int4 stores)
+// ---------------------------------------------------------------------------
+namespace tiled {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 64;          // rows of x per block: C in steps of 64
+constexpr int THREADS = 256;    // 8 warps: 2 along M (32 rows each) x 4 along N
+constexpr int STAGES = 3;       // the cp.async ring
+constexpr int PAD = 8;          // bf16 elements (16 bytes) of padding per shared row
+enum Fmt { BF16 = 0, INT8 = 1, INT4 = 2 };
+
+struct Args {
+    const bf16* x;              // [G, C, D]
+    const void* w;              // the store: bf16 / int8 [S+1, D, F], u8 [S+1, D/2, F]
+    const float* scale8;        // int8: [S+1, F]
+    const __half* s4;           // int4: [S+1, D/group, F]
+    const __half* m4;
+    const int32_t* lut;
+    void* out;                  // [G, C, F]: bf16 for a bf16 store, f32 otherwise
+    int C, D, F, group;
+};
+
+// Bytes k and k + 1 of ``word`` as packed int4: their low nibbles as a bf16
+// pair in ``lo``, their high nibbles in ``hi``, exact. Each nibble q goes
+// into the mantissa of bf16 128 (0x4300 | q is 128 + q), and 128 comes off
+// in one bf16 subtraction per pair.
+__device__ __forceinline__ void nibbles_bf16(uint32_t word, int k, uint32_t& lo, uint32_t& hi) {
+    const uint32_t t = __byte_perm(word, 0u, 0x4040 | k | ((k + 1) << 8));
+    const uint32_t l = (t & 0x000F000Fu) | 0x43004300u, h = ((t >> 4) & 0x000F000Fu) | 0x43004300u;
+    const __nv_bfloat162 c128 = __floats2bfloat162_rn(128.f, 128.f);
+    const __nv_bfloat162 lv = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&l), c128);
+    const __nv_bfloat162 hv = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&h), c128);
+    lo = *reinterpret_cast<const uint32_t*>(&lv);
+    hi = *reinterpret_cast<const uint32_t*>(&hv);
+}
+
+// shared layout of one stage and of the whole ring, in bytes
+template <int FMT, int BK, int BN>
+struct Layout {
+    static constexpr int LDX = BK + PAD, LDW = BN + PAD;
+    static constexpr int X = BM * LDX * 2;                              // x tile, bf16
+    static constexpr int W = FMT == BF16 ? BK * LDW * 2                 // weight tile as stored
+                           : FMT == INT8 ? BK * BN : BK / 2 * BN;
+    static constexpr int NGS_MAX = BK / 32;                             // int4 groups per step
+    static constexpr int P = FMT == INT4 ? 2 * NGS_MAX * BN * 2 : 0;    // int4 scale/min rows
+    static constexpr int STAGE = X + W + P;
+    static constexpr int WB = FMT == BF16 ? 0 : BK * LDW * 2;           // converted bf16 weights
+    static constexpr int TOTAL = STAGES * STAGE + WB;
+};
+
+// Block (n tile, m tile, group). Per D step of BK: x [BM, BK] and the
+// weights [BK, BN] (bf16 as stored; int8 and int4 as raw bytes, converted
+// to exact bf16 integers in a second shared tile) arrive by cp.async three
+// steps deep; each warp runs mma.sync m16n8k16 on its 32 x BN/4 tile, x as
+// the row-major A operand (ldmatrix), the [BK, BN] row-major weights as the
+// col-major B operand (ldmatrix.trans). The sum over D runs k16 slice by
+// k16 slice in one order whatever C and G, and an output element depends
+// only on its own row of x, so row c of the output does not depend on C.
+// int8: the f32 sums of x . q take the channel's scale at the store, as in
+// the GEMV body. int4 (q * s + m is an f32 value, so it is never rounded
+// to bf16): the k16 slices of one group sum x . q exactly on the tensor
+// cores into a second accumulator, folded in once the group is done as
+// acc += s * (x . q) + m * (sum of x over the group), the group's sum of x
+// taken on the tensor cores too, as x . 1. The group (32, 64 or 128) is a
+// template parameter, so it divides BK or BK divides it.
+template <int FMT, int BK, int BN, int GROUP>
+__global__ void __launch_bounds__(THREADS)
+gmm_tc(Args a) {
+    using L = Layout<FMT, BK, BN>;
+    constexpr int LDX = L::LDX, LDW = L::LDW, WN = BN / 4, NT = WN / 8, KS = BK / 16;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int g = blockIdx.z, c0 = blockIdx.y * BM, f0 = blockIdx.x * BN;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane >> 2, t4 = lane & 3;
+    const int wm = warp / 4, wn = warp % 4;
+    const int C = a.C, D = a.D, F = a.F;
+    const int slot = a.lut[g];
+    const bf16* X = a.x + (size_t)g * C * D;
+    const int nk = (D + BK - 1) / BK;
+    // int4: columns of one group segment within a step, and segments per step
+    constexpr int SEG = FMT == INT4 ? (GROUP < BK ? GROUP : BK) : BK, NSEG = BK / SEG;
+
+    auto stage_ptr = [&](int st) { return smem + st * L::STAGE; };
+    auto load_stage = [&](int st, int kt) {
+        unsigned char* base = stage_ptr(st);
+        const int k0 = kt * BK;
+        bf16* xs = reinterpret_cast<bf16*>(base);
+        for (int i = tid; i < BM * (BK / 8); i += THREADS) {          // x: 8 columns a copy
+            const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+            const bool ok = c0 + r < C && k0 + c < D;
+            cp_async16(xs + r * LDX + c, X + (ok ? (size_t)(c0 + r) * D + k0 + c : 0), ok);
+        }
+        unsigned char* ws = base + L::X;
+        if constexpr (FMT == BF16) {
+            const bf16* W = static_cast<const bf16*>(a.w) + (size_t)slot * D * F;
+            for (int i = tid; i < BK * (BN / 8); i += THREADS) {
+                const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+                const bool ok = k0 + r < D && f0 + c < F;
+                cp_async16(reinterpret_cast<bf16*>(ws) + r * LDW + c,
+                           W + (ok ? (size_t)(k0 + r) * F + f0 + c : 0), ok);
+            }
+        } else {
+            // raw bytes: int8 rows of BN bytes, int4 packed rows (2 rows of D each)
+            const int rows = FMT == INT8 ? BK : BK / 2, r0 = FMT == INT8 ? k0 : k0 / 2;
+            const int R = FMT == INT8 ? D : D / 2;
+            const uint8_t* W = static_cast<const uint8_t*>(a.w) + (size_t)slot * R * F;
+            for (int i = tid; i < rows * (BN / 16); i += THREADS) {
+                const int r = i / (BN / 16), c = (i % (BN / 16)) * 16;
+                const bool ok = r0 + r < R && f0 + c < F;
+                cp_async16(ws + r * BN + c, W + (ok ? (size_t)(r0 + r) * F + f0 + c : 0), ok);
+            }
+            if constexpr (FMT == INT4) {             // the scale and min rows of the step's groups
+                __half* ps = reinterpret_cast<__half*>(base + L::X + L::W);
+                const int NG = D / GROUP, g0 = k0 / GROUP;
+                const size_t off = (size_t)slot * NG * F;
+                for (int i = tid; i < 2 * NSEG * (BN / 8); i += THREADS) {
+                    const int plane = i / (NSEG * (BN / 8)), j = i % (NSEG * (BN / 8));
+                    const int r = j / (BN / 8), c = (j % (BN / 8)) * 8, gi = g0 + r;
+                    const bool ok = gi < NG && f0 + c < F;
+                    const __half* src = plane ? a.m4 : a.s4;
+                    cp_async16(ps + (plane * L::NGS_MAX + r) * BN + c,
+                               src + (ok ? off + (size_t)gi * F + f0 + c : 0), ok);
+                }
+            }
+        }
+    };
+
+    // int4: the group's x . q and sum of x (x . 1, all columns alike) so far
+    float acc[2][NT][4], part[2][NT][4], xsum[2][4];
+    constexpr uint32_t ONES = 0x3F803F80u;            // two bf16 1.0
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+    if constexpr (FMT == INT4) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) part[i][n][e] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) xsum[i][0] = xsum[i][1] = xsum[i][2] = xsum[i][3] = 0.f;
+    }
+    bf16* wb = reinterpret_cast<bf16*>(smem + STAGES * L::STAGE);     // converted weights
+    const bool rows_live[2] = {c0 + wm * 32 < C, c0 + wm * 32 + 16 < C};
+    // int4: a finished group's x . q and sum of x wait in ``part`` and
+    // ``xsum`` with its scales and mins in registers, and are folded in as
+    // the next group starts (or at the end), so the fold does not wait on
+    // the products just issued
+    __half2 pend_s[NT], pend_m[NT];
+    bool pending = false;
+    auto fold = [&]() {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const float2 sv = __half22float2(pend_s[n]), mv = __half22float2(pend_m[n]);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float sc = e & 1 ? sv.y : sv.x, m = e & 1 ? mv.y : mv.x;
+                    acc[i][n][e] = __fmaf_rn(sc, part[i][n][e], acc[i][n][e]);
+                    acc[i][n][e] = __fmaf_rn(m, xsum[i][e & 2], acc[i][n][e]);
+                    part[i][n][e] = 0.f;
+                }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) xsum[i][0] = xsum[i][1] = xsum[i][2] = xsum[i][3] = 0.f;
+        pending = false;
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nk) load_stage(s, s);
+        cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<STAGES - 2>();                  // step kt has landed
+        __syncthreads();                              // and every warp is done with step kt - 1
+        if (kt + STAGES - 1 < nk) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+        cp_async_commit();
+        const unsigned char* base = stage_ptr(kt % STAGES);
+        const bf16* xs = reinterpret_cast<const bf16*>(base);
+        const int k0 = kt * BK;
+        if constexpr (FMT != BF16) {
+            // raw bytes -> exact bf16 integers (int8: |q| <= 128; int4: 0..15)
+            const uint8_t* raw = base + L::X;
+            if constexpr (FMT == INT8) {
+                for (int i = tid; i < BK * (BN / 16); i += THREADS) {
+                    const int r = i / (BN / 16), c = (i % (BN / 16)) * 16;
+                    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * BN + c);
+                    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+                    uint32_t o[8];
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const uint32_t word = wd[j / 2] ^ 0x80808080u;
+                        o[j] = pack_bf16(byte_as_float(word, (j % 2) * 2, S8_BIAS),
+                                         byte_as_float(word, (j % 2) * 2 + 1, S8_BIAS));
+                    }
+                    uint4* dst = reinterpret_cast<uint4*>(wb + r * LDW + c);
+                    dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+                    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+                }
+            } else {
+                for (int i = tid; i < BK / 2 * (BN / 16); i += THREADS) {
+                    const int p = i / (BN / 16), c = (i % (BN / 16)) * 16;
+                    const uint4 v = *reinterpret_cast<const uint4*>(raw + p * BN + c);
+                    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+                    uint32_t lo[8], hi[8];
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) nibbles_bf16(wd[j / 2], (j % 2) * 2, lo[j], hi[j]);
+                    uint4* d0 = reinterpret_cast<uint4*>(wb + (2 * p) * LDW + c);
+                    uint4* d1 = reinterpret_cast<uint4*>(wb + (2 * p + 1) * LDW + c);
+                    d0[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+                    d0[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+                    d1[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+                    d1[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+                }
+            }
+            __syncthreads();
+        }
+        const bf16* wt = FMT == BF16 ? reinterpret_cast<const bf16*>(base + L::X) : wb;
+        const __half* ps = reinterpret_cast<const __half*>(base + L::X + L::W);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+            if (k0 + kk * 16 >= D) break;
+            if constexpr (FMT == INT4)
+                if (pending) fold();                        // the last group, before the next
+            uint32_t af[2][4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+                if (rows_live[i]) {
+                    ldmatrix_x4(af[i], xs + (wm * 32 + i * 16 + (lane & 15)) * LDX + kk * 16
+                                           + (lane >> 4) * 8);
+                }
+#pragma unroll
+            for (int nn = 0; nn < WN / 16; ++nn) {
+                uint32_t bq[4];
+                ldmatrix_x4_trans(bq, wt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDW
+                                          + wn * WN + nn * 16 + (lane >> 4) * 8);
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    if (!rows_live[i]) continue;
+                    if constexpr (FMT == INT4) {
+                        mma(part[i][2 * nn], af[i], bq[0], bq[1]);
+                        mma(part[i][2 * nn + 1], af[i], bq[2], bq[3]);
+                    } else {
+                        mma(acc[i][2 * nn], af[i], bq[0], bq[1]);
+                        mma(acc[i][2 * nn + 1], af[i], bq[2], bq[3]);
+                    }
+                }
+            }
+            if constexpr (FMT == INT4) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    if (rows_live[i]) mma(xsum[i], af[i], ONES, ONES);
+                if ((k0 + kk * 16 + 16) % GROUP == 0) {         // the group ends: keep its planes
+                    const int jj = kk * 16 / SEG;
+#pragma unroll
+                    for (int n = 0; n < NT; ++n) {
+                        const int col = wn * WN + n * 8 + 2 * t4;
+                        pend_s[n] = *reinterpret_cast<const __half2*>(ps + jj * BN + col);
+                        pend_m[n] = *reinterpret_cast<const __half2*>(ps + (L::NGS_MAX + jj) * BN + col);
+                    }
+                    pending = true;
+                }
+            }
+        }
+    }
+    if constexpr (FMT == INT4)
+        if (pending) fold();
+    cp_async_wait<0>();
+
+    // the store: c0/c1 are row gq, c2/c3 row gq + 8; columns 2 * t4 + {0, 1}
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = c0 + wm * 32 + i * 16 + gq + (e >> 1) * 8;
+                const int f = f0 + wn * WN + n * 8 + 2 * t4 + (e & 1);
+                if (c >= C || f >= F) continue;
+                const size_t o = ((size_t)g * C + c) * F + f;
+                if constexpr (FMT == BF16) static_cast<bf16*>(a.out)[o] = __float2bfloat16_rn(acc[i][n][e]);
+                else if constexpr (FMT == INT8)
+                    static_cast<float*>(a.out)[o] = acc[i][n][e] * a.scale8[(size_t)slot * F + f];
+                else static_cast<float*>(a.out)[o] = acc[i][n][e];
+            }
+}
+
+// The plan's checks for the tensor-core body: whole 16-byte copies of x rows
+// (D % 8), of the stored rows (F x element bytes % 16) and of int4's planes,
+// and an int4 group of 32, 64 or 128 (a template parameter: the fold's
+// place in the k16 loop is then known at compile time).
+template <int FMT>
+static bool fits(int D, int F, int group, int bk) {
+    if (D % 8) return false;
+    if (FMT == BF16) return F % 8 == 0;
+    if (FMT == INT8) return F % 16 == 0;
+    return F % 16 == 0 && (group == 32 || group == 64 || group == 128) && D % group == 0;
+}
+
+template <int FMT, int BK, int BN, int GROUP>
+static int launch_body(const Args& a, int G, cudaStream_t st) {
+    using L = Layout<FMT, BK, BN>;
+    cudaError_t err = cudaFuncSetAttribute(gmm_tc<FMT, BK, BN, GROUP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((a.F + BN - 1) / BN, (a.C + BM - 1) / BM, G);
+    gmm_tc<FMT, BK, BN, GROUP><<<grid, THREADS, L::TOTAL, st>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <int FMT, int GROUP>
+static int launch_tile(const Args& a, int G, int bk, int bn, cudaStream_t st) {
+    if (bk == 32 && bn == 64) return launch_body<FMT, 32, 64, GROUP>(a, G, st);
+    if (bk == 32 && bn == 128) return launch_body<FMT, 32, 128, GROUP>(a, G, st);
+    if (bk == 64 && bn == 64) return launch_body<FMT, 64, 64, GROUP>(a, G, st);
+    if (bk == 64 && bn == 128) return launch_body<FMT, 64, 128, GROUP>(a, G, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int FMT>
+static int launch(const Args& a, int G, int bk, int bn, cudaStream_t st) {
+    if (!fits<FMT>(a.D, a.F, a.group, bk)) return (int)cudaErrorInvalidValue;
+    if constexpr (FMT != INT4) {
+        return launch_tile<FMT, 0>(a, G, bk, bn, st);
+    } else {
+        switch (a.group) {
+            case 32: return launch_tile<FMT, 32>(a, G, bk, bn, st);
+            case 64: return launch_tile<FMT, 64>(a, G, bk, bn, st);
+            case 128: return launch_tile<FMT, 128>(a, G, bk, bn, st);
+            default: return (int)cudaErrorInvalidValue;
+        }
+    }
+}
+
+}  // namespace tiled
+
 template <typename T, typename TO, typename W, int C, bool VEC>
 static cudaError_t launch_gemv_body(dim3 grid, cudaStream_t st, const void* x, W wt,
                                     const void* lut, int D, int F, int rw, void* out) {
@@ -458,19 +814,36 @@ static int launch_gemv(W wt, const void* x, const void* lut, int G, int C, int D
     return (int)cudaGetLastError();
 }
 
-template <typename T, typename TO, typename W>
-static int launch_tiled(W wt, const void* x, const void* lut, int G, int C, int D, int F,
-                        void* out, void* stream) {
+// Tiled launch: the tensor-core body where the wrapper's plan asks for it
+// (``tc``, bf16 x only, with its D step ``bk`` and N tile ``bn``), the
+// CUDA-core body otherwise. ``w``, ``p0``, ``p1``: the store and its planes
+// (int8: scale; int4: scale, min).
+template <int FMT, typename T, typename TO, typename W>
+static int launch_tiled(W wt, const void* x, const void* w, const void* p0, const void* p1,
+                        const void* lut, int G, int C, int D, int F, int group, int tc, int bk,
+                        int bn, void* out, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (tc) {
+        if constexpr (sizeof(T) == 2) {
+            const tiled::Args a{static_cast<const __nv_bfloat16*>(x), w,
+                                static_cast<const float*>(p0), static_cast<const __half*>(p0),
+                                static_cast<const __half*>(p1), static_cast<const int32_t*>(lut),
+                                out, C, D, F, group};
+            return tiled::launch<FMT>(a, G, bk, bn, st);
+        }
+        return (int)cudaErrorInvalidValue;
+    }
     const dim3 grid((F + TL_B - 1) / TL_B, (C + TL_B - 1) / TL_B, G);
-    gmm_tiled<T, TO, W><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), wt, static_cast<const int32_t*>(lut), C, D, F,
-        static_cast<TO*>(out));
+    gmm_tiled<T, TO, W><<<grid, 256, 0, st>>>(static_cast<const T*>(x), wt,
+                                               static_cast<const int32_t*>(lut), C, D, F,
+                                               static_cast<TO*>(out));
     return (int)cudaGetLastError();
 }
 
 // One C entry per body, weight format and activation type: the Python
 // wrapper picks the body (GEMV for C <= GV_MAXC, with its plan: rows per
-// warp, splits, the vector flag) and counts each body's launches on its own.
+// warp, splits, the vector flag; the tiled body with its plan: tensor cores
+// or not, D step, N tile) and counts each body's launches on its own.
 #define SLOT_GMM_ENTRIES(T, sfx)                                                         \
     extern "C" int slot_gmm_gemv_##sfx(const void* x, const void* w, const void* lut,   \
                                         int G, int C, int D, int F, int rw, int splits,   \
@@ -479,10 +852,11 @@ static int launch_tiled(W wt, const void* x, const void* lut, int G, int C, int 
         return launch_gemv<T, T>(wt, x, lut, G, C, D, F, rw, splits, vec, out, stream);  \
     }                                                                                    \
     extern "C" int slot_gmm_tiled_##sfx(const void* x, const void* w, const void* lut,  \
-                                         int G, int C, int D, int F, void* out,          \
-                                         void* stream) {                                 \
+                                         int G, int C, int D, int F, int tc, int bk,     \
+                                         int bn, void* out, void* stream) {              \
         const DenseW<T> wt{static_cast<const T*>(w), F};                                 \
-        return launch_tiled<T, T>(wt, x, lut, G, C, D, F, out, stream);                  \
+        return launch_tiled<tiled::BF16, T, T>(wt, x, w, nullptr, nullptr, lut, G, C, D, \
+                                               F, 0, tc, bk, bn, out, stream);           \
     }
 SLOT_GMM_ENTRIES(__nv_bfloat16, bf16)
 SLOT_GMM_ENTRIES(float, f32)
@@ -497,10 +871,11 @@ SLOT_GMM_ENTRIES(float, f32)
     }                                                                                    \
     extern "C" int slot_gmm_int8_tiled_##sfx(const void* x, const void* w,              \
                                               const void* scale, const void* lut, int G, \
-                                              int C, int D, int F, void* out,            \
-                                              void* stream) {                            \
+                                              int C, int D, int F, int tc, int bk, int bn, \
+                                              void* out, void* stream) {                 \
         const Int8W wt{static_cast<const int8_t*>(w), static_cast<const float*>(scale), F}; \
-        return launch_tiled<T, float>(wt, x, lut, G, C, D, F, out, stream);              \
+        return launch_tiled<tiled::INT8, T, float>(wt, x, w, scale, nullptr, lut, G, C,  \
+                                                   D, F, 0, tc, bk, bn, out, stream);    \
     }
 SLOT_GMM_INT8_ENTRIES(__nv_bfloat16, bf16)
 SLOT_GMM_INT8_ENTRIES(float, f32)
@@ -521,10 +896,11 @@ SLOT_GMM_INT8_ENTRIES(float, f32)
     extern "C" int slot_gmm_int4_tiled_##sfx(const void* x, const void* w,              \
                                               const void* scale, const void* mn,         \
                                               const void* lut, int G, int C, int D,      \
-                                              int F, int group, void* out,               \
-                                              void* stream) {                            \
+                                              int F, int group, int tc, int bk, int bn,  \
+                                              void* out, void* stream) {                 \
         INT4_STORE                                                                       \
-        return launch_tiled<T, float>(wt, x, lut, G, C, D, F, out, stream);              \
+        return launch_tiled<tiled::INT4, T, float>(wt, x, w, scale, mn, lut, G, C, D, F, \
+                                                   group, tc, bk, bn, out, stream);      \
     }
 SLOT_GMM_INT4_ENTRIES(__nv_bfloat16, bf16)
 SLOT_GMM_INT4_ENTRIES(float, f32)

@@ -3,30 +3,68 @@
 Replaces ``repro/kernels/decode_attention.py:decode_attention`` (Pallas
 ``_decode_kernel``): one query token per row against the contiguous cache,
 the g query heads of a KV head scored together, per-row valid lengths,
-optional tanh soft-cap, online softmax. The KV axis is split across blocks
-in chunks of 64 positions and the partials are merged by a second kernel.
-Bound: bytes (each valid K/V element read once). Plain version:
-``kernels.ref.decode_attention_ref``.
+optional tanh soft-cap, online softmax. One launch and no workspace: the KV
+axis is cut into spans, one block each, and the spans of one (row, KV head)
+form a thread block cluster that merges its partials in span order through
+distributed shared memory. bf16 at dh 64/128/256 runs on tensor cores, the
+rest on CUDA cores. The plan (:func:`decode_plan`) reads S, dh, g and the
+type only, so a row gives the same bits whatever the batch and the other
+rows' lengths. Bound: bytes (each valid K/V element read once). Plain
+version: ``kernels.ref.decode_attention_ref``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.build import CudaKernel
 
-CHUNK = 64          # KV positions per block; csrc/decode_attention.cu:DA_CHUNK
 MAX_GROUP = 16      # query heads per KV head; csrc/decode_attention.cu:DA_MAXG
+MAX_SPLITS = 16     # spans of one cluster; DA_MAXSPLITS (non-portable above 8)
+TILES = (32, 64)    # positions per tile the kernel takes
+TENSOR_CORE_DH = (64, 128, 256)
 
 KERNEL = CudaKernel(
     "decode_attention", "decode_attention.cu",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-    + [ctypes.c_void_p] * 4,
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 )
 _SYMBOL = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How one (row, KV head) cuts the cache: ``splits`` blocks (one
+    cluster) of ``span`` positions each, scored ``tile`` positions at a time;
+    ``tensor_cores``: the bf16 mma body (else CUDA cores)."""
+
+    splits: int
+    tile: int
+    span: int
+    tensor_cores: bool
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(s: int, dh: int, g: int, dtype: torch.dtype) -> DecodePlan:
+    """The plan for a cache of ``s`` positions, head dim ``dh``, ``g`` query
+    heads per KV head and element type ``dtype``. It reads neither B nor a
+    row's length: a row's sum runs in the same order in every batch. Spans of
+    one tile each up to 16 splits (64 positions for bf16 on tensor cores, 32
+    on CUDA cores), longer spans past that."""
+    tensor_cores = dtype == torch.bfloat16 and dh in TENSOR_CORE_DH
+    tile = 64 if tensor_cores else 32
+    splits = min(MAX_SPLITS, _cdiv(s, tile))
+    span = _cdiv(_cdiv(s, splits), tile) * tile
+    return DecodePlan(splits=_cdiv(s, span), tile=tile, span=span, tensor_cores=tensor_cores)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def decode_attention(
@@ -49,15 +87,13 @@ def decode_attention(
         raise ValueError(f"H={h} must be a multiple of Hkv={hkv} with at most {MAX_GROUP} per group")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    g = h // hkv
-    nsplit = (s + CHUNK - 1) // CHUNK
-    dev = q.device
-    m_ws = torch.empty((b * hkv, nsplit, g), dtype=torch.float32, device=dev)
-    l_ws = torch.empty_like(m_ws)
-    acc_ws = torch.empty((b * hkv, nsplit, g, dh), dtype=torch.float32, device=dev)
+    plan = decode_plan(s, dh, h // hkv, q.dtype)
+    vec = (dh * q.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v))
     out = torch.empty_like(q)
-    KERNEL(_SYMBOL[q.dtype], dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    KERNEL(_SYMBOL[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            lengths.data_ptr(), b, h, hkv, s, dh, 1.0 / math.sqrt(dh),
            float(soft_cap) if soft_cap is not None else 0.0,
-           m_ws.data_ptr(), l_ws.data_ptr(), acc_ws.data_ptr(), out.data_ptr())
+           plan.splits, plan.tile, plan.span, int(plan.tensor_cores and vec), int(vec),
+           out.data_ptr())
     return out

@@ -21,8 +21,15 @@ Two bodies per format, each with its own launch count:
   depend on C; the kernel only checks it. Rows whose width is not a
   multiple of a lane's bytes (or a store not 16-byte aligned) take the
   same kernel's element loads: a dispatch by shape, never a retry;
-* the tiled body (64x64 tiles: the prefill walk's grouping of a prompt's
-  picks by slot).
+* the tiled body for C > 4 (the prefill walk's grouping of a prompt's picks
+  by slot). With bf16 x it runs on tensor cores (``mma.sync`` m16n8k16, f32
+  sums, a 3-stage ``cp.async`` ring; int8 and int4 weights converted to
+  exact bf16 integers in shared memory, int4's group affine folded in per
+  group as ``s * (x . q) + m * sum(x)``); f32 x, and rows that are not whole
+  16-byte copies or int4 groups other than 32, 64 and 128, take the
+  CUDA-core body. Its plan (:func:`tiled_plan`: tensor cores or not, the D
+  step, the N tile) reads neither C nor G: the sum over D runs in one order
+  whatever the batch, and row c does not depend on C.
 """
 from __future__ import annotations
 
@@ -38,19 +45,19 @@ from repro_torch.kernels.build import CudaKernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _argtypes(planes: int, gemv: bool):
+def _argtypes(planes: int):
     """x, w, the store's ``planes`` (int8: scale; int4: scale, mn), lut, G, C,
-    D, F, [group (int4),] then out (tiled) or rows_per_warp, splits, vector,
-    out."""
-    return [_P] * (3 + planes) + [_I] * (4 + (planes == 2) + 3 * gemv) + [_P]
+    D, F, [group (int4),] then rows_per_warp, splits, vector (GEMV) or
+    tensor_cores, block_k, block_n (tiled), then out."""
+    return [_P] * (3 + planes) + [_I] * (7 + (planes == 2)) + [_P]
 
 
-KERNEL = CudaKernel("slot_gmm", "moe_gmm.cu", _argtypes(0, True))
-TILED = CudaKernel("slot_gmm_tiled", "moe_gmm.cu", _argtypes(0, False))
-INT8 = CudaKernel("slot_gmm_int8", "moe_gmm.cu", _argtypes(1, True))
-INT8_TILED = CudaKernel("slot_gmm_int8_tiled", "moe_gmm.cu", _argtypes(1, False))
-INT4 = CudaKernel("slot_gmm_int4", "moe_gmm.cu", _argtypes(2, True))
-INT4_TILED = CudaKernel("slot_gmm_int4_tiled", "moe_gmm.cu", _argtypes(2, False))
+KERNEL = CudaKernel("slot_gmm", "moe_gmm.cu", _argtypes(0))
+TILED = CudaKernel("slot_gmm_tiled", "moe_gmm.cu", _argtypes(0))
+INT8 = CudaKernel("slot_gmm_int8", "moe_gmm.cu", _argtypes(1))
+INT8_TILED = CudaKernel("slot_gmm_int8_tiled", "moe_gmm.cu", _argtypes(1))
+INT4 = CudaKernel("slot_gmm_int4", "moe_gmm.cu", _argtypes(2))
+INT4_TILED = CudaKernel("slot_gmm_int4_tiled", "moe_gmm.cu", _argtypes(2))
 GEMV_MAX_C = 4                      # GV_MAXC in csrc/moe_gmm.cu
 GEMV_WARPS = 8                      # GV_WARPS: runs of rows per block
 GEMV_MAX_SPLITS = 8                 # GV_MAXSPLITS: the blocks of one (portable) cluster
@@ -92,6 +99,43 @@ def gemv_plan(d: int, f: int, w_dtype: torch.dtype) -> GemvPlan:
     rw = max(run, _cdiv(rows, GEMV_WARPS * GEMV_MAX_SPLITS))
     return GemvPlan(rows_per_warp=rw, splits=_cdiv(rows, GEMV_WARPS * rw),
                     vector=(f * elem) % (8 if quant else 16) == 0)
+
+
+@dataclass(frozen=True)
+class TiledPlan:
+    """How the tiled body cuts one group's work: 64 rows of x by
+    ``block_n`` columns per block, D in steps of ``block_k``, on tensor cores
+    (``tensor_cores``) or on CUDA cores (64 x 64 tiles, D in steps of 32)."""
+
+    tensor_cores: bool
+    block_k: int = 0
+    block_n: int = 0
+
+
+# (D step, N tile) per store format, from tools/torch_kernel_sweep.py at the
+# prefill shape (csrc/moe_gmm.cu tiled::launch_tile takes 32 or 64 by 64 or
+# 128): int4's second accumulator makes 128 columns a warp too many registers
+# for two blocks per SM
+TILED_TILE = {torch.bfloat16: (32, 128), torch.int8: (64, 128), torch.uint8: (64, 64)}
+TILED_INT4_GROUPS = (32, 64, 128)   # int4 groups of the tensor-core body (a template parameter)
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_plan(d: int, f: int, x_dtype: torch.dtype, w_dtype: torch.dtype,
+               group: int = 0) -> TiledPlan:
+    """The tiled body's plan for depth ``d``, width ``f``, x of ``x_dtype``,
+    a store of ``w_dtype`` (uint8: packed int4 with groups of ``group``). It
+    reads neither C nor G. Tensor cores take bf16 x with whole 16-byte
+    copies of x's rows (D % 8) and of the stored rows (F % 8 for bf16, F % 16
+    for int8 and int4), and int4 groups of 32, 64 or 128 (``s * (x . q)``
+    per group needs the group in whole k16 slices of whole steps or whole
+    runs of steps; the kernel knows the group at compile time)."""
+    if x_dtype != torch.bfloat16 or w_dtype not in TILED_TILE or d % 8:
+        return TiledPlan(False)
+    per_copy = 8 if w_dtype == torch.bfloat16 else 16      # stored elements in 16 bytes
+    if f % per_copy or (w_dtype == torch.uint8 and group not in TILED_INT4_GROUPS):
+        return TiledPlan(False)
+    return TiledPlan(True, *TILED_TILE[w_dtype])
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -165,5 +209,9 @@ def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
             gemv(f"{stem}_gemv_{symbol}", x.device, *lead, plan.rows_per_warp, plan.splits,
                  int(plan.vector and aligned), out.data_ptr())
         else:
-            tiled(f"{stem}_tiled_{symbol}", x.device, *lead, out.data_ptr())
+            plan = tiled_plan(d, f, x.dtype, w.dtype, group)
+            aligned = all(p % 16 == 0 for p in (x.data_ptr(), w.data_ptr(), *ptrs))
+            tc = plan.tensor_cores and aligned
+            tiled(f"{stem}_tiled_{symbol}", x.device, *lead, int(tc),
+                  plan.block_k if tc else 0, plan.block_n if tc else 0, out.data_ptr())
     return out

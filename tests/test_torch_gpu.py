@@ -324,3 +324,140 @@ def test_quantized_engine_on_card_matches_cpu(card, quantization):
     counts = out["cuda"][1]
     assert counts[f"slot_gmm_{quantization}"] > 0 and counts[f"slot_gmm_{quantization}_tiled"] > 0
     assert counts["slot_gmm"] == counts["slot_gmm_tiled"] == 0
+
+
+def _decode_inputs(b, s, h, hkv, dh, dtype, device, seed=0):
+    return (_randn((b, h, dh), dtype, seed, device), _randn((b, s, hkv, dh), dtype, seed + 1, device),
+            _randn((b, s, hkv, dh), dtype, seed + 2, device))
+
+
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 576, 1024])
+def test_decode_attention_at_the_main_path_shape(card, length, soft_cap):
+    """K2 at the decode shape (32 heads on 4 KV heads, dh 128, S 1024, bf16)
+    at lengths on and beside the 64-position spans: one launch, the plain
+    version's values at the bf16 tolerance."""
+    from repro_torch.kernels import decode_attention as dec
+
+    q, k, v = _decode_inputs(1, 1024, 32, 4, 128, torch.bfloat16, card)
+    lengths = torch.tensor([length], dtype=torch.int32, device=card)
+    ops.reset_launch_counts()
+    out = dec.decode_attention(q, k, v, lengths, soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 1
+    exp = ref.decode_attention_ref(q, k, v, lengths, soft_cap=soft_cap)
+    torch.testing.assert_close(out.float(), exp.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("g", [1, 8, 16])
+def test_decode_attention_groups_head_dims_and_types(card, g, dh, dtype):
+    """K2 at g = 1 (MHA: one n8 fragment padded with zero heads), 8 (one
+    fragment) and 16 (two), dh 64 and 128, bf16 (tensor cores) and f32
+    (CUDA cores), two rows of different lengths."""
+    from repro_torch.kernels import decode_attention as dec
+
+    hkv = 2
+    q, k, v = _decode_inputs(2, 300, g * hkv, hkv, dh, dtype, card)
+    lengths = torch.tensor([300, 77], dtype=torch.int32, device=card)
+    for cap in (None, 20.0):
+        out = dec.decode_attention(q, k, v, lengths, soft_cap=cap)
+        torch.cuda.synchronize()
+        exp = ref.decode_attention_ref(q, k, v, lengths, soft_cap=cap)
+        torch.testing.assert_close(out.float(), exp.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_is_bitwise_stable_and_batch_invariant(card, dtype):
+    """The plan reads S, dh, g and the type only and the merge runs in span
+    order: two launches give the same bits, and row b of a B = 3 launch with
+    lengths (1, 300, 1024) equals that row launched alone."""
+    from repro_torch.kernels import decode_attention as dec
+
+    q, k, v = _decode_inputs(3, 1024, 32, 4, 128, dtype, card)
+    lengths = torch.tensor([1, 300, 1024], dtype=torch.int32, device=card)
+    first = dec.decode_attention(q, k, v, lengths)
+    again = dec.decode_attention(q, k, v, lengths)
+    alone = [dec.decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], lengths[i:i + 1])
+             for i in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for i in range(3):
+        assert torch.equal(first[i:i + 1], alone[i])
+
+
+def _tiled_store(kind, d, f, device, group=64):
+    if kind == "bf16":
+        w = _randn((7, d, f), torch.bfloat16, 1, device, scale=d ** -0.5)
+        w[6] = 0
+        return w, None, None
+    return _quant_store(kind, 7, d, f, group, device, 1)
+
+
+@pytest.mark.parametrize("c", [5, 33, 64, 65, 200])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_slot_gmm_tiled_tensor_core_body(card, kind, c):
+    """K1's tiled body on tensor cores at C on and beside the 64-row tiles,
+    one LUT entry on the MISS slot (exact zeros): bf16 out at the bf16
+    tolerance, int8/int4 f32 out at 1e-4 + 1e-4."""
+    from repro_torch.kernels import moe_gmm as gmm
+
+    d, f = 768, 384
+    x = _randn((4, c, d), torch.bfloat16, 0, card)
+    w, scale, mn = _tiled_store(kind, d, f, card)
+    lut = torch.tensor([3, 6, 0, 5], dtype=torch.int32, device=card)
+    assert gmm.tiled_plan(d, f, torch.bfloat16, w.dtype, 64 if kind == "int4" else 0).tensor_cores
+    ops.reset_launch_counts()
+    out = ops.slot_gmm(x, w, lut, scale, mn)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["slot_gmm" + ("" if kind == "bf16" else f"_{kind}") + "_tiled"] == 1
+    tol = TOL[torch.bfloat16] if kind == "bf16" else dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out.float(), ref.slot_gmm_ref(x, w, lut, scale, mn).float(), **tol)
+    assert not out[1].float().abs().sum()
+
+
+@pytest.mark.parametrize("group", [32, 64, 128])
+def test_slot_gmm_tiled_int4_groups(card, group):
+    """int4 groups shorter than the D step (32), equal to it (64) and longer
+    (128, folded in every second step), against the plain version at the
+    f32 tolerance."""
+    d, f = 1024, 256
+    x = _randn((3, 70, d), torch.bfloat16, 0, card)
+    w, scale, mn = _tiled_store("int4", d, f, card, group)
+    lut = torch.tensor([2, 6, 4], dtype=torch.int32, device=card)
+    out = ops.slot_gmm(x, w, lut, scale, mn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.slot_gmm_ref(x, w, lut, scale, mn), atol=1e-4, rtol=1e-4)
+    assert not out[1].abs().sum()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_slot_gmm_tiled_is_bitwise_stable_and_independent_of_c(card, kind):
+    """The sum over D runs in one order whatever C: row c of the output has
+    the same bits at C = 5, 33, 64, 65 and 200, and two launches agree."""
+    d, f = 768, 384
+    x = _randn((3, 200, d), torch.bfloat16, 0, card)
+    w, scale, mn = _tiled_store(kind, d, f, card)
+    lut = torch.tensor([0, 4, 6], dtype=torch.int32, device=card)
+    full = ops.slot_gmm(x, w, lut, scale, mn)
+    again = ops.slot_gmm(x, w, lut, scale, mn)
+    parts = {c: ops.slot_gmm(x[:, :c].contiguous(), w, lut, scale, mn) for c in (5, 33, 64, 65)}
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    for c, out in parts.items():
+        assert torch.equal(out, full[:, :c]), c
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 18), (torch.bfloat16, 36)])
+def test_decode_attention_element_loads(card, dtype, dh):
+    """Rows that are not whole 16-byte copies (72 bytes) take the CUDA-core
+    body with element loads into the same ring, against the plain version."""
+    from repro_torch.kernels import decode_attention as dec
+
+    q, k, v = _decode_inputs(2, 200, 8, 2, dh, dtype, card)
+    lengths = torch.tensor([200, 9], dtype=torch.int32, device=card)
+    out = dec.decode_attention(q, k, v, lengths, soft_cap=20.0)
+    torch.cuda.synchronize()
+    exp = ref.decode_attention_ref(q, k, v, lengths, soft_cap=20.0)
+    torch.testing.assert_close(out.float(), exp.float(), **TOL[dtype])

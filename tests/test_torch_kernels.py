@@ -222,3 +222,85 @@ def test_gemv_plan_reaches_4096_stored_rows(d, w_dtype, fits):
     assert (plan.rows_per_warp <= 64) is fits
     assert plan.splits == tgmm.GEMV_MAX_SPLITS
     assert plan.splits * tgmm.GEMV_WARPS * plan.rows_per_warp >= rows
+
+
+_DECODE_SHAPES = [
+    (1024, 128, 8, torch.bfloat16), (4096, 128, 8, torch.bfloat16),   # main path; 4x longer
+    (1024, 128, 8, torch.float32), (256, 64, 4, torch.bfloat16), (300, 64, 1, torch.float32),
+    (64, 128, 16, torch.bfloat16), (1, 16, 2, torch.float32), (1000, 80, 4, torch.bfloat16),
+    (65, 256, 8, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("s,dh,g,dtype", _DECODE_SHAPES)
+def test_decode_plan_covers_every_position_once_whatever_the_batch(s, dh, g, dtype):
+    """K2's plan: ``splits`` spans of ``span`` positions (whole tiles) cover
+    the cache's S positions, each position in exactly one span and no span
+    wholly past S, in one cluster of at most 16 (the launcher's check); the
+    plan takes S, dh, g and the type only, never B or a row's length, so a
+    row's softmax and merge run in one order in every batch."""
+    assert list(inspect.signature(tdec.decode_plan).parameters) == ["s", "dh", "g", "dtype"]
+    plan = tdec.decode_plan(s, dh, g, dtype)
+    assert 1 <= plan.splits <= tdec.MAX_SPLITS and plan.tile in tdec.TILES
+    assert plan.span % plan.tile == 0
+    owner = np.full(s, -1)
+    for k in range(plan.splits):
+        lo, hi = k * plan.span, min(s, (k + 1) * plan.span)
+        assert lo < hi
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = k
+    assert (owner >= 0).all()
+    assert plan.tensor_cores == (dtype == torch.bfloat16 and dh in tdec.TENSOR_CORE_DH)
+
+
+def test_decode_plan_at_the_main_path_shape():
+    """At the decode shape (S 1024, dh 128, 8 heads per KV head, bf16) the
+    cache is cut into 16 spans of one 64-position tile on tensor cores: 64
+    blocks at batch 1, where the parent's two launches had 36 working."""
+    plan = tdec.decode_plan(1024, 128, 8, torch.bfloat16)
+    assert (plan.splits, plan.tile, plan.span, plan.tensor_cores) == (16, 64, 64, True)
+
+
+_TILED_SHAPES = [
+    (2048, 768, torch.bfloat16, torch.bfloat16, 0, True),     # prefill gate/up
+    (768, 2048, torch.bfloat16, torch.bfloat16, 0, True),     # prefill down
+    (2048, 768, torch.bfloat16, torch.int8, 0, True),
+    (2048, 768, torch.bfloat16, torch.uint8, 64, True),
+    (768, 2048, torch.bfloat16, torch.uint8, 32, True),
+    (1024, 256, torch.bfloat16, torch.uint8, 128, True),
+    (2048, 768, torch.float32, torch.float32, 0, False),      # f32 keeps CUDA cores
+    (2048, 768, torch.float32, torch.int8, 0, False),
+    (200, 72, torch.bfloat16, torch.int8, 0, False),          # int8 rows not whole 16 bytes
+    (96, 33, torch.bfloat16, torch.bfloat16, 0, False),       # odd F
+    (132, 70, torch.bfloat16, torch.uint8, 6, False),         # a group of 6
+    (960, 256, torch.bfloat16, torch.uint8, 48, False),       # 48 neither divides 64 nor is divided
+    (2048, 768, torch.bfloat16, torch.uint8, 16, False),      # a group of 16: no kernel built for it
+]
+
+
+@pytest.mark.parametrize("d,f,x_dtype,w_dtype,group,tensor_cores", _TILED_SHAPES)
+def test_tiled_plan_covers_every_row_and_column_once_whatever_c(d, f, x_dtype, w_dtype, group,
+                                                                 tensor_cores):
+    """K1's tiled plan: its blocks of 64 rows x ``block_n`` columns cover
+    every (row, column) of the output once at every C, and its D steps cover
+    D once, in one order that the plan fixes without reading C or G (so row
+    c of the output does not depend on C); int4 groups fall in whole k16
+    slices of whole steps or whole runs of steps."""
+    params = list(inspect.signature(tgmm.tiled_plan).parameters)
+    assert params == ["d", "f", "x_dtype", "w_dtype", "group"]
+    plan = tgmm.tiled_plan(d, f, x_dtype, w_dtype, group)
+    assert plan.tensor_cores is tensor_cores
+    if not tensor_cores:
+        return
+    bm, bn, bk = 64, plan.block_n, plan.block_k
+    for c in (5, 33, 64, 65, 200):
+        seen = np.zeros((c, f), np.int32)
+        for m0 in range(0, c, bm):
+            for n0 in range(0, f, bn):
+                seen[m0:m0 + bm, n0:n0 + bn] += 1
+        assert (seen == 1).all()
+    steps = [(k0, min(d, k0 + bk)) for k0 in range(0, d, bk)]
+    assert steps[0][0] == 0 and steps[-1][1] == d
+    assert all(a[1] == b[0] for a, b in zip(steps, steps[1:]))
+    if w_dtype == torch.uint8:
+        assert group in tgmm.TILED_INT4_GROUPS and (bk % group == 0 or group % bk == 0)

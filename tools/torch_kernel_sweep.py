@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Sweep the plans of two of the port's CUDA kernels on one card.
+"""Sweep the plans of the port's CUDA kernels on one card.
 
-    python3 tools/torch_kernel_sweep.py
+    python3 tools/torch_kernel_sweep.py [--only gemv,flash,host,decode,tiled]
 
 * K1's GEMV body (``slot_gmm`` with C = 1, 8 picks through the LUT, 97 slots
   cycled over 16 LUTs as in ``chip_smoke.py``) at the decode gate/up and
@@ -11,6 +11,15 @@
 * K4 (``flash_attention``, bf16, dh 128, 32 heads on 4 KV heads) at the
   prefill shape and longer prompts, beside one
   ``scaled_dot_product_attention`` call on the same inputs.
+* K2 (``decode_attention``, bf16, 32 heads on 4 KV heads, dh 128) at
+  lengths 64, 576 and 1024 of a 1024-position cache and at 4096 of 4096:
+  every plan of 4, 8 or 16 spans, tiles of 32 or 64 positions, on tensor
+  cores or CUDA cores, beside one ``scaled_dot_product_attention`` call on
+  the valid positions.
+* K1's tiled body at the prefill shape of ``chip_smoke.py`` (96 used slots,
+  50 rows each, x [96,50,2048] @ [97,2048,768]) in bf16, int8 and int4
+  (groups of 64): every tensor-core tile shape (D step 32 or 64, N tile 64
+  or 128) and the CUDA-core body.
 * The host's cost of one call of K1's bf16 GEMV at the decode gate/up
   shape, and of its parts: the wrapper (``ops.slot_gmm``), the launcher
   object with its arguments ready (``CudaKernel.__call__``), the bare
@@ -32,6 +41,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
+    import argparse
+
     import torch
     import torch.nn.functional as F
 
@@ -47,8 +58,12 @@ def main() -> int:
     from repro_torch.kernels.build import build
     from repro_torch.quant import quantize_int4_batch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="gemv,flash,host,decode,tiled",
+                    help="comma-separated parts to run")
+    only = set(ap.parse_args().only.split(","))
     print(cs.card_line(), flush=True)
-    build(["moe_gmm.cu", "flash_attention.cu"])
+    build(["moe_gmm.cu", "flash_attention.cu", "decode_attention.cu"])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -58,7 +73,7 @@ def main() -> int:
     luts = [torch.randperm(96, generator=g, device=dev)[:8].to(torch.int32) for _ in range(16)]
     cyc = iter(range(10 ** 9))
     plan_of = gmm.gemv_plan
-    for d, f in ((2048, 768), (768, 2048)):
+    for d, f in ((2048, 768), (768, 2048)) if "gemv" in only else ():
         w = randn(97, d, f, scale=d ** -0.5)
         stores = {"bf16": (w, None, None), "int8": tuple(quantize_int8_batch(w)) + (None,),
                   "int4": tuple(quantize_int4_batch(w, 64))}
@@ -81,7 +96,8 @@ def main() -> int:
                 cells.append(f"{mark}run {rw}/{splits} splits {ms:.4f}")
             print(f"gemv {kind} x [8,1,{d}] @ [97,{d},{f}]: " + ", ".join(cells) + " ms "
                   "(* the wrapper's plan)", flush=True)
-    for s, causal in ((512, True), (512, False), (1024, True), (2048, True)):
+    flash_shapes = ((512, True), (512, False), (1024, True), (2048, True))
+    for s, causal in flash_shapes if "flash" in only else ():
         q, k, v = randn(1, s, 32, 128), randn(1, s, 4, 128), randn(1, s, 4, 128)
         t = cs.device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -91,6 +107,12 @@ def main() -> int:
         print(f"flash_attention s={s} causal={causal}: {t:.4f} ms ({flops / t / 1e9:.1f} "
               f"TFLOP/s), sdpa {ts:.4f} ms ({flops / ts / 1e9:.1f} TFLOP/s)", flush=True)
 
+    if "decode" in only:
+        decode_sweep(cs, randn)
+    if "tiled" in only:
+        tiled_sweep(cs, randn, g, dev)
+    if "host" not in only:
+        return 0
     x, w, lut = randn(8, 1, 2048), randn(97, 2048, 768), luts[0]
     out = torch.empty((8, 1, 768), dtype=torch.bfloat16, device=dev)
     plan = gmm.gemv_plan(2048, 768, torch.bfloat16)
@@ -110,6 +132,78 @@ def main() -> int:
         print(f"host per call, bf16 GEMV x [8,1,2048] @ [97,2048,768], {name}: "
               f"{host_us(fn):.2f} us", flush=True)
     return 0
+
+
+def decode_sweep(cs, randn) -> None:
+    """K2's plans at the decode shape, each beside SDPA on the valid positions."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+
+    for s, length in ((1024, 64), (1024, 576), (1024, 1024), (4096, 4096)):
+        caches = [(randn(1, s, 4, 128), randn(1, s, 4, 128)) for _ in range(8)]
+        q = randn(1, 32, 128)
+        lens = torch.tensor([length], dtype=torch.int32, device=q.device)
+        lay = iter(range(10 ** 9))
+
+        def kv():
+            return caches[next(lay) % 8]
+
+        def sdpa():
+            k, v = kv()
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2),
+                enable_gqa=True)
+
+        plan_of = dec.decode_plan
+        base = plan_of(s, 128, 8, torch.bfloat16)
+        cells = []
+        for tc in (True, False):
+            for splits in (4, 8, 16):
+                for tile in (32, 64):
+                    span = -(-(-(-s // splits)) // tile) * tile
+                    plan = dec.DecodePlan(-(-s // span), tile, span, tc)
+                    dec.decode_plan = lambda *_, p=plan: p
+                    try:
+                        ms = cs.device_ms(lambda: dec.decode_attention(q, *kv(), lens))
+                    finally:
+                        dec.decode_plan = plan_of
+                    mark = "*" if plan == base else ""
+                    cells.append(f"{mark}{'tc' if tc else 'cc'} {plan.splits}x{span}/{tile} {ms:.4f}")
+        print(f"decode_attention S={s} length={length}: " + ", ".join(cells)
+              + f" ms; sdpa {cs.device_ms(sdpa):.4f} ms (* the wrapper's plan)", flush=True)
+
+
+def tiled_sweep(cs, randn, g, dev) -> None:
+    """K1's tiled body at chip_smoke's prefill grouping, every tile shape."""
+    import torch
+
+    from repro_torch.core.slots import quantize_int8_batch
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.quant import quantize_int4_batch
+
+    d, f = 2048, 768
+    w = randn(97, d, f, scale=d ** -0.5)
+    used = torch.randperm(96, generator=g, device=dev).to(torch.int32)
+    x = randn(96, 50, d)
+    stores = {"bf16": (w, None, None), "int8": tuple(quantize_int8_batch(w)) + (None,),
+              "int4": tuple(quantize_int4_batch(w, 64))}
+    for kind, (ww, sc, mn) in stores.items():
+        plan_of = gmm.tiled_plan
+        base = plan_of(d, f, torch.bfloat16, ww.dtype, 64 if kind == "int4" else 0)
+        cells = []
+        for plan in [gmm.TiledPlan(True, bk, bn) for bk in (32, 64) for bn in (64, 128)] + [
+                gmm.TiledPlan(False)]:
+            gmm.tiled_plan = lambda *_, p=plan: p
+            try:
+                ms = cs.device_ms(lambda: gmm.slot_gmm(x, ww, used, sc, mn), 20)
+            finally:
+                gmm.tiled_plan = plan_of
+            name = f"tc k{plan.block_k} n{plan.block_n}" if plan.tensor_cores else "cuda cores"
+            cells.append(f"{'*' if plan == base else ''}{name} {ms:.4f}")
+        print(f"tiled {kind} x [96,50,{d}] @ [97,{d},{f}]: " + ", ".join(cells)
+              + " ms (* the wrapper's plan)", flush=True)
 
 
 def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
