@@ -19,7 +19,11 @@ Phases, each failing loudly (nothing is caught):
    ``device_ms`` the device time alone (the calls captured in a CUDA graph
    and replayed). The GB/s, TFLOP/s and share of the bound each kernel
    reached are printed for both. The GEMV bodies are also timed at the
-   decode down-projection;
+   decode down-projection. K3 has two entries, one kernel source and one
+   launch count: the logits-in gate (the Pallas function's counterpart)
+   and the fused router GEMM + gate that the model calls (``router_topk``),
+   held at T = 1 and 512 and timed beside its plain version, the library
+   composite and the three calls it replaced;
 4. run three paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at its
    published widths, cut to the first 8 of its 48 layers (the depth is the
    only cut: 8 layers of host warehouse are 9.7 GB, the whole model's would
@@ -31,7 +35,8 @@ Phases, each failing loudly (nothing is caught):
    Each path starts from the same random weights and frees its engine, and
    its warehouse, before the next; the kernels' launch counters are zeroed
    just before each path and read just after, and every kernel must have
-   launched on some path. A quantized path also checks that the card's
+   launched on some path; K3's fused entry must have launched on every path
+   and its logits-in entry on none (every routing site is fused). A quantized path also checks that the card's
    quantization of layer 0 equals the CPU quantizer's byte for byte, and
    that every upload shipped exactly one packed expert (2,654,208 bytes
    int4, 4,732,928 int8);
@@ -57,7 +62,11 @@ the RMS over all positions and vocabulary entries of (engine - truth) may
 exceed that of (plain bf16 - truth) by at most a factor 1.5 plus 0.01, the
 largest per-position error by at most a factor 1.5 plus 0.05, and the
 engine's greedy id must equal the truth's wherever the truth's top-2 margin
-exceeds twice the plain bf16 forward's largest error.
+exceeds twice the plain bf16 forward's largest error. K3's fused entry
+against its plain version (cuBLAS's f32 GEMM, then the plain gate): the two
+sum the router GEMM in other orders, so ids must be equal on every row whose
+plain k-th and (k+1)-th probabilities differ by more than 1e-6 and weights
+agree to 1e-5 + 1e-5; on small integers (exact sums) ids equal everywhere.
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor peak (data sheet)
+F32_FLOPS = 67e12                  # H100 SXM f32 peak outside the tensor cores (data sheet)
 LAYERS = 8
 PROMPT, NEW, REQUESTS, CACHE = 512, 64, 2, 1024
 SLOTS = 96
@@ -94,6 +104,7 @@ REPLACES = {
     "slot_gmm_int4_tiled": "src/repro/kernels/moe_gmm.py:78",
     "decode_attention": "src/repro/kernels/decode_attention.py:70",
     "topk_gate": "src/repro/kernels/topk_gate.py:81",
+    "router_topk": "src/repro/kernels/topk_gate.py:81",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
 }
 SOURCE = {
@@ -105,8 +116,12 @@ SOURCE = {
     "slot_gmm_int4_tiled": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "topk_gate": "src/repro_torch/kernels/csrc/topk_gate.cu",
+    "router_topk": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", "router_topk_")}
+ROUTE_MARGIN = 1e-6                # probability gap that a summation order cannot close
+ROUTE_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def log(msg: str) -> None:
@@ -186,8 +201,8 @@ def timed(iters: int = 50, **fns) -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -350,6 +365,8 @@ def kernel_phase(dev):
         shape="logits [1,128] f32, k=8, renormalized (decode)",
     )
 
+    rows["router_topk"] = router_rows(dev, g)
+
     # --- K4 flash_attention: B=1, S=512, H=32, Hkv=4, dh=128, causal -------
     qf, kf, vf = randn(1, PROMPT, h, dh), randn(1, PROMPT, hkv, dh), randn(1, PROMPT, hkv, dh)
     err = check_close("flash_attention", fa.flash_attention(qf, kf, vf),
@@ -378,7 +395,80 @@ def kernel_phase(dev):
             log(f"    {name} at {dn['shape']}: kernel_ms {dn['ms']:.4f} per call (wall), "
                 f"{dn['device_ms']:.4f} device; bound_ms {dn['bound_ms']:.5f} "
                 f"({dn['bound_by']}); {rate(dn)}")
+        if "prefill" in r:
+            pf = r["prefill"]
+            log(f"    {name} at {pf['shape']} (prefill): kernel_ms {pf['ms']:.4f} per call (wall), "
+                f"{pf['device_ms']:.4f} device; plain {pf['plain_ms']:.4f} / "
+                f"{pf['plain_device_ms']:.4f}; library {pf['library_ms']:.4f} / "
+                f"{pf['library_device_ms']:.4f}; bound_ms {pf['bound_ms']:.5f} ({pf['bound_by']}); "
+                f"{rate(pf)}")
+        for label, sub in (("decode", r), ("prefill", r.get("prefill"))):
+            if sub and "three_call_ms" in sub:
+                log(f"    {name} ({label}): the three calls it replaced (h2.float(), f32 GEMM, "
+                    f"logits-in gate) {sub['three_call_ms']:.4f} per call (wall), "
+                    f"{sub['three_call_device_ms']:.4f} device")
     return rows
+
+
+def router_rows(dev, g):
+    """Phase 3 for K3's fused entry (router GEMM + gate) at the main path's
+    widths (D 2048, E 128, k 8, h2 bf16): held against its plain version at
+    T = 1 and 512 (and exact ties on small integers), then timed at T = 1
+    (decode: the row) and T = 512 (prefill: ``prefill``) beside the plain
+    version, the library composite (softmax of the f32 GEMM, ``torch.topk``,
+    renormalization), the three calls it replaced (``h2.float()``, the f32
+    GEMM, the logits-in gate: ``three_call``) and the bound (bytes, or f32
+    operations at the 67 TFLOP/s peak outside the tensor cores)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_gate as tk
+
+    d, e, k = 2048, 128, 8
+    router = torch.randn((d, e), generator=g, device=dev) * d ** -0.5
+    err, inputs = 0.0, {}
+    for t in (1, PROMPT):
+        h = torch.randn((t, d), generator=g, device=dev).to(torch.bfloat16)
+        inputs[t] = h
+        ids, w = tk.router_topk(h, router, k)
+        rid, rw = ref.router_topk_ref(h, router, k)
+        probs = torch.softmax(h.float() @ router, -1).sort(dim=-1, descending=True).values
+        sure = probs[:, k - 1] - probs[:, k] > ROUTE_MARGIN
+        if not torch.equal(ids[sure], rid[sure]) or not bool(sure.any()):
+            raise AssertionError(f"router_topk T={t}: ids differ from the plain version")
+        err = max(err, check_close(f"router_topk T={t}", w, rw, **ROUTE_TOL))
+    gi = torch.Generator().manual_seed(3)                   # ties: exact sums on small integers
+    hi = torch.randint(-1, 2, (16, 64), generator=gi).float()
+    ri = torch.randint(-2, 3, (64, e), generator=gi).float()
+    dup = [1, 3, 64, 127]
+    ri[:, dup] = 2.0 * torch.sign(hi[0])[:, None]
+    hi[1] = 0.0
+    hi, ri = hi.to(dev, torch.bfloat16), ri.to(dev)
+    ids, w = tk.router_topk(hi, ri, k)
+    rid, rw = ref.router_topk_ref(hi, ri, k)
+    if not torch.equal(ids, rid) or ids[0, :4].tolist() != dup or ids[1].tolist() != list(range(k)):
+        raise AssertionError("router_topk: ties not broken lowest index first")
+    err = max(err, check_close("router_topk ties", w, rw, **ROUTE_TOL))
+
+    def measured(t, iters):
+        h = inputs[t]
+
+        def library():
+            wv, iv = torch.topk(torch.softmax(h.float() @ router, -1), k)
+            return iv, wv / wv.sum(-1, keepdim=True)
+
+        nbytes = d * e * 4 + t * d * 2 + t * k * 8
+        b_ms, b_by = bound(nbytes, 2 * t * d * e, F32_FLOPS)
+        return dict(**timed(iters, kernel=lambda: tk.router_topk(h, router, k),
+                            plain=lambda: ref.router_topk_ref(h, router, k), library=library,
+                            three_call=lambda: tk.topk_gate(h.float() @ router, k)),
+                    bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=2 * t * d * e,
+                    shape=f"h2 [{t},{d}] bf16 @ router [{d},{e}] f32, top-{k} renormalized")
+
+    row = dict(max_abs_err=err, **measured(1, 50))
+    row["shape"] += " (decode); library: softmax(h2.float() @ router) + topk + renormalization"
+    row["prefill"] = measured(PROMPT, 20)
+    return row
 
 
 def rate(r) -> str:
@@ -641,6 +731,7 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
         runs.append((prompt, toks, np.stack([l[0] for l in step_logits[:-1]]),
                      t_prefill, t_decode))
     counts = ops.launch_counts()
+    entries = ops.symbol_launch_counts()["topk_gate"]
     peak = torch.cuda.max_memory_allocated()
     st = engine.stats
     host_computed = sum(l.host_computed for l in st.layers.values())
@@ -655,7 +746,11 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
     log(f"  host weight conversion for missed experts: {st.host_dequant_s:.3f} s over "
         f"{st.host_dequant_experts} experts "
         f"({1e3 * st.host_dequant_s / max(st.host_dequant_experts, 1):.3f} ms each)")
-    log(f"  kernel launches on this path: {counts}")
+    log(f"  kernel launches on this path: {counts}; K3 by entry: {entries}")
+    fused = sum(n for sym, n in entries.items() if sym.startswith("router_topk_"))
+    if fused <= 0 or fused != counts["topk_gate"]:
+        raise AssertionError(f"{label}: K3 launched {entries}: every routing site must take the "
+                             f"fused entry")
     if quantization and st.bytes_uploaded != loads * EXPERT_BYTES[quantization]:
         raise AssertionError(f"{st.bytes_uploaded} bytes uploaded for {loads} loads: not "
                              f"{EXPERT_BYTES[quantization]} per {quantization} expert")
@@ -690,7 +785,7 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return counts
+    return counts, entries
 
 
 def main() -> int:
@@ -741,12 +836,15 @@ def main() -> int:
     full = get_config("qwen36-35b-a3b")
     cfg = dataclasses.replace(full, segments=((("attn_moe",), LAYERS),))
     counts = {name: 0 for name in ops.KERNELS}
+    entries = {}
     for label, quantization, requests, new, control in PATHS:
-        path_counts = run_path(dev, cfg, full.num_layers, label, quantization, requests, new,
-                               control)
+        path_counts, path_entries = run_path(dev, cfg, full.num_layers, label, quantization,
+                                             requests, new, control)
         for name, n in path_counts.items():
             counts[name] += n
-    log(f"  kernel launches over the three paths: {counts}")
+        for sym, n in path_entries.items():
+            entries[sym] = entries.get(sym, 0) + n
+    log(f"  kernel launches over the three paths: {counts}; K3 by entry: {entries}")
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on any path")
@@ -754,14 +852,26 @@ def main() -> int:
     # phase 6 ---------------------------------------------------------------
     kernels = []
     for name, r in rows.items():
-        kernels.append({
+        counter, prefix = ENTRY.get(name, (name, None))
+        row = {
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": counts[counter], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
-        })
+        }
+        if prefix:                # one of K3's entries: its own launches beside the kernel's
+            row["entry_launches"] = sum(n for sym, n in entries.items() if sym.startswith(prefix))
+        for key in ("three_call_ms", "three_call_device_ms"):
+            if key in r:
+                row[key] = r[key]
+        if "prefill" in r:
+            row["prefill"] = {key: r["prefill"][key] for key in (
+                "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+                "library_device_ms", "three_call_ms", "three_call_device_ms", "bound_ms",
+                "bound_by")}
+        kernels.append(row)
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -265,7 +265,7 @@ class RotaryEngine:
         for li, p_l in enumerate(self.layers):
             x_mid, h2, self.state[li] = tfm.attn_half(
                 cfg, p_l, x, "prefill", None, 0, self.rt.cache_len)
-            ids_dev, w_dev = moe_mod.topk_route(moe_mod.router_logits(p_l["moe"], h2), cfg.moe)
+            ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             self.stats.sync_pulls += 1
             self.stats.device_dispatches += 1
             ids = ids_dev.cpu().numpy()
@@ -366,7 +366,7 @@ class RotaryEngine:
         for li in range(start, self.num_moe_layers):
             p_l = self.layers[li]
             x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[li], cur_len, 0)
-            ids_dev, w_dev = moe_mod.topk_route(moe_mod.router_logits(p_l["moe"], h2), cfg.moe)
+            ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
             self.stats.device_dispatches += 2
             ids = ids_dev.cpu().numpy()

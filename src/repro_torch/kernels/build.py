@@ -14,7 +14,8 @@ shared memory, spills) per source.
 
 A kernel's Python wrapper holds a :class:`CudaKernel`: it launches on
 PyTorch's current stream, raises when the launcher returns a CUDA error, and
-counts its launches in ``launches``, a plain integer.
+counts its launches in ``launches``, a plain integer (and per launcher
+symbol in ``symbol_launches``).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Mapping, Sequence, Union
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -100,18 +101,25 @@ def load(source: str) -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One kernel's C launchers (one symbol per element type) in ``source``.
+    """One kernel's C launchers (one symbol per element type or entry) in
+    ``source``, with one launch count over all of them (``launches``) and
+    one per symbol beside it (``symbol_launches``).
 
-    ``argtypes`` lists the launcher's arguments without the trailing stream:
+    ``argtypes`` lists a launcher's arguments without the trailing stream:
     ``ctypes.c_void_p`` for every pointer, ``ctypes.c_int`` / ``c_float`` for
-    scalars (an undeclared pointer would be cut to 32 bits)."""
+    scalars (an undeclared pointer would be cut to 32 bits); a mapping gives
+    each symbol its own list."""
 
-    def __init__(self, name: str, source: str, argtypes: Sequence):
+    def __init__(self, name: str, source: str, argtypes: Union[Sequence, Mapping[str, Sequence]]):
         self.name = name
         self.source = source
-        self.argtypes = list(argtypes) + [ctypes.c_void_p]
-        self.launches = 0
+        self.argtypes = argtypes
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.symbol_launches: Dict[str, int] = {}
 
     def __call__(self, symbol: str, device, *args) -> None:
         import torch
@@ -119,7 +127,8 @@ class CudaKernel:
         fn = self._fns.get(symbol)
         if fn is None:
             fn = getattr(load(self.source), symbol)
-            fn.argtypes = self.argtypes
+            types = self.argtypes[symbol] if isinstance(self.argtypes, Mapping) else self.argtypes
+            fn.argtypes = list(types) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fns[symbol] = fn
         if device.index in (None, torch.cuda.current_device()):
@@ -131,3 +140,4 @@ class CudaKernel:
             name = load(self.source).repro_error_name(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error {rc} ({name})")
         self.launches += 1
+        self.symbol_launches[symbol] = self.symbol_launches.get(symbol, 0) + 1

@@ -46,9 +46,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def symbol_launch_counts() -> Dict[str, Dict[str, int]]:
+    """Launches per kernel and launcher symbol (an entry of a kernel that
+    has several, such as K3's ``topk_gate_f32`` and ``router_topk_*``)."""
+    return {name: dict(k.symbol_launches) for name, k in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.reset()
 
 
 def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
@@ -81,9 +87,22 @@ def decode_attention(
 def topk_gate(
     logits: torch.Tensor, k: int, *, normalize: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logits [T, E] -> (ids int32 [T, k], weights f32 [T, k]): K3's
+    logits-in entry, the counterpart of the Pallas ``topk_gate``."""
     if _on_card(logits):
         return _tk.topk_gate(logits, k, normalize=normalize)
     return ref.topk_gate_ref(logits, k, normalize=normalize)
+
+
+def router_topk(
+    h2: torch.Tensor, router: torch.Tensor, k: int, *, normalize: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topk_gate(h2.float() @ router, k)`` in one call: h2 [T, D] bf16 or
+    f32, router f32 [D, E]. On the card, K3's fused entry (one launch, the
+    logits never leave the SMs); on the CPU, the plain router GEMM and gate."""
+    if _on_card(h2):
+        return _tk.router_topk(h2, router, k, normalize=normalize)
+    return ref.router_topk_ref(h2, router, k, normalize=normalize)
 
 
 def flash_attention(

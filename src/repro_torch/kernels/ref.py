@@ -92,6 +92,18 @@ def topk_gate_ref(
     return ids_t, w_t
 
 
+def router_topk_ref(
+    h2: torch.Tensor,          # [T, D] bf16 or f32
+    router: torch.Tensor,      # [D, E] f32
+    k: int,
+    *,
+    normalize: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router GEMM in f32 (the reference's ``router_logits``), then
+    :func:`topk_gate_ref`."""
+    return topk_gate_ref(h2.float() @ router, k, normalize=normalize)
+
+
 def flash_attention_ref(
     q: torch.Tensor,           # [B, Sq, H, dh]
     k: torch.Tensor,           # [B, Skv, Hkv, dh]

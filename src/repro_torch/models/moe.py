@@ -2,7 +2,8 @@
 through the slot LUT, shared experts.
 
 The counterpart of ``repro/models/moe.py``'s ``router_logits``, ``topk_route``
-and ``moe_apply_routed``. Routing runs the top-k gate kernel (K3). The
+and ``moe_apply_routed``. Routing (``route``) runs the router GEMM and the
+top-k gate as one launch of the gate kernel's fused entry (K3). The
 routed experts run the slot-LUT grouped matmul (K1) three times (gate, up,
 down) around the SwiGLU gate, as the reference's ``moe_slot_ffn`` does,
 instead of gathering a [T, k, D, F] weight copy per token as
@@ -77,6 +78,14 @@ def _to_host(w: torch.Tensor, host_device) -> torch.Tensor:
                       pin_memory=w.device.type == "cuda")
     out.copy_(w)
     return out
+
+
+def route(p: Params, x2d: torch.Tensor, mcfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d [T, D] -> (ids [T, k] int32, weights [T, k] f32): the router GEMM
+    and the top-k gate in one call (``router_logits`` then ``topk_route``;
+    on the card one launch of K3's fused entry). Every routing site of the
+    engine (fused decode step, prefill walk, suffix replay) calls this."""
+    return ops.router_topk(x2d, p["router"], mcfg.top_k, normalize=mcfg.norm_topk_prob)
 
 
 def router_logits(p: Params, x2d: torch.Tensor) -> torch.Tensor:

@@ -118,8 +118,7 @@ def decode_model(
     for li, p in enumerate(params["layers"]):
         tel["x"].append(x.reshape(-1, d))
         x_mid, h2, _ = attn_half(cfg, p, x, "decode", state[li], cur_len, 0)
-        logits = moe_mod.router_logits(p["moe"], h2)
-        ids, weights = moe_mod.topk_route(logits, cfg.moe)
+        ids, weights = moe_mod.route(p["moe"], h2, cfg.moe)
         slots, lut = residency[li] if residency is not None else (None, None)
         y2, miss = moe_mod.moe_apply_routed(p["moe"], h2, ids, weights,
                                             slot_buffer=slots, lut=lut)

@@ -56,6 +56,135 @@ def test_topk_gate_kernel_matches_plain(card, t):
         assert ids[:, :3].tolist() == [[5, 9, 70]] * t
 
 
+@pytest.mark.parametrize("e,k", [(8, 2), (60, 4), (300, 8), (1000, 40)])
+def test_topk_gate_kernel_at_other_widths(card, e, k):
+    """The logits-in entry past the main path: a row in registers (E 8, 60),
+    in shared memory (E 300, 1000), and more than 32 picks (k 40)."""
+    x = _randn((37, e), torch.float32, e, card, scale=3.0)
+    x[:, [1, 5]] = 20.0                                    # tied on top: lowest index first
+    for normalize in (True, False):
+        ids, w = ops.topk_gate(x, k, normalize=normalize)
+        rid, rw = ref.topk_gate_ref(x, k, normalize=normalize)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, rid)
+        torch.testing.assert_close(w, rw, atol=1e-6, rtol=1e-5)
+        assert ids[:, :2].tolist() == [[1, 5]] * 37
+
+
+# K3's fused entry against its plain version (cuBLAS's f32 GEMM, then the
+# plain gate). The two sum the router GEMM in other orders, so ids must be
+# equal on every row whose plain k-th and (k+1)-th probabilities differ by
+# more than ROUTE_MARGIN, and weights agree to 1e-5 + 1e-5 (logits that
+# differ in the last bits of f32, through the softmax).
+ROUTE_MARGIN = 1e-6
+ROUTE_TOL = dict(atol=1e-5, rtol=1e-5)
+ROUTE_SHAPES = [(64, 8, 2), (2048, 128, 8), (2048, 60, 4),
+                (256, 300, 8),     # E 300: a shared-memory row
+                (100, 30, 3),      # odd D and E: element copies, no TMA
+                (8192, 128, 8),    # spans of 16 chunks: the ring of 4 stages
+                (2048, 1024, 8)]   # E 1024: one stage fits, the ring again
+
+
+def _route_inputs(t, d, e, dtype, device, seed=0):
+    return (_randn((t, d), dtype, seed, device),
+            _randn((d, e), torch.float32, seed + 1, device, scale=d ** -0.5))
+
+
+def _check_route(h, router, k, normalize, ids, w):
+    rid, rw = ref.router_topk_ref(h, router, k, normalize=normalize)
+    probs = torch.softmax(h.float() @ router, -1).sort(dim=-1, descending=True).values
+    sure = probs[:, k - 1] - probs[:, k] > ROUTE_MARGIN
+    assert sure.float().mean() > 0.5
+    assert torch.equal(ids[sure], rid[sure])
+    torch.testing.assert_close(w, rw, **ROUTE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,e,k", ROUTE_SHAPES)
+@pytest.mark.parametrize("t", [1, 2, 4, 5, 33, 512])
+def test_router_topk_kernel_matches_plain(card, t, d, e, k, dtype):
+    h, router = _route_inputs(t, d, e, dtype, card, seed=t)
+    for normalize in (True, False):
+        ops.reset_launch_counts()
+        ids, w = ops.router_topk(h, router, k, normalize=normalize)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["topk_gate"] == 1
+        assert ops.symbol_launch_counts()["topk_gate"] == {
+            "router_topk_bf16" if dtype == torch.bfloat16 else "router_topk_f32": 1}
+        assert ids.dtype == torch.int32 and tuple(ids.shape) == (t, k)
+        _check_route(h, router, k, normalize, ids, w)
+
+
+@pytest.mark.parametrize("e,k", [(8, 2), (128, 8), (60, 4)])
+def test_router_topk_kernel_breaks_ties_lowest_index_first(card, e, k):
+    """Small integers (h2 in {-1, 0, 1}, router in {-2..2}, D 64): the sums
+    are exact in any order, so the kernel's ids equal the plain version's on
+    every row. Row 0 has four equal columns on top, row 1 ties every expert."""
+    rng = np.random.default_rng(e + k)
+    h = rng.integers(-1, 2, (16, 64)).astype(np.float32)
+    router = rng.integers(-2, 3, (64, e)).astype(np.float32)
+    dup = [1, 3, e // 2, e - 1]
+    router[:, dup] = 2.0 * np.sign(h[0])[:, None]
+    h[1] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        ht = torch.from_numpy(h).to(card, dtype)
+        rt = torch.from_numpy(router).to(card)
+        for normalize in (True, False):
+            ids, w = ops.router_topk(ht, rt, k, normalize=normalize)
+            rid, rw = ref.router_topk_ref(ht, rt, k, normalize=normalize)
+            torch.cuda.synchronize()
+            assert torch.equal(ids, rid)
+            torch.testing.assert_close(w, rw, atol=1e-6, rtol=1e-5)
+            assert ids[0, :min(k, 4)].tolist() == dup[:k]
+            assert ids[1].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,e,k", ROUTE_SHAPES)
+def test_router_topk_rows_are_bitwise_invariant(card, d, e, k, dtype):
+    """The plan reads D and E only and a row's sums run in one order: row t
+    has the same ids and weights bits at T = 1, 5 and 512, under another row
+    tile, with E split into tiles (the sweep's variant), and on two launches."""
+    from repro_torch.kernels import topk_gate as tk
+
+    h, router = _route_inputs(512, d, e, dtype, card, seed=7)
+    full = tk.router_topk(h, router, k)
+    again = tk.router_topk(h, router, k)
+    five = tk.router_topk(h[:5].contiguous(), router, k)
+    one = [tk.router_topk(h[i:i + 1].contiguous(), router, k) for i in (0, 3, 511)]
+    plan = tk.router_plan(d, e)
+    groups = tk.ROUTER_THREADS // (-(-e // 4))              # row groups of 4 columns a block holds
+    other_tile = tk.router_topk(h, router, k, tile=(2, 4, 2 * min(3, groups)))
+    ecols = -(-e // 16) * 4
+    esplit = tk.router_topk(h, router, k, plan=dataclasses.replace(
+        plan, etiles=-(-e // ecols), ecols=ecols))
+    torch.cuda.synchronize()
+    for got in (again, other_tile, esplit):
+        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    assert torch.equal(five[0], full[0][:5]) and torch.equal(five[1], full[1][:5])
+    for i, got in zip((0, 3, 511), one):
+        assert torch.equal(got[0], full[0][i:i + 1]) and torch.equal(got[1], full[1][i:i + 1])
+    _check_route(h, router, k, True, *full)
+
+
+def test_router_topk_refuses_what_it_does_not_take(card):
+    h, router = _route_inputs(4, 64, 8, torch.float32, card)
+    with pytest.raises(ValueError):
+        ops.router_topk(h.half(), router, 2)                      # f16 h2
+    with pytest.raises(ValueError):
+        ops.router_topk(h, router.to(torch.bfloat16), 2)          # a bf16 router
+    with pytest.raises(ValueError):
+        ops.router_topk(h.t().contiguous().t(), router, 2)        # not contiguous
+    with pytest.raises(ValueError):
+        ops.router_topk(h, router[:32], 2)                        # D differs
+    with pytest.raises(ValueError):
+        ops.router_topk(h, router, 9)                             # k > E
+    with pytest.raises(ValueError):
+        ops.router_topk(h, router.cpu(), 2)                       # another device
+    with pytest.raises(ValueError):
+        ops.router_topk(h[:, :64], torch.zeros((64, 1100), device=card), 2)   # E past 1024
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("g,c,d,f", [(8, 1, 256, 96), (5, 3, 130, 70), (4, 40, 200, 72)])
 def test_slot_gmm_kernel_matches_plain(card, dtype, g, c, d, f):

@@ -20,6 +20,7 @@ from repro.kernels import flash_attention as jfa
 from repro.kernels import moe_gmm as jgmm
 from repro.kernels import topk_gate as jtk
 from repro.models import attention as jattn
+from repro.models import moe as jmoe
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm as tgmm
@@ -92,6 +93,112 @@ def test_topk_gate_plain_matches_pallas_and_lax_top_k_on_ties():
             _close(w, want_w, F32)
         assert ids.dtype == torch.int32
         assert ids[4].tolist() == [0, 1, 2, 3]
+
+
+ROUTE_MARGIN = 1e-6       # probability gap that a summation order cannot close
+
+
+def _softmax(x):
+    z = np.exp(x - x.max(-1, keepdims=True))
+    return z / z.sum(-1, keepdims=True)
+
+
+def _reference_route(h, router, k, normalize):
+    """The reference's routing on the CPU: ``router_logits``, then the Pallas
+    gate (interpret mode) and the main path's ``route_topk``."""
+    logits = jmoe.router_logits({"router": jnp.asarray(router)}, jnp.asarray(h))
+    return logits, [jtk.topk_gate(logits, k, normalize=normalize, interpret=True),
+                    jtk.route_topk(logits, k, normalize=normalize)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("d,e,k", [(64, 8, 2), (2048, 128, 8), (2048, 60, 4)])
+def test_router_topk_plain_matches_jax_router_and_pallas_gate(d, e, k, normalize, dtype):
+    """K3's fused entry on the CPU (``ops.router_topk``: the plain router GEMM
+    and gate) against ``router_logits`` + the Pallas gate and ``route_topk``
+    on seeded random inputs. XLA-CPU and torch-CPU sum the GEMM in other
+    orders, so ids must be equal on every row whose k-th and (k+1)-th
+    probabilities differ by more than ROUTE_MARGIN; weights to 1e-5 + 1e-5."""
+    t = 24
+    hj, ht = _pair(_np((t, d), 7), dtype)
+    router = _np((d, e), 8, d ** -0.5)
+    ids, w = ops.router_topk(ht, torch.from_numpy(router), k, normalize=normalize)
+    assert ids.dtype == torch.int32 and w.dtype == torch.float32
+    logits, wants = _reference_route(hj, router, k, normalize)
+    probs = -np.sort(-_softmax(np.asarray(logits, np.float64)), axis=-1)
+    sure = probs[:, k - 1] - probs[:, k] > ROUTE_MARGIN
+    assert sure.sum() >= t // 2
+    for want_ids, want_w in wants:
+        np.testing.assert_array_equal(ids.numpy()[sure], np.asarray(want_ids)[sure])
+        _close(w, want_w, F32)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("e,k", [(8, 2), (128, 8), (60, 4)])
+def test_router_topk_plain_breaks_exact_ties_as_the_reference(e, k, normalize):
+    """Small integers (h2 in {-1, 0, 1}, router in {-2..2}, D = 64): every
+    partial sum is exact in f32 in any order, so duplicated router columns
+    tie exactly in both frameworks and ids must be equal on EVERY row. Row 0
+    puts four equal columns on top, row 1 ties every expert."""
+    rng = np.random.default_rng(e + k)
+    d, t = 64, 16
+    h = rng.integers(-1, 2, (t, d)).astype(np.float32)
+    router = rng.integers(-2, 3, (d, e)).astype(np.float32)
+    dup = [1, 3, e // 2, e - 1]
+    router[:, dup] = 2.0 * np.sign(h[0])[:, None]          # row 0: these four win, tied
+    h[1] = 0.0                                              # row 1: all logits 0
+    ids, w = ops.router_topk(torch.from_numpy(h), torch.from_numpy(router), k,
+                             normalize=normalize)
+    _, wants = _reference_route(h, router, k, normalize)
+    for want_ids, want_w in wants:
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+        _close(w, want_w, F32)
+    assert ids[0, :min(k, 4)].tolist() == dup[:k]
+    assert ids[1].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("d,e", [(2048, 128), (2048, 60), (64, 8), (100, 7), (8192, 256),
+                                 (32, 1024)])
+def test_router_plan_covers_d_once_and_tiles_fit_a_block(d, e):
+    """The fused entry's plan (from D and E only): at most 16 spans (one
+    cluster) of whole 32-row chunks cover D, none wholly past it; every row
+    tile is R-row groups of 4 columns that 256 threads hold."""
+    plan = ttk.router_plan(d, e)
+    assert 1 <= plan.splits <= 16 and plan.span % 32 == 0
+    assert (plan.splits - 1) * plan.span < d <= plan.splits * plan.span
+    assert (plan.etiles, plan.ecols) == (1, e)
+    for t in (1, 2, 3, 4, 5, 15, 16, 33, 64, 512, 1000):
+        r, cv, rows = ttk.router_tile(t, e)
+        assert (r, cv) in ((1, 1), (2, 1), (1, 4), (2, 4), (4, 4)) and rows % r == 0
+        assert (rows // r) * (-(-e // 4) * 4 // cv) <= 256
+        assert rows >= min(t, r)
+
+
+def test_router_plan_at_the_main_path_shape():
+    """qwen36-35b-a3b (D 2048, E 128): 16 spans of 128 rows in one cluster;
+    decode takes one column a thread, prefill 32-row tiles of 4 x 4 a
+    thread (16 x 16 blocks)."""
+    assert ttk.router_plan(2048, 128) == ttk.RouterPlan(16, 128, 1, 128)
+    assert ttk.router_tile(1, 128) == (1, 1, 1)
+    assert ttk.router_tile(512, 128) == (4, 4, 32)
+
+
+def test_router_topk_cpu_path_counts_nothing_and_the_kernel_refuses_cpu_tensors():
+    """``ops.router_topk`` sends a CPU tensor to the plain version (the
+    reference's bits: router GEMM then ``topk_gate_ref``) and counts nothing;
+    the fused wrapper itself launches or raises."""
+    ops.reset_launch_counts()
+    h, r = torch.from_numpy(_np((5, 16), 0)), torch.from_numpy(_np((16, 8), 1))
+    ids, w = ops.router_topk(h, r, 3, normalize=False)
+    rid, rw = ref.topk_gate_ref(h @ r, 3, normalize=False)
+    assert torch.equal(ids, rid) and torch.equal(w, rw)
+    assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
+    assert ops.symbol_launch_counts() == {n: {} for n in ops.KERNELS}
+    with pytest.raises(ValueError):
+        ttk.router_topk(h, r, 3)
+    with pytest.raises(ValueError):
+        ops.router_topk(h.to("meta"), r.to("meta"), 3)
 
 
 @pytest.mark.parametrize("window,soft_cap", [(None, None), (24, None), (None, 4.0), (40, 4.0)])

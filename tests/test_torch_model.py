@@ -12,6 +12,8 @@ in different orders); routing ids exact. The reference functions run under
 ``jax.jit``: one compiled program each instead of one per primitive.
 """
 import dataclasses
+import sys
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -168,3 +170,56 @@ def test_decode_step_matches_jax(arch):
     np.testing.assert_array_equal(taux["route_ids"].numpy(),
                                   np.asarray(aux["route_ids/seg0"]))
     _close(taux["route_x"], aux["route_x/seg0"], dict(atol=1e-4, rtol=1e-4))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_route_matches_jax_router_and_keeps_the_plain_bits(arch):
+    """``moe.route`` (the one routing call of every engine site) against the
+    reference's ``router_logits`` + ``topk_route`` on layer 0's router; on
+    the CPU it gives the bits of ``topk_route(router_logits(...))``."""
+    cfg, params, tcfg, tparams = _setup(arch)
+    pj, pt = _layer0(params)["moe"], tparams["layers"][0]["moe"]
+    x = _x((40, cfg.d_model), 4)
+    logits = jax.jit(jmoe.router_logits)(pj, jnp.asarray(x))
+    ids, w, _ = jax.jit(jmoe.topk_route, static_argnums=1)(logits, cfg.moe)
+    tids, tw = tmoe.route(pt, torch.from_numpy(x), tcfg.moe)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(ids))
+    _close(tw, w)
+    pids, pw = tmoe.topk_route(tmoe.router_logits(pt, torch.from_numpy(x)), tcfg.moe)
+    assert torch.equal(tids, pids) and torch.equal(tw, pw)
+
+
+def test_fused_step_walk_and_replay_route_through_ops_router_topk(monkeypatch):
+    """On a reduced qwen36 run with 3 of 8 slots (misses, so replays), every
+    routing call goes through ``ops.router_topk``: L per prefill walk, L per
+    fused decode step, one per replayed layer; the logits-in gate is never
+    called on the engine's path."""
+    from repro_torch.config import ResidencyConfig
+    from repro_torch.core.engine import RotaryEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime
+
+    _, _, tcfg, tparams = _setup("qwen36-35b-a3b")
+    sites = Counter()
+    plain = ops.router_topk
+
+    def counted(*args, **kwargs):
+        sites[sys._getframe(2).f_code.co_name] += 1        # the caller of moe.route
+        return plain(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the engine called the logits-in gate")
+
+    monkeypatch.setattr(ops, "router_topk", counted)
+    monkeypatch.setattr(ops, "topk_gate", refused)
+    eng = RotaryEngine(tcfg, tparams, ResidencyConfig(mode="rotary", num_slots=3,
+                                                      prefetch_margin=1),
+                       rt=Runtime(cache_len=32), batch=1, device="cpu")
+    steps = 6
+    eng.generate(np.arange(6, dtype=np.int32)[None], steps)
+    n_layers = len(tparams["layers"])
+    assert eng.stats.replayed_steps > 0
+    assert sites["_run_layers"] == n_layers
+    assert sites["decode_model"] == n_layers * steps
+    assert eng.stats.replayed_steps <= sites["_replay_fused"] <= eng.stats.replayed_steps * n_layers
+    assert set(sites) == {"_run_layers", "decode_model", "_replay_fused"}

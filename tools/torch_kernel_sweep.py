@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Sweep the plans of the port's CUDA kernels on one card.
 
-    python3 tools/torch_kernel_sweep.py [--only gemv,flash,host,decode,tiled]
+    python3 tools/torch_kernel_sweep.py [--only gemv,flash,host,decode,tiled,router]
 
 * K1's GEMV body (``slot_gmm`` with C = 1, 8 picks through the LUT, 97 slots
   cycled over 16 LUTs as in ``chip_smoke.py``) at the decode gate/up and
@@ -26,6 +26,17 @@
   ctypes launch, ``torch.empty`` of the output and
   ``torch.cuda.current_stream().cuda_stream`` (median of 5 rounds of 200
   calls on the host clock, no synchronization inside a round).
+
+* K3's fused entry (``router_topk``: router GEMM + gate, D 2048, E 128,
+  k 8, h2 bf16, as on the main path of qwen36-35b-a3b) at T = 1 and 512:
+  spans of D (4, 8 or 16 blocks a cluster), every row tile (rows x columns
+  a thread, rows a block) that fits, and the E-split variant (2 or 4 E
+  tiles, each its own clusters); beside them the logits-in entry on the
+  same logits, the three calls the fused entry replaced (``h2.float()``,
+  the f32 GEMM, the logits-in gate) and the library composite (softmax of
+  the GEMM, ``torch.topk``, renormalization). Then the host's cost of one
+  fused call against the three it replaced (``ops.router_topk`` against
+  ``ops.topk_gate(h2.float() @ router)``), and of one bare launch.
 
 Kernel times are device times from ``chip_smoke.device_ms`` (repeated
 calls in a CUDA graph). The card's ``nvidia-smi`` name and power limit come first.
@@ -59,11 +70,11 @@ def main() -> int:
     from repro_torch.quant import quantize_int4_batch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default="gemv,flash,host,decode,tiled",
+    ap.add_argument("--only", default="gemv,flash,host,decode,tiled,router",
                     help="comma-separated parts to run")
     only = set(ap.parse_args().only.split(","))
     print(cs.card_line(), flush=True)
-    build(["moe_gmm.cu", "flash_attention.cu", "decode_attention.cu"])
+    build(["moe_gmm.cu", "flash_attention.cu", "decode_attention.cu", "topk_gate.cu"])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -111,6 +122,8 @@ def main() -> int:
         decode_sweep(cs, randn)
     if "tiled" in only:
         tiled_sweep(cs, randn, g, dev)
+    if "router" in only:
+        router_sweep(cs, g, dev)
     if "host" not in only:
         return 0
     x, w, lut = randn(8, 1, 2048), randn(97, 2048, 768), luts[0]
@@ -204,6 +217,71 @@ def tiled_sweep(cs, randn, g, dev) -> None:
             cells.append(f"{'*' if plan == base else ''}{name} {ms:.4f}")
         print(f"tiled {kind} x [96,50,{d}] @ [97,{d},{f}]: " + ", ".join(cells)
               + " ms (* the wrapper's plan)", flush=True)
+
+
+def router_sweep(cs, g, dev) -> None:
+    """K3's fused entry: plans, row tiles and the E-split variant at T = 1
+    and 512, beside the calls it replaced; then the host's cost per call."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_gate as tk
+
+    d, e, k = 2048, 128, 8
+    router = torch.randn((d, e), generator=g, device=dev) * d ** -0.5
+    for t in (1, 512):
+        h = (torch.randn((t, d), generator=g, device=dev)).to(torch.bfloat16)
+        base, tile = tk.router_plan(d, e), tk.router_tile(t, e)
+        cells = []
+        for splits in (4, 8, 16):
+            plan = tk.RouterPlan(splits, d // splits, 1, e)
+            ms = cs.device_ms(lambda: tk.router_topk(h, router, k, plan=plan))
+            cells.append(f"{'*' if plan == base else ''}{splits} spans {ms:.4f}")
+        print(f"router_topk T={t} spans of D: " + ", ".join(cells) + " ms (* the plan)", flush=True)
+        cells = []
+        for cand in [(1, 1, 1), (1, 1, 2), (2, 1, 4), (1, 4, 4), (2, 4, 16), (4, 4, 16),
+                     (4, 4, 32)]:
+            r, cv, rows = cand
+            if rows > max(t, r) * 2 and rows > 4 or (rows // r) * (e // cv) > tk.ROUTER_THREADS:
+                continue
+            ms = cs.device_ms(lambda: tk.router_topk(h, router, k, tile=cand))
+            cells.append(f"{'*' if cand == tile else ''}R{r} x {cv} cols, {rows} rows {ms:.4f}")
+        print(f"router_topk T={t} row tiles: " + ", ".join(cells) + " ms (* the wrapper's)",
+              flush=True)
+        cells = []
+        for etiles in (2, 4):
+            plan = tk.RouterPlan(base.splits, base.span, etiles, e // etiles)
+            cells.append(f"{etiles} E tiles {cs.device_ms(lambda: tk.router_topk(h, router, k, plan=plan)):.4f}")
+        print(f"router_topk T={t} E-split: " + ", ".join(cells)
+              + f" ms; one cluster per row tile {cs.device_ms(lambda: tk.router_topk(h, router, k)):.4f}",
+              flush=True)
+        lg = (h.float() @ router).contiguous()
+        parts = {
+            "fused": lambda: tk.router_topk(h, router, k),
+            "logits-in gate": lambda: tk.topk_gate(lg, k),
+            "three calls (cast, f32 GEMM, logits-in gate)": lambda: tk.topk_gate(h.float() @ router, k),
+            "library composite": lambda: torch.topk(torch.softmax(h.float() @ router, -1), k),
+        }
+        print(f"router_topk T={t} device: " + ", ".join(
+            f"{n} {cs.device_ms(fn):.4f}" for n, fn in parts.items()) + " ms", flush=True)
+    h = torch.randn((1, d), generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.empty((1, k), dtype=torch.int32, device=dev)
+    w = torch.empty((1, k), dtype=torch.float32, device=dev)
+    plan, (r, cv, rows) = tk.router_plan(d, e), tk.router_tile(1, e)
+    args = (h.data_ptr(), router.data_ptr(), 1, d, e, k, 1, plan.splits, plan.span, r, cv, rows,
+            1, e, 0, 0, ids.data_ptr(), w.data_ptr())
+    tk.KERNEL("router_topk_bf16", dev, *args)
+    launcher = tk.KERNEL._fns["router_topk_bf16"]
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {
+        "ops.router_topk (one fused call)": lambda: ops.router_topk(h, router, k),
+        "the three calls it replaced (h2.float(), @ router, ops.topk_gate)":
+            lambda: ops.topk_gate(h.float() @ router, k),
+        "bare ctypes launch of the fused entry": lambda: launcher(*args, stream),
+    }
+    for name, fn in parts.items():
+        print(f"host per call, routing x [1,{d}] bf16 @ [{d},{e}] f32, {name}: "
+              f"{host_us(fn):.2f} us", flush=True)
 
 
 def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
