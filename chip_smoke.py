@@ -24,22 +24,42 @@ Phases, each failing loudly (nothing is caught):
    and the fused router GEMM + gate that the model calls (``router_topk``),
    held at T = 1 and 512 and timed beside its plain version, the library
    composite and the three calls it replaced;
-4. run three paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at its
+4. run six paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at its
    published widths, cut to the first 8 of its 48 layers (the depth is the
    only cut: 8 layers of host warehouse are 9.7 GB, the whole model's would
-   be 58 GB, made at random on every run), rotary residency with 96 of 128
-   expert slots, batch 1, greedy, cache_len 1024:
-   * ``bf16`` slots, 2 requests of 512 prompt tokens and 64 new tokens;
-   * ``int4`` slots (groups of 64), the same requests;
-   * ``int8`` slots, 1 request of 512 + 16 tokens.
+   be 58 GB, made at random on every run), batch 1, greedy, cache_len 1024,
+   each decode step one CUDA graph replay (captured on the path's first
+   step):
+   * ``bf16``: rotary residency with 96 of 128 expert slots in bf16,
+     synchronous rotation, 2 requests of 512 prompt tokens and 64 new
+     tokens;
+   * ``int4``: the same in int4 slots (groups of 64);
+   * ``int8``: int8 slots, 1 request of 512 + 16 tokens;
+   * ``full``: all 128 experts resident in bf16, 1 request of 512 + 64: it
+     must make no miss and no replay, and exactly one blocking pull per
+     decode token (prefill's pulls counted apart): the graph's miss-free
+     per-token floor;
+   * ``bf16-prefetch``: 96/128 bf16 slots with ``prefetch=True`` (shadow
+     uploads on a copy stream under the replay, the miss relaunch), the
+     ``bf16`` path's requests: it must relaunch some step, replay a smaller
+     share of its steps than ``bf16`` did, and give ``bf16``'s greedy ids up
+     to the first position whose truth top-2 margin is under phase 5's
+     guard;
+   * ``int4-prefetch``: the same in int4 slots, 1 request of 512 + 16, held
+     to ``int4`` the same way (its packed shadow planes).
    Each path starts from the same random weights and frees its engine, and
    its warehouse, before the next; the kernels' launch counters are zeroed
-   just before each path and read just after, and every kernel must have
-   launched on some path; K3's fused entry must have launched on every path
-   and its logits-in entry on none (every routing site is fused). A quantized path also checks that the card's
-   quantization of layer 0 equals the CPU quantizer's byte for byte, and
-   that every upload shipped exactly one packed expert (2,654,208 bytes
-   int4, 4,732,928 int8);
+   just before each path and read just after (a graph replay adds the
+   launches its capture recorded), and every kernel must have launched on
+   some path; K3's fused entry must have launched on every path and its
+   logits-in entry on none (every routing site is fused). A quantized path
+   also checks that the card's quantization of layer 0 equals the CPU
+   quantizer's byte for byte, and that every upload shipped exactly one
+   packed expert (2,654,208 bytes int4, 4,732,928 int8). Each path prints
+   its graph captures and replays, relaunched and replayed steps, MB
+   uploaded per decode token, missed experts converted on the host, the
+   prefetch counters (with the copy stream's event-timed upload time) and
+   its peak device memory;
 5. after each path, check the engine's prefill logits and its decode logits
    against a plain full-residency forward of the same weights on the card
    (``kernels/ref.py`` called directly; for a quantized path the weights
@@ -47,7 +67,8 @@ Phases, each failing loudly (nothing is caught):
    for ``bf16`` and ``int4`` a control follows: the first request again, fed
    the same tokens, with the host miss correction switched off, must fail
    that check (so the check can see a broken engine);
-6. print the kernels' JSON line, the card line, and last the result line.
+6. print the paths side by side, the kernels' JSON line, the card line, and
+   last the result line.
 
 Tolerances. Kernel vs plain version (phase 3), outputs in bf16: |kernel -
 plain| <= 2e-2 + 2e-2 |plain| (f32 sums in another order, one more bf16
@@ -77,6 +98,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
@@ -85,10 +107,26 @@ F32_FLOPS = 67e12                  # H100 SXM f32 peak outside the tensor cores 
 LAYERS = 8
 PROMPT, NEW, REQUESTS, CACHE = 512, 64, 2, 1024
 SLOTS = 96
-PATHS = (                 # label, slot format, requests, new tokens, control run
-    ("bf16", None, REQUESTS, NEW, True),
-    ("int4", "int4", REQUESTS, NEW, True),
-    ("int8", "int8", 1, 16, False),
+
+
+class PathSpec(NamedTuple):
+    label: str
+    quantization: Optional[str]
+    slots: int                  # 0: full residency
+    prefetch: bool
+    requests: int
+    new: int
+    control: bool               # phase 5's control run (misses left uncorrected)
+    baseline: Optional[str]     # the synchronous path a prefetch path is held to
+
+
+PATHS = (
+    PathSpec("bf16", None, SLOTS, False, REQUESTS, NEW, True, None),
+    PathSpec("int4", "int4", SLOTS, False, REQUESTS, NEW, True, None),
+    PathSpec("int8", "int8", SLOTS, False, 1, 16, False, None),
+    PathSpec("full", None, 0, False, 1, NEW, False, None),
+    PathSpec("bf16-prefetch", None, SLOTS, True, REQUESTS, NEW, False, "bf16"),
+    PathSpec("int4-prefetch", "int4", SLOTS, True, 1, 16, False, "int4"),
 )
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
 QUANT_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -644,6 +682,15 @@ def reference_logits(cfg, engine, tokens, dtype):
     return tfm.lm_logits(cfg, emb, x)[0].float()
 
 
+def sure_positions(truth, plain):
+    """Positions whose truth top-2 margin exceeds twice the plain bf16
+    forward's largest error: where a greedy id cannot flip on rounding."""
+    import numpy as np
+
+    top2 = np.sort(truth, axis=1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) > 2 * np.abs(plain - truth).max()
+
+
 def judge(label, got, truth, plain) -> bool:
     """Log how far ``got`` [positions, vocab] is from the f32 ``truth``
     beside a plain bf16 forward's distance, and return whether it holds the
@@ -654,8 +701,7 @@ def judge(label, got, truth, plain) -> bool:
     e_pl = np.abs(plain - truth).max(axis=1)
     rms_eng = float(np.sqrt(np.mean((got - truth) ** 2)))
     rms_pl = float(np.sqrt(np.mean((plain - truth) ** 2)))
-    top2 = np.sort(truth, axis=1)[:, -2:]
-    sure = (top2[:, 1] - top2[:, 0]) > 2 * e_pl.max()
+    sure = sure_positions(truth, plain)
     agree = got.argmax(1) == truth.argmax(1)
     log(f"  {label}: vs the f32 truth (logit RMS {float(np.sqrt(np.mean(truth ** 2))):.4f}): "
         f"engine RMS err {rms_eng:.5f} (limit {ERR_RATIO * rms_pl + RMS_SLACK:.5f}), "
@@ -668,12 +714,13 @@ def judge(label, got, truth, plain) -> bool:
                 and e_eng.max() <= ERR_RATIO * e_pl.max() + MAX_SLACK and agree[sure].all())
 
 
-def run_path(dev, cfg, depth, label, quantization, requests, new, control):
-    """Phase 4 and 5 for one path: build the engine (its slots in
-    ``quantization``), drive ``requests`` prompts of PROMPT tokens and
-    ``new`` greedy tokens each with the launch counters zeroed just before,
-    check the logits against the plain forward (and the control), free the
-    engine. Returns the path's launch counts."""
+def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
+    """Phase 4 and 5 for one path: build the engine, drive its requests of
+    PROMPT tokens and ``new`` greedy tokens each with the launch counters
+    zeroed just before, check the logits against the plain forward (and the
+    control; a prefetch path also against its synchronous baseline in
+    ``done``), free the engine. Returns the path's summary: launch counts and
+    the numbers phase 6 prints."""
 
     import numpy as np
     import torch
@@ -684,22 +731,27 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Runtime, init_params
 
-    log(f"[4/{label}] {cfg.name} at published widths, {LAYERS} of {depth} layers, rotary "
-        f"residency {SLOTS}/{cfg.moe.num_experts} slots in {quantization or 'bf16'}"
-        f"{f' (groups of {GROUP})' if quantization == 'int4' else ''}, {requests} request(s) x "
-        f"({PROMPT} prompt + {new} new), batch 1, greedy, cache_len {CACHE}")
+    label, quantization, requests, new = path.label, path.quantization, path.requests, path.new
+    experts = cfg.moe.num_experts
+    where = (f"all {experts} experts resident" if not path.slots else
+             f"rotary residency {path.slots}/{experts} slots")
+    log(f"[4/{label}] {cfg.name} at published widths, {LAYERS} of {depth} layers, {where} in "
+        f"{quantization or 'bf16'}{f' (groups of {GROUP})' if quantization == 'int4' else ''}, "
+        f"{'prefetch + miss relaunch' if path.prefetch else 'synchronous rotation'}, "
+        f"{requests} request(s) x ({PROMPT} prompt + {new} new), batch 1, greedy, "
+        f"cache_len {CACHE}")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, dev, expert_device="cpu")
-    rescfg = ResidencyConfig(mode="rotary", num_slots=SLOTS, quantization=quantization,
-                             quant_group_size=GROUP)
+    rescfg = ResidencyConfig(mode="rotary" if path.slots else "full", num_slots=path.slots,
+                             quantization=quantization, quant_group_size=GROUP)
     engine = RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=CACHE), batch=1, seed=0,
-                          device=dev)
+                          prefetch=path.prefetch, device=dev)
     warehouse = sum(t.numel() * t.element_size() for hw in engine.host_experts
                     for t in hw.values())
     log(f"  set-up {time.perf_counter() - t0:.1f} s (weights on the card, warehouse to pinned "
         f"host memory{', quantized on the card' if quantization else ''}, first residency); "
         f"link {engine.cost.host_link_gbs:.1f} GB/s measured; warehouse {warehouse / 1e9:.2f} GB")
-    if quantization:                   # the card's quantizer against the CPU's, one layer
+    if quantization and not path.prefetch:     # the card's quantizer against the CPU's, one layer
         t0 = time.perf_counter()
         layer0 = params["layers"][0]["moe"]["experts"]
         cpu = quantize_experts({n: w.cpu() for n, w in layer0.items()}, quantization, GROUP,
@@ -715,6 +767,8 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
     prompts = [rng.integers(0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
                for _ in range(requests)]
     runs = []
+    st = engine.stats
+    dec = dict(pulls=0, bytes=0, steps=0)       # the decode steps' share of the counters
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -722,38 +776,64 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
         t0 = time.perf_counter()
         logits = engine.prefill(prompt)
         t_prefill = time.perf_counter() - t0
-        step_logits, toks = [logits], []
-        t0 = time.perf_counter()
+        step_logits, toks, step_s = [logits], [], []
+        pulls0, bytes0 = st.sync_pulls, st.bytes_uploaded
         for _ in range(new):
+            t0 = time.perf_counter()
             toks.append(int(engine.decode(step_logits[-1], 1)[0, 0]))
+            step_s.append(time.perf_counter() - t0)
             step_logits.append(engine.last_logits)
-        t_decode = time.perf_counter() - t0
+        dec["pulls"] += st.sync_pulls - pulls0
+        dec["bytes"] += st.bytes_uploaded - bytes0
+        dec["steps"] += new
         runs.append((prompt, toks, np.stack([l[0] for l in step_logits[:-1]]),
-                     t_prefill, t_decode))
+                     t_prefill, step_s))
     counts = ops.launch_counts()
     entries = ops.symbol_launch_counts()["topk_gate"]
     peak = torch.cuda.max_memory_allocated()
-    st = engine.stats
     host_computed = sum(l.host_computed for l in st.layers.values())
     loads = sum(l.loads for l in st.layers.values())
-    for i, (_, toks, _, tp, td) in enumerate(runs):
-        log(f"  request {i}: prefill {tp * 1e3:.1f} ms, decode {new / td:.2f} tok/s, "
-            f"first tokens {toks[:8]}")
-    log(f"  misses {st.misses}, replayed steps {st.replayed_steps}, host_computed "
-        f"{host_computed}, loads {loads}, uploaded {st.bytes_uploaded / 2**20:.1f} MB "
-        f"({st.bytes_uploaded / max(loads, 1):.0f} bytes per loaded expert), sync pulls "
-        f"{st.sync_pulls}, peak device memory {peak / 2**30:.2f} GiB")
+    copy_ms = engine.manager.copy_stream_ms()
+    for i, (_, toks, _, tp, step_s) in enumerate(runs):
+        log(f"  request {i}: prefill {tp * 1e3:.1f} ms, decode {new / sum(step_s):.2f} tok/s "
+            f"(first step {step_s[0] * 1e3:.1f} ms{', the graph captured in it' if i == 0 else ''}; "
+            f"{(new - 1) / sum(step_s[1:]):.2f} tok/s after it, median step "
+            f"{np.median(step_s[1:]) * 1e3:.2f} ms), first tokens {toks[:8]}")
+    mb_per_token = dec["bytes"] / 2**20 / dec["steps"]
+    log(f"  misses {st.misses}, replayed steps {st.replayed_steps}, relaunched steps "
+        f"{st.relaunched_steps}, host_computed {host_computed}, loads {loads}, uploaded "
+        f"{st.bytes_uploaded / 2**20:.1f} MB ({st.bytes_uploaded / loads if loads else 0:.0f} "
+        f"bytes per loaded expert; {mb_per_token:.2f} MB per decode token), sync pulls {st.sync_pulls} "
+        f"({dec['pulls']} in {dec['steps']} decode steps), peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  decode graph: {engine.graph_captures} capture(s), {engine.graph_replays} replays")
     log(f"  host weight conversion for missed experts: {st.host_dequant_s:.3f} s over "
         f"{st.host_dequant_experts} experts "
         f"({1e3 * st.host_dequant_s / max(st.host_dequant_experts, 1):.3f} ms each)")
+    if path.prefetch:
+        log(f"  prefetch: launched {st.prefetch_launched} uploads, hits {st.prefetch_hits}, "
+            f"wasted {st.prefetch_wasted_bytes / 2**20:.1f} MB; overlap_ms {st.overlap_ms:.1f} "
+            f"(host wall of begin_prefetch), copy stream {copy_ms:.1f} ms (event-timed shadow "
+            f"uploads)")
     log(f"  kernel launches on this path: {counts}; K3 by entry: {entries}")
     fused = sum(n for sym, n in entries.items() if sym.startswith("router_topk_"))
     if fused <= 0 or fused != counts["topk_gate"]:
         raise AssertionError(f"{label}: K3 launched {entries}: every routing site must take the "
                              f"fused entry")
-    if quantization and st.bytes_uploaded != loads * EXPERT_BYTES[quantization]:
+    if quantization and not path.prefetch and st.bytes_uploaded != loads * EXPERT_BYTES[quantization]:
         raise AssertionError(f"{st.bytes_uploaded} bytes uploaded for {loads} loads: not "
                              f"{EXPERT_BYTES[quantization]} per {quantization} expert")
+    if quantization and path.prefetch and st.bytes_uploaded % EXPERT_BYTES[quantization]:
+        # shadow uploads ship experts that no load counts: whole experts all the same
+        raise AssertionError(f"{st.bytes_uploaded} bytes uploaded: not whole "
+                             f"{EXPERT_BYTES[quantization]}-byte {quantization} experts")
+    if dev.type == "cuda" and (engine.graph_captures != 1
+                               or engine.graph_replays < dec["steps"] - 1):
+        raise AssertionError(f"{label}: {engine.graph_captures} captures and "
+                             f"{engine.graph_replays} replays for {dec['steps']} decode steps")
+    if not path.slots and (st.misses or st.replayed_steps or dec["pulls"] != dec["steps"]):
+        raise AssertionError(f"{label}: {st.misses} misses, {st.replayed_steps} replays and "
+                             f"{dec['pulls']} blocking pulls in {dec['steps']} decode steps")
 
     log(f"[5/{label}] engine vs plain full-residency forward on the card")
     if host_computed != st.misses:
@@ -769,7 +849,7 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
         if not judge(f"request {i}", got, truth, plain):
             raise AssertionError(f"{label} request {i}: engine logits farther from the truth "
                                  f"than bf16")
-    if control:        # request 0 again, fed the same tokens, its misses left uncorrected
+    if path.control:   # request 0 again, fed the same tokens, its misses left uncorrected
         engine.rescfg = dataclasses.replace(engine.rescfg, host_compute_misses=False)
         prompt, toks = runs[0][0], runs[0][1]
         rows_ctl = [engine.prefill(prompt)[0]]
@@ -781,11 +861,40 @@ def run_path(dev, cfg, depth, label, quantization, requests, new, control):
         if judge("control (request 0, misses uncorrected)", np.stack(rows_ctl), *refs[0]):
             raise AssertionError(f"{label}: the logit check passed an engine that drops its "
                                  f"misses")
+    summary = dict(
+        label=label, counts=counts, entries=entries, tokens=[r[1] for r in runs],
+        tok_s=[new / sum(r[4]) for r in runs],
+        steady_tok_s=[(new - 1) / sum(r[4][1:]) for r in runs],
+        prefill_ms=[1e3 * r[3] for r in runs],
+        steps=dec["steps"], replayed=st.replayed_steps, relaunched=st.relaunched_steps,
+        mb_per_token=mb_per_token, peak_gib=peak / 2**30, host_convert_s=st.host_dequant_s,
+        host_converted=st.host_dequant_experts, misses=st.misses,
+        replays=engine.graph_replays, prefetch_launched=st.prefetch_launched,
+        prefetch_hits=st.prefetch_hits, overlap_ms=st.overlap_ms, copy_ms=copy_ms)
+    if path.baseline:
+        base = done[path.baseline]
+        share, base_share = st.replayed_steps / dec["steps"], base["replayed"] / base["steps"]
+        log(f"  against {path.baseline} in this run: replayed {st.replayed_steps}/{dec['steps']} "
+            f"steps against {base['replayed']}/{base['steps']}, relaunched {st.relaunched_steps}")
+        if st.relaunched_steps <= 0 or share >= base_share:
+            raise AssertionError(f"{label}: {st.relaunched_steps} relaunches, replayed share "
+                                 f"{share:.3f} not below {path.baseline}'s {base_share:.3f}")
+        for i, (toks, (truth, plain)) in enumerate(zip(summary["tokens"], refs)):
+            ref_toks = base["tokens"][i][:len(toks)]
+            differ = [j for j, (a, b) in enumerate(zip(toks, ref_toks)) if a != b]
+            sure = sure_positions(truth, plain)
+            log(f"  request {i}: greedy ids equal {path.baseline}'s at "
+                f"{differ[0] if differ else len(toks)}/{len(toks)} positions before the first "
+                f"difference")
+            if differ and sure[differ[0]]:
+                raise AssertionError(f"{label} request {i}: greedy id {toks[differ[0]]} at "
+                                     f"position {differ[0]} differs from {path.baseline}'s "
+                                     f"{ref_toks[differ[0]]} where the truth's margin is sure")
     del engine, refs, runs
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return counts, entries
+    return summary
 
 
 def main() -> int:
@@ -837,19 +946,32 @@ def main() -> int:
     cfg = dataclasses.replace(full, segments=((("attn_moe",), LAYERS),))
     counts = {name: 0 for name in ops.KERNELS}
     entries = {}
-    for label, quantization, requests, new, control in PATHS:
-        path_counts, path_entries = run_path(dev, cfg, full.num_layers, label, quantization,
-                                             requests, new, control)
-        for name, n in path_counts.items():
+    done = {}
+    for path in PATHS:
+        done[path.label] = summary = run_path(dev, cfg, full.num_layers, path, done)
+        for name, n in summary["counts"].items():
             counts[name] += n
-        for sym, n in path_entries.items():
+        for sym, n in summary["entries"].items():
             entries[sym] = entries.get(sym, 0) + n
-    log(f"  kernel launches over the three paths: {counts}; K3 by entry: {entries}")
+    log(f"  kernel launches over the {len(PATHS)} paths: {counts}; K3 by entry: {entries}")
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on any path")
 
     # phase 6 ---------------------------------------------------------------
+    log("[6] paths side by side (decode tok/s per request, over all its new tokens and over "
+        "those after the first step, whose time holds the graph's capture on a path's first "
+        "request; prefill ms; steps replayed / relaunched of decode steps; MB uploaded per "
+        "decode token; host conversion)")
+    for r in done.values():
+        log(f"  {r['label']:>14}: decode {' / '.join(f'{x:.2f}' for x in r['tok_s'])} tok/s "
+            f"({' / '.join(f'{x:.2f}' for x in r['steady_tok_s'])} after the first step), "
+            f"prefill {' / '.join(f'{x:.1f}' for x in r['prefill_ms'])} ms, replayed "
+            f"{r['replayed']} relaunched {r['relaunched']} of {r['steps']}, "
+            f"{r['mb_per_token']:.2f} MB/token, host conversion {r['host_convert_s']:.3f} s over "
+            f"{r['host_converted']} experts, misses {r['misses']}, graph replays {r['replays']}, "
+            f"prefetch launched {r['prefetch_launched']} hits {r['prefetch_hits']}, peak "
+            f"{r['peak_gib']:.2f} GiB")
     kernels = []
     for name, r in rows.items():
         counter, prefix = ENTRY.get(name, (name, None))
@@ -872,7 +994,7 @@ def main() -> int:
                 "library_device_ms", "three_call_ms", "three_call_device_ms", "bound_ms",
                 "bound_by")}
         kernels.append(row)
-    log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"  done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

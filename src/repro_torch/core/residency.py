@@ -13,14 +13,26 @@ host half of one fused decode step.
 The reference re-stacks every layer's slots into per-segment planes because
 its fused step is one ``lax.scan``; the port's step loops over layers and
 reads each layer's store and device LUT where they lie, so nothing is
-stacked and an upload patches only the store it targets.
+stacked and an upload patches only the store it targets. Every plane and
+device LUT keeps its address for the engine's life (the device LUT is
+rewritten in place), which is what lets the engine capture its decode step
+as one CUDA graph.
 
-Not ported yet: predictive prefetch (shadow generations,
-``begin_prefetch``, the miss relaunch's ``ensure_resident``) and speculative
-window rotation.
+The miss relaunch's ``ensure_resident`` uploads exactly the experts a step
+missed. Predictive prefetch (``enable_prefetch``) folds a shadow generation
+into every store's planes (``SlotStore.ensure_shadow``); ``begin_prefetch``
+ships the simulated next transition's uploads into it on a copy stream of
+its own while the step's replay runs, and the boundary's ``_commit_layer``
+drifts, uploads live, or corrects + catches up + flips, in the reference's
+order. A flip rewrites that layer's device LUT to point into the other half;
+the compute stream waits on the copy stream's work before the next step.
+
+Not ported yet: speculative window rotation.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -29,12 +41,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig, ResidencyConfig
 from repro_torch.core.policies import ResidencyPolicy, make_policy
-from repro_torch.core.slots import (
-    SlotStore,
-    gather_rows,
-    quantize_experts,
-    quantized_expert_bytes,
-)
+from repro_torch.core.slots import SlotStore, quantize_experts, quantized_expert_bytes
 from repro_torch.core.stats import EngineStats
 from repro_torch.core.transfer import CostModel, TransferClock
 from repro_torch.obs.metrics import BYTES_BUCKETS
@@ -173,13 +180,26 @@ class RotaryResidencyManager:
             policy = make_policy(rescfg.mode, m.num_experts, slots, rescfg, seed=seed + li)
             if rescfg.mode == "full":
                 every = list(range(m.num_experts))
-                self.stats.bytes_uploaded += store.write_batch(
-                    every, {n: gather_rows(w, every) for n, w in hw.items()}
-                )
+                self.stats.bytes_uploaded += store.write_batch(every, hw)
             self.stores.append(store)
             self.policies.append(policy)
-        # persistent device LUT per layer, patched incrementally on rotation
+        # persistent device LUT per layer, rewritten in place on rotation
         self._lut_dev: List[Optional[torch.Tensor]] = [None] * len(host_experts)
+        self._lut_base: List[int] = [0] * len(host_experts)   # the half it points into
+        # -- predictive prefetch (double-buffered generations) --------------
+        # ``enable_prefetch`` turns it on. ``_pending`` holds the speculative
+        # plan between ``begin_prefetch`` and the boundary's commit; the
+        # contents dicts track slot -> expert of each generation per layer.
+        self._prefetch_enabled = False
+        self._pending: Optional[List[List[Tuple[int, int, bool]]]] = None
+        self._live_contents: Optional[List[Dict[int, int]]] = None
+        self._shadow_contents: Optional[List[Dict[int, int]]] = None
+        self._sim_backoff = 1
+        self._sim_skip = 0
+        self._copy_stream = None       # CUDA stream of the shadow uploads
+        # event pairs around each shadow upload not yet summed into _copy_ms
+        self._copy_spans: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self._copy_ms = 0.0
 
     # ------------------------------------------------------------------
     def _transition(self, layer: int, demand: np.ndarray,
@@ -210,28 +230,52 @@ class RotaryResidencyManager:
             clock.prefetch(moved)
         return moved
 
-    def _execute_loads(self, layer: int, loads: Sequence[Tuple[int, int]]) -> int:
-        """Upload ``loads`` as one batched copy per weight tensor."""
+    def _execute_loads(self, layer: int, loads: Sequence[Tuple[int, int]], *,
+                       shadow: bool = False) -> int:
+        """Upload ``loads`` (one copy per expert and plane, straight from the
+        warehouse rows) into the live generation on the current stream, or
+        (``shadow``) into the shadow generation on the copy stream, which an
+        in-flight step does not read."""
         if not loads:
             return 0
         hw = self.host_experts[layer]
         store = self.stores[layer]
         experts = [int(e) for e, _ in loads]
         slots = [int(s) for _, s in loads]
-        moved = store.write_batch(slots, {n: gather_rows(w, experts) for n, w in hw.items()})
+        rows = {n: [w[e] for e in experts] for n, w in hw.items()}     # warehouse views
+        if shadow and self._copy_stream is not None:
+            span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            with self._on_copy_stream():
+                span[0].record()
+                moved = store.write_batch(slots, rows, shadow=True)
+                span[1].record()
+            self._copy_spans.append(span)
+        else:
+            moved = store.write_batch(slots, rows, shadow=shadow)
         self.stats.upload_dispatches += 1
         self.stats.device_dispatches += 1
         self.stats.bytes_uploaded += moved
+        if self._live_contents is not None:
+            tracked = self._shadow_contents if shadow else self._live_contents
+            for e, s in loads:
+                tracked[layer][int(s)] = int(e)
         tr = self.tracer
         if tr is not None:
-            tr.instant("upload", "rotation",
+            tr.instant("upload", "prefetch" if shadow else "rotation",
                        args={"layer": layer, "bytes": moved, "n": len(loads),
-                             "shadow": False})
+                             "shadow": shadow})
         if self.metrics is not None:
             self.metrics.histogram(
                 "upload_bytes", "bytes per slot-upload dispatch", buckets=BYTES_BUCKETS,
             ).observe(moved)
         return moved
+
+    def _on_copy_stream(self):
+        """Context of the shadow generation's work: the copy stream on the
+        card, the current (only) stream on the CPU."""
+        if self._copy_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._copy_stream)
 
     def resolve(self, layer: int, ids: np.ndarray,
                 clock: Optional[TransferClock] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -260,27 +304,39 @@ class RotaryResidencyManager:
 
     # ------------------------------------------------------------------
     def device_lut(self, layer: int) -> torch.Tensor:
-        """The persistent device copy of ``layer``'s LUT (int64 [E]).
+        """The persistent device copy of ``layer``'s LUT (int64 [E]): each
+        expert's row in the store's planes (its slot plus the live
+        generation's ``base``), ``miss_row`` for a non-resident one.
 
-        The first call uploads the whole table; later calls patch only the
-        entries the policy changed since (``SlotLUT.take_dirty``), or re-upload
-        it whole when more than half changed."""
+        The first call allocates and fills it; later calls rewrite it IN
+        PLACE (one non-blocking copy from pinned memory, on the current
+        stream) when the policy changed an entry since (``SlotLUT.take_dirty``)
+        or a flip moved the live half, so its address never changes."""
         lut = self.policies[layer].lut
+        store = self.stores[layer]
         cached = self._lut_dev[layer]
-        if cached is None or lut.dirty_count() > lut.num_experts // 2:
-            lut.take_dirty()
-            cached = torch.as_tensor(lut.as_array().astype(np.int64)).to(self.device)
-            self._lut_dev[layer] = cached
-        elif lut.dirty_count():
-            idx = np.asarray(lut.take_dirty(), np.int64)
-            vals = torch.as_tensor(lut.e2s[idx].astype(np.int64)).to(self.device)
-            cached.index_copy_(0, torch.as_tensor(idx).to(self.device), vals)
+        moved = self._lut_base[layer] != store.base()
+        if cached is not None and not moved and not lut.dirty_count():
+            return cached
+        lut.take_dirty()
+        vals = lut.e2s.astype(np.int64)
+        if store.generations > 1:
+            vals = np.where(vals == lut.miss, store.miss_row, vals + store.base())
+        src = torch.from_numpy(vals)
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        if cached is None:
+            cached = self._lut_dev[layer] = torch.empty(vals.shape, dtype=torch.int64,
+                                                        device=self.device)
+        else:
             self.stats.lut_patch_dispatches += 1
             self.stats.device_dispatches += 1
+        cached.copy_(src, non_blocking=True)
+        self._lut_base[layer] = store.base()
         return cached
 
     def layer_residency(self, layer: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """(slot buffers, device LUT) that layer's MoE half reads."""
+        """(slot planes, device LUT) that layer's MoE half reads."""
         return self.stores[layer].raw_dict(), self.device_lut(layer)
 
     def residency(self) -> List[Tuple[Dict[str, torch.Tensor], torch.Tensor]]:
@@ -294,6 +350,220 @@ class RotaryResidencyManager:
         ls.hits += int((~miss).sum())
         ls.misses += int(miss.sum())
 
+    def ensure_resident(self, layer: int, experts: np.ndarray,
+                        avoid: np.ndarray) -> Optional[List[Tuple[int, int]]]:
+        """Make ``experts`` resident NOW (the miss relaunch's correction):
+        give each missing one a slot whose occupant is not in ``avoid`` (the
+        step's full routed set: evicting one of those would turn a hit into a
+        fresh miss), coldest ring EMA first, and upload them as one batched
+        live write. Returns the loads, or None when the residency cannot
+        cover them (the caller falls back to the host-corrected replay)."""
+        policy = self.policies[layer]
+        lut = policy.lut
+        need = [int(e) for e in np.unique(experts) if not lut.is_resident(int(e))]
+        if not need:
+            return []
+        avoid_set = set(int(e) for e in avoid)
+        free = list(lut.free_slots)
+        evictable = [s for s in range(lut.num_slots)
+                     if lut.s2e[s] >= 0 and int(lut.s2e[s]) not in avoid_set]
+        ring = getattr(policy, "ring", None)
+        if ring is not None:
+            # the correction is reactive: displace the expert least likely
+            # to be routed (and re-uploaded) next step
+            evictable.sort(key=lambda s: (ring.ema[int(lut.s2e[s])], s))
+        if len(free) + len(evictable) < len(need):
+            return None
+        loads: List[Tuple[int, int]] = []
+        for e in need:
+            slot = free.pop(0) if free else evictable.pop(0)
+            lut.assign(e, slot)
+            loads.append((e, slot))
+        moved = self._execute_loads(layer, loads)
+        ls = self.stats.layer(layer)
+        ls.loads += len(loads)
+        ls.bytes_loaded += moved
+        return loads
+
+    # -- predictive prefetch over double-buffered generations ------------
+    def enable_prefetch(self, margin: Optional[int] = None) -> None:
+        """Switch to double-buffered prefetch: fold a shadow generation into
+        every store, start tracking both generations' slot contents, hand
+        every policy its steering margin (``ResidencyConfig.prefetch_margin``
+        unless given) and, on the card, make the copy stream. Called before
+        anything reads the planes, since the fold reallocates them."""
+        if self._prefetch_enabled:
+            return
+        if margin is None:
+            margin = self.rescfg.prefetch_margin
+        for p in self.policies:
+            p.prefetch_margin = int(margin)
+        self._live_contents = [
+            {int(s): int(e) for s, e in enumerate(p.lut.s2e) if e >= 0}
+            for p in self.policies
+        ]
+        for store in self.stores:
+            store.ensure_shadow()
+        self._shadow_contents = [dict(d) for d in self._live_contents]
+        if self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+        self._prefetch_enabled = True
+
+    def begin_prefetch(self, predictor, clock: Optional[TransferClock] = None) -> int:
+        """Ship the predicted next transition's uploads into the shadow
+        generation, on the copy stream. Called right after a step's replay
+        is issued (and its telemetry copies queued), so this host work and
+        the uploads overlap the step on the card. The plan comes from
+        ``simulate_prepare`` on policy clones fed the predictor's current EMA,
+        so the authoritative ring/LUT state never advances speculatively.
+        Empty plans back the next simulations off (1, 2, 4 .. 16 steps).
+        Returns bytes shipped; the boundary's ``_commit_layer`` scores the
+        plan."""
+        if not self._prefetch_enabled or self._pending is not None:
+            return 0
+        if self._sim_skip > 0:
+            self._sim_skip -= 1
+            return 0
+        t0 = time.perf_counter()
+        self.copy_stream_ms(wait=False)          # keeps the list of event pairs short
+        pending: List[List[Tuple[int, int, bool]]] = []
+        launched = 0
+        total = 0
+        for l in range(len(self.policies)):
+            plan = self.policies[l].simulate_prepare(
+                predictor.forecast(l), predictor.steer_signal(l)
+            )
+            shadow = self._shadow_contents[l]
+            entries: List[Tuple[int, int, bool]] = []
+            ship: List[Tuple[int, int]] = []
+            for e, s in plan:
+                shipped = shadow.get(int(s)) != int(e)
+                if shipped:
+                    ship.append((int(e), int(s)))
+                entries.append((int(e), int(s), shipped))
+            moved = self._execute_loads(l, ship, shadow=True)
+            launched += len(ship)
+            total += moved
+            pending.append(entries)
+            if clock is not None:
+                clock.prefetch(moved)
+        self._pending = pending
+        if launched:
+            self._sim_backoff = 1
+        else:
+            self._sim_skip = self._sim_backoff
+            self._sim_backoff = min(self._sim_backoff * 2, 16)
+        self.stats.prefetch_launched += launched
+        t1 = time.perf_counter()
+        # the reference's definition: host wall time of this call, which runs
+        # while the step's replay is in flight
+        self.stats.overlap_ms += (t1 - t0) * 1e3
+        tr = self.tracer
+        if tr is not None:
+            tr.complete("prefetch_ship", "prefetch", t0, t1,
+                        args={"bytes": total, "launched": launched})
+        return total
+
+    def copy_stream_ms(self, wait: bool = True) -> float:
+        """Device ms of the shadow uploads on the copy stream so far, each
+        timed by a pair of CUDA events around it (0 on the CPU). ``wait``
+        waits for the uploads still in flight; else only finished ones are
+        summed (the rest stay for a later call)."""
+        left = []
+        for start, end in self._copy_spans:
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                left.append((start, end))
+                continue
+            self._copy_ms += start.elapsed_time(end)
+        self._copy_spans = left
+        return self._copy_ms
+
+    def _commit_layer(self, layer: int, loads: List[Tuple[int, int]],
+                      clock: Optional[TransferClock] = None) -> int:
+        """Boundary reconciliation for one layer: score the speculative plan
+        against the authoritative coalesced ``loads``, then (1) nothing
+        rotated: drift; (2) the shadow holds nothing this transition can
+        reuse: a plain live upload; (3) else correct the shadow's
+        mispredicted slots, catch up the slots it lags on (device to
+        device), and flip. Corrections and catch-up land BEFORE the flip, so
+        the generation the next step reads holds what the synchronous path
+        would have uploaded."""
+        store = self.stores[layer]
+        live = self._live_contents[layer]
+        shadow = self._shadow_contents[layer]
+        required = dict(live)
+        for e, s in loads:
+            required[int(s)] = int(e)
+        plan = self._pending[layer] if self._pending is not None else []
+        hits = wasted = useful = 0
+        for e, s, shipped in plan:
+            if required.get(s) == e:
+                hits += 1
+                if shipped:
+                    useful += 1
+            elif shipped:
+                wasted += 1
+        self.stats.prefetch_hits += hits
+        self.stats.prefetch_wasted_bytes += wasted * store.bytes_per_expert
+        tr = self.tracer
+        if not loads:
+            # nothing rotated: keep the live generation, let the shadow drift
+            if tr is not None and plan:
+                tr.instant("prefetch_commit", "prefetch",
+                           args={"layer": layer, "hits": hits, "wasted": wasted,
+                                 "outcome": "drift"})
+            return 0
+        if useful == 0:
+            # no shipped byte is reusable: the flip would cost more dispatches
+            # than the plain live upload for no saved transfer
+            moved = self._execute_loads(layer, loads)
+            ls = self.stats.layer(layer)
+            ls.loads += len(loads)
+            ls.bytes_loaded += moved
+            if clock is not None:
+                clock.prefetch(moved)
+            if tr is not None:
+                tr.instant("prefetch_commit", "prefetch",
+                           args={"layer": layer, "hits": hits, "wasted": wasted,
+                                 "outcome": "live_fallback"})
+            return moved
+        # (1) mispredicted / unpredicted load slots: host-upload corrections
+        corrections = [(e, s) for e, s in loads if shadow.get(int(s)) != int(e)]
+        moved = self._execute_loads(layer, corrections, shadow=True)
+        # (2) slots the shadow lags on: device-to-device copy from live
+        stale = sorted(s for s in set(live) | set(shadow) if shadow.get(s) != required.get(s))
+        if stale:
+            with self._on_copy_stream():
+                self.stats.device_dispatches += store.sync_shadow_slots(stale)
+            for s in stale:
+                shadow[s] = required[s]
+        # (3) flip: the corrected shadow becomes live (device_lut follows)
+        store.flip()
+        self._live_contents[layer] = required
+        self._shadow_contents[layer] = live
+        if tr is not None:
+            tr.instant("prefetch_commit", "prefetch",
+                       args={"layer": layer, "hits": hits, "wasted": wasted,
+                             "corrections": len(corrections), "stale": len(stale),
+                             "outcome": "flip"})
+        ls = self.stats.layer(layer)
+        ls.loads += len(loads)
+        ls.bytes_loaded += moved
+        if clock is not None:
+            clock.prefetch(moved)
+        return moved
+
+    def _coalesce_loads(self, layer: int, loads: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+        """The last write per slot, dropping writes the LUT no longer
+        references."""
+        lut = self.policies[layer].lut
+        final: Dict[int, int] = {}
+        for e, s in loads:
+            final[s] = e
+        return [(e, s) for s, e in final.items() if lut.s2e[s] == e]
+
     def rotate_from_telemetry(
         self,
         predictor,                       # DemandPredictor
@@ -305,8 +575,8 @@ class RotaryResidencyManager:
         record: bool = True,
     ) -> None:
         """Between-step rotation + predictor feedback from ONE fused step's
-        telemetry (the reference's ``_rotate_from_telemetry`` without the
-        prefetch commit)."""
+        telemetry (the reference's ``_rotate_from_telemetry``), committing a
+        pending prefetch plan where ``begin_prefetch`` left one."""
         tr = self.tracer
         if tr is not None:
             with tr.span("rotation", "rotation", args={"kind": "step"}):
@@ -315,6 +585,10 @@ class RotaryResidencyManager:
 
     def _rotate(self, predictor, ids, weights, miss, demand_next, clock, record) -> None:
         n = len(self.policies)
+        copy = self._copy_stream
+        if copy is not None and self._pending is not None:
+            # the catch-up copies read live rows the compute stream wrote
+            copy.wait_stream(torch.cuda.current_stream(self.device))
         for l in range(n):
             if record:
                 self.record_routing(l, ids[l], miss[l])
@@ -323,7 +597,15 @@ class RotaryResidencyManager:
             nxt = (l + 1) % n
             raw = demand_next[l]
             demand = predictor.update(nxt, raw)
-            self.prepare_layer(nxt, demand, clock, steer=raw)
+            if self._pending is not None:
+                loads = self._coalesce_loads(nxt, self._transition(nxt, demand, steer=raw))
+                self._commit_layer(nxt, loads, clock)
+            else:
+                self.prepare_layer(nxt, demand, clock, steer=raw)
+        self._pending = None
+        if copy is not None:
+            # the next step reads what the copy stream wrote into a flipped half
+            torch.cuda.current_stream(self.device).wait_stream(copy)
 
     def host_expert_flops(self, tokens: int) -> float:
         m = self.cfg.moe

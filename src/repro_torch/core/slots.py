@@ -20,14 +20,26 @@ once, when the manager is built (``quantize_experts``), so an upload ships
 packed rows: the same bytes the reference lands by quantizing inside each
 ``write_batch``, since a group never spans two experts.
 
-An upload gathers the experts' rows from the host warehouse (pinned memory)
-into a pinned staging tensor, copies it to the device without blocking, and
-lands it with ONE ``index_copy_`` per plane, all on the current stream.
-Stream order is what keeps it safe: a launch queued earlier reads the old
-slot contents before the copy overwrites them, so the engine rotates
-strictly after the step (and any replay) that reads the previous residency.
-PyTorch's pinned-memory allocator keeps each staging block alive until its
-copy has run.
+An upload copies each expert's rows straight from the host warehouse
+(pinned memory, whose rows are contiguous) into its slot's rows on the
+device, one non-blocking copy per expert and plane on the current stream,
+with no gather into a staging buffer (a host memcpy of every byte, which
+takes longer than the link). Stream order is what keeps
+it safe: a launch queued earlier reads the old slot contents before the copy
+overwrites them, so the engine rotates strictly after the step (and any
+replay) that reads the previous residency. The warehouse is never written
+after it is built, so no copy's source can change under it.
+
+Double-buffered generations (predictive prefetch, ``ensure_shadow``): the
+reference keeps a second set of buffers and flips by swapping them, layer by
+layer. A CUDA graph bakes in addresses, so here both generations live in one
+allocation per plane, rows ``[2 (S + 1), ...]``: generation g is rows
+``g (S + 1)`` to ``g (S + 1) + S``, each with its own zero MISS row. The
+device LUT points into the live half (``base``), so a flip rewrites only
+that layer's LUT rows (the manager does), a catch-up (``sync_shadow_slots``)
+is a device-to-device row copy, and the grouped matmul reads ``w[lut[g]]``
+unchanged. The LUT's MISS value is the last row of the planes
+(``miss_row``), which stays zero in either layout.
 """
 from __future__ import annotations
 
@@ -152,17 +164,10 @@ def quantize_experts(
     return out
 
 
-def gather_rows(host: torch.Tensor, rows: Sequence[int]) -> torch.Tensor:
-    """host[rows] into a fresh staging tensor, pinned when a card is present."""
-    idx = torch.as_tensor(np.asarray(rows, np.int64))
-    out = torch.empty((len(idx),) + tuple(host.shape[1:]), dtype=host.dtype,
-                      pin_memory=torch.cuda.is_available())
-    torch.index_select(host, 0, idx, out=out)
-    return out
-
-
 class SlotStore:
-    """Rotating device-resident buffer for one MoE layer's routed experts."""
+    """Rotating device-resident buffer for one MoE layer's routed experts:
+    one generation of ``num_slots + 1`` rows per plane, or two folded into
+    one allocation once ``ensure_shadow`` has run."""
 
     def __init__(
         self,
@@ -178,46 +183,120 @@ class SlotStore:
         self.num_slots = num_slots
         self.dtype = dtype
         self.device = torch.device(device)
-        planes = {
+        self.generations = 1
+        self.live = 0                       # the generation the device LUT points into
+        self._layout = plane_layout(weight_shapes, dtype, quantization, group_size)
+        self._set_planes({
             key: torch.zeros((num_slots + 1,) + shape, dtype=dt, device=self.device)
-            for key, (shape, dt) in plane_layout(weight_shapes, dtype, quantization,
-                                                 group_size).items()
-        }
-        self.buffers: Params = {n: planes[n] for n in weight_shapes}
-        self.scales: Params = {n: planes[f"scale_{n}"] for n in weight_shapes
-                               if f"scale_{n}" in planes}
-        self.mins: Params = {n: planes[f"min_{n}"] for n in weight_shapes
-                             if f"min_{n}" in planes}
+            for key, (shape, dt) in self._layout.items()
+        })
+
+    def _set_planes(self, planes: Params) -> None:
+        names = [n for n in planes if not n.startswith(("scale_", "min_"))]
+        self.buffers: Params = {n: planes[n] for n in names}
+        self.scales: Params = {n: planes[f"scale_{n}"] for n in names if f"scale_{n}" in planes}
+        self.mins: Params = {n: planes[f"min_{n}"] for n in names if f"min_{n}" in planes}
+
+    @property
+    def bytes_per_expert(self) -> int:
+        """Bytes of one expert over every plane (one slot's row of each)."""
+        return sum(int(np.prod(shape)) * dt.itemsize for shape, dt in self._layout.values())
+
+    def base(self, generation: Optional[int] = None) -> int:
+        """First row of ``generation`` (default: the live one)."""
+        return (self.live if generation is None else generation) * (self.num_slots + 1)
+
+    @property
+    def miss_row(self) -> int:
+        """The zero row the device LUT names for a non-resident expert: the
+        planes' last row (``num_slots`` with one generation)."""
+        return self.generations * (self.num_slots + 1) - 1
+
+    def _check_slots(self, slots: Sequence[int]) -> None:
+        for slot in slots:
+            if not 0 <= slot < self.num_slots:
+                raise ValueError(f"slot {slot} out of range [0, {self.num_slots})")
+
+    def _rows(self, slots: Sequence[int], generation: int) -> torch.Tensor:
+        self._check_slots(slots)
+        rows = np.asarray(slots, np.int64) + self.base(generation)
+        return torch.as_tensor(rows).to(self.device, non_blocking=True)
 
     def write_batch(
         self,
         slots: Sequence[int],
-        stacked: Dict[str, torch.Tensor],   # raw_dict name -> [N, ...] host rows
+        experts: Dict[str, Sequence[torch.Tensor]],   # raw_dict name -> N host rows
+        *,
+        shadow: bool = False,
     ) -> int:
-        """Upload N experts into ``slots``: one non-blocking host->device copy
-        and one ``index_copy_`` per plane. ``stacked`` holds every plane of
-        ``raw_dict`` (packed rows when quantized). Returns bytes moved."""
+        """Upload N experts into ``slots`` of the live generation (or of the
+        shadow one): one non-blocking host->device copy per expert and
+        plane, on the current stream. ``experts`` holds every plane of
+        ``raw_dict`` (packed rows when quantized) as N rows each: views of
+        the pinned warehouse, or a stacked [N, ...] tensor. Returns bytes
+        moved."""
         if not len(slots):
             return 0
-        for slot in slots:
-            if not 0 <= slot < self.num_slots:
-                raise ValueError(f"slot {slot} out of range [0, {self.num_slots})")
+        if shadow and self.generations < 2:
+            raise ValueError("shadow write before ensure_shadow()")
+        self._check_slots(slots)
         planes = self.raw_dict()
-        if set(stacked) != set(planes):
-            raise ValueError(f"planes {sorted(stacked)} do not match the store's {sorted(planes)}")
-        idx = torch.as_tensor(np.asarray(slots, np.int64)).to(self.device, non_blocking=True)
+        if set(experts) != set(planes):
+            raise ValueError(f"planes {sorted(experts)} do not match the store's {sorted(planes)}")
+        base = self.base(1 - self.live if shadow else self.live)
         moved = 0
-        for name, rows in stacked.items():
+        for name, rows in experts.items():
             buf = planes[name]
-            src = rows.to(device=self.device, dtype=buf.dtype, non_blocking=True)
-            buf.index_copy_(0, idx, src)
-            moved += int(src.numel()) * src.element_size()
+            if len(rows) != len(slots):
+                raise ValueError(f"{name}: {len(rows)} rows for {len(slots)} slots")
+            for slot, row in zip(slots, rows):
+                buf[base + int(slot)].copy_(row, non_blocking=True)
+                moved += row.numel() * buf.element_size()
         return moved
 
+    # -- double-buffered generations (predictive prefetch) -----------------
+    def ensure_shadow(self) -> None:
+        """Fold a shadow generation into every plane: each plane becomes
+        ``[2 (S + 1), ...]`` with both halves holding the live contents, so
+        the first flip's untouched slots are already correct. The planes are
+        reallocated once, here: the engine calls this before it captures a
+        step that reads them."""
+        if self.generations == 2:
+            return
+        self._set_planes({name: torch.cat([plane, plane]) for name, plane in self.raw_dict().items()})
+        self.generations = 2
+
+    def sync_shadow_slots(self, slots: Sequence[int]) -> int:
+        """Device-to-device catch-up: copy ``slots`` rows live -> shadow
+        (slots the shadow merely lags on; no host-link traffic), on the
+        current stream. Returns dispatches (one per plane)."""
+        if not len(slots):
+            return 0
+        src = self._rows(slots, self.live)
+        dst = self._rows(slots, 1 - self.live)
+        planes = self.raw_dict()
+        for plane in planes.values():
+            plane.index_copy_(0, dst, plane.index_select(0, src))
+        return len(planes)
+
+    def flip(self) -> None:
+        """Generation flip: the corrected shadow becomes live (what the next
+        launch reads once the owner rewrites the device LUT); the previous
+        live becomes the new, stale shadow."""
+        if self.generations < 2:
+            raise ValueError("flip() before ensure_shadow()")
+        self.live = 1 - self.live
+
+    def generation_view(self, generation: Optional[int] = None) -> Params:
+        """``raw_dict`` restricted to one generation's ``num_slots + 1`` rows
+        (views; default the live one)."""
+        b = self.base(generation)
+        return {n: t[b:b + self.num_slots + 1] for n, t in self.raw_dict().items()}
+
     def raw_dict(self) -> Params:
-        """The planes the MoE half reads (slot ``num_slots`` = zeros): the
-        ``w_*`` buffers plus ``scale_w_*`` / ``min_w_*`` when quantized (the
-        reference's ``raw_pytree``)."""
+        """The planes the MoE half reads (every generation; row ``miss_row``
+        = zeros): the ``w_*`` buffers plus ``scale_w_*`` / ``min_w_*`` when
+        quantized (the reference's ``raw_pytree``)."""
         out = dict(self.buffers)
         for name, s in self.scales.items():
             out[f"scale_{name}"] = s

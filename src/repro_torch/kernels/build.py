@@ -15,7 +15,9 @@ shared memory, spills) per source.
 A kernel's Python wrapper holds a :class:`CudaKernel`: it launches on
 PyTorch's current stream, raises when the launcher returns a CUDA error, and
 counts its launches in ``launches``, a plain integer (and per launcher
-symbol in ``symbol_launches``).
+symbol in ``symbol_launches``). A call made while a CUDA graph captures
+records the launch instead of making it; the graph's owner takes that count
+back and adds it on every replay (``kernels.ops.add_launches``).
 """
 from __future__ import annotations
 
@@ -139,5 +141,10 @@ class CudaKernel:
         if rc != 0:
             name = load(self.source).repro_error_name(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error {rc} ({name})")
-        self.launches += 1
-        self.symbol_launches[symbol] = self.symbol_launches.get(symbol, 0) + 1
+        self.count(symbol)
+
+    def count(self, symbol: str, n: int = 1) -> None:
+        """Count ``n`` launches of ``symbol``: one per wrapper call, or a CUDA
+        graph's replay of the launches its capture recorded."""
+        self.launches += n
+        self.symbol_launches[symbol] = self.symbol_launches.get(symbol, 0) + n

@@ -57,6 +57,29 @@ def reset_launch_counts() -> None:
         k.reset()
 
 
+def launches_since(before: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
+    """Launches per kernel and symbol counted since ``before`` (an earlier
+    ``symbol_launch_counts()``), zero entries left out."""
+    out: Dict[str, Dict[str, int]] = {}
+    for name, syms in symbol_launch_counts().items():
+        delta = {s: n - before.get(name, {}).get(s, 0) for s, n in syms.items()}
+        delta = {s: n for s, n in delta.items() if n}
+        if delta:
+            out[name] = delta
+    return out
+
+
+def add_launches(delta: Dict[str, Dict[str, int]], times: int = 1) -> None:
+    """Count ``times`` x ``delta`` (kernel -> symbol -> launches). A CUDA
+    graph's replay launches what its capture recorded without passing the
+    wrappers, so its owner counts the capture's launches this way: once
+    negated after the capture (which launched nothing), then once per
+    replay."""
+    for name, syms in delta.items():
+        for sym, n in syms.items():
+            KERNELS[name].count(sym, n * times)
+
+
 def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
              scale: Optional[torch.Tensor] = None,
              mn: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -69,14 +92,14 @@ def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
 
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    cur_len: int, soft_cap: Optional[float] = None,
+    lengths: torch.Tensor, soft_cap: Optional[float] = None,
 ) -> torch.Tensor:
     """Adapter for the model's decode path: q [B, 1, H, dh], cache k/v
-    [B, S, Hkv, dh]. ``cur_len`` counts the tokens BEFORE this one; the new
-    token's KV is already written, so each row's valid length is cur_len + 1.
-    Sliding windows stay in the caller's plain path (ring masks)."""
-    b = q.shape[0]
-    lengths = torch.full((b,), cur_len + 1, dtype=torch.int32, device=q.device)
+    [B, S, Hkv, dh], ``lengths`` [B] int on q's device: each row's valid
+    positions (the new token's KV already written; a length past S scores
+    all S, a full ring cache). The lengths stay on the device, so a CUDA
+    graph can capture the call with the host setting them before a replay
+    (the reference's adapter takes ``cur_len``, scalar or [B], and adds 1)."""
     if _on_card(q):
         out = _dec.decode_attention(q[:, 0], k, v, lengths, soft_cap=soft_cap)
     else:

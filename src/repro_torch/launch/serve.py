@@ -6,7 +6,10 @@ Weights are random from ``--seed``. Like the reference CLI it runs the
 reduced config by default; ``--full-width`` keeps the published widths and
 ``--layers N`` cuts the depth to the first N layers. ``--quantization
 int8|int4`` (with ``--quant-group``) serves from quantized slot stores.
-``--device`` defaults to ``cuda``; a missing card is an error.
+``--prefetch`` serves with double-buffered predictive prefetch and the miss
+relaunch; ``--no-prefetch`` (the default) keeps synchronous rotation.
+``--device`` defaults to ``cuda``; a missing card is an error. On the card
+the decode step runs as a CUDA graph replay.
 """
 from __future__ import annotations
 
@@ -40,6 +43,11 @@ def main() -> None:
                          "two-nibbles-per-byte, ~4x smaller rotations)")
     ap.add_argument("--quant-group", type=int, default=64,
                     help="int4 rows per scale/min group (Q4_K_M-style)")
+    ap.add_argument("--prefetch", action=argparse.BooleanOptionalAction, default=False,
+                    help="double-buffered predictive prefetch (shadow-generation uploads "
+                         "on a copy stream under the in-flight step, boundary = "
+                         "confirm/correct/flip) and the miss relaunch; --no-prefetch "
+                         "(the default) keeps the synchronous rotation path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -62,7 +70,8 @@ def main() -> None:
         cfg, params, ResidencyConfig(mode=args.residency, num_slots=slots,
                                      quantization=QUANT_CHOICES[args.quantization],
                                      quant_group_size=args.quant_group),
-        rt=Runtime(cache_len=args.cache_len), batch=b, seed=args.seed, device=device,
+        rt=Runtime(cache_len=args.cache_len), batch=b, seed=args.seed,
+        prefetch=args.prefetch, device=device,
     )
     rng = np.random.default_rng(args.seed)
     for g0 in range(0, args.requests, b):

@@ -2,17 +2,25 @@
 
 The counterpart of ``repro/models/attention.py`` for the paths the rotary
 engine runs. Prefill scores the prompt with the flash-attention kernel (K4)
-and emits a ``cache_len`` cache; decode writes the new token's K/V at slot
-``cur_len % cap`` IN PLACE (the reference returns a new cache; here the
-engine's per-layer cache tensors are updated where they lie) and then scores
-with the flash-decode kernel (K2), which reads ``cur_len + 1`` positions.
-Sliding-window (ring) caches keep the reference's plain masked path: their
-slot order is not position order, which K2 does not model.
+and writes a ``cache_len`` cache (into the caller's cache when it owns one);
+decode writes the new token's K/V at slot ``cur_len % cap`` IN PLACE (the
+reference returns a new cache; here the engine's per-layer cache tensors are
+updated where they lie) and then scores with the flash-decode kernel (K2),
+which reads ``min(cur_len + 1, cap)`` positions. ``cur_len`` may be a device
+scalar, so a CUDA graph can capture the step and the host set the position
+before each replay.
+
+Sliding-window (ring) caches need no ring mask in K2: the cache holds
+``cap = min(window, cache_len)`` slots, and after the write every filled
+slot holds a position in ``(cur_len - cap, cur_len]``, inside the window, so
+scoring the filled slots in slot order scores the reference's set
+(``_ring_decode_plain``, its masked path, stays as the plain version the
+tests hold K2 to).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -73,9 +81,12 @@ def zero_cache(acfg: AttentionConfig, batch: int, cache_len: int,
 
 def attention_prefill(
     p: Params, acfg: AttentionConfig, x: torch.Tensor, cache_len: int,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: causal attention (K4) + a fixed-capacity KV cache of
-    ``cache_len`` (ring-indexed, slot = pos % cap, for windowed attention)."""
+    ``cache_len`` (ring-indexed, slot = pos % cap, for windowed attention).
+    ``cache`` (as ``zero_cache`` makes it) is zeroed and written in place, so
+    its owner keeps one allocation across requests; None makes a new one."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, acfg, x, positions)
@@ -83,7 +94,11 @@ def attention_prefill(
         q, k, v, causal=True, window=acfg.window, soft_cap=acfg.logit_soft_cap
     )
     y = ctx.reshape(b, s, -1) @ p["wo"]
-    cache = zero_cache(acfg, b, cache_len, k.dtype, x.device)
+    if cache is None:
+        cache = zero_cache(acfg, b, cache_len, k.dtype, x.device)
+    else:
+        cache["k"].zero_()
+        cache["v"].zero_()
     cap = cache["k"].shape[1]
     if acfg.window is not None and s > cap:
         slots = (s - cap + torch.arange(cap, device=x.device)) % cap
@@ -98,33 +113,37 @@ def attention_prefill(
 
 def attention_decode(
     p: Params, acfg: AttentionConfig, x: torch.Tensor,
-    cache: Dict[str, torch.Tensor], cur_len: int,
+    cache: Dict[str, torch.Tensor], cur_len: Union[int, torch.Tensor],
 ) -> torch.Tensor:
     """One-token decode. x [B, 1, D]; cache k/v [B, cap, Hkv, dh], updated IN
     PLACE at slot ``cur_len % cap`` before scoring. Returns y [B, 1, D].
+    ``cur_len`` is an int or a 0-d integer tensor on x's device.
 
-    Re-running this at the same ``cur_len`` (the engine's suffix replay)
-    overwrites the very slot the first pass wrote, as in the reference."""
+    Re-running this at the same ``cur_len`` (the engine's suffix replay and
+    miss relaunch) overwrites the very slot the first pass wrote, as in the
+    reference."""
     b = x.shape[0]
     h, hkv, dh = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
-    positions = torch.full((b, 1), cur_len, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _project_qkv(p, acfg, x, positions)
     ck, cv = cache["k"], cache["v"]
     cap = ck.shape[1]
-    slot = cur_len % cap
-    ck[:, slot] = k_new[:, 0]
-    cv[:, slot] = v_new[:, 0]
-    if acfg.window is None:
-        ctx = ops.decode_attention(q, ck, cv, cur_len=cur_len, soft_cap=acfg.logit_soft_cap)
-    else:
-        ctx = _ring_decode_plain(acfg, q, ck, cv, cur_len)
+    if not isinstance(cur_len, torch.Tensor):
+        cur_len = torch.full((), cur_len, dtype=torch.int64, device=x.device)
+    positions = cur_len.to(torch.int64).reshape(1, 1).expand(b, 1)
+    q, k_new, v_new = _project_qkv(p, acfg, x, positions)
+    slot = torch.remainder(cur_len.to(torch.int64), cap).reshape(1)
+    ck.index_copy_(1, slot, k_new)
+    cv.index_copy_(1, slot, v_new)
+    lengths = torch.clamp(cur_len.to(torch.int32) + 1, max=cap).expand(b)
+    ctx = ops.decode_attention(q, ck, cv, lengths=lengths, soft_cap=acfg.logit_soft_cap)
     return ctx.reshape(b, 1, h * dh) @ p["wo"]
 
 
 def _ring_decode_plain(acfg: AttentionConfig, q: torch.Tensor, ck: torch.Tensor,
                        cv: torch.Tensor, cur_len: int) -> torch.Tensor:
     """The reference's masked decode over a ring cache (``attention.py:442-467``):
-    slots ahead of the write head hold the previous lap's positions."""
+    slots ahead of the write head hold the previous lap's positions. The
+    plain version K2's ring scoring is held to (``attention_decode`` scores
+    the filled slots without this mask)."""
     b, _, h, dh = q.shape
     hkv, cap = acfg.num_kv_heads, ck.shape[1]
     g = h // hkv

@@ -72,10 +72,12 @@ def rms_norm_headdim(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) ->
 def rope_angles(
     positions: torch.Tensor, head_dim: int, theta: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions [...] -> (sin, cos) each [..., head_dim // 2], f32."""
+    """positions [...] -> (sin, cos) each [..., head_dim // 2], f32. Made on
+    ``positions``' device from a fill and ``arange`` (no host copy), so a
+    CUDA graph can capture it."""
     half = head_dim // 2
     dev = positions.device
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32, device=dev))
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32, device=dev))
     freqs = torch.exp(-log_theta * (torch.arange(half, dtype=torch.float32, device=dev) / half))
     ang = positions.float()[..., None] * freqs
     return torch.sin(ang), torch.cos(ang)

@@ -17,8 +17,9 @@ about 13 GB per weight tensor. Two groupings feed K1:
   sizes on the host, one sync per call.
 
 Misses keep the reference's sentinel: a routed expert whose LUT entry is
-``num_slots`` reads the zero MISS slot and its weight is dropped; the
-engine corrects it on the host.
+the planes' last row (``num_slots`` for one generation of slots, the second
+generation's zero row when two are folded into the planes) reads
+zeros and its weight is dropped; the engine corrects it on the host.
 """
 from __future__ import annotations
 
@@ -131,7 +132,7 @@ def moe_apply_routed(
     weights: torch.Tensor,                # [T, k] f32
     *,
     slot_buffer: Optional[Params] = None,
-    lut: Optional[torch.Tensor] = None,   # [E] int: expert -> slot, num_slots = MISS
+    lut: Optional[torch.Tensor] = None,   # [E] int: expert -> row, last row = MISS
     include_shared: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply already-routed experts. Returns (y [T, D], miss [T, k] bool)."""

@@ -11,7 +11,7 @@ over layers needs no stacking). The KV state is a list of per-layer
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -81,12 +81,15 @@ def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor
 
 
 def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: Any,
-              cur_len: int, cache_len: int) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+              cur_len: Union[int, torch.Tensor],
+              cache_len: int) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Attention + residual, then the MoE input norm: (x_mid, h2 [T, D], state).
-    ``prefill`` returns a fresh cache; ``decode`` updates ``state`` in place."""
+    ``prefill`` rewrites ``state`` in place (a fresh cache when it is None);
+    ``decode`` updates ``state`` in place at ``cur_len`` (an int or a device
+    scalar)."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     if mode == "prefill":
-        y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len)
+        y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len, state)
     elif mode == "decode":
         y = attn.attention_decode(p["attn"], cfg.attention, h, state, cur_len)
     else:
@@ -101,13 +104,15 @@ def decode_model(
     params: Params,
     token: torch.Tensor,              # [B] current token
     state: List[Dict[str, torch.Tensor]],
-    cur_len: int,                     # tokens already in the cache
+    cur_len: Union[int, torch.Tensor],  # tokens already in the cache (int or device scalar)
     residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over every layer: returns (logits [B, V], aux).
 
     ``residency`` gives each layer's (slot buffers, device LUT); None reads
-    the full expert store in ``params``. ``state`` is updated in place. aux
+    the full expert store in ``params``. ``state`` is updated in place. With
+    a device ``cur_len`` the step makes no host round trip, so a CUDA graph
+    can capture it. aux
     holds the routing telemetry stacked over layers: ``route_ids`` /
     ``route_weights`` / ``route_miss`` [L, T, k], ``route_h`` [L, T, D] (the
     MoE inputs the demand GEMM reads) and ``route_x`` [L, T, D] (each block's

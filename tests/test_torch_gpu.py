@@ -590,3 +590,181 @@ def test_decode_attention_element_loads(card, dtype, dh):
     torch.cuda.synchronize()
     exp = ref.decode_attention_ref(q, k, v, lengths, soft_cap=20.0)
     torch.testing.assert_close(out.float(), exp.float(), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the decode step as one CUDA graph; the miss relaunch and prefetch
+# ---------------------------------------------------------------------------
+def _reduced_engine(device, slots=3, prefetch=False, quantization=None, dtype="float32",
+                    cache_len=64):
+    from repro_torch.config import ResidencyConfig, get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.core.engine import RotaryEngine
+    from repro_torch.core.transfer import CostModel
+    from repro_torch.models.transformer import Runtime, init_params
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype=dtype)
+    mode = "full" if slots == 0 else "rotary"
+    res = ResidencyConfig(mode=mode, num_slots=slots, prefetch_margin=1,
+                          quantization=quantization, quant_group_size=16)
+    # one link figure for every engine, so the modeled clocks compare
+    cost = CostModel(host_link_gbs=20.0, link_latency_us=10.0)
+    return cfg, RotaryEngine(cfg, init_params(cfg, 0, "cpu"), res, rt=Runtime(cache_len=cache_len),
+                             batch=2, device=device, prefetch=prefetch, cost=cost)
+
+
+def _decode_steps(eng, prompt, steps):
+    """Greedy tokens and the logits of every decode step, one call per token."""
+    logits = [eng.prefill(prompt)]
+    toks = []
+    for _ in range(steps):
+        toks.append(eng.decode(logits[-1], 1)[:, 0])
+        logits.append(eng.last_logits)
+    return np.stack(toks, 1), np.stack(logits[1:], 1)
+
+
+# host wall times: the only stats that may differ
+_MEASURED = ("wall_s", "overlap_ms", "host_dequant_s")
+
+
+@pytest.mark.parametrize("prefetch,dtype", [(False, "float32"), (True, "float32"),
+                                            (True, "bfloat16")])
+def test_graph_step_equals_eager_step(card, prefetch, dtype):
+    """The captured step replayed against the same step run eagerly on the
+    card, over steps that miss (replay) and relaunch: bitwise the same
+    logits, the same tokens and the same EngineStats."""
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 12)).astype(np.int32)
+    out = {}
+    for capture in (True, False):     # at 5 slots a step's 4 picks fit: relaunches are feasible
+        _, eng = _reduced_engine(card, slots=5 if prefetch else 3, prefetch=prefetch, dtype=dtype)
+        eng._capture = capture
+        toks, logits = _decode_steps(eng, prompt, 10)
+        stats = {k: v for k, v in dataclasses.asdict(eng.stats).items() if k not in _MEASURED}
+        out[capture] = (toks, logits, stats, eng.graph_captures, eng.graph_replays)
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    assert out[True][1].tobytes() == out[False][1].tobytes()
+    assert out[True][2] == out[False][2]
+    assert out[True][3:] == (1, 9 + out[True][2]["relaunched_steps"])
+    assert out[False][3:] == (0, 0)
+    s = out[True][2]
+    assert (s["relaunched_steps"] > 0) if prefetch else (s["replayed_steps"] > 0)
+
+
+def test_graph_launch_counts_are_replays_times_capture(card):
+    """Full residency (no miss): after N decode steps (the capture's warm-up
+    and N - 1 replays) every kernel's and symbol's count is N times one
+    step's launches, which the capture recorded."""
+    _, eng = _reduced_engine(card, slots=0)
+    logits = eng.prefill(np.arange(10, dtype=np.int32).reshape(2, 5))
+    ops.reset_launch_counts()
+    eng.decode(logits, 7)
+    torch.cuda.synchronize()
+    per_step = eng._graph_launches
+    assert per_step["topk_gate"] == {"router_topk_f32": eng.num_moe_layers}   # one a layer
+    assert set(per_step) == {"slot_gmm", "decode_attention", "topk_gate"}
+    assert eng.graph_captures == 1 and eng.graph_replays == 6
+    assert ops.symbol_launch_counts() == {
+        name: {sym: 7 * n for sym, n in per_step.get(name, {}).items()} for name in ops.KERNELS}
+
+
+def test_graph_replay_after_a_moved_plane_raises(card):
+    _, eng = _reduced_engine(card, slots=3)
+    logits = eng.prefill(np.arange(10, dtype=np.int32).reshape(2, 5))
+    eng.decode(logits, 2)
+    store = eng.manager.stores[1]
+    store.buffers["w_up"] = store.buffers["w_up"].clone()
+    with pytest.raises(RuntimeError, match="moved"):
+        eng.decode(eng.last_logits, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_on_a_ring_cache_over_several_laps(card, dtype):
+    """K2 scores a ring cache (slot = position % cap) in slot order with the
+    row's length clamped to cap, against the reference's masked ring decode
+    (``_ring_decode_plain``), at every step of four laps."""
+    from repro_torch.config import AttentionConfig
+    from repro_torch.models.attention import _ring_decode_plain
+
+    b, h, hkv, dh, cap = 2, 8, 2, 64, 16
+    acfg = AttentionConfig(num_heads=h, num_kv_heads=hkv, head_dim=dh, window=cap,
+                           logit_soft_cap=30.0)
+    ck = torch.zeros((b, cap, hkv, dh), dtype=dtype, device=card)
+    cv = torch.zeros_like(ck)
+    for cur in range(4 * cap):
+        ck[:, cur % cap] = _randn((b, hkv, dh), dtype, 2 * cur, card)
+        cv[:, cur % cap] = _randn((b, hkv, dh), dtype, 2 * cur + 1, card)
+        q = _randn((b, 1, h, dh), dtype, 1000 + cur, card)
+        lengths = torch.full((b,), min(cur + 1, cap), dtype=torch.int32, device=card)
+        ops.reset_launch_counts()
+        got = ops.decode_attention(q, ck, cv, lengths=lengths, soft_cap=30.0)
+        assert ops.launch_counts()["decode_attention"] == 1
+        want = _ring_decode_plain(acfg, q, ck, cv, cur)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_prefetch_flips_land_after_the_copy_stream(card):
+    """The manager on the card under prefetch, fed a demand bump drifting
+    round the experts (so forecasts land and layers flip): after every
+    boundary the compute stream alone (not the device) is synchronized, and
+    every layer's live generation then holds, slot by slot, the warehouse
+    rows its LUT names (each flip's corrections and catch-up copies on the
+    copy stream landed before the flip took effect); once the copy stream
+    drains, the shadow generation holds what its bookkeeping says."""
+    from repro_torch.config import ResidencyConfig, get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.core.predictor import DemandPredictor
+    from repro_torch.core.residency import RotaryResidencyManager
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype="float32")
+    rng = np.random.default_rng(2)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_d_ff
+    host = [{"w_gate": torch.from_numpy(rng.standard_normal((e, d, f)).astype(np.float32)),
+             "w_up": torch.from_numpy(rng.standard_normal((e, d, f)).astype(np.float32)),
+             "w_down": torch.from_numpy(rng.standard_normal((e, f, d)).astype(np.float32))}
+            for _ in range(2)]
+    m = RotaryResidencyManager(cfg, ResidencyConfig(mode="rotary", num_slots=4,
+                                                    prefetch_margin=1),
+                               host, batch=1, cache_len=32, device=card)
+    m.enable_prefetch()
+    pred = DemandPredictor([rng.standard_normal((d, e)).astype(np.float32) for _ in range(2)])
+    for l in range(2):
+        m.prepare_layer(l, pred.smoothed[l])
+    flips, lives = 0, [s.live for s in m.stores]
+    for step in range(16):
+        ids = rng.integers(0, e, (2, 1, 2))
+        bump = np.exp(-0.5 * ((np.arange(e) - 0.5 * step) % e) ** 2)
+        m.begin_prefetch(pred)
+        m.rotate_from_telemetry(pred, ids, rng.random((2, 1, 2)).astype(np.float32),
+                                np.zeros(ids.shape, bool), np.stack([bump / bump.sum()] * 2))
+        torch.cuda.current_stream().synchronize()
+        for li, store in enumerate(m.stores):
+            flips += store.live != lives[li]
+            lives[li] = store.live
+            live = store.generation_view()
+            for s, ex in enumerate(m.policies[li].lut.s2e):
+                if ex >= 0:
+                    for name in live:
+                        assert torch.equal(live[name][s].cpu(), host[li][name][ex]), (step, li)
+        m._copy_stream.synchronize()
+        for li, store in enumerate(m.stores):
+            shadow = store.generation_view(1 - store.live)
+            for s, ex in m._shadow_contents[li].items():
+                assert torch.equal(shadow["w_up"][s].cpu(), host[li]["w_up"][ex])
+    assert flips > 0 and m.stats.prefetch_launched > 0 and m.copy_stream_ms() > 0
+
+
+@pytest.mark.parametrize("quantization", [None, "int4"])
+def test_prefetch_engine_on_card_matches_cpu(card, quantization):
+    """Reduced f32 qwen36 with prefetch=True: the card (graph replays, the
+    relaunch, shadow uploads on the copy stream) emits the CPU engine's
+    tokens, misses, relaunches and replays."""
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 40)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):        # 5 slots cover a step's 4 picks: relaunches are feasible
+        _, eng = _reduced_engine(dev, slots=5, prefetch=True, quantization=quantization)
+        out[dev] = (eng.generate(prompt, 10), eng.stats)
+    np.testing.assert_array_equal(out["cpu"][0], out["cuda"][0])
+    for key in ("misses", "relaunched_steps", "replayed_steps", "prefetch_launched",
+                "prefetch_hits", "bytes_uploaded"):
+        assert getattr(out["cpu"][1], key) == getattr(out["cuda"][1], key), key
+    assert out["cuda"][1].relaunched_steps > 0

@@ -229,7 +229,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     ops.topk_gate(torch.from_numpy(_np((3, 8), 2)), 2)
     q = torch.from_numpy(_np((1, 1, 4, 16), 3))
     kv = torch.from_numpy(_np((1, 8, 2, 16), 4))
-    ops.decode_attention(q, kv, kv, cur_len=3)
+    ops.decode_attention(q, kv, kv, lengths=torch.tensor([4]))
     ops.flash_attention(torch.from_numpy(_np((1, 8, 4, 16), 5)), kv, kv)
     assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
 

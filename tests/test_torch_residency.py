@@ -32,7 +32,7 @@ from repro_torch.core.predictor import host_topk_route as thost_topk
 from repro_torch.core.residency import InitializationError
 from repro_torch.core.residency import RotaryResidencyManager as TManager
 from repro_torch.core.residency import check_feasibility as tcheck
-from repro_torch.core.slots import SlotStore, gather_rows
+from repro_torch.core.slots import SlotStore
 
 
 def _demands(n, e, seed):
@@ -148,7 +148,16 @@ def test_quantized_manager_planes_match_reference(quantization, group):
 def test_manager_rotation_matches_reference_from_identical_telemetry():
     """Identical warm start and per-step telemetry: the same LUTs, the same
     bytes uploaded, and the port's device slots hold exactly the experts the
-    LUT names (the MISS slot stays zero)."""
+    LUT names (the MISS slot stays zero). Then again under predictive
+    prefetch: the same ``begin_prefetch`` plans, the same commit outcomes
+    (prefetch hits, wasted bytes, loads), the same contents of both
+    generations, and the port's folded planes equal the reference's live and
+    shadow buffers byte for byte."""
+    for prefetch in (False, True):
+        _rotation_against_reference(prefetch)
+
+
+def _rotation_against_reference(prefetch):
     cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype="float32")
     tcfg = dataclasses.replace(treduce(tget("qwen36-35b-a3b")), dtype="float32")
     rng = np.random.default_rng(2)
@@ -160,43 +169,75 @@ def test_manager_rotation_matches_reference_from_identical_telemetry():
     jm = JManager(cfg, JRes(**kw), host, batch=1, cache_len=32)
     tm = TManager(tcfg, TRes(**kw), [{n: torch.from_numpy(w) for n, w in hw.items()}
                                      for hw in host], batch=1, cache_len=32, device="cpu")
+    if prefetch:
+        jm.enable_prefetch()
+        tm.enable_prefetch()
     routers = [rng.standard_normal((d, e)).astype(np.float32) for _ in range(2)]
     jp, tp = JPredictor(routers), TPredictor(routers)
     for l in range(2):
         jm.prepare_layer(l, jp.smoothed[l])
         tm.prepare_layer(l, tp.smoothed[l])
-    for step in range(6):
+    for step in range(16 if prefetch else 6):
         ids = rng.integers(0, e, (2, 1, 2))
         w = rng.random((2, 1, 2)).astype(np.float32)
         miss = rng.random((2, 1, 2)) < 0.3
-        demand = rng.dirichlet(np.ones(e), size=2)
+        if prefetch:    # a bump of demand drifting round the experts: forecasts land
+            bump = np.exp(-0.5 * ((np.arange(e) - 0.5 * step) % e) ** 2)
+            demand = np.stack([bump / bump.sum()] * 2)
+        else:
+            demand = rng.dirichlet(np.ones(e), size=2)
+        if prefetch:
+            assert jm.begin_prefetch(jp) == tm.begin_prefetch(tp)
+            assert jm._pending == tm._pending
         jm.rotate_from_telemetry(jp, ids, w, miss, demand)
         tm.rotate_from_telemetry(tp, ids, w, miss, demand)
         for l in range(2):
             np.testing.assert_array_equal(jm.policies[l].lut.e2s, tm.policies[l].lut.e2s)
-            np.testing.assert_array_equal(np.asarray(jm.device_lut(l)), tm.device_lut(l).numpy())
-    assert jm.stats.bytes_uploaded == tm.stats.bytes_uploaded > 0
-    assert jm.stats.misses == tm.stats.misses
+            jlut = np.asarray(jm.device_lut(l))
+            store = tm.stores[l]
+            want = np.where(jlut == store.num_slots, store.miss_row, jlut + store.base())
+            np.testing.assert_array_equal(tm.device_lut(l).numpy(), want)
+        if prefetch:
+            assert jm._live_contents == tm._live_contents
+            assert jm._shadow_contents == tm._shadow_contents
+            for l in range(2):
+                js, ts = jm.stores[l], tm.stores[l]
+                for name in ("w_gate", "w_up", "w_down"):
+                    np.testing.assert_array_equal(ts.generation_view()[name].numpy(),
+                                                  np.asarray(js.buffers[name]))
+                    np.testing.assert_array_equal(
+                        ts.generation_view(1 - ts.live)[name].numpy(),
+                        np.asarray(js._shadow["buffers"][name]))
+    for key in ("bytes_uploaded", "misses", "prefetch_launched", "prefetch_hits",
+                "prefetch_wasted_bytes"):
+        assert getattr(jm.stats, key) == getattr(tm.stats, key), key
+    assert jm.stats.bytes_uploaded > 0
+    if prefetch:
+        assert tm.stats.prefetch_launched > 0 and tm.stats.prefetch_hits > 0
+        assert any(s.live for s in tm.stores)                    # a flip happened
+    assert [s.loads for s in jm.stats.layers.values()] == \
+        [s.loads for s in tm.stats.layers.values()]
     for l in range(2):
         lut = tm.policies[l].lut
-        buf = tm.stores[l].buffers["w_up"]
+        buf = tm.stores[l].generation_view()["w_up"]
         for s, ex in enumerate(lut.s2e):
             if ex >= 0:
                 np.testing.assert_array_equal(buf[s].numpy(), host[l]["w_up"][ex])
         assert not buf[lut.num_slots].any()
+        assert not tm.stores[l].buffers["w_up"][tm.stores[l].miss_row].any()
 
 
 def test_slot_store_write_batch_and_manager_guards():
     rng = np.random.default_rng(4)
     host = torch.from_numpy(rng.standard_normal((6, 8, 12)).astype(np.float32))
     store = SlotStore(3, {"w_up": (8, 12)}, torch.float32, "cpu")
-    moved = store.write_batch([2, 0], {"w_up": gather_rows(host, [5, 1])})
+    moved = store.write_batch([2, 0], {"w_up": host[[5, 1]]})
     assert moved == 2 * 8 * 12 * 4
     torch.testing.assert_close(store.buffers["w_up"][2], host[5])
     torch.testing.assert_close(store.buffers["w_up"][0], host[1])
     assert not store.buffers["w_up"][3].any()                 # the MISS slot
     with pytest.raises(ValueError):
-        store.write_batch([3], {"w_up": gather_rows(host, [0])})
+        store.write_batch([3], {"w_up": host[[0]]})
     cfg = treduce(tget("qwen36-35b-a3b"))
     hw = [{"w_up": torch.zeros((8, 64, 48))}]
     with pytest.raises(InitializationError):

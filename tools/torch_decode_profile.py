@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Where a decode token's time goes, path by path, on the card.
+
+    python3 tools/torch_decode_profile.py [--paths full,bf16,bf16-prefetch,int4-prefetch]
+                                          [--tokens 24] [--warm 4] [--out FILE] [--tree DIR]
+
+Imports the port and ``chip_smoke.py`` of the tree at ``DIR`` (default: this
+checkout) and builds each named path of its ``chip_smoke.py`` (``PATHS``: qwen36-35b-a3b at its
+published widths, 8 layers, the path's residency, slot format and prefetch
+flag, the same random weights), prefills one prompt of 512 tokens and decodes
+``--warm`` tokens, then measures ``--tokens`` decode tokens twice:
+
+1. host split: the wall time per token spent inside the engine's pieces,
+   each timed inclusively by a wrapper (a piece's time includes the pieces
+   it calls): the step's launch (device LUT rewrites, pointer check, graph
+   replay), the blocking pulls (every ``Tensor.cpu``: the wait for the
+   card), the suffix replay, the relaunch, ``ensure_resident``, the host
+   gather of warehouse rows into pinned staging (``gather_rows``, in trees
+   that still have it), the upload calls (``SlotStore.write_batch``), the
+   host miss GEMM, the rotation and ``begin_prefetch``;
+2. device split: the same number of tokens under ``torch.profiler`` (CPU and
+   CUDA activity): device time per token by kernel or copy name (the top
+   ones), the device's total (kernels and copies, summed over streams) and
+   its share of the wall time (the busy share; idle = 1 - busy where the
+   streams do not overlap).
+
+Prints the card's ``nvidia-smi`` name and power limit, one block per path,
+and one JSON line per path (also written to ``--out FILE`` when given). To
+compare two trees on one card, run this on both, one after the other on the
+same card: older, newer, newer, older.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import gc
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _timers(engine, acc):
+    """Wrap the engine's pieces (and the blocking pull) with inclusive wall
+    timers accumulating into ``acc``; returns an undo function."""
+    import torch
+
+    from repro_torch.core import residency as res_mod
+    from repro_torch.core import slots as slots_mod
+
+    undo = []
+
+    def wrap(owner, name, label):
+        fn = getattr(owner, name)
+
+        @functools.wraps(fn)
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[label] += time.perf_counter() - t0
+
+        setattr(owner, name, timed)
+        undo.append(lambda: setattr(owner, name, fn))
+
+    for name, label in (("_launch_step", "launch (LUT rewrite + replay)"),
+                        ("_replay_fused", "suffix replay"), ("_relaunch_fused", "relaunch"),
+                        ("_host_correct", "host miss GEMM")):
+        wrap(engine, name, label)
+    m = engine.manager
+    for name, label in (("ensure_resident", "ensure_resident"),
+                        ("rotate_from_telemetry", "rotation"),
+                        ("begin_prefetch", "begin_prefetch")):
+        wrap(m, name, label)
+    if hasattr(res_mod, "gather_rows"):
+        wrap(res_mod, "gather_rows", "host gather into staging")
+    wrap(slots_mod.SlotStore, "write_batch", "upload calls")
+    wrap(torch.Tensor, "cpu", "blocking pulls (.cpu)")
+    return lambda: [u() for u in reversed(undo)]
+
+
+def profile_path(dev, cfg, depth, spec, tokens, warm):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ResidencyConfig
+    from repro_torch.core.engine import RotaryEngine
+    from repro_torch.models.transformer import Runtime, init_params
+
+    import chip_smoke as cs
+
+    params = init_params(cfg, 0, dev, expert_device="cpu")
+    rescfg = ResidencyConfig(mode="rotary" if spec.slots else "full", num_slots=spec.slots,
+                             quantization=spec.quantization, quant_group_size=cs.GROUP)
+    engine = RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=cs.CACHE), batch=1, seed=0,
+                          prefetch=spec.prefetch, device=dev)
+    del params
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, cs.PROMPT)).astype(np.int32)
+    logits = engine.prefill(prompt)
+    engine.decode(logits, warm)
+    st = engine.stats
+
+    def counters():
+        return dict(replayed=st.replayed_steps, relaunched=st.relaunched_steps,
+                    bytes=st.bytes_uploaded, converted=st.host_dequant_experts)
+
+    # 1. host split
+    acc = defaultdict(float)
+    undo = _timers(engine, acc)
+    c0 = counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(tokens):
+        engine.decode(engine.last_logits, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    undo()
+    c1 = counters()
+    host = {k: 1e3 * v / tokens for k, v in sorted(acc.items(), key=lambda kv: -kv[1])}
+
+    # 2. device split
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(tokens):
+            engine.decode(engine.last_logits, 1)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        # the device's own events (kernels, copies, memsets); a CPU op's
+        # device time repeats the kernels it launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((ev.key, dt / 1e3 / tokens, ev.count / tokens))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    out = dict(
+        path=spec.label, tokens=tokens, wall_ms_per_token=1e3 * wall / tokens,
+        host_ms_per_token=host,
+        per_token=dict(replayed=(c1["replayed"] - c0["replayed"]) / tokens,
+                       relaunched=(c1["relaunched"] - c0["relaunched"]) / tokens,
+                       mb_uploaded=(c1["bytes"] - c0["bytes"]) / 2**20 / tokens,
+                       experts_converted=(c1["converted"] - c0["converted"]) / tokens),
+        profiled_wall_ms_per_token=1e3 * wall_prof / tokens,
+        device_ms_per_token=device_ms,
+        device_busy_share=device_ms / (1e3 * wall_prof / tokens),
+        top_device=[dict(name=n[:80], ms_per_token=ms, calls_per_token=c) for n, ms, c in rows[:14]],
+    )
+    del engine
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--paths", default="full,bf16,bf16-prefetch,int4-prefetch")
+    ap.add_argument("--tokens", type=int, default=24)
+    ap.add_argument("--warm", type=int, default=4)
+    ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    ap.add_argument("--tree", default=str(ROOT))
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_decode_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(tree / "src"), str(tree)]
+    import chip_smoke as cs
+    from repro_torch.config import get_config
+    from repro_torch.kernels.build import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build()
+    print(cs.card_line(), flush=True)
+    full = get_config("qwen36-35b-a3b")
+    cfg = dataclasses.replace(full, segments=((("attn_moe",), cs.LAYERS),))
+    specs = {p.label: p for p in cs.PATHS}
+    results = []
+    for label in args.paths.split(","):
+        r = profile_path(torch.device("cuda"), cfg, full.num_layers, specs[label], args.tokens,
+                         args.warm)
+        results.append(r)
+        r["tree"] = tree.name
+        print(f"[{tree.name}/{label}] wall {r['wall_ms_per_token']:.2f} ms/token; per token: "
+              f"{r['per_token']}; host (inclusive ms/token): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["host_ms_per_token"].items()), flush=True)
+        print(f"  device {r['device_ms_per_token']:.3f} ms/token of "
+              f"{r['profiled_wall_ms_per_token']:.2f} (busy share {r['device_busy_share']:.3f}); "
+              f"top: " + "; ".join(f"{t['name']} {t['ms_per_token']:.3f} ms x{t['calls_per_token']:.0f}"
+                                   for t in r["top_device"]), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as fh:
+            for r in results:
+                fh.write(json.dumps(r) + "\n")
+    for r in results:
+        print(json.dumps(r))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
