@@ -117,7 +117,11 @@ class PathSpec(NamedTuple):
     requests: int
     new: int
     control: bool               # phase 5's control run (misses left uncorrected)
-    baseline: Optional[str]     # the synchronous path a prefetch path is held to
+    baseline: Optional[str]     # the path whose greedy ids this one is held to
+    lru: bool = False           # LRU residency (the sync walk, blocking loads)
+    host_routing: bool = False  # the seed baseline (the sync walk, host top-k)
+    fused_decode: Optional[bool] = None     # False: the per-layer hot walk
+    spec_k: int = 1             # > 1: speculative windows
 
 
 PATHS = (
@@ -127,6 +131,12 @@ PATHS = (
     PathSpec("full", None, 0, False, 1, NEW, False, None),
     PathSpec("bf16-prefetch", None, SLOTS, True, REQUESTS, NEW, False, "bf16"),
     PathSpec("int4-prefetch", "int4", SLOTS, True, 1, 16, False, "int4"),
+    PathSpec("bf16-walk", None, SLOTS, False, 1, 32, False, "bf16", fused_decode=False),
+    PathSpec("bf16-hostroute", None, SLOTS, False, 1, 16, False, "bf16", host_routing=True),
+    PathSpec("bf16-lru", None, SLOTS, False, 1, 32, False, "bf16", lru=True),
+    PathSpec("full-spec4", None, 0, False, 1, NEW, False, "full", spec_k=4),
+    PathSpec("bf16-spec4", None, SLOTS, False, 1, 32, False, "bf16", spec_k=4),
+    PathSpec("bf16-prefetch-spec4", None, SLOTS, True, 1, 32, False, "bf16", spec_k=4),
 )
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
 QUANT_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -714,38 +724,100 @@ def judge(label, got, truth, plain) -> bool:
                 and e_eng.max() <= ERR_RATIO * e_pl.max() + MAX_SLACK and agree[sure].all())
 
 
+def describe(path: PathSpec) -> str:
+    """The path's decode mechanism in words."""
+    if path.host_routing:
+        return "host routing (the per-layer sync walk, top-k on the host)"
+    if path.lru:
+        return "LRU residency (the per-layer sync walk, misses answered by blocking uploads)"
+    if path.fused_decode is False:
+        return "the per-layer hot walk (one blocking pull a token)"
+    kind = "prefetch + miss relaunch" if path.prefetch else "synchronous rotation"
+    if path.spec_k > 1:
+        return f"{kind}, speculative windows of {path.spec_k} (one CUDA graph per window size)"
+    return kind
+
+
+def make_engine(dev, cfg, params, path: PathSpec):
+    """The path's ``RotaryEngine``: its residency, slot format and switches,
+    batch 1, cache_len CACHE."""
+    from repro_torch.config import ResidencyConfig
+    from repro_torch.core.engine import RotaryEngine
+    from repro_torch.models.transformer import Runtime
+
+    mode = "lru" if path.lru else ("rotary" if path.slots else "full")
+    rescfg = ResidencyConfig(mode=mode, num_slots=path.slots, quantization=path.quantization,
+                             quant_group_size=GROUP)
+    return RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=CACHE), batch=1, seed=0,
+                        prefetch=path.prefetch, host_routing=path.host_routing,
+                        fused_decode=path.fused_decode, spec_k=path.spec_k, device=dev)
+
+
+def decode_request(engine, logits, new, spec: bool):
+    """Decode ``new`` greedy tokens after a prefill's ``logits``. One decode
+    call per token, or (``spec``) one call for all of them, whose windows
+    are timed one by one. Returns (tokens, the logits that chose them
+    [new, V], seconds per decode iteration, tokens per iteration)."""
+    import numpy as np
+
+    if not spec:
+        step_logits, toks, step_s = [logits], [], []
+        for _ in range(new):
+            t0 = time.perf_counter()
+            toks.append(int(engine.decode(step_logits[-1], 1)[0, 0]))
+            step_s.append(time.perf_counter() - t0)
+            step_logits.append(engine.last_logits)
+        return toks, np.stack([l[0] for l in step_logits[:-1]]), step_s, [1] * new
+    iters = []
+    window, step = engine._decode_window_fused, engine._decode_step_fused
+
+    def timed(fn, committed):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            iters.append((time.perf_counter() - t0, committed(out)))
+            return out
+        return run
+
+    engine._decode_window_fused = timed(window, lambda out: out[2])
+    engine._decode_step_fused = timed(step, lambda out: 1)
+    engine.logit_log = [logits]
+    try:
+        toks = engine.decode(logits, new)[0].tolist()
+        got = engine.logged_logits()[:-1, 0]
+    finally:
+        del engine._decode_window_fused, engine._decode_step_fused
+        engine.logit_log = None
+    return toks, got, [t for t, _ in iters], [n for _, n in iters]
+
+
 def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     """Phase 4 and 5 for one path: build the engine, drive its requests of
     PROMPT tokens and ``new`` greedy tokens each with the launch counters
     zeroed just before, check the logits against the plain forward (and the
-    control; a prefetch path also against its synchronous baseline in
-    ``done``), free the engine. Returns the path's summary: launch counts and
-    the numbers phase 6 prints."""
+    control; a path with a baseline also its greedy ids against the
+    baseline's in ``done``), free the engine. Returns the path's summary:
+    launch counts and the numbers phase 6 prints."""
 
     import numpy as np
     import torch
 
-    from repro_torch.config import ResidencyConfig
-    from repro_torch.core.engine import RotaryEngine
     from repro_torch.core.slots import quantize_experts
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.models.transformer import init_params
 
     label, quantization, requests, new = path.label, path.quantization, path.requests, path.new
+    spec = path.spec_k > 1
     experts = cfg.moe.num_experts
     where = (f"all {experts} experts resident" if not path.slots else
-             f"rotary residency {path.slots}/{experts} slots")
+             f"{'LRU' if path.lru else 'rotary'} residency {path.slots}/{experts} slots")
     log(f"[4/{label}] {cfg.name} at published widths, {LAYERS} of {depth} layers, {where} in "
         f"{quantization or 'bf16'}{f' (groups of {GROUP})' if quantization == 'int4' else ''}, "
-        f"{'prefetch + miss relaunch' if path.prefetch else 'synchronous rotation'}, "
-        f"{requests} request(s) x ({PROMPT} prompt + {new} new), batch 1, greedy, "
-        f"cache_len {CACHE}")
+        f"{describe(path)}, {requests} request(s) x ({PROMPT} prompt + {new} new), batch 1, "
+        f"greedy, cache_len {CACHE}")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, dev, expert_device="cpu")
-    rescfg = ResidencyConfig(mode="rotary" if path.slots else "full", num_slots=path.slots,
-                             quantization=quantization, quant_group_size=GROUP)
-    engine = RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=CACHE), batch=1, seed=0,
-                          prefetch=path.prefetch, device=dev)
+    engine = make_engine(dev, cfg, params, path)
     warehouse = sum(t.numel() * t.element_size() for hw in engine.host_experts
                     for t in hw.values())
     log(f"  set-up {time.perf_counter() - t0:.1f} s (weights on the card, warehouse to pinned "
@@ -768,7 +840,7 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
                for _ in range(requests)]
     runs = []
     st = engine.stats
-    dec = dict(pulls=0, bytes=0, steps=0)       # the decode steps' share of the counters
+    dec = dict(pulls=0, bytes=0, steps=0, overlapped=0)    # the decode steps' share
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -776,37 +848,39 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         t0 = time.perf_counter()
         logits = engine.prefill(prompt)
         t_prefill = time.perf_counter() - t0
-        step_logits, toks, step_s = [logits], [], []
-        pulls0, bytes0 = st.sync_pulls, st.bytes_uploaded
-        for _ in range(new):
-            t0 = time.perf_counter()
-            toks.append(int(engine.decode(step_logits[-1], 1)[0, 0]))
-            step_s.append(time.perf_counter() - t0)
-            step_logits.append(engine.last_logits)
+        pulls0, bytes0, over0 = st.sync_pulls, st.bytes_uploaded, st.overlapped_pulls
+        toks, got, step_s, step_n = decode_request(engine, logits, new, spec)
         dec["pulls"] += st.sync_pulls - pulls0
         dec["bytes"] += st.bytes_uploaded - bytes0
+        dec["overlapped"] += st.overlapped_pulls - over0
         dec["steps"] += new
-        runs.append((prompt, toks, np.stack([l[0] for l in step_logits[:-1]]),
-                     t_prefill, step_s))
+        runs.append((prompt, toks, got, t_prefill, step_s, step_n))
     counts = ops.launch_counts()
     entries = ops.symbol_launch_counts()["topk_gate"]
     peak = torch.cuda.max_memory_allocated()
     host_computed = sum(l.host_computed for l in st.layers.values())
     loads = sum(l.loads for l in st.layers.values())
     copy_ms = engine.manager.copy_stream_ms()
-    for i, (_, toks, _, tp, step_s) in enumerate(runs):
+    unit = "window" if spec else "step"
+    for i, (_, toks, _, tp, step_s, step_n) in enumerate(runs):
         log(f"  request {i}: prefill {tp * 1e3:.1f} ms, decode {new / sum(step_s):.2f} tok/s "
-            f"(first step {step_s[0] * 1e3:.1f} ms{', the graph captured in it' if i == 0 else ''}; "
-            f"{(new - 1) / sum(step_s[1:]):.2f} tok/s after it, median step "
-            f"{np.median(step_s[1:]) * 1e3:.2f} ms), first tokens {toks[:8]}")
+            f"(first {unit} {step_s[0] * 1e3:.1f} ms"
+            f"{', the graph captured in it' if i == 0 and engine._graphs else ''}; "
+            f"{(new - step_n[0]) / sum(step_s[1:]):.2f} tok/s after it, median {unit} "
+            f"{np.median(step_s[1:]) * 1e3:.2f} ms over {len(step_s)} {unit}s), first tokens "
+            f"{toks[:8]}")
     mb_per_token = dec["bytes"] / 2**20 / dec["steps"]
     log(f"  misses {st.misses}, replayed steps {st.replayed_steps}, relaunched steps "
         f"{st.relaunched_steps}, host_computed {host_computed}, loads {loads}, uploaded "
         f"{st.bytes_uploaded / 2**20:.1f} MB ({st.bytes_uploaded / loads if loads else 0:.0f} "
         f"bytes per loaded expert; {mb_per_token:.2f} MB per decode token), sync pulls {st.sync_pulls} "
-        f"({dec['pulls']} in {dec['steps']} decode steps), peak device memory "
-        f"{peak / 2**30:.2f} GiB")
-    log(f"  decode graph: {engine.graph_captures} capture(s), {engine.graph_replays} replays")
+        f"({dec['pulls']} in {dec['steps']} decode steps), overlapped pulls {st.overlapped_pulls}, "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    if spec:
+        log(f"  windows {st.spec_windows}, drafted {st.drafted_tokens}, accepted "
+            f"{st.accepted_tokens} (accept rate {st.accept_rate:.3f})")
+    log(f"  decode graphs: {engine.graph_captures} capture(s) (window sizes "
+        f"{sorted(engine._graphs)}), {engine.graph_replays} replays, {engine.launches} launches")
     log(f"  host weight conversion for missed experts: {st.host_dequant_s:.3f} s over "
         f"{st.host_dequant_experts} experts "
         f"({1e3 * st.host_dequant_s / max(st.host_dequant_experts, 1):.3f} ms each)")
@@ -817,7 +891,10 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
             f"uploads)")
     log(f"  kernel launches on this path: {counts}; K3 by entry: {entries}")
     fused = sum(n for sym, n in entries.items() if sym.startswith("router_topk_"))
-    if fused <= 0 or fused != counts["topk_gate"]:
+    if path.host_routing:
+        if counts["topk_gate"]:
+            raise AssertionError(f"{label}: K3 launched {entries}: host routing routes on the host")
+    elif fused <= 0 or fused != counts["topk_gate"]:
         raise AssertionError(f"{label}: K3 launched {entries}: every routing site must take the "
                              f"fused entry")
     if quantization and not path.prefetch and st.bytes_uploaded != loads * EXPERT_BYTES[quantization]:
@@ -827,19 +904,33 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         # shadow uploads ship experts that no load counts: whole experts all the same
         raise AssertionError(f"{st.bytes_uploaded} bytes uploaded: not whole "
                              f"{EXPERT_BYTES[quantization]}-byte {quantization} experts")
-    if dev.type == "cuda" and (engine.graph_captures != 1
-                               or engine.graph_replays < dec["steps"] - 1):
-        raise AssertionError(f"{label}: {engine.graph_captures} captures and "
-                             f"{engine.graph_replays} replays for {dec['steps']} decode steps")
-    if not path.slots and (st.misses or st.replayed_steps or dec["pulls"] != dec["steps"]):
+    if not engine._fused_decode:                      # the walks launch no graph
+        graphs_ok = engine.graph_captures == engine.launches == 0
+    else:            # on the card every fused launch a replay but each window size's first
+        graphs_ok = dev.type != "cuda" or (
+            engine.graph_captures == len(engine._graphs) <= path.spec_k
+            and engine.graph_captures + engine.graph_replays == engine.launches
+            and (spec or engine.graph_captures == 1))
+    if not graphs_ok:
+        raise AssertionError(f"{label}: {engine.graph_captures} captures, {engine.graph_replays} "
+                             f"replays and {engine.launches} launches")
+    want_pulls = requests * -(-new // path.spec_k)
+    if not path.slots and (st.misses or st.replayed_steps or dec["pulls"] != want_pulls
+                           or st.accepted_tokens != st.drafted_tokens):
         raise AssertionError(f"{label}: {st.misses} misses, {st.replayed_steps} replays and "
-                             f"{dec['pulls']} blocking pulls in {dec['steps']} decode steps")
+                             f"{dec['pulls']} blocking pulls in {dec['steps']} decode steps "
+                             f"(want {want_pulls})")
+    if path.fused_decode is False and dec["overlapped"] != 4 * LAYERS * dec["steps"]:
+        raise AssertionError(f"{label}: {dec['overlapped']} overlapped pulls in {dec['steps']} "
+                             f"steps, not 4 a layer")
+    if path.lru and not loads:
+        raise AssertionError(f"{label}: LRU made no load")
 
     log(f"[5/{label}] engine vs plain full-residency forward on the card")
     if host_computed != st.misses:
         raise AssertionError(f"host_computed {host_computed} != misses {st.misses}")
     refs = []
-    for i, (prompt, toks, got, _, _) in enumerate(runs):
+    for i, (prompt, toks, got, _, _, _) in enumerate(runs):
         if not np.isfinite(got).all() or got.shape != (new, cfg.vocab_size):
             raise AssertionError(f"request {i}: logits not finite or of shape {got.shape}")
         seq = np.concatenate([prompt[0], np.asarray(toks[:-1], np.int32)])[None]
@@ -864,21 +955,26 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     summary = dict(
         label=label, counts=counts, entries=entries, tokens=[r[1] for r in runs],
         tok_s=[new / sum(r[4]) for r in runs],
-        steady_tok_s=[(new - 1) / sum(r[4][1:]) for r in runs],
+        steady_tok_s=[(new - r[5][0]) / sum(r[4][1:]) for r in runs],
+        median_ms=[1e3 * float(np.median(r[4][1:])) for r in runs], unit=unit,
         prefill_ms=[1e3 * r[3] for r in runs],
         steps=dec["steps"], replayed=st.replayed_steps, relaunched=st.relaunched_steps,
         mb_per_token=mb_per_token, peak_gib=peak / 2**30, host_convert_s=st.host_dequant_s,
-        host_converted=st.host_dequant_experts, misses=st.misses,
+        host_converted=st.host_dequant_experts, misses=st.misses, loads=loads,
         replays=engine.graph_replays, prefetch_launched=st.prefetch_launched,
-        prefetch_hits=st.prefetch_hits, overlap_ms=st.overlap_ms, copy_ms=copy_ms)
+        prefetch_hits=st.prefetch_hits, overlap_ms=st.overlap_ms, copy_ms=copy_ms,
+        overlapped_pulls=st.overlapped_pulls, windows=st.spec_windows,
+        accept_rate=st.accept_rate if spec else None)
     if path.baseline:
         base = done[path.baseline]
-        share, base_share = st.replayed_steps / dec["steps"], base["replayed"] / base["steps"]
-        log(f"  against {path.baseline} in this run: replayed {st.replayed_steps}/{dec['steps']} "
-            f"steps against {base['replayed']}/{base['steps']}, relaunched {st.relaunched_steps}")
-        if st.relaunched_steps <= 0 or share >= base_share:
-            raise AssertionError(f"{label}: {st.relaunched_steps} relaunches, replayed share "
-                                 f"{share:.3f} not below {path.baseline}'s {base_share:.3f}")
+        if path.prefetch and not spec:
+            share, base_share = st.replayed_steps / dec["steps"], base["replayed"] / base["steps"]
+            log(f"  against {path.baseline} in this run: replayed {st.replayed_steps}/"
+                f"{dec['steps']} steps against {base['replayed']}/{base['steps']}, relaunched "
+                f"{st.relaunched_steps}")
+            if st.relaunched_steps <= 0 or share >= base_share:
+                raise AssertionError(f"{label}: {st.relaunched_steps} relaunches, replayed share "
+                                     f"{share:.3f} not below {path.baseline}'s {base_share:.3f}")
         for i, (toks, (truth, plain)) in enumerate(zip(summary["tokens"], refs)):
             ref_toks = base["tokens"][i][:len(toks)]
             differ = [j for j, (a, b) in enumerate(zip(toks, ref_toks)) if a != b]
@@ -960,18 +1056,22 @@ def main() -> int:
 
     # phase 6 ---------------------------------------------------------------
     log("[6] paths side by side (decode tok/s per request, over all its new tokens and over "
-        "those after the first step, whose time holds the graph's capture on a path's first "
-        "request; prefill ms; steps replayed / relaunched of decode steps; MB uploaded per "
-        "decode token; host conversion)")
+        "those after the first step or window, whose time holds the graph's capture on a "
+        "path's first request; median step or window ms after it; prefill ms; steps replayed / "
+        "relaunched of decode steps; MB uploaded per decode token; host conversion; loads; "
+        "overlapped pulls; windows and accept rate)")
     for r in done.values():
-        log(f"  {r['label']:>14}: decode {' / '.join(f'{x:.2f}' for x in r['tok_s'])} tok/s "
-            f"({' / '.join(f'{x:.2f}' for x in r['steady_tok_s'])} after the first step), "
+        accept = f"{r['accept_rate']:.3f}" if r["accept_rate"] is not None else "-"
+        log(f"  {r['label']:>19}: decode {' / '.join(f'{x:.2f}' for x in r['tok_s'])} tok/s "
+            f"({' / '.join(f'{x:.2f}' for x in r['steady_tok_s'])} after the first {r['unit']}, "
+            f"median {r['unit']} {' / '.join(f'{x:.2f}' for x in r['median_ms'])} ms), "
             f"prefill {' / '.join(f'{x:.1f}' for x in r['prefill_ms'])} ms, replayed "
             f"{r['replayed']} relaunched {r['relaunched']} of {r['steps']}, "
             f"{r['mb_per_token']:.2f} MB/token, host conversion {r['host_convert_s']:.3f} s over "
-            f"{r['host_converted']} experts, misses {r['misses']}, graph replays {r['replays']}, "
-            f"prefetch launched {r['prefetch_launched']} hits {r['prefetch_hits']}, peak "
-            f"{r['peak_gib']:.2f} GiB")
+            f"{r['host_converted']} experts, misses {r['misses']}, loads {r['loads']}, graph "
+            f"replays {r['replays']}, overlapped pulls {r['overlapped_pulls']}, windows "
+            f"{r['windows']} accept rate {accept}, prefetch launched {r['prefetch_launched']} "
+            f"hits {r['prefetch_hits']}, peak {r['peak_gib']:.2f} GiB")
     kernels = []
     for name, r in rows.items():
         counter, prefix = ENTRY.get(name, (name, None))

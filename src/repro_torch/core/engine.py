@@ -1,12 +1,13 @@
 """RotaryEngine on the card: the paper's decode path with rotary expert
-residency.
+residency, and the reference's other greedy decode paths.
 
-The counterpart of ``repro/core/engine.py`` for its main path: greedy
-decode at ``spec_k=1`` with the legacy prefill walk, synchronous or with
-predictive prefetch and the miss relaunch (``prefetch=True``). The full
-model weights live in host memory (pinned); only attention / router /
-embedding weights, the KV caches and each MoE layer's slot group are
-device-resident.
+The counterpart of ``repro/core/engine.py`` for greedy decode with the
+legacy prefill walk: the fused step (synchronous, or with predictive
+prefetch and the miss relaunch, ``prefetch=True``), speculative windows
+(``spec_k > 1``), the per-layer hot walk (``fused_decode=False``) and the
+per-layer sync walk (``host_routing=True``, LRU residency). The full model
+weights live in host memory (pinned); only attention / router / embedding
+weights, the KV caches and each MoE layer's slot group are device-resident.
 
 * **Prefill** walks the layers once over the whole prompt (the reference's
   ``_run_layers``): attention (flash-attention kernel), router + top-k gate
@@ -45,10 +46,36 @@ device-resident.
   ships the predicted next transition's uploads into a shadow generation of
   the slot planes on a copy stream, and the boundary corrects, catches up and
   flips it; the next replay waits on the copy stream.
+* **Speculative windows** (``spec_k = K > 1``): ``K`` self-drafted positions
+  (``tfm.decode_window``, argmax drafting on the device) against one
+  residency, each window size one CUDA graph captured on first use, sharing
+  the step's static inputs, caches and planes; one launch and one blocking
+  pull per window. When the window's KV may need a rollback (misses are
+  possible and corrected), the graph's first operation gathers the K slots
+  it will write (``tfm.snapshot_kv_window``). The first position with a miss
+  (``j*``) rejects the rest: the KV slots after it are restored
+  (``tfm.rollback_kv_window``, eager: it depends on ``j*``) and position
+  ``j*`` replays like a missed step; with ``prefetch=True`` the window is
+  first relaunched with each layer's routed union made resident. Rotation
+  runs at the window boundary (``rotate_window_from_telemetry``).
+* **The per-layer hot walk** (``fused_decode=False``): per layer, attention
+  and routing, the routing copied to pinned memory behind an event, the MoE
+  half queued, then the host waits on the event only (not on the MoE half)
+  and pre-gates the next layer; one blocking pull per miss-free token. A miss
+  replays the suffix per layer from the walk's saved layer input
+  (``_replay_step``) against the residency each layer gathered from: the one
+  transition that would change a layer the step has already read (the last
+  layer pre-gating layer 0) runs after the pull and any replay.
+* **The per-layer sync walk** (``host_routing=True``, or a policy that
+  resolves misses mid-step such as LRU): the prefill walk at decode, one
+  blocking routing pull per layer; host routing pulls the router logits and
+  picks the top-k on the host (the seed engine, kept as the baseline), LRU
+  answers each miss with a blocking upload and rewrites the device LUT in
+  place before the MoE half, both on the compute stream.
 
 Greedy tokens do not depend on residency: a miss is corrected exactly on
-the host (or relaunched miss-free), so full and rotary residency, with or
-without prefetch, emit the same tokens.
+the host (or relaunched miss-free), so every path and residency, with or
+without prefetch or windows, emits the same tokens.
 
 Quantized stores (``ResidencyConfig.quantization`` int8 / int4): the
 warehouse is quantized once, at start, into packed planes in pinned memory
@@ -58,25 +85,28 @@ the slots, and a miss dequantizes only its expert from the packed warehouse
 with the plain version's arithmetic, so it adds what a resident slot would
 have computed and full and rotary residency still emit the same tokens.
 
-Not ported yet: speculative windows (``spec_k > 1``), chunked prefill, the
-per-layer hot walk and the host-routing baseline, LRU (its mid-step loads
-need the per-layer sync walk) and sampled decode.
+Not ported yet: chunked prefill and sampled decode. The walks run eagerly,
+layer by layer (the reference jits each half).
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, ResidencyConfig
-from repro_torch.core.predictor import DemandPredictor
+from repro_torch.core.policies import make_policy
+from repro_torch.core.predictor import DemandPredictor, host_topk_route
 from repro_torch.core.residency import RotaryResidencyManager
 from repro_torch.core.stats import EngineStats
 from repro_torch.core.transfer import CostModel, TransferClock
 from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Params
@@ -84,6 +114,7 @@ from repro_torch.models.transformer import Runtime
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import resolve_tracer
 from repro_torch.quant import dequantize_int4
+from repro_torch.serving.sampler import greedy_accept
 
 
 def _host_ffn(hw: Dict[str, torch.Tensor], e: int, x: torch.Tensor,
@@ -140,6 +171,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@dataclass
+class _Graph:
+    """One captured decode launch (the single step, or one window size): the
+    graph, its outputs, the addresses it reads and the kernel launches one
+    replay makes."""
+
+    graph: Any
+    out: Dict[str, Any]
+    ptrs: Tuple[int, ...]
+    launches: Dict[str, Dict[str, int]]
+
+
 class RotaryEngine:
     def __init__(
         self,
@@ -151,6 +194,9 @@ class RotaryEngine:
         cost: Optional[CostModel] = None,
         batch: int = 1,
         seed: int = 0,
+        host_routing: bool = False,
+        fused_decode: Optional[bool] = None,
+        spec_k: int = 1,
         prefetch: bool = False,
         trace=None,
         device="cuda",
@@ -162,20 +208,52 @@ class RotaryEngine:
         start, or to an unmeasured model on the CPU. ``prefetch=True`` turns
         on double-buffered predictive prefetch and the miss relaunch (full
         residency accepts the flag and builds no shadow); ``False`` keeps
-        the synchronous rotation path, the exactness baseline."""
-        if prefetch and rescfg.mode == "lru":
+        the synchronous rotation path, the exactness baseline.
+
+        The decode-path switches, with the reference's rules:
+        ``fused_decode=None`` takes the fused step when the routing is on the
+        device and the policy resolves no miss mid-step, else the per-layer
+        walk; ``False`` forces the per-layer hot walk; ``True`` requires the
+        fused step. ``host_routing=True`` routes every layer on the host
+        (the seed baseline; the sync walk). ``spec_k = K > 1`` decodes in
+        K-position windows, which ride the fused step. Every combination
+        the reference refuses raises here, before anything is built."""
+        m = cfg.moe
+        probe = make_policy(rescfg.mode, m.num_experts, rescfg.num_slots or m.num_experts, rescfg)
+        self.host_routing = bool(host_routing)
+        # LRU answers misses with blocking loads mid-step: that needs the
+        # routed ids on the host before the MoE half, i.e. the sync walk
+        self._hot_decode = not host_routing and not getattr(probe, "needs_sync_resolve", False)
+        fused_ok = self._hot_decode          # every block is attn_moe: KV-cache-only
+        if fused_decode and not fused_ok:
+            raise ValueError("fused decode requires device routing (no host_routing, no "
+                             "LRU) and KV-cache-only block kinds")
+        self._fused_decode = fused_ok if fused_decode is None else bool(fused_decode)
+        if spec_k < 1:
+            raise ValueError("spec_k is a window size (>= 1)")
+        self.rt = rt or Runtime(cache_len=1024)
+        if spec_k > 1:
+            if not self._fused_decode:
+                raise ValueError("speculative decode (spec_k > 1) rides the fused whole-stack "
+                                 "step: it needs device routing (no host_routing, no LRU) and "
+                                 "KV-cache-only block kinds")
+            cap = attn_mod.cache_capacity(cfg.attention, self.rt.cache_len)
+            if spec_k > cap:
+                raise ValueError(f"spec_k={spec_k} exceeds the KV cache capacity ({cap})")
+        self.spec_k = int(spec_k)
+        if prefetch and host_routing:
             raise ValueError(
-                "prefetch=True requires the fused whole-stack hot path (no LRU): "
-                "LRU's reactive loads need the per-layer sync walk, so there is "
-                "nothing to overlap")
-        if rescfg.mode not in ("full", "rotary", "static"):
-            raise NotImplementedError(
-                f"residency mode {rescfg.mode!r} needs the per-layer sync walk, not ported yet"
-            )
+                "prefetch=True is incompatible with host_routing=True: the host-routing "
+                "baseline blocks on per-layer logits pulls, so there is no in-flight "
+                "launch to hide shadow uploads under")
+        if prefetch and not self._fused_decode:
+            raise ValueError(
+                "prefetch=True requires the fused whole-stack hot path (no LRU / recurrent "
+                "stacks, fused_decode not disabled): synchronous per-layer walks rotate "
+                "mid-step, so there is nothing to overlap")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rescfg = rescfg
-        self.rt = rt or Runtime(cache_len=1024)
         if cost is None:
             cost = (CostModel.measure(self.device) if self.device.type == "cuda"
                     else CostModel.unmeasured())
@@ -225,16 +303,33 @@ class RotaryEngine:
             # the gain is the relaunch, which needs no prediction. Before the
             # warm start, which then lands in the folded planes
             self.manager.enable_prefetch(margin=0)
-        # stacked next-layer routers [L, D, E] for the on-device demand GEMM
-        self._routers_next = torch.as_tensor(self.predictor.next_layer_routers()).to(dev)
-        n_l, k = self.num_moe_layers, cfg.moe.top_k
-        self._pull = {                       # pinned host buffers for telemetry
-            "ids": torch.empty((n_l, batch, k), dtype=torch.int32, pin_memory=pin),
-            "weights": torch.empty((n_l, batch, k), dtype=torch.float32, pin_memory=pin),
-            "miss": torch.empty((n_l, batch, k), dtype=torch.bool, pin_memory=pin),
-            "demand_next": torch.empty((n_l, cfg.moe.num_experts), dtype=torch.float32,
-                                       pin_memory=pin),
-        }
+        n_l, k, e = self.num_moe_layers, cfg.moe.top_k, cfg.moe.num_experts
+        if self._fused_decode:
+            # stacked next-layer routers [L, D, E] for the on-device demand GEMM
+            self._routers_next = torch.as_tensor(self.predictor.next_layer_routers()).to(dev)
+
+        def pinned(lead: Tuple[int, ...], **shapes) -> Dict[str, torch.Tensor]:
+            """Pinned host buffers for telemetry: ``name=(tail shape, dtype)``."""
+            return {n: torch.empty(lead + tail, dtype=dt, pin_memory=pin)
+                    for n, (tail, dt) in shapes.items()}
+
+        routing = dict(ids=((batch, k), torch.int32), weights=((batch, k), torch.float32),
+                       miss=((batch, k), torch.bool))
+        # the fused step's telemetry, [L, ...]; a window's, [spec_k, L, ...] and
+        # its drafts; the hot walk's per-layer rows, the MoE inputs included
+        self._pull = pinned((n_l,), **routing, demand_next=((e,), torch.float32))
+        self._win_pull = (pinned((self.spec_k,), draft=((batch,), torch.int64))
+                          | pinned((self.spec_k, n_l), **routing,
+                                   demand_next=((e,), torch.float32))
+                          if self.spec_k > 1 else {})
+        self._walk_pull = (pinned((n_l,), **routing,
+                                  h2=((batch, cfg.d_model), tfm.torch_dtype(cfg)))
+                           if self._hot_decode and not self._fused_decode else {})
+        self._routed = ([torch.cuda.Event() for _ in range(n_l)]
+                        if self._walk_pull and dev.type == "cuda" else [])
+        # a window's KV snapshot exists to make its rollback exact: with full
+        # residency (no miss) or uncorrected misses it is never read
+        self._spec_needs_rollback = rescfg.mode != "full" and rescfg.host_compute_misses
         self._cost_cache: Dict[str, Tuple[float, float]] = {}
         self._f32_scratch: Dict[str, torch.Tensor] = {}      # host miss GEMM
         # the KV caches, allocated once: prefill rewrites them in place, so a
@@ -246,15 +341,15 @@ class RotaryEngine:
         self._inputs_host = torch.empty((batch + 1,), dtype=torch.int64, pin_memory=pin)
         self._inputs = torch.zeros((batch + 1,), dtype=torch.int64, device=dev)
         self._residency: List[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = []
-        # the captured step (card only): graph, its outputs, the addresses it
-        # reads and the kernel launches one replay makes
+        # the captured launches (card only), by window size (1: the step)
         self._capture = dev.type == "cuda"       # False: eager on the card (parity tests)
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_out: Dict[str, torch.Tensor] = {}
-        self._graph_ptrs: Tuple[int, ...] = ()
-        self._graph_launches: Dict[str, Dict[str, int]] = {}
+        self._graphs: Dict[int, _Graph] = {}
         self.graph_captures = 0
         self.graph_replays = 0
+        self.launches = 0                        # fused launches: captures, replays, eager
+        # None, or a list each decoded position appends the logits it
+        # produced to (``logged_logits``), for checks against a reference
+        self.logit_log: Optional[List[Any]] = None
         self._warm_start()
 
     # ------------------------------------------------------------------
@@ -308,24 +403,38 @@ class RotaryEngine:
         return x_mid + y2.reshape(x_mid.shape), miss
 
     # ------------------------------------------------------------------
-    # per-layer sync walk (prefill)
+    # per-layer sync walk (prefill; decode for LRU / the host-routing baseline)
     # ------------------------------------------------------------------
-    def _run_layers(self, x: torch.Tensor) -> torch.Tensor:
-        cfg, clock = self.cfg, self.clock
+    def _run_layers(self, x: torch.Tensor, mode: str, cur_len: int) -> torch.Tensor:
+        """The reference's ``_run_layers``: per layer, attention, the routing
+        pulled to the host (one blocking read), the LUT resolved there (LRU
+        uploads a missed expert here, and the device LUT is rewritten in place
+        before the MoE half reads it: both on the compute stream), the MoE
+        half, the host correction of what still missed, and the pre-gating of
+        the next layer. ``mode`` is ``prefill`` (cache written from 0) or
+        ``decode`` (one token at ``cur_len``)."""
+        cfg, clock, m = self.cfg, self.clock, self.cfg.moe
+        cur = cur_len if mode == "prefill" else self._device_scalar(cur_len)
         for li, p_l in enumerate(self.layers):
-            x_mid, h2, _ = tfm.attn_half(
-                cfg, p_l, x, "prefill", self.state[li], 0, self.rt.cache_len)
-            ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, mode, self.state[li], cur, self.rt.cache_len)
             self.stats.sync_pulls += 1
             self.stats.device_dispatches += 1
-            ids = ids_dev.cpu().numpy()
-            weights = w_dev.cpu().numpy()
+            if self.host_routing:
+                # the seed baseline: the router logits pulled, top-k on the host
+                logits = moe_mod.router_logits(p_l["moe"], h2).cpu().numpy()
+                ids, weights = host_topk_route(logits, m.top_k, normalize=m.norm_topk_prob)
+                ids_dev = torch.from_numpy(ids).to(self.device)
+                w_dev = torch.from_numpy(weights).to(self.device)
+            else:
+                ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, m)
+                ids = ids_dev.cpu().numpy()
+                weights = w_dev.cpu().numpy()
             _, miss = self.manager.resolve(li, ids, clock)
             x, _ = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
             self.stats.device_dispatches += 1
             if miss.any() and self.rescfg.host_compute_misses:
                 x = self._host_correct(x, li, h2, ids, weights, miss)
-            flops, byts = self._layer_cost("attn_moe", x.shape, 0, hits=int((~miss).sum()))
+            flops, byts = self._layer_cost("attn_moe", x.shape, cur_len, hits=int((~miss).sum()))
             clock.compute(self.cost.compute_s(flops, byts))
             # pre-gate the NEXT MoE layer from THIS hidden (cyclic)
             nxt = (li + 1) % self.num_moe_layers
@@ -335,23 +444,141 @@ class RotaryEngine:
             self.predictor.observe(li, ids, weights)
         return x
 
+    def _device_scalar(self, v: int) -> torch.Tensor:
+        return torch.full((), v, dtype=torch.int64, device=self.device)
+
     # ------------------------------------------------------------------
-    # fused decode (one step over every layer per token)
+    # per-layer hot walk (fused_decode=False)
     # ------------------------------------------------------------------
+    def _decode_step_hot(self, tok: np.ndarray) -> np.ndarray:
+        """One decode step walked layer by layer with a single blocking pull
+        (the reference's ``_decode_step_hot``). Per layer: attention and the
+        routing; the routing and the MoE input copied without blocking into
+        pinned rows, then an event; the MoE half queued (its miss mask copied
+        behind it); the host waits on the event only, so it pre-gates the
+        next layer while the MoE half runs. The next layer's uploads queue
+        behind this layer's MoE half. The last layer's pre-gating of layer 0
+        runs after the pull and any replay: layer 0 has already gathered
+        this step, and a replay from it must gather what it gathered (the
+        reference keeps per-layer residency snapshots). Returns host logits
+        [B, V] (f32)."""
+        cfg, n = self.cfg, self.num_moe_layers
+        cur_len = self.cur_len
+        cur = self._device_scalar(cur_len)
+        x = self._embed(np.asarray(tok)[:, None])
+        buf = self._walk_pull
+        x_ins: List[torch.Tensor] = []                   # per-layer inputs (replay anchors)
+        moved: List[Optional[int]] = []                  # bytes of the pre-gating each layer ran
+        ids_all: List[np.ndarray] = []
+        deferred = None
+        for li, p_l in enumerate(self.layers):
+            x_ins.append(x)
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[li], cur, 0)
+            ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
+            for name, t in (("ids", ids_dev), ("weights", w_dev), ("h2", h2)):
+                buf[name][li].copy_(t, non_blocking=True)
+            if self._routed:
+                self._routed[li].record()
+            x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
+            buf["miss"][li].copy_(miss_dev, non_blocking=True)
+            self.stats.device_dispatches += 2
+            self.stats.overlapped_pulls += 4
+            if self._routed:
+                self._routed[li].synchronize()           # the routing, not the MoE half
+            ids = buf["ids"][li].numpy().copy()
+            weights = buf["weights"][li].numpy().copy()
+            h2_np = buf["h2"][li].float().numpy()
+            # pre-gate the next layer + predictor feedback (seed order)
+            nxt = (li + 1) % n
+            demand = self.predictor.predict(nxt, h2_np)
+            if nxt > li:
+                moved.append(self.manager.prepare_layer(nxt, demand, clock=None))
+            else:
+                deferred = (nxt, demand)
+                moved.append(None)
+            self.predictor.observe(li, ids, weights)
+            ids_all.append(ids)
+        logits = self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()   # THE one blocking pull
+        self.stats.sync_pulls += 1
+        miss = buf["miss"].numpy().copy()                # landed: the pull drained the stream
+        missed = np.flatnonzero(miss.reshape(n, -1).any(axis=1))
+        start = int(missed[0]) if (missed.size and self.rescfg.host_compute_misses) else n
+        self._account_step_prefix(np.stack(ids_all), miss, start, cur_len, moved=moved)
+        if start < n:
+            logits = self._replay_step(x_ins[start], start, moved, cur_len, cur)
+        if deferred is not None:
+            self.clock.prefetch(self.manager.prepare_layer(*deferred, clock=None))
+        return logits
+
+    def _replay_step(self, x0: torch.Tensor, start: int, moved: List[Optional[int]],
+                     cur_len: int, cur: torch.Tensor) -> np.ndarray:
+        """Exact re-execution of a hot-walk step's SUFFIX after an observed
+        miss (the reference's ``_replay_step``): layers before ``start`` stand;
+        from ``start`` on, each layer re-runs from the corrected activations
+        against the residency the walk gathered it from, re-deriving the
+        routing and host-correcting its misses, with one blocking pull per
+        layer. Re-running attention rewrites the same KV slot. The walk's
+        pre-gating is not repeated; its modeled upload time is charged here
+        in seed order."""
+        cfg, clock = self.cfg, self.clock
+        x = x0
+        for li in range(start, self.num_moe_layers):
+            p_l = self.layers[li]
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[li], cur, 0)
+            ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
+            x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
+            ids = ids_dev.cpu().numpy()
+            weights = w_dev.cpu().numpy()
+            miss = miss_dev.cpu().numpy()
+            self.stats.sync_pulls += 1
+            self.manager.record_routing(li, ids, miss)
+            if miss.any() and self.rescfg.host_compute_misses:
+                x = self._host_correct(x, li, h2, ids, weights, miss)
+            flops, byts = self._layer_cost("attn_moe", x.shape, cur_len, hits=int((~miss).sum()))
+            clock.compute(self.cost.compute_s(flops, byts))
+            if moved[li] is not None:
+                clock.prefetch(moved[li])
+        logits = self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()
+        self.stats.sync_pulls += 1
+        return logits
+
+    # ------------------------------------------------------------------
+    # fused decode (one step over every layer per token; windows of K)
+    # ------------------------------------------------------------------
+    def _telemetry(self, aux: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A position's telemetry from ``decode_model``'s aux (the reference's
+        ``_demand_aux_fn``): the routing, the demand GEMM's result (``route_h``
+        stays on the device) and the replay anchors."""
+        dl = torch.einsum("ltd,lde->lte", aux["route_h"].float(), self._routers_next)
+        return {"ids": aux["route_ids"], "weights": aux["route_weights"],
+                "miss": aux["route_miss"],
+                "demand_next": torch.softmax(dl, dim=-1).mean(dim=1),       # [L, E]
+                "route_x": aux["route_x"]}
+
     def _step_body(self) -> Dict[str, torch.Tensor]:
         """The decode step on the device, from the static inputs and the
         residency of ``_residency``: logits and the telemetry (the
-        counterpart of ``build_fused_decode_step`` with ``_demand_aux_fn``:
-        the demand GEMM runs in the step, ``route_h`` stays on the device)."""
+        counterpart of ``build_fused_decode_step`` with ``_demand_aux_fn``)."""
         tok = self._inputs[:self.batch]
         cur = self._inputs[self.batch]
         logits, aux = tfm.decode_model(self.cfg, self._dparams, tok, self.state, cur,
                                        self._residency)
-        dl = torch.einsum("ltd,lde->lte", aux["route_h"].float(), self._routers_next)
-        return {"logits": logits, "ids": aux["route_ids"], "weights": aux["route_weights"],
-                "miss": aux["route_miss"],
-                "demand_next": torch.softmax(dl, dim=-1).mean(dim=1),       # [L, E]
-                "route_x": aux["route_x"]}
+        return {"logits": logits, **self._telemetry(aux)}
+
+    def _window_body(self, k: int) -> Dict[str, Any]:
+        """A ``k``-position window on the device from the static inputs (the
+        counterpart of ``build_window_fns``): first, when a rollback may be
+        needed, the pre-window contents of the ``k`` KV slots it writes
+        (``saved``); then ``tfm.decode_window``. Outputs: ``draft`` [K, B],
+        ``logits`` [K, B, V] f32 and the telemetry stacked [K, L, ...]."""
+        tok = self._inputs[:self.batch]
+        cur = self._inputs[self.batch]
+        out: Dict[str, Any] = {}
+        if self._spec_needs_rollback:
+            out["saved"] = tfm.snapshot_kv_window(self.state, cur, k)
+        draft, logits, aux = tfm.decode_window(self.cfg, self._dparams, tok, self.state, cur, k,
+                                               self._residency, aux_fn=self._telemetry)
+        return {**out, "draft": draft, "logits": logits, **aux}
 
     def _set_inputs(self, tok: np.ndarray, cur_len: int) -> None:
         host = self._inputs_host
@@ -369,50 +596,60 @@ class RotaryEngine:
             ptrs += [cache["k"].data_ptr(), cache["v"].data_ptr()]
         return tuple(ptrs)
 
-    def _launch_step(self) -> Dict[str, torch.Tensor]:
-        """Run the step once at the inputs set: a replay of the captured
-        graph on the card (captured on first use), eager on the CPU."""
+    def _launch(self, k: int = 1) -> Dict[str, Any]:
+        """Run the step (``k`` = 1) or a ``k``-position window once at the
+        inputs set: a replay of its captured graph on the card (captured on
+        first use), eager on the CPU."""
         self._residency = self.manager.residency()     # device LUTs rewritten in place
+        self.launches += 1
+        body = self._step_body if k == 1 else functools.partial(self._window_body, k)
         if not self._capture:
-            return self._step_body()
-        if self._graph is None:
-            return self._capture_step()
-        if self._graph_inputs() != self._graph_ptrs:
+            return body()
+        g = self._graphs.get(k)
+        if g is None:
+            return self._capture_graph(k, body)
+        if self._graph_inputs() != g.ptrs:
             raise RuntimeError("decode graph: a plane, LUT, cache or input it reads has moved "
                                "since the capture")
-        self._graph.replay()
-        ops.add_launches(self._graph_launches)
+        g.graph.replay()
+        ops.add_launches(g.launches)
         self.graph_replays += 1
-        return self._graph_out
+        return g.out
 
-    def _capture_step(self) -> Dict[str, torch.Tensor]:
-        """Capture the step as a CUDA graph. Its warm-up, eager on the compute
+    def _capture_graph(self, k: int, body: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
+        """Capture ``body`` as a CUDA graph. Its warm-up, eager on the compute
         stream (the kernels' first launches set their attributes there), IS
-        this step, whose outputs are returned; the capture launches nothing.
-        A capture that fails raises (the step has no eager fall back)."""
-        out = self._step_body()
+        this launch, whose outputs are returned; the capture launches nothing.
+        A capture that fails raises (the launch has no eager fall back)."""
+        out = body()
         before = ops.symbol_launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            graph_out = self._step_body()
-        self._graph_launches = ops.launches_since(before)
-        ops.add_launches(self._graph_launches, -1)     # recorded, not launched
-        self._graph, self._graph_out = graph, graph_out
-        self._graph_ptrs = self._graph_inputs()
+            graph_out = body()
+        launches = ops.launches_since(before)
+        ops.add_launches(launches, -1)     # recorded, not launched
+        self._graphs[k] = _Graph(graph, graph_out, self._graph_inputs(), launches)
         self.graph_captures += 1
         return out
 
-    def _queue_telemetry(self, out: Dict[str, torch.Tensor]) -> None:
-        """Non-blocking copies of the step's telemetry into the pinned
-        buffers, queued on the compute stream after the step: they have
-        landed once the logits pull that follows returns."""
-        for name, buf in self._pull.items():
-            buf.copy_(out[name], non_blocking=True)
+    def _queue_telemetry(self, out: Dict[str, torch.Tensor], pull: Dict[str, torch.Tensor],
+                         k: Optional[int] = None) -> None:
+        """Non-blocking copies of a launch's telemetry into the pinned
+        buffers (a window's into their first ``k`` rows), queued on the
+        compute stream after it: they have landed once the logits pull that
+        follows returns."""
+        for name, buf in pull.items():
+            (buf if k is None else buf[:k]).copy_(out[name], non_blocking=True)
 
-    def _read_telemetry(self) -> Tuple[np.ndarray, ...]:
-        """(ids, weights, miss [L, T, k], demand_next [L, E]) from the pinned buffers."""
-        pull = self._pull
-        return tuple(pull[n].numpy().copy() for n in ("ids", "weights", "miss", "demand_next"))
+    def _read_telemetry(self, k: Optional[int] = None) -> Tuple[np.ndarray, ...]:
+        """The step's (ids, weights, miss [L, T, k], demand_next [L, E]), or
+        with ``k`` a window's (draft [K, B], ids, weights, miss [K, L, T, k],
+        demand_next [K, L, E]), from the pinned buffers."""
+        if k is None:
+            return tuple(self._pull[n].numpy().copy()
+                         for n in ("ids", "weights", "miss", "demand_next"))
+        return tuple(self._win_pull[n][:k].numpy().copy()
+                     for n in ("draft", "ids", "weights", "miss", "demand_next"))
 
     def _decode_step_fused(self, tok: np.ndarray) -> np.ndarray:
         """One decode step. Returns host logits [B, V] (f32)."""
@@ -422,12 +659,12 @@ class RotaryEngine:
             tr.new_unit("decode")
             t_trace = time.perf_counter()
         self._set_inputs(tok, cur_len)
-        out = self._launch_step()
+        out = self._launch()
         self.stats.device_dispatches += 1
         if tr is not None:
             tr.complete("launch", "launch", t_trace, time.perf_counter(),
                         args={"cur_len": cur_len})
-        self._queue_telemetry(out)
+        self._queue_telemetry(out, self._pull)
         self.stats.overlapped_pulls += len(self._pull)
         if self.prefetch:
             # the step is still in flight: plan the predicted next transition
@@ -464,16 +701,20 @@ class RotaryEngine:
         return logits
 
     def _account_step_prefix(self, ids: np.ndarray, miss: np.ndarray,
-                             stop_li: int, cur_len: int, start_li: int = 0) -> None:
+                             stop_li: int, cur_len: int, start_li: int = 0,
+                             moved: Optional[List[Optional[int]]] = None) -> None:
         """record_routing + modeled clock for layers ``[start_li, stop_li)``
         of one authoritative step (ids/miss [L, T, k]): the step's prefix, or
-        a relaunch's suffix."""
+        a relaunch's suffix. ``moved`` (the hot walk) charges the upload of
+        the pre-gating each layer ran after its compute, in seed order."""
         xshape = (self.batch, 1, self.cfg.d_model)
         for li in range(start_li, stop_li):
             self.manager.record_routing(li, ids[li], miss[li])
             flops, byts = self._layer_cost("attn_moe", xshape, cur_len,
                                            hits=int((~miss[li]).sum()))
             self.clock.compute(self.cost.compute_s(flops, byts))
+            if moved is not None and moved[li] is not None:
+                self.clock.prefetch(moved[li])
 
     def _relaunch_fused(self, cur_len: int, ids0: np.ndarray, start: int
                         ) -> Optional[Tuple[np.ndarray, ...]]:
@@ -505,13 +746,13 @@ class RotaryEngine:
             tr = self._tr
             if tr is not None:
                 t_trace = time.perf_counter()
-            out = self._launch_step()
+            out = self._launch()
             self.stats.device_dispatches += 1
             self.stats.relaunched_steps += 1
             if tr is not None:
                 tr.complete("launch", "launch", t_trace, time.perf_counter(),
                             args={"kind": "relaunch"})
-            self._queue_telemetry(out)
+            self._queue_telemetry(out, self._pull)
             if tr is not None:
                 t_trace = time.perf_counter()
             logits = out["logits"].float().cpu().numpy()
@@ -528,17 +769,20 @@ class RotaryEngine:
             ids_cur = ids
         return None
 
-    def _replay_fused(self, anchor: torch.Tensor, start: int, cur_len: int) -> np.ndarray:
+    def _replay_fused(self, anchor: torch.Tensor, start: int, cur_len: int,
+                      step: Optional[int] = None) -> np.ndarray:
         """Exact re-execution of a fused-step SUFFIX after an observed miss:
         layers before ``start`` stand; from ``start`` on, the per-layer walk
         re-runs from the step's saved block input ``anchor`` (``route_x`` of
-        layer ``start``) against the SAME residency (rotation runs after
-        this), host-correcting every miss."""
+        layer ``start``) at position ``cur_len`` against the SAME residency
+        (rotation runs after this), host-correcting every miss. ``step`` is
+        the window position being replayed (its later positions' KV slots
+        rolled back first), None for a single step."""
         tr = self._tr
         t_trace = time.perf_counter() if tr is not None else 0.0
         cfg, clock = self.cfg, self.clock
         x = anchor.reshape(self.batch, 1, -1)
-        cur = self._inputs[self.batch]
+        cur = self._device_scalar(cur_len)
         self.stats.device_dispatches += 1             # device-side slice
         for li in range(start, self.num_moe_layers):
             p_l = self.layers[li]
@@ -563,8 +807,151 @@ class RotaryEngine:
         self.stats.replayed_steps += 1
         if tr is not None:
             tr.complete("replay", "launch", t_trace, time.perf_counter(),
-                        args={"start_li": start, "step": None})
+                        args={"start_li": start, "step": step})
         return logits
+
+    # ------------------------------------------------------------------
+    # speculative windows (spec_k > 1)
+    # ------------------------------------------------------------------
+    def _decode_window_fused(self, tok: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        """One speculative window (the reference's ``_decode_window_fused``,
+        greedy): ``k`` self-drafted positions in one launch, one blocking
+        pull, acceptance by ``greedy_accept`` and the miss telemetry, the miss
+        relaunch of the whole window (``prefetch=True``), else the KV
+        rollback past the first missed position ``j*`` and its replay, then
+        the window-boundary rotation from the committed steps.
+
+        ``tok`` [B] is position 0's token (already emitted by the caller).
+        Returns ``(extra [committed-1, B], logits [B, V], committed)``: the
+        drafted tokens committed beyond ``tok`` and the logits that continue
+        the chain (the last committed position's, replay-corrected when it
+        missed). Positions before the first miss saw the inputs and residency
+        the single-token step would have, so the committed tokens equal
+        single-token decode's."""
+        cur_len0 = self.cur_len
+        n = self.num_moe_layers
+        tr = self._tr
+        if tr is not None:
+            tr.new_unit("window")
+            t_trace = time.perf_counter()
+        self._set_inputs(tok, cur_len0)
+        if self._spec_needs_rollback:
+            self.stats.device_dispatches += 1         # the KV snapshot, the window's first op
+        out = self._launch(k)
+        self.stats.device_dispatches += 1
+        self.stats.spec_windows += 1
+        if tr is not None:
+            tr.complete("launch", "launch", t_trace, time.perf_counter(),
+                        args={"cur_len": cur_len0, "k": k})
+        self._queue_telemetry(out, self._win_pull, k)
+        self.stats.overlapped_pulls += len(self._win_pull)
+        if self.prefetch:
+            # the whole window is in flight: shadow-upload the predicted next
+            # transition under it (committed at the boundary rotation)
+            self.manager.begin_prefetch(self.predictor, self.clock)
+        if tr is not None:
+            t_trace = time.perf_counter()
+        logits = out["logits"][k - 1].cpu().numpy()          # THE one blocking pull
+        self.stats.sync_pulls += 1
+        if tr is not None:
+            tr.complete("pull", "pull", t_trace, time.perf_counter(),
+                        args={"cur_len": cur_len0, "k": k})
+        draft, ids, weights, miss, demand_next = self._read_telemetry(k)
+        # self-drafting with the verifier's weights: the accept rule takes the
+        # whole window; rejection comes only from residency misses
+        accept = int(greedy_accept(draft, draft).min())
+        missed = np.flatnonzero(miss.reshape(k, -1).any(axis=1))
+        if tr is not None and missed.size:
+            tr.instant("miss", "launch",
+                       args={"first_step": int(missed[0]), "steps": int(missed.size)})
+        j_star = start = None
+        if missed.size and self.rescfg.host_compute_misses:
+            j_star = int(missed[0])
+            accept = min(accept, j_star)
+            start = int(np.flatnonzero(miss[j_star].reshape(n, -1).any(axis=1))[0])
+            anchor, saved = out["route_x"][j_star, start], out["saved"]
+            if self.prefetch:
+                # a relaunch rewrites the outputs; a failed one falls back to
+                # the rollback + replay of THIS pass's telemetry
+                anchor = anchor.clone()
+                saved = [{nm: t.clone() for nm, t in c.items()} for c in saved]
+                redo = self._relaunch_window(k, cur_len0, ids)
+                if redo is not None:
+                    out, logits, draft, ids, weights, miss, demand_next = redo
+                    accept = int(greedy_accept(draft, draft).min())
+                    j_star = None
+        self.stats.drafted_tokens += k
+        self.stats.accepted_tokens += accept
+        for s in range(accept):
+            self._account_step_prefix(ids[s], miss[s], n, cur_len0 + s)
+        committed = accept
+        if j_star is not None:
+            # reject the suffix: restore the KV slots after j*, then replay
+            # position j* from its first missed layer like a missed step
+            tfm.rollback_kv_window(self.state, saved, cur_len0, k, j_star + 1)
+            self.stats.device_dispatches += 1
+            if tr is not None:
+                tr.instant("kv_rollback", "launch", args={"j_star": j_star})
+            self._account_step_prefix(ids[j_star], miss[j_star], start, cur_len0 + j_star)
+            logits = self._replay_fused(anchor, start, cur_len0 + j_star, step=j_star)
+            committed = j_star + 1
+        if self.logit_log is not None:
+            self.logit_log.append(out["logits"][:committed - 1].clone())
+            self.logit_log.append(logits)
+        # window-boundary rotation from the committed telemetry: the host
+        # transitions per step, the uploads one batch per layer
+        self.manager.rotate_window_from_telemetry(
+            self.predictor, ids[:committed], weights[:committed], miss[:committed],
+            demand_next[:committed], clock=self.clock, record=False,
+        )
+        return draft[:committed - 1], logits, committed
+
+    def _relaunch_window(self, k: int, cur_len0: int, ids0: np.ndarray
+                         ) -> Optional[Tuple[Any, ...]]:
+        """Window-sized miss relaunch (the reference's ``_relaunch_window``):
+        make each layer's routed union over the ``k`` positions resident
+        (None when it exceeds the slots: windows route wider than a step) and
+        run the window again from the same inputs; it rewrites all ``k`` KV
+        slots, so no rollback is needed when it comes back miss-free. Returns
+        ``(out, logits, draft, ids, weights, miss, demand_next)`` of the
+        miss-free pass, else None."""
+        ids_cur = ids0                                   # [K, L, T, kk]
+        n = self.num_moe_layers
+        for _ in range(2):
+            routed_all = [np.unique(ids_cur[:, m]) for m in range(n)]
+            if any(r.size > self.manager.policies[m].lut.num_slots
+                   for m, r in enumerate(routed_all)):
+                return None
+            moved = 0
+            for m in range(n):
+                loads = self.manager.ensure_resident(m, routed_all[m], routed_all[m])
+                if loads is None:
+                    return None
+                moved += len(loads) * self.manager.stores[m].bytes_per_expert
+            if moved:
+                self.clock.blocking(moved)
+            tr = self._tr
+            if tr is not None:
+                t_trace = time.perf_counter()
+            out = self._launch(k)          # the static inputs still hold tok, cur_len0
+            self.stats.device_dispatches += 1
+            self.stats.relaunched_steps += 1
+            if tr is not None:
+                tr.complete("launch", "launch", t_trace, time.perf_counter(),
+                            args={"kind": "relaunch"})
+            self._queue_telemetry(out, self._win_pull, k)
+            if tr is not None:
+                t_trace = time.perf_counter()
+            logits = out["logits"][k - 1].cpu().numpy()
+            self.stats.sync_pulls += 1
+            if tr is not None:
+                tr.complete("pull", "pull", t_trace, time.perf_counter(),
+                            args={"kind": "relaunch"})
+            draft, ids, weights, miss, demand_next = self._read_telemetry(k)
+            if not miss.any():
+                return out, logits, draft, ids, weights, miss, demand_next
+            ids_cur = ids
+        return None
 
     def _layer_cost(self, kind: str, xshape, cur_len: int, hits: int) -> Tuple[float, float]:
         """(flops, bytes) estimate of one layer at current shapes (modeled clock)."""
@@ -600,32 +987,59 @@ class RotaryEngine:
             raise ValueError(f"prompt of {s} tokens exceeds cache_len {self.rt.cache_len}")
         t0 = time.perf_counter()
         x = self._embed(tokens)
-        x = self._run_layers(x)
+        x = self._run_layers(x, "prefill", 0)
         logits = self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()
         self.stats.wall_s += time.perf_counter() - t0
         self.cur_len = s
         self.stats.tokens += b * s
         return logits
 
-    def decode(self, last_logits: np.ndarray, steps: int) -> np.ndarray:
-        """Generate ``steps`` greedy tokens. Returns [B, steps] int32. A
+    def decode(self, last_logits: np.ndarray, steps: int, *, greedy: bool = True,
+               sampler: Optional[Any] = None) -> np.ndarray:
+        """Generate ``steps`` greedy tokens. Returns [B, steps] int32. With
+        ``spec_k > 1`` decode advances in windows of ``min(spec_k, steps
+        left)`` positions (the same tokens as single-token decode); else one
+        step per token on the fused step, the hot walk or the sync walk. A
         windowed (ring) cache decodes past ``cache_len``; a window-free one
-        refuses to."""
+        refuses to. Sampled decode (``greedy=False`` or ``sampler``) is not
+        ported yet (ROADMAP.md, Queue 1 item 7) and raises."""
+        if sampler is not None or not greedy:
+            raise NotImplementedError("sampled decode (greedy=False / sampler=) is not ported "
+                                      "yet: ROADMAP.md, Queue 1 item 7")
         if (self.cur_len + steps > self.rt.cache_len
                 and self.cfg.attention.window is None):
             raise ValueError(f"{self.cur_len} + {steps} positions exceed cache_len "
                              f"{self.rt.cache_len}")
         out = np.zeros((self.batch, steps), np.int32)
         logits = last_logits
+        spec = self._fused_decode and self.spec_k > 1
         t0 = time.perf_counter()
-        for i in range(steps):
+        i = 0
+        while i < steps:
             tok = np.argmax(logits, axis=-1).astype(np.int32)
             out[:, i] = tok
             t_win = time.perf_counter()
-            logits = self._decode_step_fused(tok)
-            self.cur_len += 1
-            self.stats.steps += 1
-            self.stats.tokens += self.batch
+            k = min(self.spec_k, steps - i) if spec else 1
+            if k > 1:
+                extra, logits, advanced = self._decode_window_fused(tok, k)
+                out[:, i + 1:i + advanced] = extra.T
+            else:
+                if self._fused_decode:
+                    logits = self._decode_step_fused(tok)
+                elif self._hot_decode:
+                    logits = self._decode_step_hot(tok)
+                else:
+                    x = self._embed(tok[:, None])
+                    x = self._run_layers(x, "decode", self.cur_len)
+                    logits = self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()
+                    self.stats.sync_pulls += 1
+                if self.logit_log is not None:
+                    self.logit_log.append(logits)
+                advanced = 1
+            i += advanced
+            self.cur_len += advanced
+            self.stats.steps += advanced
+            self.stats.tokens += self.batch * advanced
             self.metrics.histogram(
                 "window_ms", "wall ms per decode step/window"
             ).observe((time.perf_counter() - t_win) * 1e3)
@@ -637,9 +1051,20 @@ class RotaryEngine:
         self.last_logits = logits          # resume point for chained decodes
         return out
 
-    def generate(self, prompt: np.ndarray, max_new: int) -> np.ndarray:
+    def generate(self, prompt: np.ndarray, max_new: int, **kw) -> np.ndarray:
         logits = self.prefill(prompt)
-        return self.decode(logits, max_new)
+        return self.decode(logits, max_new, **kw)
+
+    def logged_logits(self) -> np.ndarray:
+        """What ``logit_log`` holds, as one host array [positions, B, V] f32
+        (window positions are logged as device tensors, pulled here)."""
+        rows: List[np.ndarray] = []
+        for item in self.logit_log or []:
+            if isinstance(item, torch.Tensor):
+                rows.extend(item.float().cpu().numpy())
+            else:
+                rows.append(np.asarray(item, np.float32))
+        return np.stack(rows)
 
 
 def _to_device(tree: Any, device) -> Any:

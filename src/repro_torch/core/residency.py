@@ -27,7 +27,9 @@ drifts, uploads live, or corrects + catches up + flips, in the reference's
 order. A flip rewrites that layer's device LUT to point into the other half;
 the compute stream waits on the copy stream's work before the next step.
 
-Not ported yet: speculative window rotation.
+``rotate_window_from_telemetry`` is the boundary of a speculative window:
+the host transitions run once per committed step, in step order, and the
+uploads coalesce to one batch per layer per window.
 """
 from __future__ import annotations
 
@@ -605,6 +607,62 @@ class RotaryResidencyManager:
         self._pending = None
         if copy is not None:
             # the next step reads what the copy stream wrote into a flipped half
+            torch.cuda.current_stream(self.device).wait_stream(copy)
+
+    def rotate_window_from_telemetry(
+        self,
+        predictor,                       # DemandPredictor
+        ids: np.ndarray,                 # [K, L, T, k] routed ids per committed step
+        weights: np.ndarray,             # [K, L, T, k]
+        miss: np.ndarray,                # [K, L, T, k]
+        demand_next: np.ndarray,         # [K, L, E]; [s, l] = step s's demand of (l+1)%L
+        clock: Optional[TransferClock] = None,
+        record: bool = True,
+    ) -> None:
+        """Window-boundary rotation from a speculative window's committed
+        steps (the reference's ``rotate_window_from_telemetry``, batch-uniform
+        commits). The host transitions (EMA folds, ring moves, LUT updates)
+        run once per step in step order, so residency after the window is
+        what feeding the steps one at a time through ``rotate_from_telemetry``
+        leaves; the uploads coalesce to the last write per slot and ship as
+        one batch per layer (or, with a pending prefetch plan, one commit per
+        layer)."""
+        tr = self.tracer
+        if tr is not None:
+            with tr.span("rotation", "rotation", args={"kind": "window"}):
+                return self._rotate_window(predictor, ids, weights, miss, demand_next,
+                                           clock, record)
+        return self._rotate_window(predictor, ids, weights, miss, demand_next, clock, record)
+
+    def _rotate_window(self, predictor, ids, weights, miss, demand_next, clock, record) -> None:
+        n = len(self.policies)
+        k_steps = ids.shape[0]
+        copy = self._copy_stream
+        if copy is not None and self._pending is not None:
+            copy.wait_stream(torch.cuda.current_stream(self.device))
+        if record:
+            for s in range(k_steps):
+                for l in range(n):
+                    self.record_routing(l, ids[s, l], miss[s, l])
+        pending: List[List[Tuple[int, int]]] = [[] for _ in range(n)]
+        for l in range(n):
+            nxt = (l + 1) % n
+            smoothed = predictor.fold_window(nxt, ids[:, nxt], weights[:, nxt], demand_next[:, l])
+            for s in range(k_steps):
+                pending[nxt].extend(self._transition(nxt, smoothed[s], steer=demand_next[s, l]))
+        for l in range(n):
+            loads = self._coalesce_loads(l, pending[l])
+            if self._pending is not None:
+                self._commit_layer(l, loads, clock)
+                continue
+            moved = self._execute_loads(l, loads)
+            ls = self.stats.layer(l)
+            ls.loads += len(loads)
+            ls.bytes_loaded += moved
+            if clock is not None:
+                clock.prefetch(moved)
+        self._pending = None
+        if copy is not None:
             torch.cuda.current_stream(self.device).wait_stream(copy)
 
     def host_expert_flops(self, tokens: int) -> float:

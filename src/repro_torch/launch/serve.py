@@ -8,8 +8,13 @@ reduced config by default; ``--full-width`` keeps the published widths and
 int8|int4`` (with ``--quant-group``) serves from quantized slot stores.
 ``--prefetch`` serves with double-buffered predictive prefetch and the miss
 relaunch; ``--no-prefetch`` (the default) keeps synchronous rotation.
-``--device`` defaults to ``cuda``; a missing card is an error. On the card
-the decode step runs as a CUDA graph replay.
+``--spec-k K`` decodes in K-position speculative windows. The reference's
+other decode paths: ``--no-fused-decode`` walks the layers on the device
+(the per-layer hot walk), ``--host-routing`` routes every layer on the host
+(the seed baseline) and ``--residency lru`` answers misses with blocking
+loads (both the per-layer sync walk). ``--device`` defaults to ``cuda``; a
+missing card is an error. On the card the decode step, and each window
+size, runs as a CUDA graph replay.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ QUANT_CHOICES = {"none": None, "int8": "int8", "int4": "int4"}
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--residency", default="rotary", choices=["full", "rotary", "static"])
+    ap.add_argument("--residency", default="rotary", choices=["full", "rotary", "lru", "static"])
     ap.add_argument("--slots", type=int, default=0, help="residency slots per layer")
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--max-new", type=int, default=16)
@@ -48,6 +53,15 @@ def main() -> None:
                          "on a copy stream under the in-flight step, boundary = "
                          "confirm/correct/flip) and the miss relaunch; --no-prefetch "
                          "(the default) keeps the synchronous rotation path")
+    ap.add_argument("--host-routing", action="store_true",
+                    help="seed-style per-layer host routing (benchmark baseline)")
+    ap.add_argument("--fused-decode", action=argparse.BooleanOptionalAction, default=None,
+                    help="require the fused whole-stack step (--fused-decode) or force the "
+                         "per-layer hot walk (--no-fused-decode); default: fused where the "
+                         "routing and the policy allow it")
+    ap.add_argument("--spec-k", type=int, default=1,
+                    help="speculative window (tokens per fused launch; 1 = single-token "
+                         "decode)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -71,7 +85,8 @@ def main() -> None:
                                      quantization=QUANT_CHOICES[args.quantization],
                                      quant_group_size=args.quant_group),
         rt=Runtime(cache_len=args.cache_len), batch=b, seed=args.seed,
-        prefetch=args.prefetch, device=device,
+        host_routing=args.host_routing, fused_decode=args.fused_decode,
+        spec_k=max(1, args.spec_k), prefetch=args.prefetch, device=device,
     )
     rng = np.random.default_rng(args.seed)
     for g0 in range(0, args.requests, b):

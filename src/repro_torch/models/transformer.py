@@ -6,12 +6,14 @@ The counterpart of ``repro/models/transformer.py`` for MoE stacks of
 ``final_norm``, ``lm_head`` and ``layers``, a list with one dict per layer
 (the reference stacks repeated layers for its ``lax.scan``; a Python loop
 over layers needs no stacking). The KV state is a list of per-layer
-``{"k", "v"}`` caches that decode updates in place.
+``{"k", "v"}`` caches that decode updates in place. The speculative window
+(``decode_window``) and its KV snapshot / rollback follow the reference's
+``decode_window``, ``snapshot_kv_window`` and ``rollback_kv_window``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -133,3 +135,91 @@ def decode_model(
     logits = lm_logits(cfg, params, x[:, -1:])[:, 0]
     aux = {f"route_{n}": torch.stack(v) for n, v in tel.items()}
     return logits, aux
+
+
+def decode_window(
+    cfg: ModelConfig,
+    params: Params,
+    token: torch.Tensor,              # [B] first token of the window
+    state: List[Dict[str, torch.Tensor]],
+    cur_len: Union[int, torch.Tensor],  # tokens already in the cache (int or device scalar)
+    k_steps: int,
+    residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
+    aux_fn: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """``k_steps`` self-drafted decode steps (the speculative window; the
+    reference's ``decode_window`` with greedy drafting).
+
+    Position ``j`` runs :func:`decode_model` at ``cur_len + j`` (a device
+    scalar stays on the device, so a CUDA graph can capture the window) and
+    drafts the next position's token by argmax on the device; every position
+    gathers from the same ``residency`` and writes its KV slot in place.
+    Returns ``(draft [K, B], logits [K, B, V] f32, aux)``: ``draft[j]`` is
+    the argmax of ``logits[j]`` (the token position j+1 consumed),
+    ``logits[-1]`` is the reference's ``last_logits``, and every aux entry
+    (after ``aux_fn``, applied per position) is stacked with a leading window
+    axis: ``route_ids`` [K, L, T, k], ``route_x`` [K, L, T, D], ..."""
+    tok = token
+    drafts: List[torch.Tensor] = []
+    logits_all: List[torch.Tensor] = []
+    auxs: List[Dict[str, torch.Tensor]] = []
+    for j in range(k_steps):
+        logits, aux = decode_model(cfg, params, tok, state, cur_len + j, residency)
+        if aux_fn is not None:
+            aux = aux_fn(aux)
+        tok = torch.argmax(logits, dim=-1)          # lowest index on ties, as jnp / np
+        drafts.append(tok)
+        logits_all.append(logits.float())
+        auxs.append(aux)
+    stacked = {n: torch.stack([a[n] for a in auxs]) for n in auxs[0]}
+    return torch.stack(drafts), torch.stack(logits_all), stacked
+
+
+# ---------------------------------------------------------------------------
+# KV window snapshot / rollback (speculative decode truncation)
+# ---------------------------------------------------------------------------
+def _kv_window_slots(cache: torch.Tensor, cur_len: Union[int, torch.Tensor],
+                     k_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row / slot index tensors [B, 1], [B, K] of the ``k_steps`` cache slots
+    a window starting at ``cur_len`` (scalar or per-row [B]) writes, ring
+    slots ``(cur_len + j) % cap``. cache [B, cap, Hkv, dh]."""
+    b, cap = cache.shape[0], cache.shape[1]
+    if k_steps > cap:
+        raise ValueError(f"speculative window ({k_steps}) exceeds KV capacity ({cap})")
+    cl = torch.as_tensor(cur_len, device=cache.device).to(torch.int64).reshape(-1).expand(b)
+    offs = torch.arange(k_steps, device=cache.device)
+    return torch.arange(b, device=cache.device)[:, None], (cl[:, None] + offs[None, :]) % cap
+
+
+def snapshot_kv_window(state: List[Dict[str, torch.Tensor]],
+                       cur_len: Union[int, torch.Tensor],
+                       k_steps: int) -> List[Dict[str, torch.Tensor]]:
+    """Pre-window copies of the KV slots the next ``k_steps`` positions
+    overwrite, per layer ``{"k", "v"}`` [B, K, Hkv, dh]: what
+    :func:`rollback_kv_window` restores (zeros for a full cache, the previous
+    lap's entries for a ring cache)."""
+    out = []
+    for cache in state:
+        rows, slots = _kv_window_slots(cache["k"], cur_len, k_steps)
+        out.append({n: cache[n][rows, slots] for n in ("k", "v")})
+    return out
+
+
+def rollback_kv_window(state: List[Dict[str, torch.Tensor]],
+                       saved: List[Dict[str, torch.Tensor]],
+                       cur_len: Union[int, torch.Tensor], k_steps: int,
+                       keep: Union[int, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """KV truncate after a partly rejected window, IN PLACE: the slots of
+    window offsets ``>= keep`` (scalar or per-row [B]) get their ``saved``
+    pre-window contents back, offsets ``< keep`` (the accepted prefix) stay.
+    The cache then equals the one a sequential decode holds at length
+    ``cur_len + keep``. Returns ``state``."""
+    for cache, sv in zip(state, saved):
+        rows, slots = _kv_window_slots(cache["k"], cur_len, k_steps)
+        b = slots.shape[0]
+        kp = torch.as_tensor(keep, device=slots.device).to(torch.int64).reshape(-1).expand(b)
+        mask = (torch.arange(k_steps, device=slots.device)[None, :] >= kp[:, None])[..., None, None]
+        for n in ("k", "v"):
+            c = cache[n]
+            c[rows, slots] = torch.where(mask, sv[n], c[rows, slots])
+    return state

@@ -596,7 +596,7 @@ def test_decode_attention_element_loads(card, dtype, dh):
 # the decode step as one CUDA graph; the miss relaunch and prefetch
 # ---------------------------------------------------------------------------
 def _reduced_engine(device, slots=3, prefetch=False, quantization=None, dtype="float32",
-                    cache_len=64):
+                    cache_len=64, mode=None, **switches):
     from repro_torch.config import ResidencyConfig, get_config
     from repro_torch.configs import reduce_for_smoke
     from repro_torch.core.engine import RotaryEngine
@@ -604,13 +604,13 @@ def _reduced_engine(device, slots=3, prefetch=False, quantization=None, dtype="f
     from repro_torch.models.transformer import Runtime, init_params
 
     cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype=dtype)
-    mode = "full" if slots == 0 else "rotary"
+    mode = mode or ("full" if slots == 0 else "rotary")
     res = ResidencyConfig(mode=mode, num_slots=slots, prefetch_margin=1,
                           quantization=quantization, quant_group_size=16)
     # one link figure for every engine, so the modeled clocks compare
     cost = CostModel(host_link_gbs=20.0, link_latency_us=10.0)
     return cfg, RotaryEngine(cfg, init_params(cfg, 0, "cpu"), res, rt=Runtime(cache_len=cache_len),
-                             batch=2, device=device, prefetch=prefetch, cost=cost)
+                             batch=2, device=device, prefetch=prefetch, cost=cost, **switches)
 
 
 def _decode_steps(eng, prompt, steps):
@@ -659,7 +659,7 @@ def test_graph_launch_counts_are_replays_times_capture(card):
     ops.reset_launch_counts()
     eng.decode(logits, 7)
     torch.cuda.synchronize()
-    per_step = eng._graph_launches
+    per_step = eng._graphs[1].launches
     assert per_step["topk_gate"] == {"router_topk_f32": eng.num_moe_layers}   # one a layer
     assert set(per_step) == {"slot_gmm", "decode_attention", "topk_gate"}
     assert eng.graph_captures == 1 and eng.graph_replays == 6
@@ -768,3 +768,118 @@ def test_prefetch_engine_on_card_matches_cpu(card, quantization):
                 "prefetch_hits", "bytes_uploaded"):
         assert getattr(out["cpu"][1], key) == getattr(out["cuda"][1], key), key
     assert out["cuda"][1].relaunched_steps > 0
+
+
+# ---------------------------------------------------------------------------
+# speculative windows as CUDA graphs; the per-layer walks on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("spec_k,prefetch,slots,dtype", [
+    (4, False, 3, "float32"), (2, True, 6, "float32"), (2, True, 6, "bfloat16"),
+    (4, False, 3, "bfloat16"),
+])
+def test_graph_windows_equal_eager_windows(card, spec_k, prefetch, slots, dtype):
+    """Each window size captured once and replayed, against the same windows
+    run eagerly on the card, over windows that miss and roll back and replay
+    (synchronous) or relaunch (prefetch): bitwise the same logits at every
+    committed position, the same tokens and the same EngineStats."""
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 12)).astype(np.int32)
+    out = {}
+    for capture in (True, False):
+        _, eng = _reduced_engine(card, slots=slots, prefetch=prefetch, dtype=dtype,
+                                 spec_k=spec_k)
+        eng._capture = capture
+        logits = eng.prefill(prompt)
+        eng.logit_log = [logits]
+        toks = eng.decode(logits, 15)
+        stats = {k: v for k, v in dataclasses.asdict(eng.stats).items() if k not in _MEASURED}
+        out[capture] = (toks, eng.logged_logits(), stats, eng.graph_captures, eng.graph_replays,
+                        eng.launches, sorted(eng._graphs))
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    assert out[True][1].tobytes() == out[False][1].tobytes()
+    assert out[True][2] == out[False][2]
+    captures, replays, launches, sizes = out[True][3:]
+    assert captures == len(sizes) and captures + replays == launches == out[False][5]
+    assert spec_k in sizes and out[False][3:5] == (0, 0)
+    s = out[True][2]
+    assert s["spec_windows"] > 0
+    if prefetch:
+        assert s["relaunched_steps"] > 0
+    else:
+        assert s["replayed_steps"] > 0 and s["accepted_tokens"] < s["drafted_tokens"]
+
+
+def test_window_replay_after_a_moved_cache_raises(card):
+    _, eng = _reduced_engine(card, slots=0, spec_k=2)
+    logits = eng.prefill(np.arange(10, dtype=np.int32).reshape(2, 5))
+    eng.decode(logits, 4)
+    eng.state[0]["k"] = eng.state[0]["k"].clone()
+    with pytest.raises(RuntimeError, match="moved"):
+        eng.decode(eng.last_logits, 2)
+
+
+def test_lru_lut_rewrite_is_read_by_the_moe_half_that_follows(card):
+    """LRU on the card: a miss is uploaded and the device LUT rewritten in
+    place on the compute stream, then the MoE half runs. At every layer of
+    every step the MoE half's own miss mask (read through the device LUT)
+    equals the host's mask after the loads, so no loaded expert reads the
+    miss row; the tokens equal the CPU engine's."""
+    out = {}
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 12)).astype(np.int32)
+    for dev in ("cpu", "cuda"):
+        _, eng = _reduced_engine(card if dev == "cuda" else "cpu", slots=3, mode="lru")
+        host, device = [], []
+        resolve, moe_layer = eng.manager.resolve, eng._moe_layer
+
+        def spy_resolve(li, ids, clock=None):
+            lut, miss = resolve(li, ids, clock)
+            host.append(miss.copy())
+            return lut, miss
+
+        def spy_moe(li, *a):
+            x, miss = moe_layer(li, *a)
+            device.append(miss.cpu().numpy())
+            return x, miss
+
+        eng.manager.resolve, eng._moe_layer = spy_resolve, spy_moe
+        logits = eng.prefill(prompt)
+        loads0 = sum(l.loads for l in eng.stats.layers.values())
+        toks = eng.decode(logits, 8)
+        assert len(host) == len(device)
+        for h, d in zip(host, device):
+            np.testing.assert_array_equal(h, d)
+        assert sum(l.loads for l in eng.stats.layers.values()) > loads0
+        out[dev] = toks
+    np.testing.assert_array_equal(out["cpu"], out["cuda"])
+
+
+def test_hot_walk_waits_on_the_routing_not_on_the_moe_half(card):
+    """The hot walk's host waits on the event recorded after the routing
+    copies, not on the MoE half: with each MoE half held up on the card by a
+    20 ms sleep, the host reaches every layer's pre-gating while that MoE
+    half is still running; the tokens equal the CPU walk's."""
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 12)).astype(np.int32)
+    _, cpu = _reduced_engine("cpu", slots=3, fused_decode=False)
+    want = cpu.generate(prompt, 4)
+    _, eng = _reduced_engine(card, slots=3, fused_decode=False)
+    logits = eng.prefill(prompt)
+    running = []
+    moe_layer, predict = eng._moe_layer, eng.predictor.predict
+    pending = {}
+
+    def slow_moe(li, *a):
+        torch.cuda._sleep(int(20e-3 * 1.5e9))        # ~20 ms at the card's clock
+        out = moe_layer(li, *a)
+        pending["done"] = torch.cuda.Event()
+        pending["done"].record()
+        return out
+
+    def spy_predict(layer, h):
+        running.append(not pending["done"].query())
+        return predict(layer, h)
+
+    eng._moe_layer, eng.predictor.predict = slow_moe, spy_predict
+    toks = [eng.decode(logits, 1)]
+    for _ in range(3):
+        toks.append(eng.decode(eng.last_logits, 1))
+    np.testing.assert_array_equal(np.concatenate(toks, axis=1), want)
+    assert len(running) >= 4 * eng.num_moe_layers and all(running)

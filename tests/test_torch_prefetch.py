@@ -119,16 +119,17 @@ def test_prefetch_port_equals_jax_and_its_sync_path(slots, quant):
 
 
 def test_prefetch_flag_validation():
-    """As the reference (``tests/test_fused_decode.py``), as far as the port
-    has the flags: LRU has no fused step to overlap, so prefetch raises;
-    full residency accepts the flag and builds no shadow."""
+    """As the reference (``tests/test_fused_decode.py``): LRU has no fused
+    step to overlap, so prefetch raises, and without prefetch it builds and
+    takes the sync walk; full residency accepts the flag and builds no
+    shadow."""
     _, _, tcfg, np_params = _setup()
     params = from_reference(tcfg, np_params)
     rt = TRuntime(cache_len=32)
     with pytest.raises(ValueError, match="fused"):
         TEngine(tcfg, params, TRes(mode="lru", num_slots=5), rt=rt, device="cpu", prefetch=True)
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, params, TRes(mode="lru", num_slots=5), rt=rt, device="cpu")
+    lru = TEngine(tcfg, params, TRes(mode="lru", num_slots=5), rt=rt, device="cpu")
+    assert not lru._hot_decode and not lru._fused_decode
     full = TEngine(tcfg, params, TRes(mode="full"), rt=rt, device="cpu", prefetch=True)
     assert full.prefetch and not full.manager._prefetch_enabled
     assert all(s.generations == 1 for s in full.manager.stores)

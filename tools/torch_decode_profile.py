@@ -5,29 +5,37 @@
                                           [--tokens 24] [--warm 4] [--out FILE] [--tree DIR]
 
 Imports the port and ``chip_smoke.py`` of the tree at ``DIR`` (default: this
-checkout) and builds each named path of its ``chip_smoke.py`` (``PATHS``: qwen36-35b-a3b at its
-published widths, 8 layers, the path's residency, slot format and prefetch
-flag, the same random weights), prefills one prompt of 512 tokens and decodes
-``--warm`` tokens, then measures ``--tokens`` decode tokens twice:
+checkout) and builds each named path of its ``chip_smoke.py`` (``PATHS``:
+qwen36-35b-a3b at its published widths, 8 layers, the path's residency,
+slot format and decode switches: prefetch, the hot walk, host routing, LRU,
+speculative windows; the same random weights), prefills one prompt of 512
+tokens and decodes ``--warm`` tokens (a windowed path: one window of each
+size, so every graph is captured before the measurement), then measures
+``--tokens`` decode tokens, in one decode call, twice:
 
 1. host split: the wall time per token spent inside the engine's pieces,
    each timed inclusively by a wrapper (a piece's time includes the pieces
-   it calls): the step's launch (device LUT rewrites, pointer check, graph
+   it calls): a fused launch (device LUT rewrites, pointer check, graph
    replay), the blocking pulls (every ``Tensor.cpu``: the wait for the
-   card), the suffix replay, the relaunch, ``ensure_resident``, the host
-   gather of warehouse rows into pinned staging (``gather_rows``, in trees
-   that still have it), the upload calls (``SlotStore.write_batch``), the
-   host miss GEMM, the rotation and ``begin_prefetch``;
+   card), the hot walk's waits on its routing events, the suffix replays
+   (fused step, window position, hot walk), the relaunches (step, window),
+   ``ensure_resident``, the sync walk's layers and its LUT resolves (LRU's
+   blocking uploads), the walk's pre-gating transitions (``prepare_layer``,
+   also inside the rotations), the KV rollback, the upload calls
+   (``SlotStore.write_batch``), the host miss GEMM, the rotations (step,
+   window) and ``begin_prefetch``;
 2. device split: the same number of tokens under ``torch.profiler`` (CPU and
    CUDA activity): device time per token by kernel or copy name (the top
-   ones), the device's total (kernels and copies, summed over streams) and
-   its share of the wall time (the busy share; idle = 1 - busy where the
-   streams do not overlap).
+   ones), the device's total (kernels and copies, summed over streams), its
+   share of the wall time (the busy share; idle = 1 - busy where the
+   streams do not overlap) and the device operations (kernels, copies,
+   memsets) per token.
 
 Prints the card's ``nvidia-smi`` name and power limit, one block per path,
 and one JSON line per path (also written to ``--out FILE`` when given). To
 compare two trees on one card, run this on both, one after the other on the
-same card: older, newer, newer, older.
+same card: older, newer, newer, older (a tree from before speculative
+windows were ported has its own copy of this tool: run that one on it).
 """
 from __future__ import annotations
 
@@ -49,8 +57,8 @@ def _timers(engine, acc):
     timers accumulating into ``acc``; returns an undo function."""
     import torch
 
-    from repro_torch.core import residency as res_mod
     from repro_torch.core import slots as slots_mod
+    from repro_torch.models import transformer as tfm
 
     undo = []
 
@@ -68,17 +76,23 @@ def _timers(engine, acc):
         setattr(owner, name, timed)
         undo.append(lambda: setattr(owner, name, fn))
 
-    for name, label in (("_launch_step", "launch (LUT rewrite + replay)"),
+    for name, label in (("_launch", "launch (LUT rewrite + replay)"),
                         ("_replay_fused", "suffix replay"), ("_relaunch_fused", "relaunch"),
+                        ("_relaunch_window", "window relaunch"),
+                        ("_replay_step", "hot-walk replay"),
+                        ("_run_layers", "sync walk (layers)"),
                         ("_host_correct", "host miss GEMM")):
         wrap(engine, name, label)
     m = engine.manager
     for name, label in (("ensure_resident", "ensure_resident"),
                         ("rotate_from_telemetry", "rotation"),
+                        ("rotate_window_from_telemetry", "window rotation"),
+                        ("resolve", "LUT resolve (LRU loads)"),
+                        ("prepare_layer", "prepare_layer (pre-gating)"),
                         ("begin_prefetch", "begin_prefetch")):
         wrap(m, name, label)
-    if hasattr(res_mod, "gather_rows"):
-        wrap(res_mod, "gather_rows", "host gather into staging")
+    wrap(tfm, "rollback_kv_window", "KV rollback")
+    wrap(torch.cuda.Event, "synchronize", "routing waits (event)")
     wrap(slots_mod.SlotStore, "write_batch", "upload calls")
     wrap(torch.Tensor, "cpu", "blocking pulls (.cpu)")
     return lambda: [u() for u in reversed(undo)]
@@ -89,26 +103,25 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.config import ResidencyConfig
-    from repro_torch.core.engine import RotaryEngine
-    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.models.transformer import init_params
 
     import chip_smoke as cs
 
     params = init_params(cfg, 0, dev, expert_device="cpu")
-    rescfg = ResidencyConfig(mode="rotary" if spec.slots else "full", num_slots=spec.slots,
-                             quantization=spec.quantization, quant_group_size=cs.GROUP)
-    engine = RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=cs.CACHE), batch=1, seed=0,
-                          prefetch=spec.prefetch, device=dev)
+    engine = cs.make_engine(dev, cfg, params, spec)
     del params
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, cs.PROMPT)).astype(np.int32)
-    logits = engine.prefill(prompt)
-    engine.decode(logits, warm)
+    engine.decode(engine.prefill(prompt), warm)
+    for k in range(getattr(spec, "spec_k", 1) - 1, 0, -1):      # capture every window size
+        engine.decode(engine.last_logits, k)
     st = engine.stats
 
     def counters():
         return dict(replayed=st.replayed_steps, relaunched=st.relaunched_steps,
-                    bytes=st.bytes_uploaded, converted=st.host_dequant_experts)
+                    bytes=st.bytes_uploaded, converted=st.host_dequant_experts,
+                    windows=st.spec_windows, drafted=st.drafted_tokens,
+                    accepted=st.accepted_tokens, pulls=st.sync_pulls,
+                    loads=sum(l.loads for l in st.layers.values()))
 
     # 1. host split
     acc = defaultdict(float)
@@ -116,8 +129,7 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
     c0 = counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(tokens):
-        engine.decode(engine.last_logits, 1)
+    engine.decode(engine.last_logits, tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     undo()
@@ -128,8 +140,7 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(tokens):
-            engine.decode(engine.last_logits, 1)
+        engine.decode(engine.last_logits, tokens)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     rows = []
@@ -151,10 +162,15 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
         per_token=dict(replayed=(c1["replayed"] - c0["replayed"]) / tokens,
                        relaunched=(c1["relaunched"] - c0["relaunched"]) / tokens,
                        mb_uploaded=(c1["bytes"] - c0["bytes"]) / 2**20 / tokens,
-                       experts_converted=(c1["converted"] - c0["converted"]) / tokens),
+                       experts_converted=(c1["converted"] - c0["converted"]) / tokens,
+                       windows=(c1["windows"] - c0["windows"]) / tokens,
+                       sync_pulls=(c1["pulls"] - c0["pulls"]) / tokens,
+                       loads=(c1["loads"] - c0["loads"]) / tokens),
+        accepted_of_drafted=[c1["accepted"] - c0["accepted"], c1["drafted"] - c0["drafted"]],
         profiled_wall_ms_per_token=1e3 * wall_prof / tokens,
         device_ms_per_token=device_ms,
         device_busy_share=device_ms / (1e3 * wall_prof / tokens),
+        device_ops_per_token=sum(r[2] for r in rows),
         top_device=[dict(name=n[:80], ms_per_token=ms, calls_per_token=c) for n, ms, c in rows[:14]],
     )
     del engine
@@ -199,7 +215,8 @@ def main() -> int:
               f"{r['per_token']}; host (inclusive ms/token): "
               + ", ".join(f"{k} {v:.2f}" for k, v in r["host_ms_per_token"].items()), flush=True)
         print(f"  device {r['device_ms_per_token']:.3f} ms/token of "
-              f"{r['profiled_wall_ms_per_token']:.2f} (busy share {r['device_busy_share']:.3f}); "
+              f"{r['profiled_wall_ms_per_token']:.2f} (busy share {r['device_busy_share']:.3f}), "
+              f"{r['device_ops_per_token']:.0f} device operations a token; "
               f"top: " + "; ".join(f"{t['name']} {t['ms_per_token']:.3f} ms x{t['calls_per_token']:.0f}"
                                    for t in r["top_device"]), flush=True)
     if args.out:
