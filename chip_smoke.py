@@ -23,13 +23,19 @@ Phases, each failing loudly (nothing is caught):
    launch count: the logits-in gate (the Pallas function's counterpart)
    and the fused router GEMM + gate that the model calls (``router_topk``),
    held at T = 1 and 512 and timed beside its plain version, the library
-   composite and the three calls it replaced;
-4. run six paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at its
-   published widths, cut to the first 8 of its 48 layers (the depth is the
-   only cut: 8 layers of host warehouse are 9.7 GB, the whole model's would
-   be 58 GB, made at random on every run), batch 1, greedy, cache_len 1024,
-   each decode step one CUDA graph replay (captured on the path's first
-   step):
+   composite and the three calls it replaced. Chunked prefill's entries:
+   K4's chunk-append entry at C in {1, 4, 128} and cur_len in {0, 384}
+   (timed at 128 / 384 beside SDPA with an explicit causal-offset mask) and
+   K1's ragged entry, a 128-token chunk's 1,024 picks over 97 slots in
+   bf16, int8 and int4 (beside index_select (+ dequantize) + bmm over the
+   rows padded by slot; its plain version reads the offsets on the host, so
+   only its wall time is taken);
+4. run twenty paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at
+   its published widths, cut to the first 8 of its 48 layers (the depth is
+   the only cut: 8 layers of host warehouse are 9.7 GB, the whole model's
+   would be 58 GB, made at random on every run), batch 1, cache_len 1024,
+   each decode step, window size and sampler, and prefill chunk length one
+   CUDA graph (captured on first use), greedy unless said:
    * ``bf16``: rotary residency with 96 of 128 expert slots in bf16,
      synchronous rotation, 2 requests of 512 prompt tokens and 64 new
      tokens;
@@ -46,13 +52,39 @@ Phases, each failing loudly (nothing is caught):
      to the first position whose truth top-2 margin is under phase 5's
      guard;
    * ``int4-prefetch``: the same in int4 slots, 1 request of 512 + 16, held
-     to ``int4`` the same way (its packed shadow planes).
+     to ``int4`` the same way (its packed shadow planes);
+   * the walks and windows: ``bf16-walk`` (the per-layer hot walk),
+     ``bf16-hostroute`` (host routing), ``bf16-lru`` (LRU), ``bf16-spec4``
+     and ``bf16-prefetch-spec4`` (windows of 4), each held to ``bf16``'s
+     greedy ids, and ``full-spec4`` to ``full``'s;
+   * chunked prefill (``prefill_chunk=128``): ``full-chunk`` (the same 512
+     + 16 request twice, the second without the graphs' captures: no miss,
+     no replay, one graph replay and one blocking pull a chunk),
+     ``bf16-chunk`` (96/128, prompts of 512 and 509, whose plan ends in 4-
+     and 1-token chunks, + 32), ``bf16-chunk-walk`` (the same requests
+     walked layer by layer: each prompt's prefill logits from the
+     warm-start residency must equal ``bf16-chunk``'s bit for bit; the
+     first request's is the run's own, each later one is prefilled again
+     on a fresh engine of each path, since the fused step and the hot walk
+     leave other slots after they decode), ``int8-chunk`` and
+     ``int4-chunk-prefetch`` (512 + 16);
+     each held to its legacy path's greedy ids on the prompts both served,
+     and K4's chunk entry must launch on each (and on no legacy path). On
+     every path the prefill sorts its picks by slot through the format's
+     K1 ragged entry (the tiled body's grouped entry launches on none);
+   * sampled decode (temperature 0.8, top-k 50, top-p 0.95, seed 7):
+     ``full-sample`` (the same 512 + 64 request twice: the two streams must
+     be equal), ``full-sample-spec4`` (windows of 4: its stream must equal
+     ``full-sample``'s) and ``bf16-sample-spec4`` (96/128, its accept rate
+     printed).
    Each path starts from the same random weights and frees its engine, and
    its warehouse, before the next; the kernels' launch counters are zeroed
    just before each path and read just after (a graph replay adds the
    launches its capture recorded), and every kernel must have launched on
    some path; K3's fused entry must have launched on every path and its
-   logits-in entry on none (every routing site is fused). A quantized path
+   logits-in entry on none (every routing site is fused). K1's tiled body
+   counts its two entries (grouped, ragged) as one kernel, as K3 does; the
+   JSON line gives each entry's own launches beside the kernel's. A quantized path
    also checks that the card's quantization of layer 0 equals the CPU
    quantizer's byte for byte, and that every upload shipped exactly one
    packed expert (2,654,208 bytes int4, 4,732,928 int8). Each path prints
@@ -66,7 +98,8 @@ Phases, each failing loudly (nothing is caught):
    are dequant(quant(w))), and that every miss was corrected on the host;
    for ``bf16`` and ``int4`` a control follows: the first request again, fed
    the same tokens, with the host miss correction switched off, must fail
-   that check (so the check can see a broken engine);
+   that check (so the check can see a broken engine). A sampled request is
+   held to the truth on its own drawn tokens;
 6. print the paths side by side, the kernels' JSON line, the card line, and
    last the result line.
 
@@ -98,7 +131,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
@@ -122,8 +155,15 @@ class PathSpec(NamedTuple):
     host_routing: bool = False  # the seed baseline (the sync walk, host top-k)
     fused_decode: Optional[bool] = None     # False: the per-layer hot walk
     spec_k: int = 1             # > 1: speculative windows
+    chunk: int = 0              # > 0: chunked prefill in chunks of this many tokens
+    prompt_lens: Tuple[int, ...] = ()       # per request (default PROMPT each)
+    sample: Optional[Tuple[float, int, float, int]] = None  # temperature, top-k, top-p, seed
+    same_prompt: bool = False   # every request the first one again: the streams must be equal
+    prefill_twin: Optional[str] = None      # the path whose prefill logits this one equals
 
 
+CHUNK = 128
+SAMPLE = (0.8, 50, 0.95, 7)
 PATHS = (
     PathSpec("bf16", None, SLOTS, False, REQUESTS, NEW, True, None),
     PathSpec("int4", "int4", SLOTS, False, REQUESTS, NEW, True, None),
@@ -137,6 +177,19 @@ PATHS = (
     PathSpec("full-spec4", None, 0, False, 1, NEW, False, "full", spec_k=4),
     PathSpec("bf16-spec4", None, SLOTS, False, 1, 32, False, "bf16", spec_k=4),
     PathSpec("bf16-prefetch-spec4", None, SLOTS, True, 1, 32, False, "bf16", spec_k=4),
+    PathSpec("full-chunk", None, 0, False, 2, 16, False, "full", chunk=CHUNK, same_prompt=True),
+    PathSpec("bf16-chunk", None, SLOTS, False, 2, 32, False, "bf16", chunk=CHUNK,
+             prompt_lens=(PROMPT, PROMPT - 3)),
+    PathSpec("bf16-chunk-walk", None, SLOTS, False, 2, 32, False, "bf16", fused_decode=False,
+             chunk=CHUNK, prompt_lens=(PROMPT, PROMPT - 3), prefill_twin="bf16-chunk"),
+    PathSpec("int8-chunk", "int8", SLOTS, False, 1, 16, False, "int8", chunk=CHUNK),
+    PathSpec("int4-chunk-prefetch", "int4", SLOTS, True, 1, 16, False, "int4", chunk=CHUNK),
+    PathSpec("full-sample", None, 0, False, 2, NEW, False, None, sample=SAMPLE,
+             same_prompt=True),
+    PathSpec("full-sample-spec4", None, 0, False, 1, NEW, False, "full-sample", spec_k=4,
+             sample=SAMPLE),
+    PathSpec("bf16-sample-spec4", None, SLOTS, False, 1, 32, False, None, spec_k=4,
+             sample=SAMPLE),
 )
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
 QUANT_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -154,6 +207,10 @@ REPLACES = {
     "topk_gate": "src/repro/kernels/topk_gate.py:81",
     "router_topk": "src/repro/kernels/topk_gate.py:81",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
+    "flash_attention_chunk": "src/repro/kernels/flash_attention.py:88",
+    "slot_gmm_ragged": "src/repro/kernels/moe_gmm.py:111",
+    "slot_gmm_int8_ragged": "src/repro/kernels/moe_gmm.py:59",
+    "slot_gmm_int4_ragged": "src/repro/kernels/moe_gmm.py:78",
 }
 SOURCE = {
     "slot_gmm": "src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -166,10 +223,23 @@ SOURCE = {
     "topk_gate": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "router_topk": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_chunk": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "slot_gmm_ragged": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    "slot_gmm_int8_ragged": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    "slot_gmm_int4_ragged": "src/repro_torch/kernels/csrc/moe_gmm.cu",
 }
-ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", "router_topk_")}
+ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", "router_topk_"),
+         **{f"slot_gmm{q}_{e}": (f"slot_gmm{q}_tiled", f"slot_gmm{q}_{e}_")
+            for q in ("", "_int8", "_int4") for e in ("tiled", "ragged")}}
 ROUTE_MARGIN = 1e-6                # probability gap that a summation order cannot close
 ROUTE_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def entry_launches(symbols: dict, name: str) -> int:
+    """Launches of the entry ``name`` (a key of ``ENTRY``) in ``symbols``
+    (kernel -> launcher symbol -> launches)."""
+    counter, prefix = ENTRY[name]
+    return sum(n for sym, n in symbols.get(counter, {}).items() if sym.startswith(prefix))
 
 
 def log(msg: str) -> None:
@@ -237,16 +307,21 @@ def device_ms(fn, iters: int = 50) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def timed(iters: int = 50, **fns) -> dict:
+def timed(iters: int = 50, host_sync=(), **fns) -> dict:
     """``{name}_ms`` (wall per call) and ``{name}_device_ms`` for each of
     ``fns``; the kernel's own entry is named ``kernel`` and gives ``ms`` and
-    ``device_ms``."""
+    ``device_ms``. Names in ``host_sync`` read a count on the host (a CUDA
+    graph cannot capture them): their device_ms is None."""
     out = {}
     for name, fn in fns.items():
         key = "" if name == "kernel" else f"{name}_"
         out[f"{key}ms"] = time_ms(fn, iters)
-        out[f"{key}device_ms"] = device_ms(fn, iters)
+        out[f"{key}device_ms"] = None if name in host_sync else device_ms(fn, iters)
     return out
+
+
+def fmt_ms(t) -> str:
+    return "n/a (syncs with the host)" if t is None else f"{t:.4f}"
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -432,11 +507,13 @@ def kernel_phase(dev):
         bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * pairs * h * dh,
         shape=f"q [1,{PROMPT},{h},{dh}] k/v [1,{PROMPT},{hkv},{dh}] bf16, causal (prefill)",
     )
+    rows["flash_attention_chunk"] = chunk_row(dev, g)
+    rows.update(ragged_rows(dev, g, dict(up=w_up, down=w_down), slot_of))
     for name, r in rows.items():
         log(f"  {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3e}, per call (wall): "
             f"kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
             f"{r['library_ms']:.4f}; device: kernel {r['device_ms']:.4f}, plain "
-            f"{r['plain_device_ms']:.4f}, library {r['library_device_ms']:.4f}; bound_ms "
+            f"{fmt_ms(r['plain_device_ms'])}, library {r['library_device_ms']:.4f}; bound_ms "
             f"{r['bound_ms']:.5f} ({r['bound_by']}); {rate(r)}")
         if "down" in r:
             dn = r["down"]
@@ -456,6 +533,141 @@ def kernel_phase(dev):
                     f"logits-in gate) {sub['three_call_ms']:.4f} per call (wall), "
                     f"{sub['three_call_device_ms']:.4f} device")
     return rows
+
+
+def chunk_row(dev, g):
+    """Phase 3 for K4's chunk-append entry: C queries at positions cur_len ..
+    against the 1024-slot cache (qwen36's heads: 32 q, 4 KV, dh 128), held
+    against its plain version at C in {1, 4, 128} and cur_len in {0, 384}
+    (slots past the live keys hold stale values), and timed at C = 128,
+    cur_len = 384 (a 512-token prompt's last chunk) beside the plain
+    version, one library call (SDPA over the live keys with an explicit
+    causal-offset mask) and the bound: the live keys read once, q and out,
+    4 H dh operations per (query, live key) pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    h, hkv, dh = 32, 4, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    k, v = randn(1, CACHE, hkv, dh), randn(1, CACHE, hkv, dh)
+    err = 0.0
+    for c in (1, 4, 128):
+        q = randn(1, c, h, dh)
+        for cur in (0, 384):
+            cl = torch.tensor(cur, device=dev)
+            err = max(err, check_close(f"flash_attention_chunk C={c} cur_len={cur}",
+                                       fa.flash_attention_chunk(q, k, v, cl),
+                                       ref.flash_attention_chunk_ref(q, k, v, cl), **KERNEL_TOL))
+    c, cur = 128, 384
+    live = cur + c
+    q = randn(1, c, h, dh)
+    cl = torch.tensor(cur, device=dev)
+    mask = (torch.arange(live, device=dev)[None, :]
+            <= cur + torch.arange(c, device=dev)[:, None])              # [C, live]
+    qt, kt, vt = q.transpose(1, 2), k[:, :live].transpose(1, 2), v[:, :live].transpose(1, 2)
+    pairs = c * cur + c * (c + 1) // 2
+    nbytes = (2 * c * h * dh + 2 * live * hkv * dh) * 2
+    b_ms, b_by = bound(nbytes, 4 * pairs * h * dh)
+    return dict(
+        max_abs_err=err,
+        **timed(kernel=lambda: fa.flash_attention_chunk(q, k, v, cl),
+                plain=lambda: ref.flash_attention_chunk_ref(q, k, v, cl),
+                library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                               enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * pairs * h * dh,
+        shape=f"q [1,{c},{h},{dh}] at cur_len {cur} vs cache [1,{CACHE},{hkv},{dh}] bf16 "
+              f"(the last 128-token chunk of a 512-token prompt); library: SDPA over the "
+              f"{live} live keys with an explicit causal-offset mask")
+
+
+def ragged_rows(dev, g, stores, slot_of):
+    """Phase 3 for K1's ragged entry in bf16, int8 and int4: the picks of a
+    128-token chunk (1,024 = 128 x 8 over 128 experts, 96 resident in 97
+    store rows, the rest on the MISS row), sorted by slot with offsets made
+    on the device, gate/up [1024, 2048] @ [97, 2048, 768] and down [1024,
+    768] @ [97, 768, 2048], held against the plain version; timed on gate/up
+    beside the plain version, a library composite over the same rows padded
+    by slot to [G, C_max, D] (index_select of the used slots, dequantized
+    for int8/int4, + bmm; the padding made outside the timing) and the bound
+    (each used slot's bytes once, the kept rows in and all rows out,
+    2 x kept rows x D x F operations)."""
+    import torch
+
+    from repro_torch.core.slots import quantize_int8_batch
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    from repro_torch.quant import dequantize_int4, quantize_int4_batch
+
+    n = 128 * 8
+    ids = torch.randint(0, 128, (n,), generator=g, device=dev)
+    flat = slot_of[ids]
+    order = torch.argsort(flat, stable=True)
+    offsets = torch.searchsorted(flat[order], torch.arange(SLOTS + 2, device=dev)).to(torch.int32)
+    counts = (offsets[1:] - offsets[:-1]).cpu()
+    counts[SLOTS] = 0
+    used = torch.nonzero(counts).flatten()
+    kept, c_max = int(counts.sum()), int(counts.max())
+    d, f = stores["up"].shape[1:]
+    x = (torch.randn((n, d), generator=g, device=dev)).to(torch.bfloat16)
+    hid = (torch.randn((n, f), generator=g, device=dev)).to(torch.bfloat16)
+    x_pad = torch.zeros((used.numel(), c_max, d), dtype=torch.bfloat16, device=dev)
+    for i, sl in enumerate(used.tolist()):
+        a, b = int(offsets[sl]), int(offsets[sl + 1])
+        x_pad[i, :b - a] = x[a:b]
+    used_dev = used.to(dev)
+    out = {}
+    for kind in ("bf16", "int8", "int4"):
+        planes = {}
+        for name, w in stores.items():
+            if kind == "bf16":
+                planes[name] = (w, None, None)
+            else:
+                q = quantize_int8_batch(w) if kind == "int8" else quantize_int4_batch(w, GROUP)
+                planes[name] = tuple(q) + (None,) * (3 - len(q))
+        tol = KERNEL_TOL if kind == "bf16" else QUANT_TOL
+        err = max(check_close(f"slot_gmm ragged {kind} {name}",
+                              gmm.slot_gmm_ragged(xx, *planes[name][:1], offsets,
+                                                  *planes[name][1:], miss_slot=SLOTS),
+                              ref.slot_gmm_ragged_ref(xx, *planes[name][:1], offsets,
+                                                      *planes[name][1:], miss_slot=SLOTS),
+                              **tol)
+                  for name, xx in (("up", x), ("down", hid)))
+        w, scale, mn = planes["up"]
+
+        def library(w=w, scale=scale, mn=mn, kind=kind):
+            if kind == "bf16":
+                return torch.bmm(x_pad, w.index_select(0, used_dev))
+            if kind == "int8":
+                wg = w.index_select(0, used_dev).to(torch.bfloat16)
+                return torch.bmm(x_pad, wg) * scale.index_select(0, used_dev)[:, None, :]
+            wg = dequantize_int4(w.index_select(0, used_dev), scale.index_select(0, used_dev),
+                                 mn.index_select(0, used_dev), torch.bfloat16)
+            return torch.bmm(x_pad, wg)
+
+        per_slot = sum(t[0].numel() * t.element_size() for t in (w, scale, mn) if t is not None)
+        out_bytes = 2 if kind == "bf16" else 4
+        nbytes = used.numel() * per_slot + kept * d * 2 + n * f * out_bytes + (SLOTS + 2) * 4
+        b_ms, b_by = bound(nbytes, 2 * kept * d * f)
+        name = "slot_gmm_ragged" if kind == "bf16" else f"slot_gmm_{kind}_ragged"
+        out[name] = dict(
+            max_abs_err=err,
+            **timed(20, ("plain",), kernel=lambda w=w, scale=scale, mn=mn: gmm.slot_gmm_ragged(
+                        x, w, offsets, scale, mn, miss_slot=SLOTS),
+                    plain=lambda w=w, scale=scale, mn=mn: ref.slot_gmm_ragged_ref(
+                        x, w, offsets, scale, mn, miss_slot=SLOTS),
+                    library=library),
+            bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=2 * kept * d * f,
+            shape=f"x [{n},{d}] bf16 sorted by slot ({kept} kept rows over {used.numel()} "
+                  f"slots, {n - kept} on MISS) @ {kind} w {list(w.shape)} (a 128-token "
+                  f"chunk's gate/up); library: index_select{' + dequantize' if kind != 'bf16' else ''}"
+                  f" + bmm over the rows padded to [{used.numel()},{c_max},{d}] (a composite)")
+    return out
 
 
 def router_rows(dev, g):
@@ -725,17 +937,27 @@ def judge(label, got, truth, plain) -> bool:
 
 
 def describe(path: PathSpec) -> str:
-    """The path's decode mechanism in words."""
+    """The path's prefill and decode mechanisms in words."""
     if path.host_routing:
-        return "host routing (the per-layer sync walk, top-k on the host)"
-    if path.lru:
-        return "LRU residency (the per-layer sync walk, misses answered by blocking uploads)"
-    if path.fused_decode is False:
-        return "the per-layer hot walk (one blocking pull a token)"
-    kind = "prefetch + miss relaunch" if path.prefetch else "synchronous rotation"
-    if path.spec_k > 1:
-        return f"{kind}, speculative windows of {path.spec_k} (one CUDA graph per window size)"
-    return kind
+        text = "host routing (the per-layer sync walk, top-k on the host)"
+    elif path.lru:
+        text = "LRU residency (the per-layer sync walk, misses answered by blocking uploads)"
+    elif path.fused_decode is False:
+        text = "the per-layer hot walk (one blocking pull a token)"
+    else:
+        text = "prefetch + miss relaunch" if path.prefetch else "synchronous rotation"
+        if path.spec_k > 1:
+            text += (f", speculative windows of {path.spec_k} (one CUDA graph per window size "
+                     f"and sampler)")
+    if path.chunk:
+        how = ("walked layer by layer" if path.fused_decode is False
+               else "one CUDA graph per chunk length")
+        text += f", chunked prefill in chunks of {path.chunk} ({how})"
+    if path.sample:
+        t, k, p, seed = path.sample
+        text += (f", sampled (temperature {t}, top-k {k}, top-p {p}, seed {seed}; "
+                 f"{'size-1 ' if path.spec_k == 1 else ''}windows drawing on the card)")
+    return text
 
 
 def make_engine(dev, cfg, params, path: PathSpec):
@@ -750,21 +972,33 @@ def make_engine(dev, cfg, params, path: PathSpec):
                              quant_group_size=GROUP)
     return RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=CACHE), batch=1, seed=0,
                         prefetch=path.prefetch, host_routing=path.host_routing,
-                        fused_decode=path.fused_decode, spec_k=path.spec_k, device=dev)
+                        fused_decode=path.fused_decode, spec_k=path.spec_k,
+                        prefill_chunk=path.chunk or None, device=dev)
 
 
-def decode_request(engine, logits, new, spec: bool):
-    """Decode ``new`` greedy tokens after a prefill's ``logits``. One decode
-    call per token, or (``spec``) one call for all of them, whose windows
-    are timed one by one. Returns (tokens, the logits that chose them
-    [new, V], seconds per decode iteration, tokens per iteration)."""
+def sampler_of(path: PathSpec):
+    """The path's ``SamplerConfig``, or None (greedy)."""
+    from repro_torch.serving.sampler import SamplerConfig
+
+    if path.sample is None:
+        return None
+    t, k, p, seed = path.sample
+    return SamplerConfig(temperature=t, top_k=k, top_p=p, seed=seed)
+
+
+def decode_request(engine, logits, new, spec: bool, sampler=None):
+    """Decode ``new`` tokens (greedy, or drawn by ``sampler``) after a
+    prefill's ``logits``. One decode call per token, or (``spec``) one call
+    for all of them, whose windows are timed one by one. Returns (tokens,
+    the logits that chose them [new, V], seconds per decode iteration,
+    tokens per iteration)."""
     import numpy as np
 
     if not spec:
         step_logits, toks, step_s = [logits], [], []
         for _ in range(new):
             t0 = time.perf_counter()
-            toks.append(int(engine.decode(step_logits[-1], 1)[0, 0]))
+            toks.append(int(engine.decode(step_logits[-1], 1, sampler=sampler)[0, 0]))
             step_s.append(time.perf_counter() - t0)
             step_logits.append(engine.last_logits)
         return toks, np.stack([l[0] for l in step_logits[:-1]]), step_s, [1] * new
@@ -783,7 +1017,7 @@ def decode_request(engine, logits, new, spec: bool):
     engine._decode_step_fused = timed(step, lambda out: 1)
     engine.logit_log = [logits]
     try:
-        toks = engine.decode(logits, new)[0].tolist()
+        toks = engine.decode(logits, new, sampler=sampler)[0].tolist()
         got = engine.logged_logits()[:-1, 0]
     finally:
         del engine._decode_window_fused, engine._decode_step_fused
@@ -802,19 +1036,22 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.core.engine import prefill_chunk_plan
     from repro_torch.core.slots import quantize_experts
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
 
     label, quantization, requests, new = path.label, path.quantization, path.requests, path.new
     spec = path.spec_k > 1
+    sampler = sampler_of(path)
+    lens = path.prompt_lens or (PROMPT,) * requests
     experts = cfg.moe.num_experts
     where = (f"all {experts} experts resident" if not path.slots else
              f"{'LRU' if path.lru else 'rotary'} residency {path.slots}/{experts} slots")
     log(f"[4/{label}] {cfg.name} at published widths, {LAYERS} of {depth} layers, {where} in "
         f"{quantization or 'bf16'}{f' (groups of {GROUP})' if quantization == 'int4' else ''}, "
-        f"{describe(path)}, {requests} request(s) x ({PROMPT} prompt + {new} new), batch 1, "
-        f"greedy, cache_len {CACHE}")
+        f"{describe(path)}, {requests} request(s) x ({' / '.join(map(str, lens))} prompt + "
+        f"{new} new), batch 1, {'sampled' if sampler else 'greedy'}, cache_len {CACHE}")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, dev, expert_device="cpu")
     engine = make_engine(dev, cfg, params, path)
@@ -835,28 +1072,34 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         log(f"  layer 0 quantized on the card equals the CPU quantizer byte for byte "
             f"({len(cpu)} planes, CPU pass {time.perf_counter() - t0:.1f} s)")
     del params
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
-               for _ in range(requests)]
+    rng = np.random.default_rng(0)          # request i's first tokens are the same on every path
+    prompts = [rng.integers(0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)[:, :n]
+               for n in lens]
+    if path.same_prompt:
+        prompts = [prompts[0]] * requests
     runs = []
     st = engine.stats
     dec = dict(pulls=0, bytes=0, steps=0, overlapped=0)    # the decode steps' share
+    pre = []                                # per request: prefill logits, pulls, chunks, replays
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     for prompt in prompts:
+        p0, c0, r0 = st.sync_pulls, st.prefill_chunks, st.prefill_replays
         t0 = time.perf_counter()
         logits = engine.prefill(prompt)
         t_prefill = time.perf_counter() - t0
+        pre.append((logits, st.sync_pulls - p0, st.prefill_chunks - c0, st.prefill_replays - r0))
         pulls0, bytes0, over0 = st.sync_pulls, st.bytes_uploaded, st.overlapped_pulls
-        toks, got, step_s, step_n = decode_request(engine, logits, new, spec)
+        toks, got, step_s, step_n = decode_request(engine, logits, new, spec, sampler)
         dec["pulls"] += st.sync_pulls - pulls0
         dec["bytes"] += st.bytes_uploaded - bytes0
         dec["overlapped"] += st.overlapped_pulls - over0
         dec["steps"] += new
         runs.append((prompt, toks, got, t_prefill, step_s, step_n))
     counts = ops.launch_counts()
-    entries = ops.symbol_launch_counts()["topk_gate"]
+    symbols = ops.symbol_launch_counts()
+    entries = symbols["topk_gate"]
     peak = torch.cuda.max_memory_allocated()
     host_computed = sum(l.host_computed for l in st.layers.values())
     loads = sum(l.loads for l in st.layers.values())
@@ -879,8 +1122,13 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     if spec:
         log(f"  windows {st.spec_windows}, drafted {st.drafted_tokens}, accepted "
             f"{st.accepted_tokens} (accept rate {st.accept_rate:.3f})")
-    log(f"  decode graphs: {engine.graph_captures} capture(s) (window sizes "
-        f"{sorted(engine._graphs)}), {engine.graph_replays} replays, {engine.launches} launches")
+    log(f"  graphs: {engine.graph_captures} capture(s) (keys "
+        f"{sorted(map(str, engine._graphs))}), {engine.graph_replays} replays, "
+        f"{engine.launches} launches")
+    if path.chunk:
+        log(f"  chunked prefill per request: "
+            + "; ".join(f"{p.shape[1]} tokens in {n} chunks, {pulls} blocking pulls, {rep} replayed"
+                        for p, (_, pulls, n, rep) in zip(prompts, pre)))
     log(f"  host weight conversion for missed experts: {st.host_dequant_s:.3f} s over "
         f"{st.host_dequant_experts} experts "
         f"({1e3 * st.host_dequant_s / max(st.host_dequant_experts, 1):.3f} ms each)")
@@ -889,7 +1137,10 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
             f"wasted {st.prefetch_wasted_bytes / 2**20:.1f} MB; overlap_ms {st.overlap_ms:.1f} "
             f"(host wall of begin_prefetch), copy stream {copy_ms:.1f} ms (event-timed shadow "
             f"uploads)")
-    log(f"  kernel launches on this path: {counts}; K3 by entry: {entries}")
+    tiled = {sym: n for name, syms in symbols.items() if name.endswith("_tiled")
+             for sym, n in syms.items()}
+    log(f"  kernel launches on this path: {counts}; K3 by entry: {entries}; K1's tiled body "
+        f"by entry: {tiled}")
     fused = sum(n for sym, n in entries.items() if sym.startswith("router_topk_"))
     if path.host_routing:
         if counts["topk_gate"]:
@@ -906,20 +1157,50 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
                              f"{EXPERT_BYTES[quantization]}-byte {quantization} experts")
     if not engine._fused_decode:                      # the walks launch no graph
         graphs_ok = engine.graph_captures == engine.launches == 0
-    else:            # on the card every fused launch a replay but each window size's first
+    else:            # on the card every fused launch a replay but each graph's first
+        keys = list(engine._graphs)
+        chunk_keys = [key for key in keys if isinstance(key, tuple) and key[0] == "chunk"]
+        draw_keys = [key for key in keys if isinstance(key, tuple) and key[0] == "draw"]
+        window_keys = len(keys) - len(chunk_keys) - len(draw_keys)
+        want_chunk = {(c, i == len(plan) - 1) for plan in (prefill_chunk_plan(n, path.chunk)
+                                                           for n in lens if path.chunk)
+                      for i, c in enumerate(plan)}
         graphs_ok = dev.type != "cuda" or (
-            engine.graph_captures == len(engine._graphs) <= path.spec_k
+            engine.graph_captures == len(keys)
             and engine.graph_captures + engine.graph_replays == engine.launches
-            and (spec or engine.graph_captures == 1))
+            and window_keys <= path.spec_k and (spec or window_keys == 1)
+            and len(draw_keys) == (sampler is not None)
+            and {(c, head) for _, c, head in chunk_keys} == want_chunk)
     if not graphs_ok:
-        raise AssertionError(f"{label}: {engine.graph_captures} captures, {engine.graph_replays} "
-                             f"replays and {engine.launches} launches")
-    want_pulls = requests * -(-new // path.spec_k)
+        raise AssertionError(f"{label}: {engine.graph_captures} captures ({sorted(map(str, keys))}),"
+                             f" {engine.graph_replays} replays and {engine.launches} launches")
+    windows = requests * -(-new // path.spec_k)
+    want_pulls = windows * (2 if sampler else 1)     # a sampled window's draw: a pull of its own
     if not path.slots and (st.misses or st.replayed_steps or dec["pulls"] != want_pulls
-                           or st.accepted_tokens != st.drafted_tokens):
-        raise AssertionError(f"{label}: {st.misses} misses, {st.replayed_steps} replays and "
-                             f"{dec['pulls']} blocking pulls in {dec['steps']} decode steps "
-                             f"(want {want_pulls})")
+                           or st.accepted_tokens != st.drafted_tokens or st.prefill_replays):
+        raise AssertionError(f"{label}: {st.misses} misses, {st.replayed_steps} replays, "
+                             f"{st.prefill_replays} chunk replays and {dec['pulls']} blocking "
+                             f"pulls in {dec['steps']} decode steps (want {want_pulls})")
+    ragged = "slot_gmm_ragged" if not quantization else f"slot_gmm_{quantization}_ragged"
+    grouped = entry_launches(symbols, ragged.replace("_ragged", "_tiled"))
+    if entry_launches(symbols, ragged) <= 0 or grouped:
+        raise AssertionError(f"{label}: the prefill launched {ragged} "
+                             f"{entry_launches(symbols, ragged)} times and the grouped tiled "
+                             f"entry {grouped} times")
+    if path.chunk:
+        if counts["flash_attention_chunk"] <= 0:
+            raise AssertionError(f"{label}: chunked prefill launched no flash_attention_chunk")
+        for n, (_, pulls, chunks, replayed) in zip(lens, pre):
+            plan = prefill_chunk_plan(n, path.chunk)
+            walk = path.fused_decode is False
+            want = chunks == len(plan) and (walk or pulls >= len(plan))
+            if not path.slots:           # miss-free: one graph replay and one pull a chunk
+                want = want and pulls == len(plan) and not replayed
+            if not want:
+                raise AssertionError(f"{label}: a {n}-token prompt took {chunks} chunks, "
+                                     f"{pulls} pulls, {replayed} replays (plan {plan})")
+    elif counts["flash_attention_chunk"]:
+        raise AssertionError(f"{label}: the legacy prefill launched K4's chunk entry")
     if path.fused_decode is False and dec["overlapped"] != 4 * LAYERS * dec["steps"]:
         raise AssertionError(f"{label}: {dec['overlapped']} overlapped pulls in {dec['steps']} "
                              f"steps, not 4 a layer")
@@ -934,8 +1215,9 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         if not np.isfinite(got).all() or got.shape != (new, cfg.vocab_size):
             raise AssertionError(f"request {i}: logits not finite or of shape {got.shape}")
         seq = np.concatenate([prompt[0], np.asarray(toks[:-1], np.int32)])[None]
-        truth = reference_logits(cfg, engine, seq, torch.float32)[PROMPT - 1:].cpu().numpy()
-        plain = reference_logits(cfg, engine, seq, torch.bfloat16)[PROMPT - 1:].cpu().numpy()
+        n = prompt.shape[1]
+        truth = reference_logits(cfg, engine, seq, torch.float32)[n - 1:].cpu().numpy()
+        plain = reference_logits(cfg, engine, seq, torch.bfloat16)[n - 1:].cpu().numpy()
         refs.append((truth, plain))
         if not judge(f"request {i}", got, truth, plain):
             raise AssertionError(f"{label} request {i}: engine logits farther from the truth "
@@ -953,7 +1235,7 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
             raise AssertionError(f"{label}: the logit check passed an engine that drops its "
                                  f"misses")
     summary = dict(
-        label=label, counts=counts, entries=entries, tokens=[r[1] for r in runs],
+        label=label, counts=counts, symbols=symbols, tokens=[r[1] for r in runs],
         tok_s=[new / sum(r[4]) for r in runs],
         steady_tok_s=[(new - r[5][0]) / sum(r[4][1:]) for r in runs],
         median_ms=[1e3 * float(np.median(r[4][1:])) for r in runs], unit=unit,
@@ -964,10 +1246,48 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         replays=engine.graph_replays, prefetch_launched=st.prefetch_launched,
         prefetch_hits=st.prefetch_hits, overlap_ms=st.overlap_ms, copy_ms=copy_ms,
         overlapped_pulls=st.overlapped_pulls, windows=st.spec_windows,
-        accept_rate=st.accept_rate if spec else None)
-    if path.baseline:
+        accept_rate=st.accept_rate if st.spec_windows else None,
+        prompts=prompts, prefill_logits=[p[0] for p in pre],
+        prefill_chunks=st.prefill_chunks, prefill_replays=st.prefill_replays)
+    if path.same_prompt:
+        if any(r[1] != runs[0][1] for r in runs):
+            raise AssertionError(f"{label}: the same request sampled twice gave other tokens: "
+                                 f"{[r[1][:8] for r in runs]}")
+        log(f"  the same request run {requests} times: the same {new} tokens each time")
+    if path.prefill_twin or any(p.prefill_twin == label for p in PATHS):
+        # the fused step and the hot walk rotate otherwise while they decode,
+        # so a later prompt of the run meets other slots: each later prompt
+        # is prefilled again from the warm start, on a fresh engine
+        warm = [summary["prefill_logits"][0]]
+        for prompt in prompts[1:]:
+            params = init_params(cfg, 0, dev, expert_device="cpu")
+            fresh = make_engine(dev, cfg, params, path)
+            del params
+            warm.append(fresh.prefill(prompt))
+            del fresh
+            gc.collect()
+        summary["warm_prefill_logits"] = warm
+    if path.prefill_twin:
+        twin = done[path.prefill_twin]
+        for i, (a, b) in enumerate(zip(summary["warm_prefill_logits"],
+                                       twin["warm_prefill_logits"])):
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"{label} request {i}: prefill logits from the warm start "
+                                     f"differ from {path.prefill_twin}'s (max "
+                                     f"{np.abs(a - b).max()})")
+        log(f"  every prompt's prefill logits from the warm start "
+            f"({' / '.join(str(p.shape[1]) for p in prompts)} tokens; the later ones on fresh "
+            f"engines) equal {path.prefill_twin}'s bit for bit")
+    if path.baseline and path.sample:          # sampled: the same draws, token for token
         base = done[path.baseline]
-        if path.prefetch and not spec:
+        for i, toks in enumerate(summary["tokens"]):
+            if toks != base["tokens"][i][:len(toks)]:
+                raise AssertionError(f"{label} request {i}: sampled stream {toks[:8]} differs "
+                                     f"from {path.baseline}'s {base['tokens'][i][:8]}")
+        log(f"  sampled streams equal {path.baseline}'s token for token")
+    elif path.baseline:
+        base = done[path.baseline]
+        if path.prefetch and not spec and not path.chunk:
             share, base_share = st.replayed_steps / dec["steps"], base["replayed"] / base["steps"]
             log(f"  against {path.baseline} in this run: replayed {st.replayed_steps}/"
                 f"{dec['steps']} steps against {base['replayed']}/{base['steps']}, relaunched "
@@ -976,6 +1296,10 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
                 raise AssertionError(f"{label}: {st.relaunched_steps} relaunches, replayed share "
                                      f"{share:.3f} not below {path.baseline}'s {base_share:.3f}")
         for i, (toks, (truth, plain)) in enumerate(zip(summary["tokens"], refs)):
+            if i >= len(base["prompts"]) or not np.array_equal(prompts[i], base["prompts"][i]):
+                log(f"  request {i}: {path.baseline} served no such prompt; held to the truth "
+                    f"only")
+                continue
             ref_toks = base["tokens"][i][:len(toks)]
             differ = [j for j, (a, b) in enumerate(zip(toks, ref_toks)) if a != b]
             sure = sure_positions(truth, plain)
@@ -1041,15 +1365,18 @@ def main() -> int:
     full = get_config("qwen36-35b-a3b")
     cfg = dataclasses.replace(full, segments=((("attn_moe",), LAYERS),))
     counts = {name: 0 for name in ops.KERNELS}
-    entries = {}
+    symbols = {}
     done = {}
     for path in PATHS:
         done[path.label] = summary = run_path(dev, cfg, full.num_layers, path, done)
         for name, n in summary["counts"].items():
             counts[name] += n
-        for sym, n in summary["entries"].items():
-            entries[sym] = entries.get(sym, 0) + n
-    log(f"  kernel launches over the {len(PATHS)} paths: {counts}; K3 by entry: {entries}")
+        for name, syms in summary["symbols"].items():
+            for sym, n in syms.items():
+                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
+    multi = {counter for counter, _ in ENTRY.values()}          # kernels with several entries
+    log(f"  kernel launches over the {len(PATHS)} paths: {counts}; by entry: "
+        f"{ {name: syms for name, syms in symbols.items() if name in multi and syms} }")
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on any path")
@@ -1071,7 +1398,8 @@ def main() -> int:
             f"{r['host_converted']} experts, misses {r['misses']}, loads {r['loads']}, graph "
             f"replays {r['replays']}, overlapped pulls {r['overlapped_pulls']}, windows "
             f"{r['windows']} accept rate {accept}, prefetch launched {r['prefetch_launched']} "
-            f"hits {r['prefetch_hits']}, peak {r['peak_gib']:.2f} GiB")
+            f"hits {r['prefetch_hits']}, prefill chunks {r['prefill_chunks']} replayed "
+            f"{r['prefill_replays']}, peak {r['peak_gib']:.2f} GiB")
     kernels = []
     for name, r in rows.items():
         counter, prefix = ENTRY.get(name, (name, None))
@@ -1083,8 +1411,8 @@ def main() -> int:
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
         }
-        if prefix:                # one of K3's entries: its own launches beside the kernel's
-            row["entry_launches"] = sum(n for sym, n in entries.items() if sym.startswith(prefix))
+        if prefix:            # an entry of K3 or K1's tiled body: its own launches beside the kernel's
+            row["entry_launches"] = entry_launches(symbols, name)
         for key in ("three_call_ms", "three_call_device_ms"):
             if key in r:
                 row[key] = r[key]

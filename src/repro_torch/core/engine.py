@@ -1,11 +1,11 @@
-"""RotaryEngine on the card: the paper's decode path with rotary expert
-residency, and the reference's other greedy decode paths.
+"""RotaryEngine on the card: the paper's engine with rotary expert residency.
 
-The counterpart of ``repro/core/engine.py`` for greedy decode with the
-legacy prefill walk: the fused step (synchronous, or with predictive
-prefetch and the miss relaunch, ``prefetch=True``), speculative windows
-(``spec_k > 1``), the per-layer hot walk (``fused_decode=False``) and the
-per-layer sync walk (``host_routing=True``, LRU residency). The full model
+The counterpart of ``repro/core/engine.py``: prefill by the legacy walk or
+in chunks (``prefill_chunk=C``), greedy or sampled decode on the fused step
+(synchronous, or with predictive prefetch and the miss relaunch,
+``prefetch=True``), speculative windows (``spec_k > 1``), the per-layer hot
+walk (``fused_decode=False``) and the per-layer sync walk
+(``host_routing=True``, LRU residency). The full model
 weights live in host memory (pinned); only attention / router / embedding
 weights, the KV caches and each MoE layer's slot group are device-resident.
 
@@ -15,6 +15,17 @@ weights, the KV caches and each MoE layer's slot group are device-resident.
   experts through the slot stores (grouped-matmul kernel), host correction
   of misses, and pre-gating of the next MoE layer from this layer's hidden.
   It writes the engine's own KV caches in place (allocated once, at start).
+* **Chunked prefill** (``prefill_chunk=C``, a power of two;
+  ``prefill_chunk_plan``) ingests the prompt in chunks appended to the same
+  caches (K4's chunk-append entry, ``cur_len`` a device scalar) whose MoE
+  half sorts the picks by slot on the device (K1's ragged entry): the fused
+  engine launches one CUDA graph per chunk length (the head only on the
+  last chunk), one blocking pull a chunk, and replays a missed chunk's
+  suffix per layer (``_replay_prefill_chunk``); the walking engines, and a
+  windowed cache, walk the same chunks layer by layer. Both rotate once per
+  chunk boundary through the same demand program, so their logits and KV
+  are bit-identical. Chunks never wrap the cache (a longer prompt takes the
+  legacy walk); the engine checks that on the host before every launch.
 * **Decode** runs ONE fused step per token over every layer
   (``tfm.decode_model``: decode-attention kernel, gate kernel, grouped-matmul
   kernel per layer) plus the on-device demand GEMM for the next step's
@@ -66,6 +77,15 @@ weights, the KV caches and each MoE layer's slot group are device-resident.
   (``_replay_step``) against the residency each layer gathered from: the one
   transition that would change a layer the step has already read (the last
   layer pre-gating layer 0) runs after the pull and any replay.
+* **Sampled decode** (``decode(sampler=...)`` or ``greedy=False``) keys
+  every draw by its cache position (``models/sampling.py``: JAX's threefry
+  keys and bits as torch integer ops). The fused engine always runs the
+  window family (size-1 windows at ``spec_k`` 1, each window size and
+  sampler one CUDA graph reading the static per-row keys): the window draws
+  its drafts on the device and accepts by ``stochastic_accept`` over the
+  pulled distributions; the draw between windows runs on the device too
+  (one CUDA graph per sampler), so spec-K and single-token streams are the
+  same. The walks draw between their steps, through the same graph.
 * **The per-layer sync walk** (``host_routing=True``, or a policy that
   resolves misses mid-step such as LRU): the prefill walk at decode, one
   blocking routing pull per layer; host routing pulls the router logits and
@@ -73,9 +93,10 @@ weights, the KV caches and each MoE layer's slot group are device-resident.
   answers each miss with a blocking upload and rewrites the device LUT in
   place before the MoE half, both on the compute stream.
 
-Greedy tokens do not depend on residency: a miss is corrected exactly on
-the host (or relaunched miss-free), so every path and residency, with or
-without prefetch or windows, emits the same tokens.
+Tokens do not depend on residency: a miss is corrected exactly on the host
+(or relaunched miss-free), so every path and residency, with or without
+prefetch, windows or chunks, emits the same greedy tokens and, for a seed,
+the same sampled ones.
 
 Quantized stores (``ResidencyConfig.quantization`` int8 / int4): the
 warehouse is quantized once, at start, into packed planes in pinned memory
@@ -85,8 +106,8 @@ the slots, and a miss dequantizes only its expert from the packed warehouse
 with the plain version's arithmetic, so it adds what a resident slot would
 have computed and full and rotary residency still emit the same tokens.
 
-Not ported yet: chunked prefill and sampled decode. The walks run eagerly,
-layer by layer (the reference jits each half).
+The walks, and the replays of a missed step or chunk, run eagerly, layer by
+layer (the reference jits each half).
 """
 from __future__ import annotations
 
@@ -108,13 +129,15 @@ from repro_torch.core.transfer import CostModel, TransferClock
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sampling as sampling_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Params
 from repro_torch.models.transformer import Runtime
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import resolve_tracer
 from repro_torch.quant import dequantize_int4
-from repro_torch.serving.sampler import greedy_accept
+from repro_torch.models.sampling import SampleParams
+from repro_torch.serving.sampler import SamplerConfig, greedy_accept, stochastic_accept
 
 
 def _host_ffn(hw: Dict[str, torch.Tensor], e: int, x: torch.Tensor,
@@ -159,6 +182,14 @@ def _host_ffn(hw: Dict[str, torch.Tensor], e: int, x: torch.Tensor,
     return mm(h, "w_down"), convert_s
 
 
+def _pinned(lead: Tuple[int, ...], **shapes) -> Dict[str, torch.Tensor]:
+    """Host buffers for telemetry, pinned where a card is present:
+    ``name=(tail shape, dtype)``, each ``lead + tail``."""
+    pin = torch.cuda.is_available()
+    return {n: torch.empty(lead + tail, dtype=dt, pin_memory=pin)
+            for n, (tail, dt) in shapes.items()}
+
+
 def resolve_device(device) -> torch.device:
     """``cuda`` unless told otherwise; a requested card that is missing is
     an error, never a quiet fall back to the CPU."""
@@ -171,11 +202,33 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def prefill_chunk_plan(s: int, chunk: int) -> List[int]:
+    """Split a prompt of ``s`` tokens into power-of-two chunk lengths.
+
+    ``chunk`` (itself a power of two) repeats while the remainder allows, then
+    the tail decomposes into descending powers of two, so a prompt of any
+    length takes at most ``log2(chunk)`` distinct chunk lengths beyond the
+    steady one: the number of CUDA graphs chunked prefill captures."""
+    if s < 1:
+        raise ValueError("empty prompt")
+    if chunk < 1 or chunk & (chunk - 1):
+        raise ValueError(f"prefill_chunk must be a power of two, got {chunk}")
+    plan = [chunk] * (s // chunk)
+    rem, bit, bits = s - chunk * (s // chunk), 1, []
+    while rem:
+        if rem & 1:
+            bits.append(bit)
+        rem >>= 1
+        bit <<= 1
+    return plan + sorted(bits, reverse=True)
+
+
 @dataclass
 class _Graph:
-    """One captured decode launch (the single step, or one window size): the
-    graph, its outputs, the addresses it reads and the kernel launches one
-    replay makes."""
+    """One captured launch (the decode step, one window size and sampler, or
+    one prefill chunk length with or without the head): the graph, its
+    outputs, the addresses it reads and the kernel launches one replay
+    makes."""
 
     graph: Any
     out: Dict[str, Any]
@@ -198,6 +251,7 @@ class RotaryEngine:
         fused_decode: Optional[bool] = None,
         spec_k: int = 1,
         prefetch: bool = False,
+        prefill_chunk: Optional[int] = None,
         trace=None,
         device="cuda",
     ):
@@ -216,8 +270,12 @@ class RotaryEngine:
         walk; ``False`` forces the per-layer hot walk; ``True`` requires the
         fused step. ``host_routing=True`` routes every layer on the host
         (the seed baseline; the sync walk). ``spec_k = K > 1`` decodes in
-        K-position windows, which ride the fused step. Every combination
-        the reference refuses raises here, before anything is built."""
+        K-position windows, which ride the fused step. ``prefill_chunk=C``
+        (a power of two) ingests prompts in chunks of at most C tokens
+        (``prefill_chunk_plan``): the fused engine launches one CUDA graph
+        per chunk length, the walks walk the same chunks layer by layer.
+        Every combination the reference refuses raises here, before
+        anything is built."""
         m = cfg.moe
         probe = make_policy(rescfg.mode, m.num_experts, rescfg.num_slots or m.num_experts, rescfg)
         self.host_routing = bool(host_routing)
@@ -241,6 +299,14 @@ class RotaryEngine:
             if spec_k > cap:
                 raise ValueError(f"spec_k={spec_k} exceeds the KV cache capacity ({cap})")
         self.spec_k = int(spec_k)
+        if prefill_chunk is not None and (prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1)):
+            raise ValueError(f"prefill_chunk must be a power of two, got {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
+        # every block is attn_moe (KV-cache only) and prompts are plain
+        # tokens: chunked prefill is open to every engine; the fused chunk
+        # path also needs a window-free cache, because its suffix replay
+        # re-reads pre-chunk cache content a ring overwrite would destroy
+        self._chunk_prefill_fused_ok = cfg.attention.window is None
         if prefetch and host_routing:
             raise ValueError(
                 "prefetch=True is incompatible with host_routing=True: the host-routing "
@@ -304,25 +370,29 @@ class RotaryEngine:
             # warm start, which then lands in the folded planes
             self.manager.enable_prefetch(margin=0)
         n_l, k, e = self.num_moe_layers, cfg.moe.top_k, cfg.moe.num_experts
-        if self._fused_decode:
+        if self._fused_decode or prefill_chunk is not None:
             # stacked next-layer routers [L, D, E] for the on-device demand GEMM
+            # (the decode step's, and the chunk boundary's of both chunked paths)
             self._routers_next = torch.as_tensor(self.predictor.next_layer_routers()).to(dev)
-
-        def pinned(lead: Tuple[int, ...], **shapes) -> Dict[str, torch.Tensor]:
-            """Pinned host buffers for telemetry: ``name=(tail shape, dtype)``."""
-            return {n: torch.empty(lead + tail, dtype=dt, pin_memory=pin)
-                    for n, (tail, dt) in shapes.items()}
 
         routing = dict(ids=((batch, k), torch.int32), weights=((batch, k), torch.float32),
                        miss=((batch, k), torch.bool))
         # the fused step's telemetry, [L, ...]; a window's, [spec_k, L, ...] and
-        # its drafts; the hot walk's per-layer rows, the MoE inputs included
-        self._pull = pinned((n_l,), **routing, demand_next=((e,), torch.float32))
-        self._win_pull = (pinned((self.spec_k,), draft=((batch,), torch.int64))
-                          | pinned((self.spec_k, n_l), **routing,
+        # its drafts (sampled decode runs windows at spec_k 1 too); the hot
+        # walk's per-layer rows, the MoE inputs included
+        self._pull = _pinned((n_l,), **routing, demand_next=((e,), torch.float32))
+        self._win_pull = (_pinned((self.spec_k,), draft=((batch,), torch.int64))
+                          | _pinned((self.spec_k, n_l), **routing,
                                    demand_next=((e,), torch.float32))
-                          if self.spec_k > 1 else {})
-        self._walk_pull = (pinned((n_l,), **routing,
+                          if self._fused_decode else {})
+        # made on first use: a sampled window's distributions [spec_k, B, V]
+        # and drawn-token probabilities; per chunk length, the chunk's
+        # routing [L, B*C, k] and its static tokens (device and host)
+        self._sample_pull: Dict[str, torch.Tensor] = {}
+        self._chunk_pull: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._chunk_tokens: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._chunk_telem: List[Tuple[Any, ...]] = []      # the chunked walk's per layer
+        self._walk_pull = (_pinned((n_l,), **routing,
                                   h2=((batch, cfg.d_model), tfm.torch_dtype(cfg)))
                            if self._hot_decode and not self._fused_decode else {})
         self._routed = ([torch.cuda.Event() for _ in range(n_l)]
@@ -340,10 +410,19 @@ class RotaryEngine:
         # filled from a pinned host buffer before each launch
         self._inputs_host = torch.empty((batch + 1,), dtype=torch.int64, pin_memory=pin)
         self._inputs = torch.zeros((batch + 1,), dtype=torch.int64, device=dev)
+        # the sampled windows' per-row base keys [B, 2] and the seed they hold
+        self._keys = torch.zeros((batch, 2), dtype=torch.int64, device=dev)
+        self._keys_seed: Optional[int] = None
+        # the draw between windows: the host logits [B, V] land in a pinned
+        # row and a static device buffer (both made at the first draw)
+        self._draw_host: Optional[torch.Tensor] = None
+        self._draw_logits: Optional[torch.Tensor] = None
         self._residency: List[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = []
-        # the captured launches (card only), by window size (1: the step)
+        # the captured launches (card only): 1 the step, K a greedy window,
+        # (K, SampleParams) a sampled one, ("chunk", C, with_head) a chunk,
+        # ("draw", SampleParams) the draw between windows
         self._capture = dev.type == "cuda"       # False: eager on the card (parity tests)
-        self._graphs: Dict[int, _Graph] = {}
+        self._graphs: Dict[Any, _Graph] = {}
         self.graph_captures = 0
         self.graph_replays = 0
         self.launches = 0                        # fused launches: captures, replays, eager
@@ -411,8 +490,11 @@ class RotaryEngine:
         uploads a missed expert here, and the device LUT is rewritten in place
         before the MoE half reads it: both on the compute stream), the MoE
         half, the host correction of what still missed, and the pre-gating of
-        the next layer. ``mode`` is ``prefill`` (cache written from 0) or
-        ``decode`` (one token at ``cur_len``)."""
+        the next layer. ``mode`` is ``prefill`` (cache written from 0),
+        ``decode`` (one token at ``cur_len``) or ``chunk`` (a prefill chunk
+        appended at ``cur_len``; each layer's routing and MoE input go to
+        ``_chunk_telem`` for the chunk-boundary rotation instead of
+        pre-gating the next layer)."""
         cfg, clock, m = self.cfg, self.clock, self.cfg.moe
         cur = cur_len if mode == "prefill" else self._device_scalar(cur_len)
         for li, p_l in enumerate(self.layers):
@@ -436,6 +518,11 @@ class RotaryEngine:
                 x = self._host_correct(x, li, h2, ids, weights, miss)
             flops, byts = self._layer_cost("attn_moe", x.shape, cur_len, hits=int((~miss).sum()))
             clock.compute(self.cost.compute_s(flops, byts))
+            if mode == "chunk":
+                # rotation waits for the chunk boundary, where the shared
+                # demand program reads this chunk's hiddens (the fused path's)
+                self._chunk_telem.append((ids, weights, miss, h2))
+                continue
             # pre-gate the NEXT MoE layer from THIS hidden (cyclic)
             nxt = (li + 1) % self.num_moe_layers
             h2_np = h2.float().cpu().numpy().reshape(ids.shape[0], -1)
@@ -549,11 +636,18 @@ class RotaryEngine:
         """A position's telemetry from ``decode_model``'s aux (the reference's
         ``_demand_aux_fn``): the routing, the demand GEMM's result (``route_h``
         stays on the device) and the replay anchors."""
-        dl = torch.einsum("ltd,lde->lte", aux["route_h"].float(), self._routers_next)
         return {"ids": aux["route_ids"], "weights": aux["route_weights"],
-                "miss": aux["route_miss"],
-                "demand_next": torch.softmax(dl, dim=-1).mean(dim=1),       # [L, E]
+                "miss": aux["route_miss"], "demand_next": self._demand_all(aux["route_h"]),
                 "route_x": aux["route_x"]}
+
+    def _demand_all(self, h_all: torch.Tensor) -> torch.Tensor:
+        """The pre-gating demand program over stacked per-layer MoE inputs
+        h_all [L, T, D]: ``softmax(h_l @ R_{l+1})`` averaged over tokens,
+        [L, E]. The decode step runs it inside its graph; both chunked
+        prefill paths run it eagerly at the chunk boundary on the same
+        inputs, so their residency evolves bit for bit alike."""
+        dl = torch.einsum("ltd,lde->lte", h_all.float(), self._routers_next)
+        return torch.softmax(dl, dim=-1).mean(dim=1)
 
     def _step_body(self) -> Dict[str, torch.Tensor]:
         """The decode step on the device, from the static inputs and the
@@ -565,20 +659,35 @@ class RotaryEngine:
                                        self._residency)
         return {"logits": logits, **self._telemetry(aux)}
 
-    def _window_body(self, k: int) -> Dict[str, Any]:
+    def _window_body(self, k: int, sample: Optional[SampleParams] = None) -> Dict[str, Any]:
         """A ``k``-position window on the device from the static inputs (the
         counterpart of ``build_window_fns``): first, when a rollback may be
         needed, the pre-window contents of the ``k`` KV slots it writes
-        (``saved``); then ``tfm.decode_window``. Outputs: ``draft`` [K, B],
-        ``logits`` [K, B, V] f32 and the telemetry stacked [K, L, ...]."""
+        (``saved``); then ``tfm.decode_window``, drafting by argmax or, with
+        ``sample``, by position-keyed draws from the static keys. Outputs:
+        ``draft`` [K, B], ``logits`` [K, B, V] f32, the telemetry stacked
+        [K, L, ...] and, sampled, ``sample_probs`` / ``sample_p``."""
         tok = self._inputs[:self.batch]
         cur = self._inputs[self.batch]
         out: Dict[str, Any] = {}
         if self._spec_needs_rollback:
             out["saved"] = tfm.snapshot_kv_window(self.state, cur, k)
         draft, logits, aux = tfm.decode_window(self.cfg, self._dparams, tok, self.state, cur, k,
-                                               self._residency, aux_fn=self._telemetry)
+                                               self._residency, aux_fn=self._telemetry,
+                                               sample=sample, rng_keys=self._keys)
         return {**out, "draft": draft, "logits": logits, **aux}
+
+    def _chunk_body(self, c: int, with_head: bool) -> Dict[str, Any]:
+        """A prefill chunk of ``c`` tokens on the device from its static token
+        buffer, at the static ``cur_len`` (the counterpart of
+        ``build_fused_prefill_step`` without the in-graph demand: the
+        boundary's demand program reads hiddens a replay may patch).
+        Outputs: ``logits`` [B, V] (``with_head``) and the telemetry
+        ``route_*`` [L, B*c, ...]."""
+        logits, aux = tfm.prefill_chunk_model(self.cfg, self._dparams, self._chunk_tokens[c][0],
+                                              self.state, self._inputs[self.batch],
+                                              self._residency, with_head=with_head)
+        return aux if logits is None else {"logits": logits, **aux}
 
     def _set_inputs(self, tok: np.ndarray, cur_len: int) -> None:
         host = self._inputs_host
@@ -586,37 +695,49 @@ class RotaryEngine:
         host[self.batch] = cur_len
         self._inputs.copy_(host, non_blocking=True)
 
-    def _graph_inputs(self) -> Tuple[int, ...]:
+    def _graph_inputs(self, extra: Tuple[torch.Tensor, ...] = (),
+                      model: bool = True) -> Tuple[int, ...]:
         """Addresses of everything a replay reads besides the weights: the
-        static inputs, every plane and device LUT, every cache."""
-        ptrs = [self._inputs.data_ptr()]
+        static inputs (``extra``: a graph's own, a chunk's tokens, the
+        sampling keys or the draw's logits) and, for a graph that runs the
+        model (``model``), every plane and device LUT, every cache."""
+        ptrs = [self._inputs.data_ptr()] + [t.data_ptr() for t in extra]
+        if not model:
+            return tuple(ptrs)
         for planes, lut in self._residency:
             ptrs += [t.data_ptr() for t in planes.values()] + [lut.data_ptr()]
         for cache in self.state:
             ptrs += [cache["k"].data_ptr(), cache["v"].data_ptr()]
         return tuple(ptrs)
 
-    def _launch(self, k: int = 1) -> Dict[str, Any]:
-        """Run the step (``k`` = 1) or a ``k``-position window once at the
-        inputs set: a replay of its captured graph on the card (captured on
-        first use), eager on the CPU."""
-        self._residency = self.manager.residency()     # device LUTs rewritten in place
+    def _launch(self, key: Any = 1, body: Optional[Callable[[], Dict[str, Any]]] = None,
+                extra: Tuple[torch.Tensor, ...] = (), model: bool = True) -> Dict[str, Any]:
+        """Run ``body`` (default: the step) once at the inputs set: a replay
+        of the graph captured for ``key`` on the card (captured on first
+        use), eager on the CPU. ``extra``: static inputs of this graph
+        alone, whose addresses the replay checks too. ``model``: the body
+        runs the model (reads the residency and the caches); the draw does
+        not."""
+        if model:
+            self._residency = self.manager.residency()     # device LUTs rewritten in place
         self.launches += 1
-        body = self._step_body if k == 1 else functools.partial(self._window_body, k)
+        body = body or self._step_body
         if not self._capture:
             return body()
-        g = self._graphs.get(k)
+        g = self._graphs.get(key)
         if g is None:
-            return self._capture_graph(k, body)
-        if self._graph_inputs() != g.ptrs:
-            raise RuntimeError("decode graph: a plane, LUT, cache or input it reads has moved "
+            return self._capture_graph(key, body, extra, model)
+        if self._graph_inputs(extra, model) != g.ptrs:
+            raise RuntimeError("captured graph: a plane, LUT, cache or input it reads has moved "
                                "since the capture")
         g.graph.replay()
         ops.add_launches(g.launches)
         self.graph_replays += 1
         return g.out
 
-    def _capture_graph(self, k: int, body: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
+    def _capture_graph(self, key: Any, body: Callable[[], Dict[str, Any]],
+                       extra: Tuple[torch.Tensor, ...] = (), model: bool = True
+                       ) -> Dict[str, Any]:
         """Capture ``body`` as a CUDA graph. Its warm-up, eager on the compute
         stream (the kernels' first launches set their attributes there), IS
         this launch, whose outputs are returned; the capture launches nothing.
@@ -628,7 +749,7 @@ class RotaryEngine:
             graph_out = body()
         launches = ops.launches_since(before)
         ops.add_launches(launches, -1)     # recorded, not launched
-        self._graphs[k] = _Graph(graph, graph_out, self._graph_inputs(), launches)
+        self._graphs[key] = _Graph(graph, graph_out, self._graph_inputs(extra, model), launches)
         self.graph_captures += 1
         return out
 
@@ -702,12 +823,14 @@ class RotaryEngine:
 
     def _account_step_prefix(self, ids: np.ndarray, miss: np.ndarray,
                              stop_li: int, cur_len: int, start_li: int = 0,
-                             moved: Optional[List[Optional[int]]] = None) -> None:
+                             moved: Optional[List[Optional[int]]] = None,
+                             tokens: int = 1) -> None:
         """record_routing + modeled clock for layers ``[start_li, stop_li)``
-        of one authoritative step (ids/miss [L, T, k]): the step's prefix, or
-        a relaunch's suffix. ``moved`` (the hot walk) charges the upload of
-        the pre-gating each layer ran after its compute, in seed order."""
-        xshape = (self.batch, 1, self.cfg.d_model)
+        of one authoritative step (ids/miss [L, T, k]): the step's prefix, a
+        relaunch's suffix, or a prefill chunk's prefix (``tokens`` = its
+        positions). ``moved`` (the hot walk) charges the upload of the
+        pre-gating each layer ran after its compute, in seed order."""
+        xshape = (self.batch, tokens, self.cfg.d_model)
         for li in range(start_li, stop_li):
             self.manager.record_routing(li, ids[li], miss[li])
             flops, byts = self._layer_cost("attn_moe", xshape, cur_len,
@@ -813,13 +936,72 @@ class RotaryEngine:
     # ------------------------------------------------------------------
     # speculative windows (spec_k > 1)
     # ------------------------------------------------------------------
-    def _decode_window_fused(self, tok: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray, int]:
-        """One speculative window (the reference's ``_decode_window_fused``,
-        greedy): ``k`` self-drafted positions in one launch, one blocking
-        pull, acceptance by ``greedy_accept`` and the miss telemetry, the miss
+    def _window_launch(self, k: int, sample: Optional[SampleParams]) -> Dict[str, Any]:
+        """A window's launch: its graph is keyed by size and sampler (a
+        sampled window also reads the static keys)."""
+        if sample is None:
+            return self._launch(k, functools.partial(self._window_body, k))
+        return self._launch((k, sample), functools.partial(self._window_body, k, sample),
+                            (self._keys,))
+
+    def _draw(self, logits: np.ndarray, sample: SampleParams) -> np.ndarray:
+        """The draw between windows or steps (``sampling.build_sample_fn``,
+        the in-window draw's ops and keys): the host logits [B, V] into the
+        static logits buffer, the position ``cur_len - 1`` into the static
+        ``cur_len``, then one launch, a replay of the graph captured per
+        sampler on the card. Returns the tokens [B] int32 (a blocking pull)."""
+        logits = np.asarray(logits, np.float32)
+        if self._draw_logits is None:
+            self._draw_host = torch.empty(logits.shape, dtype=torch.float32,
+                                          pin_memory=self.device.type == "cuda")
+            self._draw_logits = torch.empty(logits.shape, dtype=torch.float32,
+                                            device=self.device)
+        self._draw_host.copy_(torch.from_numpy(logits))
+        self._draw_logits.copy_(self._draw_host, non_blocking=True)
+        self._inputs_host[self.batch] = self.cur_len - 1
+        self._inputs.copy_(self._inputs_host, non_blocking=True)
+        fn = sampling_mod.build_sample_fn(sample)
+        out = self._launch(("draw", sample),
+                           lambda: {"tokens": fn(self._draw_logits, self._keys,
+                                                 self._inputs[self.batch])},
+                           (self._keys, self._draw_logits), model=False)
+        self.stats.sync_pulls += 1
+        return out["tokens"].cpu().numpy().astype(np.int32)
+
+    def _window_pulls(self, sample: Optional[SampleParams]) -> Dict[str, torch.Tensor]:
+        """The pinned buffers a window's telemetry lands in; a sampled
+        window's distributions too (allocated on the first one)."""
+        if sample is None:
+            return self._win_pull
+        if not self._sample_pull:
+            self._sample_pull = _pinned(
+                (self.spec_k,), sample_probs=((self.batch, self.cfg.vocab_size), torch.float32),
+                sample_p=((self.batch,), torch.float32))
+        return {**self._win_pull, **self._sample_pull}
+
+    def _accept(self, draft: np.ndarray, k: int, sample: Optional[SampleParams],
+                sample_rng: Optional[np.random.Generator]) -> int:
+        """The window's accept rule over its drafts: greedy, or the stochastic
+        rule with the pulled distributions as draft and verifier (self-drafting
+        accepts every position; the call is the plug point for a drafter)."""
+        if sample is None:
+            return int(greedy_accept(draft, draft).min())
+        probs = self._sample_pull["sample_probs"][:k].numpy()
+        return int(stochastic_accept(draft, probs, probs, sample_rng)[0].min())
+
+    def _decode_window_fused(self, tok: np.ndarray, k: int,
+                             sample: Optional[SampleParams] = None,
+                             sample_rng: Optional[np.random.Generator] = None
+                             ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """One speculative window (the reference's ``_decode_window_fused``):
+        ``k`` self-drafted positions in one launch, one blocking pull,
+        acceptance by the accept rule and the miss telemetry, the miss
         relaunch of the whole window (``prefetch=True``), else the KV
         rollback past the first missed position ``j*`` and its replay, then
-        the window-boundary rotation from the committed steps.
+        the window-boundary rotation from the committed steps. With
+        ``sample`` the window drafts by position-keyed draws (the engine's
+        static keys) and accepts by ``stochastic_accept`` over the pulled
+        distributions, drawing its uniforms from ``sample_rng``.
 
         ``tok`` [B] is position 0's token (already emitted by the caller).
         Returns ``(extra [committed-1, B], logits [B, V], committed)``: the
@@ -837,14 +1019,15 @@ class RotaryEngine:
         self._set_inputs(tok, cur_len0)
         if self._spec_needs_rollback:
             self.stats.device_dispatches += 1         # the KV snapshot, the window's first op
-        out = self._launch(k)
+        out = self._window_launch(k, sample)
         self.stats.device_dispatches += 1
         self.stats.spec_windows += 1
         if tr is not None:
             tr.complete("launch", "launch", t_trace, time.perf_counter(),
                         args={"cur_len": cur_len0, "k": k})
-        self._queue_telemetry(out, self._win_pull, k)
-        self.stats.overlapped_pulls += len(self._win_pull)
+        pulls = self._window_pulls(sample)
+        self._queue_telemetry(out, pulls, k)
+        self.stats.overlapped_pulls += len(pulls)
         if self.prefetch:
             # the whole window is in flight: shadow-upload the predicted next
             # transition under it (committed at the boundary rotation)
@@ -859,7 +1042,7 @@ class RotaryEngine:
         draft, ids, weights, miss, demand_next = self._read_telemetry(k)
         # self-drafting with the verifier's weights: the accept rule takes the
         # whole window; rejection comes only from residency misses
-        accept = int(greedy_accept(draft, draft).min())
+        accept = self._accept(draft, k, sample, sample_rng)
         missed = np.flatnonzero(miss.reshape(k, -1).any(axis=1))
         if tr is not None and missed.size:
             tr.instant("miss", "launch",
@@ -875,10 +1058,10 @@ class RotaryEngine:
                 # the rollback + replay of THIS pass's telemetry
                 anchor = anchor.clone()
                 saved = [{nm: t.clone() for nm, t in c.items()} for c in saved]
-                redo = self._relaunch_window(k, cur_len0, ids)
+                redo = self._relaunch_window(k, cur_len0, ids, sample)
                 if redo is not None:
                     out, logits, draft, ids, weights, miss, demand_next = redo
-                    accept = int(greedy_accept(draft, draft).min())
+                    accept = self._accept(draft, k, sample, sample_rng)
                     j_star = None
         self.stats.drafted_tokens += k
         self.stats.accepted_tokens += accept
@@ -906,15 +1089,17 @@ class RotaryEngine:
         )
         return draft[:committed - 1], logits, committed
 
-    def _relaunch_window(self, k: int, cur_len0: int, ids0: np.ndarray
-                         ) -> Optional[Tuple[Any, ...]]:
+    def _relaunch_window(self, k: int, cur_len0: int, ids0: np.ndarray,
+                         sample: Optional[SampleParams] = None) -> Optional[Tuple[Any, ...]]:
         """Window-sized miss relaunch (the reference's ``_relaunch_window``):
         make each layer's routed union over the ``k`` positions resident
         (None when it exceeds the slots: windows route wider than a step) and
         run the window again from the same inputs; it rewrites all ``k`` KV
-        slots, so no rollback is needed when it comes back miss-free. Returns
-        ``(out, logits, draft, ids, weights, miss, demand_next)`` of the
-        miss-free pass, else None."""
+        slots, so no rollback is needed when it comes back miss-free. A
+        sampled window re-draws with the same keys (position keys depend on
+        the cache position alone). Returns ``(out, logits, draft, ids,
+        weights, miss, demand_next)`` of the miss-free pass (its
+        distributions in the pinned buffers), else None."""
         ids_cur = ids0                                   # [K, L, T, kk]
         n = self.num_moe_layers
         for _ in range(2):
@@ -933,13 +1118,13 @@ class RotaryEngine:
             tr = self._tr
             if tr is not None:
                 t_trace = time.perf_counter()
-            out = self._launch(k)          # the static inputs still hold tok, cur_len0
+            out = self._window_launch(k, sample)    # the static inputs still hold tok, cur_len0
             self.stats.device_dispatches += 1
             self.stats.relaunched_steps += 1
             if tr is not None:
                 tr.complete("launch", "launch", t_trace, time.perf_counter(),
                             args={"kind": "relaunch"})
-            self._queue_telemetry(out, self._win_pull, k)
+            self._queue_telemetry(out, self._window_pulls(sample), k)
             if tr is not None:
                 t_trace = time.perf_counter()
             logits = out["logits"][k - 1].cpu().numpy()
@@ -977,35 +1162,255 @@ class RotaryEngine:
         return flops, byts
 
     # ------------------------------------------------------------------
+    # chunked prefill (prefill_chunk=C)
+    # ------------------------------------------------------------------
+    def _check_no_wrap(self, cur_len: int, c: int) -> None:
+        """A chunk's KV lands at slots ``cur_len .. cur_len + c - 1``, which
+        K4's chunk entry scores as positions: it must not wrap the cache. The
+        engine's gating keeps it so (prefill starts at 0 and is capped at the
+        capacity); this holds the line before every launch."""
+        cap = attn_mod.cache_capacity(self.cfg.attention, self.rt.cache_len)
+        if cur_len + c > cap:
+            raise RuntimeError(f"prefill chunk at {cur_len} + {c} would wrap the KV cache ({cap})")
+
+    def _rotate_chunk_boundary(self, ids: np.ndarray, weights: np.ndarray, miss: np.ndarray,
+                               h_all: Optional[torch.Tensor] = None,
+                               demand: Optional[np.ndarray] = None) -> None:
+        """One coalesced rotation at a chunk boundary, shared by both chunked
+        paths (the reference's ``_rotate_chunk_boundary``): the demand
+        program over the chunk's stacked MoE inputs ``h_all`` [L, T, D]
+        (``_demand_all``; the fused path passes the result it queued behind
+        its launch as ``demand``), then ``rotate_from_telemetry`` (EMA fold,
+        each layer's transition once, batched uploads). Hits and misses
+        were recorded already (walk: ``resolve``; fused: the prefix
+        accounting and the replay)."""
+        if demand is None:
+            demand = self._demand_all(h_all).cpu().numpy()
+            self.stats.device_dispatches += 1
+        self.manager.rotate_from_telemetry(self.predictor, ids, weights, miss, demand,
+                                           clock=self.clock, record=False)
+
+    def _prefill_walk_chunked(self, tokens: np.ndarray) -> np.ndarray:
+        """The chunked layer walk (the baseline, and the chunked path of the
+        walking engines): each chunk walks the stack with the chunk-append
+        attention the fused graph runs, one blocking pull per layer, then
+        rotates once at the chunk boundary. Returns host logits [B, V]."""
+        s, d = tokens.shape[1], self.cfg.d_model
+        cur, x = 0, None
+        for c in prefill_chunk_plan(s, self.prefill_chunk):
+            self._check_no_wrap(cur, c)
+            self._chunk_telem = []
+            x = self._embed(tokens[:, cur:cur + c])
+            x = self._run_layers(x, "chunk", cur)
+            self.stats.prefill_chunks += 1
+            telem = self._chunk_telem
+            self._rotate_chunk_boundary(*(np.stack([t[i] for t in telem]) for i in range(3)),
+                                        h_all=torch.stack([t[3].reshape(-1, d) for t in telem]))
+            cur += c
+        self._chunk_telem = []       # the last chunk's device hiddens are not kept
+        return self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()
+
+    def _chunk_buffers(self, c: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+        """Chunk length ``c``'s pinned telemetry buffers and its static tokens
+        [B, c] (device, pinned host), made on first use."""
+        if c not in self._chunk_pull:
+            k = self.cfg.moe.top_k
+            self._chunk_pull[c] = _pinned(
+                (self.num_moe_layers, self.batch * c), ids=((k,), torch.int32),
+                weights=((k,), torch.float32), miss=((k,), torch.bool))
+            self._chunk_tokens[c] = (
+                torch.zeros((self.batch, c), dtype=torch.int64, device=self.device),
+                torch.empty((self.batch, c), dtype=torch.int64,
+                            pin_memory=torch.cuda.is_available()))
+        return (self._chunk_pull[c], *self._chunk_tokens[c])
+
+    def _prefill_fused_chunked(self, tokens: np.ndarray) -> np.ndarray:
+        """Fused chunked prefill (the reference's ``_prefill_fused_chunked``):
+        per chunk, one launch (a CUDA graph replay on the card, one graph per
+        chunk length, the head only on the last chunk), the boundary's
+        demand program queued behind it, the routing copied to pinned
+        memory, ``begin_prefetch`` under the launch (``prefetch=True``), one
+        blocking pull (the logits on the last chunk, else the routing); a
+        chunk that missed replays its suffix per layer from the first missed
+        layer's saved input (``_replay_prefill_chunk``), which patches the
+        authoritative routing and hiddens into the telemetry; then one
+        rotation at the boundary. Returns host logits [B, V]."""
+        s = tokens.shape[1]
+        plan = prefill_chunk_plan(s, self.prefill_chunk)
+        n = self.num_moe_layers
+        cur, logits = 0, None
+        tr = self._tr
+        for ci, c in enumerate(plan):
+            last = ci == len(plan) - 1
+            self._check_no_wrap(cur, c)
+            if tr is not None:
+                tr.new_unit("chunk")
+                t_trace = time.perf_counter()
+            pull, tok_dev, tok_host = self._chunk_buffers(c)
+            tok_host.copy_(torch.from_numpy(np.asarray(tokens[:, cur:cur + c], np.int64)))
+            tok_dev.copy_(tok_host, non_blocking=True)
+            self._inputs_host[self.batch] = cur
+            self._inputs.copy_(self._inputs_host, non_blocking=True)
+            out = self._launch(("chunk", c, last), functools.partial(self._chunk_body, c, last),
+                               (tok_dev,))
+            self.stats.device_dispatches += 1
+            self.stats.prefill_chunks += 1
+            if tr is not None:
+                tr.complete("launch", "launch", t_trace, time.perf_counter(),
+                            args={"chunk": c, "cur_len": cur})
+            for name, buf in pull.items():
+                buf.copy_(out[f"route_{name}"], non_blocking=True)
+            self.stats.overlapped_pulls += len(pull)
+            # the boundary's demand program behind the launch: usable when no
+            # replay patches the hiddens
+            demand_dev = self._demand_all(out["route_h"])
+            self.stats.device_dispatches += 1
+            if self.prefetch:
+                # the chunk is in flight: ship the predicted next boundary's
+                # uploads into the shadow generation under it
+                self.manager.begin_prefetch(self.predictor, self.clock)
+            if tr is not None:
+                t_trace = time.perf_counter()
+            if last:
+                logits = out["logits"].float().cpu().numpy()        # THE one blocking pull
+            demand = demand_dev.cpu().numpy()    # non-final chunks: THE pull (drains the queue)
+            self.stats.sync_pulls += 1
+            if tr is not None:
+                tr.complete("pull", "pull", t_trace, time.perf_counter(), args={"chunk": c})
+            ids, weights, miss = (pull[name].numpy().copy() for name in ("ids", "weights", "miss"))
+            missed = np.flatnonzero(miss.reshape(n, -1).any(axis=1))
+            if tr is not None and missed.size:
+                tr.instant("miss", "launch",
+                           args={"first_moe": int(missed[0]), "layers": int(missed.size)})
+            start = int(missed[0]) if (missed.size and self.rescfg.host_compute_misses) else n
+            self._account_step_prefix(ids, miss, start, cur, tokens=c)
+            if start < n:
+                h_rows = list(out["route_h"].unbind(0))          # per layer [T, D], patched
+                replay_logits = self._replay_prefill_chunk(out, start, cur, c, ids, weights,
+                                                           miss, h_rows, with_head=last)
+                if last:
+                    logits = replay_logits
+                # the replay patched the hiddens: the demand reads the
+                # authoritative stack
+                self._rotate_chunk_boundary(ids, weights, miss, h_all=torch.stack(h_rows))
+            else:
+                self._rotate_chunk_boundary(ids, weights, miss, demand=demand)
+            cur += c
+        return logits
+
+    def _replay_prefill_chunk(self, out: Dict[str, torch.Tensor], start: int, cur_len: int,
+                              c: int, ids_all: np.ndarray, weights_all: np.ndarray,
+                              miss_all: np.ndarray, h_rows: List[torch.Tensor],
+                              with_head: bool) -> Optional[np.ndarray]:
+        """Exact re-execution of a prefill chunk's SUFFIX after an observed
+        miss (the reference's ``_replay_prefill_chunk``): layers before
+        ``start`` stand; from ``start`` on, each layer re-runs from the
+        chunk's saved block input (``route_x``) against the residency the
+        launch gathered from, host-correcting every miss, one blocking pull
+        per layer. Re-running a chunk's attention rewrites the very slots
+        the launch wrote (window-free caches only: the fused gate). The
+        replayed layers' routing and hiddens are patched into the caller's
+        telemetry (``ids_all`` .. ``h_rows``), so the boundary rotation sees
+        what the chunked walk would. Returns host logits [B, V] with
+        ``with_head``, else None."""
+        tr = self._tr
+        t_trace = time.perf_counter() if tr is not None else 0.0
+        cfg, clock, d = self.cfg, self.clock, self.cfg.d_model
+        x = out["route_x"][start].reshape(self.batch, c, d)
+        cur = self._device_scalar(cur_len)
+        self.stats.device_dispatches += 1             # device-side slice
+        for li in range(start, self.num_moe_layers):
+            x_mid, h2, _ = tfm.attn_half(cfg, self.layers[li], x, "chunk", self.state[li], cur, 0)
+            ids_dev, w_dev = moe_mod.route(self.layers[li]["moe"], h2, cfg.moe)
+            x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
+            self.stats.device_dispatches += 2
+            ids = ids_dev.cpu().numpy()
+            weights = w_dev.cpu().numpy()
+            miss = miss_dev.cpu().numpy()
+            self.stats.sync_pulls += 1
+            self.stats.replay_pulls += 1
+            self.manager.record_routing(li, ids, miss)
+            if miss.any() and self.rescfg.host_compute_misses:
+                x = self._host_correct(x, li, h2, ids, weights, miss)
+            ids_all[li], weights_all[li], miss_all[li] = ids, weights, miss
+            h_rows[li] = h2.reshape(-1, d)
+            flops, byts = self._layer_cost("attn_moe", x.shape, cur_len, hits=int((~miss).sum()))
+            clock.compute(self.cost.compute_s(flops, byts))
+        self.stats.prefill_replays += 1
+        if tr is not None:
+            tr.complete("replay", "launch", t_trace, time.perf_counter(),
+                        args={"start_li": start, "chunk": c})
+        if not with_head:
+            return None
+        logits = self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()
+        self.stats.sync_pulls += 1
+        self.stats.replay_pulls += 1
+        return logits
+
+    # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     def prefill(self, tokens: np.ndarray) -> np.ndarray:
-        """tokens [B, S] -> logits [B, V] (f32); builds the decode state."""
+        """tokens [B, S] -> logits [B, V] (f32); builds the decode state.
+
+        With ``prefill_chunk=C`` the prompt ingests in power-of-two chunks:
+        the fused engine launches one graph per chunk (window-free caches),
+        the walking engines (and a windowed cache) walk the same chunks
+        layer by layer; both rotate once per chunk boundary through the same
+        demand program, so their logits and KV are bit-identical. A prompt
+        longer than the cache capacity takes the legacy walk (a chunk would
+        wrap the ring)."""
         b, s = tokens.shape
         assert b == self.batch
         if s > self.rt.cache_len and self.cfg.attention.window is None:
             raise ValueError(f"prompt of {s} tokens exceeds cache_len {self.rt.cache_len}")
+        cap = attn_mod.cache_capacity(self.cfg.attention, self.rt.cache_len)
+        chunked = self.prefill_chunk is not None and s <= cap
         t0 = time.perf_counter()
-        x = self._embed(tokens)
-        x = self._run_layers(x, "prefill", 0)
-        logits = self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()
+        if chunked:
+            for cache in self.state:          # in place: captured graphs keep their addresses
+                cache["k"].zero_()
+                cache["v"].zero_()
+            if self._fused_decode and self._chunk_prefill_fused_ok:
+                logits = self._prefill_fused_chunked(tokens)
+            else:
+                logits = self._prefill_walk_chunked(tokens)
+        else:
+            x = self._embed(tokens)
+            x = self._run_layers(x, "prefill", 0)
+            logits = self._lm_head(x[:, -1:])[:, 0].float().cpu().numpy()
         self.stats.wall_s += time.perf_counter() - t0
         self.cur_len = s
         self.stats.tokens += b * s
         return logits
 
     def decode(self, last_logits: np.ndarray, steps: int, *, greedy: bool = True,
-               sampler: Optional[Any] = None) -> np.ndarray:
-        """Generate ``steps`` greedy tokens. Returns [B, steps] int32. With
-        ``spec_k > 1`` decode advances in windows of ``min(spec_k, steps
-        left)`` positions (the same tokens as single-token decode); else one
-        step per token on the fused step, the hot walk or the sync walk. A
-        windowed (ring) cache decodes past ``cache_len``; a window-free one
-        refuses to. Sampled decode (``greedy=False`` or ``sampler``) is not
-        ported yet (ROADMAP.md, Queue 1 item 7) and raises."""
-        if sampler is not None or not greedy:
-            raise NotImplementedError("sampled decode (greedy=False / sampler=) is not ported "
-                                      "yet: ROADMAP.md, Queue 1 item 7")
+               seed: int = 0, sampler: Optional[Any] = None) -> np.ndarray:
+        """Generate ``steps`` tokens. Returns [B, steps] int32. With ``spec_k
+        > 1`` decode advances in windows of ``min(spec_k, steps left)``
+        positions (the same tokens as single-token decode); else one step per
+        token on the fused step, the hot walk or the sync walk. A windowed
+        (ring) cache decodes past ``cache_len``; a window-free one refuses to.
+
+        Sampled decode: pass ``sampler`` (a ``SamplerConfig``) or
+        ``greedy=False`` (temperature 1.0 seeded by ``seed``). Every draw is
+        keyed by its cache position (``models/sampling.py``); the draw
+        between windows or steps is one launch on the device. The fused engine then
+        always runs the window family (size-1 windows at ``spec_k`` 1,
+        drafting by the same draws and accepting by ``stochastic_accept``),
+        so single-token and spec-K streams are the same program; the walks
+        draw between their steps."""
+        if sampler is None and not greedy:
+            sampler = SamplerConfig(temperature=1.0, seed=seed)
+        sampled = sampler is not None and sampler.temperature > 0.0
+        sp = sample_rng = None
+        if sampled:
+            sp = SampleParams(float(sampler.temperature), int(sampler.top_k),
+                              float(sampler.top_p))
+            if self._keys_seed != sampler.seed:
+                self._keys.copy_(sampling_mod.row_keys(sampler.seed, self.batch, self.device))
+                self._keys_seed = sampler.seed
+            sample_rng = np.random.default_rng(sampler.seed)
         if (self.cur_len + steps > self.rt.cache_len
                 and self.cfg.attention.window is None):
             raise ValueError(f"{self.cur_len} + {steps} positions exceed cache_len "
@@ -1016,12 +1421,15 @@ class RotaryEngine:
         t0 = time.perf_counter()
         i = 0
         while i < steps:
-            tok = np.argmax(logits, axis=-1).astype(np.int32)
+            if sampled:
+                tok = self._draw(logits, sp)
+            else:
+                tok = np.argmax(logits, axis=-1).astype(np.int32)
             out[:, i] = tok
             t_win = time.perf_counter()
             k = min(self.spec_k, steps - i) if spec else 1
-            if k > 1:
-                extra, logits, advanced = self._decode_window_fused(tok, k)
+            if k > 1 or (sampled and self._fused_decode):
+                extra, logits, advanced = self._decode_window_fused(tok, k, sp, sample_rng)
                 out[:, i + 1:i + advanced] = extra.T
             else:
                 if self._fused_decode:

@@ -37,6 +37,17 @@
 //
 // f32 entry: the first port's CUDA-core body (f32 on tensor cores would be
 // TF32, which the f32 tolerance rejects); f32 is not on the main path.
+//
+// Chunk-append entries (chunked prefill, one CUDA graph per chunk length):
+// the same two bodies with the C queries at absolute positions cur_len ..
+// cur_len + C - 1 against the KV cache [B, cap, Hkv, dh] after the chunk's
+// write (slot == position: the caller never lets a chunk wrap the cache),
+// causal. ``cur_len`` is read on the device from an int64 scalar, so one
+// captured launch serves every chunk start; the grid is sized from C alone
+// and the key loop ends at the last live key (cur_len + C), so the unwritten
+// slots past it are never read. A query row's sums run over 64-key tiles at
+// absolute positions in one order, so its output does not depend on C or on
+// where in its chunk it sits.
 #include "common.cuh"
 
 using namespace repro;
@@ -51,7 +62,8 @@ constexpr int FA_MAXDC = 8;     // dh / 16 <= 8, i.e. head_dim <= 128
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv, int H,
-              int Hkv, int dh, float scale, int causal, int window, float soft_cap) {
+              int Hkv, int dh, float scale, int causal, int window, float soft_cap,
+              const long long* __restrict__ q_off) {
     extern __shared__ float smem[];
     const int ld = dh + 1;
     float* Qs = smem;                   // [FA_B, ld]
@@ -59,6 +71,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* Vs = Ks + FA_B * ld;         // [FA_B, dh]
     float* Ps = Vs + FA_B * dh;         // [FA_B, FA_B + 1]
     const int q0 = blockIdx.x * FA_B, h = blockIdx.y, b = blockIdx.z;
+    const int qo = q_off ? (int)*q_off : 0;             // absolute position of query 0
     const int g = H / Hkv, hk = h / g;
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
     const int dc = dh / 16;
@@ -75,10 +88,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < FA_MAXDC; ++c) o[r][c] = 0.f;
     }
-    const int q_last = min(q0 + FA_B, Sq) - 1;
+    const int q_last = qo + min(q0 + FA_B, Sq) - 1;
     for (int k0 = 0; k0 < Skv; k0 += FA_B) {
         if (causal && k0 > q_last) break;                          // every later tile too
-        if (window > 0 && k0 + FA_B - 1 <= q0 - window) continue;  // behind the window
+        if (window > 0 && k0 + FA_B - 1 <= qo + q0 - window) continue;  // behind the window
         __syncthreads();                  // the previous tile's readers are done
         for (int i = tid; i < FA_B * dh; i += FA_THREADS) {
             const int r = i / dh, d = i % dh, s = k0 + r;
@@ -105,7 +118,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-            const int qpos = q0 + ty + 16 * r;
+            const int qpos = qo + q0 + ty + 16 * r;
             bool ok[4];
             float mx = NEG_INF;
 #pragma unroll
@@ -197,7 +210,7 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           bf16* __restrict__ out, int Sq, int Skv, int H, int Hkv, float scale, int causal,
-          int window, float soft_cap) {
+          int window, float soft_cap, const long long* __restrict__ q_off) {
     constexpr int LDS = DH + PAD, KD = DH / 16, ND = DH / 8, NT = BN / 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // [BM, LDS]
@@ -213,9 +226,10 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     const bf16* kg = k + ((size_t)b * Skv * Hkv + hk) * DH;
     const bf16* vg = v + ((size_t)b * Skv * Hkv + hk) * DH;
 
-    const int q_last = min(q0 + BM, Sq) - 1;
+    const int qo = q_off ? (int)*q_off : 0;             // absolute position of query 0
+    const int q_first = qo + q0, q_last = qo + min(q0 + BM, Sq) - 1;
     const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-    const int k_begin = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
+    const int k_begin = window > 0 ? max(0, q_first - window + 1) / BN * BN : 0;
     const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
     // commit groups in order: Q + K_0, V_0, K_1, V_1, ...
@@ -230,7 +244,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 #pragma unroll
     for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-    const int row0 = q0 + warp * 16 + gq;               // row of c0/c1; c2/c3 are row0 + 8
+    const int row0 = q_first + warp * 16 + gq;          // position of c0/c1; c2/c3 are row0 + 8
 
     for (int j = 0; j < n_tiles; ++j) {
         const int k0 = k_begin + j * BN;
@@ -266,7 +280,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         }
 
         // scale, soft-cap, mask (only where the tile crosses an edge), row max
-        const bool full = k0 + BN <= Skv && (!causal || k0 + BN - 1 <= q0)
+        const bool full = k0 + BN <= Skv && (!causal || k0 + BN - 1 <= q_first)
                           && (window <= 0 || k0 > q_last - window);
         float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -367,7 +381,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 template <int DH>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                   int Skv, int H, int Hkv, float scale, int causal, int window, float soft_cap,
-                  cudaStream_t stream) {
+                  const long long* q_off, cudaStream_t stream) {
     const size_t smem = (size_t)(BM + 4 * BN) * (DH + PAD) * sizeof(bf16);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -378,20 +392,20 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
     const dim3 grid(H, (Sq + BM - 1) / BM, B);
     flash_fwd<DH><<<grid, THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), Sq, Skv, H, Hkv, scale, causal, window, soft_cap);
+        static_cast<bf16*>(out), Sq, Skv, H, Hkv, scale, causal, window, soft_cap, q_off);
     return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    int B, int Sq, int Skv, int H, int Hkv, int dh, float scale,
-                                    int causal, int window, float soft_cap, void* stream) {
+static int run_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                    int Skv, int H, int Hkv, int dh, float scale, int causal, int window,
+                    float soft_cap, const long long* q_off, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_DH_CASE(D)                                                                      \
     case D:                                                                                \
         return tc::launch<D>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, causal, window,      \
-                             soft_cap, st);
+                             soft_cap, q_off, st);
     switch (dh) {
         FA_DH_CASE(16) FA_DH_CASE(32) FA_DH_CASE(48) FA_DH_CASE(64)
         FA_DH_CASE(80) FA_DH_CASE(96) FA_DH_CASE(112) FA_DH_CASE(128)
@@ -400,9 +414,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 #undef FA_DH_CASE
 }
 
-extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                   int B, int Sq, int Skv, int H, int Hkv, int dh, float scale,
-                                   int causal, int window, float soft_cap, void* stream) {
+static int run_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                   int Skv, int H, int Hkv, int dh, float scale, int causal, int window,
+                   float soft_cap, const long long* q_off, void* stream) {
     const size_t smem = (size_t)(2 * FA_B * (dh + 1) + FA_B * dh + FA_B * (FA_B + 1)) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -410,6 +424,39 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
     const dim3 grid((Sq + FA_B - 1) / FA_B, H, B);
     flash_fwd_f32<<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), Sq, Skv, H, Hkv, dh, scale, causal, window, soft_cap);
+        static_cast<float*>(out), Sq, Skv, H, Hkv, dh, scale, causal, window, soft_cap, q_off);
     return (int)cudaGetLastError();
+}
+
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                    int B, int Sq, int Skv, int H, int Hkv, int dh, float scale,
+                                    int causal, int window, float soft_cap, void* stream) {
+    return run_bf16(q, k, v, out, B, Sq, Skv, H, Hkv, dh, scale, causal, window, soft_cap,
+                    nullptr, stream);
+}
+
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
+                                   int B, int Sq, int Skv, int H, int Hkv, int dh, float scale,
+                                   int causal, int window, float soft_cap, void* stream) {
+    return run_f32(q, k, v, out, B, Sq, Skv, H, Hkv, dh, scale, causal, window, soft_cap,
+                   nullptr, stream);
+}
+
+// The chunk-append entries: q [B, C, H, dh] at positions *cur_len + i
+// (``cur_len`` an int64 on the device) against the cache k/v [B, cap, Hkv,
+// dh], causal, the window and soft cap as above.
+extern "C" int flash_attention_chunk_bf16(const void* q, const void* k, const void* v,
+                                          void* out, const void* cur_len, int B, int C, int cap,
+                                          int H, int Hkv, int dh, float scale, int window,
+                                          float soft_cap, void* stream) {
+    return run_bf16(q, k, v, out, B, C, cap, H, Hkv, dh, scale, 1, window, soft_cap,
+                    static_cast<const long long*>(cur_len), stream);
+}
+
+extern "C" int flash_attention_chunk_f32(const void* q, const void* k, const void* v,
+                                         void* out, const void* cur_len, int B, int C, int cap,
+                                         int H, int Hkv, int dh, float scale, int window,
+                                         float soft_cap, void* stream) {
+    return run_f32(q, k, v, out, B, C, cap, H, Hkv, dh, scale, 1, window, soft_cap,
+                   static_cast<const long long*>(cur_len), stream);
 }

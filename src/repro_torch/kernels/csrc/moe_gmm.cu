@@ -58,6 +58,16 @@
 //    tiles, D in steps of 32 through shared memory as f32 (int4 dequantized
 //    while staged), 4x4 outputs per thread. The plan (tensor cores or not,
 //    the tile) is the wrapper's, from D, F and the types alone.
+//  * the ragged entry of the tiled body (a prefill chunk's MoE half inside a
+//    CUDA graph): x [N, D] holds the picks' rows sorted by slot and
+//    ``offsets`` [S1 + 1] each slot's first row, both made on the device
+//    (a stable argsort of the T*k slot ids and a search of its sorted keys),
+//    so no count reaches the host and one launch serves any routing. The
+//    grid takes the most 64-row tiles N rows can make over S1 slots; each
+//    block finds its slot and tile from the offsets (``ragged_tile``), tiles
+//    past the last one return at once, and MISS tiles write zeros without
+//    reading weights. The body past that is the tiled body's, so a row gives
+//    the same bits grouped or ragged.
 // The LUT indirection is one load per block: rotation rewrites the LUT and
 // the compute never changes, as in the reference.
 #include <cooperative_groups.h>
@@ -378,14 +388,102 @@ gmm_gemv(const T* __restrict__ x, W wt, const int32_t* __restrict__ lut, int D, 
 constexpr int TL_B = 64;   // output tile rows and columns
 constexpr int TL_K = 32;   // reduction step
 
+// The ragged entry's tile map. x holds N rows sorted by slot, rows
+// offsets[s] .. offsets[s + 1] of slot s (S1 slots), every count on the
+// device. Tile t of the grid is the t-th 64-row
+// tile in slot order: the first warp scans the per-slot tile counts 32
+// slots at a time (shuffles, no shared memory) and the block reads its slot
+// and its tile within the slot from shared memory. Returns false for the
+// whole block past the last tile. Every thread of the block calls it.
+constexpr int RG_B = 64;   // rows per tile of both tiled bodies
+__device__ bool ragged_tile(const int32_t* __restrict__ offsets, int S1, int t, int& slot,
+                            int& tile) {
+    __shared__ int found[2];
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        int base = 0, hit_slot = -1, hit_tile = 0;
+        for (int s0 = 0; s0 < S1; s0 += 32) {
+            const int s = s0 + lane;
+            const int n = s < S1 ? (offsets[s + 1] - offsets[s] + RG_B - 1) / RG_B : 0;
+            int inc = n;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int y = __shfl_up_sync(0xffffffffu, inc, o);
+                if (lane >= o) inc += y;
+            }
+            const int first = base + inc - n;
+            const unsigned hit = __ballot_sync(0xffffffffu, t >= first && t < first + n);
+            if (hit) {                                    // the same for every lane
+                const int src = __ffs(hit) - 1;
+                hit_slot = s0 + src;
+                hit_tile = t - __shfl_sync(0xffffffffu, first, src);
+                break;
+            }
+            base += __shfl_sync(0xffffffffu, inc, 31);
+        }
+        if (lane == 0) {
+            found[0] = hit_slot;
+            found[1] = hit_tile;
+        }
+    }
+    __syncthreads();
+    slot = found[0];
+    tile = found[1];
+    return slot >= 0;
+}
+
+// The rows a block of either tiled body computes: ``X`` and ``out`` rows
+// start at ``row0``, the group holds ``C`` rows of which the block takes
+// ``c0 .. c0 + 63``, its weights are slot ``slot``. The grouped entries take
+// group blockIdx.z of [G, C, D]; the ragged entry maps tile blockIdx.y to
+// its slot (``ragged_tile``). ``skip``: a tile of slot ``miss`` (the MISS
+// row; -1 for none), whose rows are zeros.
+struct Rows {
+    size_t row0;
+    int C, c0, slot;
+    bool skip;
+};
+
+__device__ bool block_rows(const int32_t* __restrict__ lut, const int32_t* __restrict__ offsets,
+                           int S1, int miss, int C, Rows& r) {
+    if (offsets == nullptr) {
+        const int g = blockIdx.z;
+        r = Rows{(size_t)g * C, C, (int)blockIdx.y * RG_B, lut[g], false};
+        return true;
+    }
+    int slot, tile;
+    if (!ragged_tile(offsets, S1, blockIdx.y, slot, tile)) return false;
+    const int begin = offsets[slot];
+    r = Rows{(size_t)begin, offsets[slot + 1] - begin, tile * RG_B, slot, slot == miss};
+    return true;
+}
+
+// A MISS tile of the ragged entry: its rows' outputs are zeros (their
+// weight is dropped), its weights are never read.
+template <typename TO>
+__device__ void zero_rows(TO* __restrict__ out, const Rows& r, int f0, int bn, int F) {
+    for (int i = threadIdx.x; i < RG_B * bn; i += blockDim.x) {
+        const int c = r.c0 + i / bn, f = f0 + i % bn;
+        if (c < r.C && f < F) out[(r.row0 + c) * F + f] = from_f<TO>(0.f);
+    }
+}
+
 template <typename T, typename TO, typename W>
 __global__ void __launch_bounds__(256)
 gmm_tiled(const T* __restrict__ x, W wt, const int32_t* __restrict__ lut,
-          int C, int D, int F, TO* __restrict__ out) {
-    const int g = blockIdx.z, c0 = blockIdx.y * TL_B, f0 = blockIdx.x * TL_B;
+          const int32_t* __restrict__ offsets, int S1, int miss, int C_all, int D, int F,
+          TO* __restrict__ out) {
+    Rows rr;
+    if (!block_rows(lut, offsets, S1, miss, C_all, rr)) return;
+    const int f0 = blockIdx.x * TL_B;
+    if (rr.skip) {
+        zero_rows(out, rr, f0, TL_B, F);
+        return;
+    }
+    const int C = rr.C, c0 = rr.c0;
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    wt.slot(lut[g], D);
-    const T* X = x + (size_t)g * C * D;
+    wt.slot(rr.slot, D);
+    const T* X = x + rr.row0 * D;
     __shared__ float xs[TL_B][TL_K + 1];
     __shared__ float ws[TL_K][TL_B];
     float acc[4][4];
@@ -424,7 +522,7 @@ gmm_tiled(const T* __restrict__ x, W wt, const int32_t* __restrict__ lut,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
             const int f = f0 + tx + 16 * q;
-            if (f < F) out[((size_t)g * C + c) * F + f] = from_f<TO>(wt.epilogue(acc[r][q], f));
+            if (f < F) out[(rr.row0 + c) * F + f] = from_f<TO>(wt.epilogue(acc[r][q], f));
         }
     }
 }
@@ -447,9 +545,11 @@ struct Args {
     const float* scale8;        // int8: [S+1, F]
     const __half* s4;           // int4: [S+1, D/group, F]
     const __half* m4;
-    const int32_t* lut;
-    void* out;                  // [G, C, F]: bf16 for a bf16 store, f32 otherwise
-    int C, D, F, group;
+    const int32_t* lut;         // grouped: [G]
+    const int32_t* offsets;     // ragged: [S1 + 1] row offsets of the slots (else null)
+    void* out;                  // [G, C, F] (ragged: [N, F]): bf16 for a bf16 store, f32 otherwise
+    int C, D, F, group;         // ragged: C is N, the rows of x
+    int S1, miss, tiles;        // ragged: rows of the store, the MISS row (-1: none), M tiles
 };
 
 // Bytes k and k + 1 of ``word`` as packed int4: their low nibbles as a bf16
@@ -501,12 +601,19 @@ gmm_tc(Args a) {
     using L = Layout<FMT, BK, BN>;
     constexpr int LDX = L::LDX, LDW = L::LDW, WN = BN / 4, NT = WN / 8, KS = BK / 16;
     extern __shared__ __align__(16) unsigned char smem[];
-    const int g = blockIdx.z, c0 = blockIdx.y * BM, f0 = blockIdx.x * BN;
+    Rows rr;
+    if (!block_rows(a.lut, a.offsets, a.S1, a.miss, a.C, rr)) return;
+    const int f0 = blockIdx.x * BN;
+    const int D = a.D, F = a.F;
+    if (rr.skip) {
+        if constexpr (FMT == BF16) zero_rows(static_cast<bf16*>(a.out), rr, f0, BN, F);
+        else zero_rows(static_cast<float*>(a.out), rr, f0, BN, F);
+        return;
+    }
+    const int C = rr.C, c0 = rr.c0, slot = rr.slot;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane >> 2, t4 = lane & 3;
     const int wm = warp / 4, wn = warp % 4;
-    const int C = a.C, D = a.D, F = a.F;
-    const int slot = a.lut[g];
-    const bf16* X = a.x + (size_t)g * C * D;
+    const bf16* X = a.x + rr.row0 * D;
     const int nk = (D + BK - 1) / BK;
     // int4: columns of one group segment within a step, and segments per step
     constexpr int SEG = FMT == INT4 ? (GROUP < BK ? GROUP : BK) : BK, NSEG = BK / SEG;
@@ -714,7 +821,7 @@ gmm_tc(Args a) {
                 const int c = c0 + wm * 32 + i * 16 + gq + (e >> 1) * 8;
                 const int f = f0 + wn * WN + n * 8 + 2 * t4 + (e & 1);
                 if (c >= C || f >= F) continue;
-                const size_t o = ((size_t)g * C + c) * F + f;
+                const size_t o = (rr.row0 + c) * F + f;
                 if constexpr (FMT == BF16) static_cast<bf16*>(a.out)[o] = __float2bfloat16_rn(acc[i][n][e]);
                 else if constexpr (FMT == INT8)
                     static_cast<float*>(a.out)[o] = acc[i][n][e] * a.scale8[(size_t)slot * F + f];
@@ -740,7 +847,8 @@ static int launch_body(const Args& a, int G, cudaStream_t st) {
     cudaError_t err = cudaFuncSetAttribute(gmm_tc<FMT, BK, BN, GROUP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((a.F + BN - 1) / BN, (a.C + BM - 1) / BM, G);
+    const dim3 grid((a.F + BN - 1) / BN, a.offsets ? a.tiles : (a.C + BM - 1) / BM,
+                    a.offsets ? 1 : G);
     gmm_tc<FMT, BK, BN, GROUP><<<grid, THREADS, L::TOTAL, st>>>(a);
     return (int)cudaGetLastError();
 }
@@ -770,6 +878,10 @@ static int launch(const Args& a, int G, int bk, int bn, cudaStream_t st) {
 }
 
 }  // namespace tiled
+
+// The ragged tile map hands both tiled bodies RG_B-row tiles: it must be the
+// row tile of each, or rows would land in another slot's tile.
+static_assert(RG_B == tiled::BM && RG_B == TL_B, "ragged tiles are the tiled bodies' row tiles");
 
 template <typename T, typename TO, typename W, int C, bool VEC>
 static cudaError_t launch_gemv_body(dim3 grid, cudaStream_t st, const void* x, W wt,
@@ -818,25 +930,36 @@ static int launch_gemv(W wt, const void* x, const void* lut, int G, int C, int D
 // (``tc``, bf16 x only, with its D step ``bk`` and N tile ``bn``), the
 // CUDA-core body otherwise. ``w``, ``p0``, ``p1``: the store and its planes
 // (int8: scale; int4: scale, min).
+//
+// Ragged (``offsets`` not null, G = 1, C = N): x [N, D] holds the rows
+// sorted by slot, ``offsets`` [S1 + 1] the slots' first rows, all on the
+// device, so the launch needs no count from the host: the grid takes the
+// most 64-row tiles N rows can make over S1 slots (ceil(N / 64) + min(S1,
+// N)) and the blocks past the last tile return at once; the rows of slot
+// ``miss`` (the MISS row, -1 for a store without one) come out as zeros.
 template <int FMT, typename T, typename TO, typename W>
 static int launch_tiled(W wt, const void* x, const void* w, const void* p0, const void* p1,
-                        const void* lut, int G, int C, int D, int F, int group, int tc, int bk,
-                        int bn, void* out, void* stream) {
+                        const void* lut, const void* offsets, int S1, int miss, int G, int C,
+                        int D, int F, int group, int tc, int bk, int bn, void* out,
+                        void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* offs = static_cast<const int32_t*>(offsets);
+    const int tiles = offs ? (C + RG_B - 1) / RG_B + (S1 < C ? S1 : C) : 0;
+    if (offs && (S1 < 1 || G != 1)) return (int)cudaErrorInvalidValue;
     if (tc) {
         if constexpr (sizeof(T) == 2) {
             const tiled::Args a{static_cast<const __nv_bfloat16*>(x), w,
                                 static_cast<const float*>(p0), static_cast<const __half*>(p0),
                                 static_cast<const __half*>(p1), static_cast<const int32_t*>(lut),
-                                out, C, D, F, group};
+                                offs, out, C, D, F, group, S1, miss, tiles};
             return tiled::launch<FMT>(a, G, bk, bn, st);
         }
         return (int)cudaErrorInvalidValue;
     }
-    const dim3 grid((F + TL_B - 1) / TL_B, (C + TL_B - 1) / TL_B, G);
+    const dim3 grid((F + TL_B - 1) / TL_B, offs ? tiles : (C + TL_B - 1) / TL_B, offs ? 1 : G);
     gmm_tiled<T, TO, W><<<grid, 256, 0, st>>>(static_cast<const T*>(x), wt,
-                                               static_cast<const int32_t*>(lut), C, D, F,
-                                               static_cast<TO*>(out));
+                                               static_cast<const int32_t*>(lut), offs, S1, miss,
+                                               C, D, F, static_cast<TO*>(out));
     return (int)cudaGetLastError();
 }
 
@@ -855,8 +978,17 @@ static int launch_tiled(W wt, const void* x, const void* w, const void* p0, cons
                                          int G, int C, int D, int F, int tc, int bk,     \
                                          int bn, void* out, void* stream) {              \
         const DenseW<T> wt{static_cast<const T*>(w), F};                                 \
-        return launch_tiled<tiled::BF16, T, T>(wt, x, w, nullptr, nullptr, lut, G, C, D, \
-                                               F, 0, tc, bk, bn, out, stream);           \
+        return launch_tiled<tiled::BF16, T, T>(wt, x, w, nullptr, nullptr, lut, nullptr, \
+                                               0, -1, G, C, D, F, 0, tc, bk, bn, out,    \
+                                               stream);                                  \
+    }                                                                                    \
+    extern "C" int slot_gmm_ragged_##sfx(const void* x, const void* w, const void* offsets, \
+                                          int N, int S1, int miss, int D, int F, int tc, \
+                                          int bk, int bn, void* out, void* stream) {     \
+        const DenseW<T> wt{static_cast<const T*>(w), F};                                 \
+        return launch_tiled<tiled::BF16, T, T>(wt, x, w, nullptr, nullptr, nullptr,      \
+                                               offsets, S1, miss, 1, N, D, F, 0, tc, bk, \
+                                               bn, out, stream);                         \
     }
 SLOT_GMM_ENTRIES(__nv_bfloat16, bf16)
 SLOT_GMM_ENTRIES(float, f32)
@@ -874,8 +1006,19 @@ SLOT_GMM_ENTRIES(float, f32)
                                               int C, int D, int F, int tc, int bk, int bn, \
                                               void* out, void* stream) {                 \
         const Int8W wt{static_cast<const int8_t*>(w), static_cast<const float*>(scale), F}; \
-        return launch_tiled<tiled::INT8, T, float>(wt, x, w, scale, nullptr, lut, G, C,  \
-                                                   D, F, 0, tc, bk, bn, out, stream);    \
+        return launch_tiled<tiled::INT8, T, float>(wt, x, w, scale, nullptr, lut,        \
+                                                   nullptr, 0, -1, G, C, D, F, 0, tc, bk, \
+                                                   bn, out, stream);                     \
+    }                                                                                    \
+    extern "C" int slot_gmm_int8_ragged_##sfx(const void* x, const void* w,             \
+                                               const void* scale, const void* offsets,   \
+                                               int N, int S1, int miss, int D, int F,    \
+                                               int tc, int bk, int bn, void* out,        \
+                                               void* stream) {                           \
+        const Int8W wt{static_cast<const int8_t*>(w), static_cast<const float*>(scale), F}; \
+        return launch_tiled<tiled::INT8, T, float>(wt, x, w, scale, nullptr, nullptr,    \
+                                                   offsets, S1, miss, 1, N, D, F, 0, tc, \
+                                                   bk, bn, out, stream);                 \
     }
 SLOT_GMM_INT8_ENTRIES(__nv_bfloat16, bf16)
 SLOT_GMM_INT8_ENTRIES(float, f32)
@@ -899,8 +1042,19 @@ SLOT_GMM_INT8_ENTRIES(float, f32)
                                               int F, int group, int tc, int bk, int bn,  \
                                               void* out, void* stream) {                 \
         INT4_STORE                                                                       \
-        return launch_tiled<tiled::INT4, T, float>(wt, x, w, scale, mn, lut, G, C, D, F, \
-                                                   group, tc, bk, bn, out, stream);      \
+        return launch_tiled<tiled::INT4, T, float>(wt, x, w, scale, mn, lut, nullptr, 0, \
+                                                   -1, G, C, D, F, group, tc, bk, bn, out, \
+                                                   stream);                              \
+    }                                                                                    \
+    extern "C" int slot_gmm_int4_ragged_##sfx(const void* x, const void* w,             \
+                                               const void* scale, const void* mn,        \
+                                               const void* offsets, int N, int S1,       \
+                                               int miss, int D, int F, int group, int tc, \
+                                               int bk, int bn, void* out, void* stream) { \
+        INT4_STORE                                                                       \
+        return launch_tiled<tiled::INT4, T, float>(wt, x, w, scale, mn, nullptr, offsets, \
+                                                   S1, miss, 1, N, D, F, group, tc, bk,  \
+                                                   bn, out, stream);                     \
     }
 SLOT_GMM_INT4_ENTRIES(__nv_bfloat16, bf16)
 SLOT_GMM_INT4_ENTRIES(float, f32)

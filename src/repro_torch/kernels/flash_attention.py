@@ -9,6 +9,12 @@ per block, K/V tiles through a 2-stage ``cp.async`` ring, one kernel per
 head_dim); f32 keeps a CUDA-core body. Bound: bytes at the main path's
 prefill shape, operations at longer prompts. Plain version:
 ``kernels.ref.flash_attention_ref``.
+
+The chunk-append entry (:func:`flash_attention_chunk`, its own launch
+count ``CHUNK``) serves chunked prefill: C queries at absolute positions
+``cur_len ..`` against the engine's KV cache after the chunk's write, with
+``cur_len`` read on the device, so one captured CUDA graph per chunk length
+serves every chunk start. Plain version: ``kernels.ref.flash_attention_chunk_ref``.
 """
 from __future__ import annotations
 
@@ -25,7 +31,37 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                                   ctypes.c_int, ctypes.c_float],
 )
+CHUNK = CudaKernel(
+    "flash_attention_chunk", "flash_attention.cu",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                  ctypes.c_float],
+)
 _SYMBOL = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
+_CHUNK_SYMBOL = {torch.bfloat16: "flash_attention_chunk_bf16",
+                 torch.float32: "flash_attention_chunk_f32"}
+
+
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: Optional[int]) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} launches on CUDA tensors, got {q.device}")
+    if q.dtype not in _SYMBOL or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"bf16 or f32 q/k/v of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, _, h, dh = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh or v.shape != k.shape:
+        raise ValueError(f"k/v must be [B, Skv, Hkv, dh], got {tuple(k.shape)}, {tuple(v.shape)}")
+    if h % k.shape[2]:
+        raise ValueError(f"H={h} must be a multiple of Hkv={k.shape[2]}")
+    if dh % 16 or dh > 128:
+        raise ValueError(f"head_dim {dh} must be a multiple of 16 and at most 128")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+
+
+def _aligned(*ts: torch.Tensor):
+    """The bf16 body copies 16-byte rows: a view that starts off that grid is copied."""
+    return tuple(t.contiguous() if t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format) for t in ts)
 
 
 def flash_attention(
@@ -37,27 +73,47 @@ def flash_attention(
     window: Optional[int] = None,
     soft_cap: Optional[float] = None,
 ) -> torch.Tensor:
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention launches on CUDA tensors, got {q.device}")
-    if q.dtype not in _SYMBOL or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"bf16 or f32 q/k/v of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_qkv("flash_attention", q, k, v, window)
     b, sq, h, dh = q.shape
-    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh or v.shape != k.shape:
-        raise ValueError(f"k/v must be [B, Skv, Hkv, dh], got {tuple(k.shape)}, {tuple(v.shape)}")
     skv, hkv = k.shape[1], k.shape[2]
-    if h % hkv:
-        raise ValueError(f"H={h} must be a multiple of Hkv={hkv}")
-    if dh % 16 or dh > 128:
-        raise ValueError(f"head_dim {dh} must be a multiple of 16 and at most 128")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be positive, got {window}")
-    # the bf16 body copies 16-byte rows: a view that starts off that grid is copied
-    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0
-               else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     if b and sq:
         KERNEL(_SYMBOL[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), b, sq, skv, h, hkv, dh, 1.0 / math.sqrt(dh), int(causal),
                int(window) if window is not None else 0,
                float(soft_cap) if soft_cap is not None else 0.0)
+    return out
+
+
+def flash_attention_chunk(
+    q: torch.Tensor,            # [B, C, H, dh] at positions cur_len .. cur_len + C - 1
+    k: torch.Tensor,            # [B, cap, Hkv, dh] the cache after the chunk's write
+    v: torch.Tensor,
+    cur_len: torch.Tensor,      # int64 scalar on q's device
+    *,
+    window: Optional[int] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal attention of a chunk's queries against the cache: query i
+    (absolute position ``cur_len + i``) scores slots ``0 .. cur_len + i``
+    (inside the window). The cache must not wrap: ``cur_len + C <= cap``,
+    which the caller checks on the host, since ``cur_len`` stays on the
+    device (a CUDA graph replays the launch with the host setting it)."""
+    _check_qkv("flash_attention_chunk", q, k, v, window)
+    if (cur_len.device != q.device or cur_len.dtype != torch.int64
+            or cur_len.numel() != 1):
+        raise ValueError(f"cur_len must be one int64 on {q.device}, got {cur_len.dtype} "
+                         f"{tuple(cur_len.shape)} on {cur_len.device}")
+    b, c, h, dh = q.shape
+    cap, hkv = k.shape[1], k.shape[2]
+    if c > cap:
+        raise ValueError(f"a chunk of {c} queries exceeds the cache capacity {cap}")
+    q, k, v = _aligned(q, k, v)
+    out = torch.empty_like(q)
+    if b and c:
+        CHUNK(_CHUNK_SYMBOL[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              out.data_ptr(), cur_len.data_ptr(), b, c, cap, h, hkv, dh, 1.0 / math.sqrt(dh),
+              int(window) if window is not None else 0,
+              float(soft_cap) if soft_cap is not None else 0.0)
     return out

@@ -9,7 +9,8 @@ the accumulator) and int4 slots (``_gmm_kernel_int4``: nibbles dequantized
 from the store. Bound: bytes at decode (C = 1, every weight byte read once),
 operations at large C. Plain version: ``kernels.ref.slot_gmm_ref``.
 
-Two bodies per format, each with its own launch count:
+Two bodies per format, each with its own launch count (``launch_counts``;
+``symbol_launch_counts`` splits the tiled body's by entry):
 
 * the GEMV body for C <= 4 (the decode step and the replay) streams the
   weights in 16-byte loads per lane (8 bytes for int8 and int4), with the
@@ -21,15 +22,22 @@ Two bodies per format, each with its own launch count:
   depend on C; the kernel only checks it. Rows whose width is not a
   multiple of a lane's bytes (or a store not 16-byte aligned) take the
   same kernel's element loads: a dispatch by shape, never a retry;
-* the tiled body for C > 4 (the prefill walk's grouping of a prompt's picks
-  by slot). With bf16 x it runs on tensor cores (``mma.sync`` m16n8k16, f32
-  sums, a 3-stage ``cp.async`` ring; int8 and int4 weights converted to
-  exact bf16 integers in shared memory, int4's group affine folded in per
-  group as ``s * (x . q) + m * sum(x)``); f32 x, and rows that are not whole
-  16-byte copies or int4 groups other than 32, 64 and 128, take the
-  CUDA-core body. Its plan (:func:`tiled_plan`: tensor cores or not, the D
+* the tiled body for C > 4. With bf16 x it runs on tensor cores
+  (``mma.sync`` m16n8k16, f32 sums, a 3-stage ``cp.async`` ring; int8 and
+  int4 weights converted to exact bf16 integers in shared memory, int4's
+  group affine folded in per group as ``s * (x . q) + m * sum(x)``); f32 x,
+  and rows that are not whole 16-byte copies or int4 groups other than 32,
+  64 and 128, take the CUDA-core body. Its plan (:func:`tiled_plan`: tensor cores or not, the D
   step, the N tile) reads neither C nor G: the sum over D runs in one order
   whatever the batch, and row c does not depend on C.
+
+The tiled body's ragged entry (:func:`slot_gmm_ragged`, counted with the
+tiled body under its own launcher symbols ``*_ragged_*``) takes the picks'
+rows sorted by slot with each slot's first row in a device tensor of
+offsets, so a prefill's MoE half (a chunk's, or the legacy walk's whole
+prompt) makes no host round trip and a CUDA graph can capture it; the same
+plan as the grouped entry, so a row gives the same bits either way. Plain
+version: ``kernels.ref.slot_gmm_ragged_ref``.
 """
 from __future__ import annotations
 
@@ -52,12 +60,26 @@ def _argtypes(planes: int):
     return [_P] * (3 + planes) + [_I] * (7 + (planes == 2)) + [_P]
 
 
+def _ragged_argtypes(planes: int):
+    """The ragged entry: x, w, the store's ``planes``, offsets, N, S1, miss,
+    D, F, [group (int4),] tensor_cores, block_k, block_n, then out."""
+    return [_P] * (3 + planes) + [_I] * (8 + (planes == 2)) + [_P]
+
+
+def _tiled_argtypes(planes: int, stem: str):
+    """The tiled body's two entries, one count: the grouped launchers
+    ``{stem}_tiled_*`` and the ragged ones ``{stem}_ragged_*``."""
+    return {f"{stem}_{entry}_{sfx}": types for sfx in ("bf16", "f32")
+            for entry, types in (("tiled", _argtypes(planes)),
+                                 ("ragged", _ragged_argtypes(planes)))}
+
+
 KERNEL = CudaKernel("slot_gmm", "moe_gmm.cu", _argtypes(0))
-TILED = CudaKernel("slot_gmm_tiled", "moe_gmm.cu", _argtypes(0))
+TILED = CudaKernel("slot_gmm_tiled", "moe_gmm.cu", _tiled_argtypes(0, "slot_gmm"))
 INT8 = CudaKernel("slot_gmm_int8", "moe_gmm.cu", _argtypes(1))
-INT8_TILED = CudaKernel("slot_gmm_int8_tiled", "moe_gmm.cu", _argtypes(1))
+INT8_TILED = CudaKernel("slot_gmm_int8_tiled", "moe_gmm.cu", _tiled_argtypes(1, "slot_gmm_int8"))
 INT4 = CudaKernel("slot_gmm_int4", "moe_gmm.cu", _argtypes(2))
-INT4_TILED = CudaKernel("slot_gmm_int4_tiled", "moe_gmm.cu", _argtypes(2))
+INT4_TILED = CudaKernel("slot_gmm_int4_tiled", "moe_gmm.cu", _tiled_argtypes(2, "slot_gmm_int4"))
 GEMV_MAX_C = 4                      # GV_MAXC in csrc/moe_gmm.cu
 GEMV_WARPS = 8                      # GV_WARPS: runs of rows per block
 GEMV_MAX_SPLITS = 8                 # GV_MAXSPLITS: the blocks of one (portable) cluster
@@ -149,6 +171,33 @@ def _check_plane(name: str, t: Optional[torch.Tensor], shape, dtype, device) -> 
     return t.contiguous()
 
 
+def _store(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
+           mn: Optional[torch.Tensor]):
+    """Check a store against x's depth and type: ``(planes, group, out
+    dtype)``, the planes (int8: scale; int4: scale, mn) contiguous and the
+    int4 group (0 for the other formats)."""
+    d = x.shape[-1]
+    s1, f = w.shape[0], w.shape[2]
+    depth = 2 * w.shape[1] if w.dtype == torch.uint8 else w.shape[1]
+    if depth != d:
+        raise ValueError(f"x depth {d} != w depth {depth}")
+    if w.dtype in (torch.bfloat16, torch.float32):
+        if w.dtype != x.dtype or scale is not None or mn is not None:
+            raise ValueError(f"a {w.dtype} store takes x of its type and no scale/min planes")
+        return [], 0, x.dtype
+    if w.dtype == torch.int8:
+        if mn is not None:
+            raise ValueError("an int8 store takes no min plane")
+        return [_check_plane("scale", scale, (s1, f), torch.float32, x.device)], 0, torch.float32
+    if scale is None or scale.dim() != 3 or d % scale.shape[1] or (d // scale.shape[1]) % 2:
+        raise ValueError(f"an int4 store takes f16 scale/min planes [S+1, D/G, F] with "
+                         f"an even G dividing D={d}")
+    group = d // scale.shape[1]
+    planes = [_check_plane(n, t, (s1, d // group, f), torch.float16, x.device)
+              for n, t in (("scale", scale), ("mn", mn))]
+    return planes, group, torch.float32
+
+
 def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
              scale: Optional[torch.Tensor] = None,
              mn: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -170,29 +219,8 @@ def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
     if x.dim() != 3 or w.dim() != 3 or lut.shape != (x.shape[0],):
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, lut {tuple(lut.shape)}")
     g, c, d = x.shape
-    s1, f = w.shape[0], w.shape[2]
-    depth = 2 * w.shape[1] if w.dtype == torch.uint8 else w.shape[1]
-    if depth != d:
-        raise ValueError(f"x depth {d} != w depth {depth}")
-    planes = []
-    group = 0
-    if w.dtype in (torch.bfloat16, torch.float32):
-        if w.dtype != x.dtype or scale is not None or mn is not None:
-            raise ValueError(f"a {w.dtype} store takes x of its type and no scale/min planes")
-        out_dtype = x.dtype
-    elif w.dtype == torch.int8:
-        if mn is not None:
-            raise ValueError("an int8 store takes no min plane")
-        planes = [_check_plane("scale", scale, (s1, f), torch.float32, x.device)]
-        out_dtype = torch.float32
-    else:
-        if scale is None or scale.dim() != 3 or d % scale.shape[1] or (d // scale.shape[1]) % 2:
-            raise ValueError(f"an int4 store takes f16 scale/min planes [S+1, D/G, F] with "
-                             f"an even G dividing D={d}")
-        group = d // scale.shape[1]
-        planes = [_check_plane(n, t, (s1, d // group, f), torch.float16, x.device)
-                  for n, t in (("scale", scale), ("mn", mn))]
-        out_dtype = torch.float32
+    f = w.shape[2]
+    planes, group, out_dtype = _store(x, w, scale, mn)
     x = x.contiguous()
     w = w.contiguous()
     lut = lut.to(torch.int32).contiguous()
@@ -214,4 +242,46 @@ def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
             tc = plan.tensor_cores and aligned
             tiled(f"{stem}_tiled_{symbol}", x.device, *lead, int(tc),
                   plan.block_k if tc else 0, plan.block_n if tc else 0, out.data_ptr())
+    return out
+
+
+def slot_gmm_ragged(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                    scale: Optional[torch.Tensor] = None,
+                    mn: Optional[torch.Tensor] = None, *,
+                    miss_slot: Optional[int] = None) -> torch.Tensor:
+    """x [N, D] (bf16 or f32) holding rows sorted by slot, ``offsets``
+    [S1+1] int32 on the device: rows ``offsets[s] .. offsets[s+1]`` read
+    slot s of the store w [S1, ...] (the formats of :func:`slot_gmm`); the
+    rows of ``miss_slot`` (the MISS row) come out as zeros, its weights
+    unread. Returns [N, F]. The tiled body's plan; no count leaves the
+    device (the offsets are not checked there either: their owner makes them
+    from a sort)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"slot_gmm_ragged launches on CUDA tensors, got {x.device}")
+    if w.device != x.device or offsets.device != x.device:
+        raise ValueError("x, w and offsets must share one device")
+    if x.dtype not in _SUFFIX or w.dtype not in _BODIES:
+        raise ValueError(f"slot_gmm_ragged takes bf16/f32 x and bf16/f32/int8/uint8 w, "
+                         f"got {x.dtype}, {w.dtype}")
+    s1 = w.shape[0]
+    if x.dim() != 2 or w.dim() != 3 or offsets.shape != (s1 + 1,) or offsets.dtype != torch.int32:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, offsets "
+                         f"{offsets.dtype} {tuple(offsets.shape)}")
+    n, d = x.shape
+    f = w.shape[2]
+    planes, group, out_dtype = _store(x, w, scale, mn)
+    x = x.contiguous()
+    w = w.contiguous()
+    offsets = offsets.contiguous()
+    out = torch.empty((n, f), dtype=out_dtype, device=x.device)
+    if n and f:
+        ptrs = [p.data_ptr() for p in planes]
+        plan = tiled_plan(d, f, x.dtype, w.dtype, group)
+        tc = plan.tensor_cores and all(p % 16 == 0 for p in (x.data_ptr(), w.data_ptr(), *ptrs))
+        stem = _BODIES[w.dtype][2]
+        miss = -1 if miss_slot is None else int(miss_slot)
+        args = (x.data_ptr(), w.data_ptr(), *ptrs, offsets.data_ptr(), n, s1, miss, d, f)
+        args += (group,) if group else ()
+        _BODIES[w.dtype][1](f"{stem}_ragged_{_SUFFIX[x.dtype]}", x.device, *args, int(tc),
+                            plan.block_k if tc else 0, plan.block_n if tc else 0, out.data_ptr())
     return out

@@ -31,6 +31,7 @@ KERNELS = {
     "decode_attention": _dec.KERNEL,
     "topk_gate": _tk.KERNEL,
     "flash_attention": _fa.KERNEL,
+    "flash_attention_chunk": _fa.CHUNK,
 }
 
 
@@ -90,6 +91,19 @@ def slot_gmm(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
     return ref.slot_gmm_ref(x, w, lut, scale, mn)
 
 
+def slot_gmm_ragged(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                    scale: Optional[torch.Tensor] = None,
+                    mn: Optional[torch.Tensor] = None, *,
+                    miss_slot: Optional[int] = None) -> torch.Tensor:
+    """x [N, D] rows sorted by slot, ``offsets`` [S1+1] int32 (slot s owns
+    rows ``offsets[s] .. offsets[s+1]``; ``miss_slot``'s rows give zeros)
+    -> [N, F], the types of :func:`slot_gmm`. On the card, K1's ragged
+    entry (no host round trip), counted under the format's tiled body."""
+    if _on_card(x):
+        return _gmm.slot_gmm_ragged(x, w, offsets, scale, mn, miss_slot=miss_slot)
+    return ref.slot_gmm_ragged_ref(x, w, offsets, scale, mn, miss_slot=miss_slot)
+
+
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lengths: torch.Tensor, soft_cap: Optional[float] = None,
@@ -136,3 +150,16 @@ def flash_attention(
     if _on_card(q):
         return _fa.flash_attention(q, k, v, causal=causal, window=window, soft_cap=soft_cap)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window, soft_cap=soft_cap)
+
+
+def flash_attention_chunk(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor, *,
+    window: Optional[int] = None, soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """A prefill chunk's causal attention: q [B, C, H, dh] at positions
+    ``cur_len ..`` against the cache k/v [B, cap, Hkv, dh] holding position
+    i at slot i, the chunk's KV already written. ``cur_len`` is an int64
+    scalar on q's device (K4's chunk-append entry reads it there)."""
+    if _on_card(q):
+        return _fa.flash_attention_chunk(q, k, v, cur_len, window=window, soft_cap=soft_cap)
+    return ref.flash_attention_chunk_ref(q, k, v, cur_len, window=window, soft_cap=soft_cap)

@@ -41,6 +41,31 @@ def slot_gmm_ref(
     return out.to(x.dtype)
 
 
+def slot_gmm_ragged_ref(
+    x: torch.Tensor,           # [N, D] rows sorted by slot
+    w: torch.Tensor,           # [S1, D, F] slot weights (the formats of slot_gmm_ref)
+    offsets: torch.Tensor,     # [S1+1] int: rows offsets[s] .. offsets[s+1] read slot s
+    scale: Optional[torch.Tensor] = None,
+    mn: Optional[torch.Tensor] = None,
+    *,
+    miss_slot: Optional[int] = None,
+) -> torch.Tensor:
+    """out[r] = x[r] @ w[s] for the slot s whose rows hold r; rows of
+    ``miss_slot`` (the MISS row) give zeros. One :func:`slot_gmm_ref` per
+    slot that has rows (the counts come to the host: a plain version is
+    never captured)."""
+    n, f = x.shape[0], w.shape[2]
+    quant = w.dtype in (torch.int8, torch.uint8)
+    out = torch.zeros((n, f), dtype=torch.float32 if quant else x.dtype, device=x.device)
+    bounds = offsets.tolist()
+    for s in range(w.shape[0]):
+        a, b = bounds[s], bounds[s + 1]
+        if b > a and s != miss_slot:
+            lut = torch.full((1,), s, dtype=torch.int32, device=x.device)
+            out[a:b] = slot_gmm_ref(x[None, a:b], w, lut, scale, mn)[0]
+    return out
+
+
 def decode_attention_ref(
     q: torch.Tensor,           # [B, H, dh] one new token per row
     k: torch.Tensor,           # [B, S, Hkv, dh]
@@ -132,3 +157,34 @@ def flash_attention_ref(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def flash_attention_chunk_ref(
+    q: torch.Tensor,           # [B, C, H, dh] at positions cur_len .. cur_len + C - 1
+    k: torch.Tensor,           # [B, cap, Hkv, dh] the cache after the chunk's write
+    v: torch.Tensor,
+    cur_len,                   # int or integer scalar tensor
+    *,
+    window: Optional[int] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal attention of a chunk against a cache that holds position i at
+    slot i (no wrap): query j at ``cur_len + j`` scores slots ``<= cur_len +
+    j`` (and ``> cur_len + j - window``)."""
+    b, c, h, dh = q.shape
+    cap, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, c, hkv, g, dh).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
+    if soft_cap is not None:
+        logits = soft_cap * torch.tanh(logits / soft_cap)
+    cl = torch.as_tensor(cur_len, device=q.device).to(torch.int64).reshape(())
+    qpos = cl + torch.arange(c, device=q.device)
+    kpos = torch.arange(cap, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, c, h, dh).to(q.dtype)

@@ -12,9 +12,15 @@ relaunch; ``--no-prefetch`` (the default) keeps synchronous rotation.
 other decode paths: ``--no-fused-decode`` walks the layers on the device
 (the per-layer hot walk), ``--host-routing`` routes every layer on the host
 (the seed baseline) and ``--residency lru`` answers misses with blocking
-loads (both the per-layer sync walk). ``--device`` defaults to ``cuda``; a
-missing card is an error. On the card the decode step, and each window
-size, runs as a CUDA graph replay.
+loads (both the per-layer sync walk). ``--prefill-chunk C`` ingests each
+prompt in power-of-two chunks of at most C tokens (the fused engine: one
+launch per chunk; the walks: the same chunks layer by layer).
+``--temperature T`` (> 0) samples, with ``--top-k``, ``--top-p`` and
+``--sample-seed`` (default ``--seed``); draws are keyed by request row and
+cache position, so a seed reproduces its tokens bit for bit. ``--device``
+defaults to ``cuda``; a missing card is an error. On the card the decode
+step, each window size and sampler, and each chunk length run as CUDA graph
+replays.
 """
 from __future__ import annotations
 
@@ -62,6 +68,21 @@ def main() -> None:
     ap.add_argument("--spec-k", type=int, default=1,
                     help="speculative window (tokens per fused launch; 1 = single-token "
                          "decode)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: power-of-two chunk length (0 = the legacy "
+                         "full-sequence layer walk); one launch and one rotation per chunk")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax; > 0 draws from the warped "
+                         "distribution through the same windows, kept exact by stochastic "
+                         "acceptance)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep only the k highest logits before sampling (0 = no cut)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling: keep the smallest prefix of probability mass "
+                         ">= p (1.0 = no cut)")
+    ap.add_argument("--sample-seed", type=int, default=None,
+                    help="seed of the sampling streams (default: --seed); draws are keyed "
+                         "per row and position, so a seed reproduces its tokens bitwise")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -70,6 +91,7 @@ def main() -> None:
     from repro_torch.configs import reduce_for_smoke
     from repro_torch.core.engine import RotaryEngine, resolve_device
     from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.serving.sampler import SamplerConfig
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -86,13 +108,19 @@ def main() -> None:
                                      quant_group_size=args.quant_group),
         rt=Runtime(cache_len=args.cache_len), batch=b, seed=args.seed,
         host_routing=args.host_routing, fused_decode=args.fused_decode,
-        spec_k=max(1, args.spec_k), prefetch=args.prefetch, device=device,
+        spec_k=max(1, args.spec_k), prefetch=args.prefetch,
+        prefill_chunk=args.prefill_chunk or None, device=device,
     )
+    sampler = None
+    if args.temperature > 0.0:
+        sampler = SamplerConfig(
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            seed=args.seed if args.sample_seed is None else args.sample_seed)
     rng = np.random.default_rng(args.seed)
     for g0 in range(0, args.requests, b):
         n = min(b, args.requests - g0)
         prompt = rng.integers(0, cfg.vocab_size, (b, args.prompt_len)).astype(np.int32)
-        out = eng.generate(prompt, args.max_new)
+        out = eng.generate(prompt, args.max_new, sampler=sampler)
         for i in range(n):
             print(f"req {g0 + i}: {out[i].tolist()}")
     print("stats:", eng.stats.summary())

@@ -10,6 +10,11 @@ which reads ``min(cur_len + 1, cap)`` positions. ``cur_len`` may be a device
 scalar, so a CUDA graph can capture the step and the host set the position
 before each replay.
 
+Chunked prefill (``attention_prefill_chunk``) appends a chunk of C positions
+to the same caches in place and scores them with K4's chunk-append entry,
+``cur_len`` again a device scalar, so one CUDA graph per chunk length serves
+every chunk start.
+
 Sliding-window (ring) caches need no ring mask in K2: the cache holds
 ``cap = min(window, cache_len)`` slots, and after the write every filled
 slot holds a position in ``(cur_len - cap, cur_len]``, inside the window, so
@@ -109,6 +114,80 @@ def attention_prefill(
         cache["k"][:, :n] = k[:, :n]
         cache["v"][:, :n] = v[:, :n]
     return y, cache
+
+
+def attention_prefill_chunk(
+    p: Params, acfg: AttentionConfig, x: torch.Tensor,
+    cache: Dict[str, torch.Tensor], cur_len: Union[int, torch.Tensor],
+) -> torch.Tensor:
+    """Chunked prefill: append ``C`` positions to the cache IN PLACE and attend
+    against everything cached so far, the chunk included. x [B, C, D]; cache
+    k/v [B, cap, Hkv, dh]; ``cur_len`` = tokens already cached (an int or an
+    integer scalar on x's device). The chunk's K/V go to slots ``(cur_len +
+    j) % cap``. Returns y [B, C, D].
+
+    A window-free cache scores the post-write cache, where slot i holds
+    position i (K4's chunk-append entry on the card). A ring cache on the
+    CPU keeps the reference's semantics: the PRE-write cache concatenated
+    with the chunk's own K/V, so a previous-lap entry a chunk write
+    overwrites stays visible to the chunk's earlier queries
+    (``_ring_chunk_plain``). On the card a ring cache also takes the kernel,
+    which assumes the chunk does not wrap (``cur_len + C <= cap``, slot ==
+    position, where both semantics agree): a device ``cur_len`` cannot be
+    checked here, so the engine checks it on the host before each launch."""
+    b, c, _ = x.shape
+    ck, cv = cache["k"], cache["v"]
+    cap = ck.shape[1]
+    if c > cap:
+        raise ValueError(f"prefill chunk ({c}) exceeds KV capacity ({cap})")
+    on_card = x.device.type == "cuda"
+    if not isinstance(cur_len, torch.Tensor):
+        if on_card and cur_len + c > cap:
+            raise ValueError(f"a chunk at {cur_len} + {c} wraps the KV cache ({cap})")
+        cur_len = torch.full((), cur_len, dtype=torch.int64, device=x.device)
+    cl = cur_len.to(torch.int64).reshape(())
+    qpos = cl + torch.arange(c, device=x.device)                        # [C]
+    q, k_new, v_new = _project_qkv(p, acfg, x, qpos[None, :])
+    ring = acfg.window is not None and not on_card
+    if ring:
+        pre = (ck.clone(), cv.clone())
+    slots = torch.remainder(qpos, cap)
+    ck.index_copy_(1, slots, k_new)
+    cv.index_copy_(1, slots, v_new)
+    if ring:
+        ctx = _ring_chunk_plain(acfg, q, *pre, k_new, v_new, cl)
+    else:
+        ctx = ops.flash_attention_chunk(q, ck, cv, cl, window=acfg.window,
+                                        soft_cap=acfg.logit_soft_cap)
+    return ctx.reshape(b, c, -1) @ p["wo"]
+
+
+def _ring_chunk_plain(acfg: AttentionConfig, q: torch.Tensor, pre_k: torch.Tensor,
+                      pre_v: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                      cl: torch.Tensor) -> torch.Tensor:
+    """The reference's ring-cache chunk scoring (``attention.py:349-372``):
+    the pre-write cache, whose slot i holds the newest position < ``cl``
+    congruent to i (negative, so masked, where never written), concatenated
+    with the chunk's K/V; causal and window masks on those positions."""
+    b, c, h, dh = q.shape
+    hkv, cap = acfg.num_kv_heads, pre_k.shape[1]
+    g = h // hkv
+    k_all = torch.cat([pre_k, k_new], dim=1).float()
+    v_all = torch.cat([pre_v, v_new], dim=1).float()
+    idx = torch.arange(cap, device=q.device)
+    end0 = cl - 1
+    qpos = cl + torch.arange(c, device=q.device)
+    kpos = torch.cat([end0 - torch.remainder(end0 - idx, cap), qpos])          # [cap + C]
+    qg = q.reshape(b, c, hkv, g, dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_all) / math.sqrt(dh)
+    if acfg.logit_soft_cap is not None:
+        s = acfg.logit_soft_cap * torch.tanh(s / acfg.logit_soft_cap)
+    valid = ((kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
+             & (kpos[None, :] > qpos[:, None] - acfg.window))
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_all)
+    return ctx.reshape(b, c, h, dh).to(q.dtype)
 
 
 def attention_decode(

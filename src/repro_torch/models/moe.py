@@ -12,9 +12,12 @@ about 13 GB per weight tensor. Two groupings feed K1:
 
 * few tokens (decode): every (token, pick) is its own group with C = 1, its
   LUT entry the pick's slot — no host round trip;
-* many tokens (prefill): picks are grouped by slot, as ``sorted_dispatch``
-  does, so each resident slot is read once per layer; this needs the group
-  sizes on the host, one sync per call.
+* many tokens (a prefill chunk, or the legacy walk's whole prompt): the
+  picks' rows sorted by slot on the device (a stable argsort of the T*k
+  slot ids) with each slot's first row found there too (a search of the
+  sorted ids), through K1's ragged entry, so each resident slot is read
+  once per layer and no count reaches the host: a CUDA graph can capture
+  it.
 
 Misses keep the reference's sentinel: a routed expert whose LUT entry is
 the planes' last row (``num_slots`` for one generation of slots, the second
@@ -23,7 +26,7 @@ zeros and its weight is dropped; the engine corrects it on the host.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,9 +118,22 @@ def expert_ffn(src: Params, xs: torch.Tensor, lut: torch.Tensor) -> torch.Tensor
     holds ``w_*`` and, for quantized slots, their ``scale_w_*`` / ``min_w_*``
     planes; those give f32 gate/up outputs, and the hidden returns to x's
     type before the down matrix. The output is f32 when quantized."""
-    def gmm(name: str, x: torch.Tensor) -> torch.Tensor:
-        return ops.slot_gmm(x, src[name], lut, src.get(f"scale_{name}"), src.get(f"min_{name}"))
+    return _ffn(src, xs, lambda name, x: ops.slot_gmm(
+        x, src[name], lut, src.get(f"scale_{name}"), src.get(f"min_{name}")))
 
+
+def expert_ffn_ragged(src: Params, xs: torch.Tensor, offsets: torch.Tensor,
+                      miss_slot: Optional[int] = None) -> torch.Tensor:
+    """:func:`expert_ffn` on rows sorted by slot: xs [N, D], ``offsets``
+    [S1+1] (slot s owns rows ``offsets[s] .. offsets[s+1]``) -> [N, D]."""
+    return _ffn(src, xs, lambda name, x: ops.slot_gmm_ragged(
+        x, src[name], offsets, src.get(f"scale_{name}"), src.get(f"min_{name}"),
+        miss_slot=miss_slot))
+
+
+def _ffn(src: Params, xs: torch.Tensor,
+         gmm: Callable[[str, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """SwiGLU (or GELU) around ``gmm(weight name, x)``, one of K1's entries."""
     if "w_gate" in src:
         h = F.silu(gmm("w_gate", xs)) * gmm("w_up", xs)
     else:
@@ -135,7 +151,9 @@ def moe_apply_routed(
     lut: Optional[torch.Tensor] = None,   # [E] int: expert -> row, last row = MISS
     include_shared: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Apply already-routed experts. Returns (y [T, D], miss [T, k] bool)."""
+    """Apply already-routed experts. Returns (y [T, D], miss [T, k] bool).
+    More than ``PER_PICK_MAX`` picks take the ragged grouping (on the
+    device)."""
     t, k = ids.shape
     ids_l = ids.long()
     if slot_buffer is not None:
@@ -155,43 +173,27 @@ def moe_apply_routed(
         xs = x2d.repeat_interleave(k, dim=0)[:, None, :]           # [T*k, 1, D]
         outs = expert_ffn(src, xs, gidx.reshape(-1))[:, 0]          # [T*k, D]
     else:
-        outs = _grouped(src, x2d, gidx, miss, num_slots)           # [T*k, D]
+        outs = _ragged(src, x2d, gidx, num_slots)                  # [T*k, D]
     y = (outs.float().reshape(t, k, -1) * w_eff[..., None]).sum(dim=1).to(x2d.dtype)
     if include_shared and "shared" in p:
         y = y + shared_ffn(p, x2d)
     return y, miss
 
 
-def _grouped(src: Params, x2d: torch.Tensor, gidx: torch.Tensor, miss: torch.Tensor,
-             miss_slot: Optional[int]) -> torch.Tensor:
-    """Picks grouped by slot into K1's [G, C, D] form (C = the largest group,
-    shorter groups zero-padded); missed picks are left out (their weight is
-    dropped anyway). Returns the per-pick outputs [T*k, D] in pick order."""
+def _ragged(src: Params, x2d: torch.Tensor, gidx: torch.Tensor,
+            miss_slot: Optional[int]) -> torch.Tensor:
+    """The picks' rows sorted by slot (a stable argsort of the T*k store
+    rows; missed picks read ``miss_slot``, the last row, and sort last) and
+    each slot's first row (a search of the sorted rows), both on the device;
+    the FFN through K1's ragged entry, which leaves MISS rows zero; the
+    outputs back in pick order. Returns [T*k, D]."""
     t, k = gidx.shape
-    d = x2d.shape[1]
     flat = gidx.reshape(-1)
-    keep = ~miss.reshape(-1)
     n_store = int(src["w_up"].shape[0])
-    counts = torch.bincount(flat[keep], minlength=n_store)
-    counts_h = counts.cpu()                                      # the one sync
-    if miss_slot is not None:
-        counts_h[miss_slot] = 0
-    used = torch.nonzero(counts_h > 0).flatten()
-    if used.numel() == 0:
-        return torch.zeros((t * k, d), dtype=x2d.dtype, device=x2d.device)
-    c_max = int(counts_h.max())
-    group_of = torch.full((n_store,), -1, dtype=torch.long)
-    group_of[used] = torch.arange(used.numel())
-    group_of = group_of.to(x2d.device)
-    pick = torch.nonzero(keep).flatten()                         # kept picks
-    order = pick[torch.argsort(flat[pick], stable=True)]
-    slot_sorted = flat[order]
-    starts = torch.cumsum(counts, 0) - counts                   # first row per slot
-    pos = torch.arange(order.numel(), device=x2d.device) - starts[slot_sorted]
-    grp = group_of[slot_sorted]
-    xs = torch.zeros((used.numel(), c_max, d), dtype=x2d.dtype, device=x2d.device)
-    xs[grp, pos] = x2d[order // k]
-    ys = expert_ffn(src, xs, used.to(device=x2d.device, dtype=torch.int32))
-    out = torch.zeros((t * k, d), dtype=ys.dtype, device=x2d.device)
-    out[order] = ys[grp, pos]
-    return out
+    order = torch.argsort(flat, stable=True)
+    bounds = torch.arange(n_store + 1, dtype=flat.dtype, device=x2d.device)
+    offsets = torch.searchsorted(flat[order], bounds).to(torch.int32)   # [S1+1]
+    xs = x2d.index_select(0, order // k)                                # [T*k, D]
+    ys = expert_ffn_ragged(src, xs, offsets, miss_slot)
+    return torch.empty_like(ys).index_copy_(0, order, ys)
+

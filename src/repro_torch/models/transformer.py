@@ -7,8 +7,10 @@ The counterpart of ``repro/models/transformer.py`` for MoE stacks of
 (the reference stacks repeated layers for its ``lax.scan``; a Python loop
 over layers needs no stacking). The KV state is a list of per-layer
 ``{"k", "v"}`` caches that decode updates in place. The speculative window
-(``decode_window``) and its KV snapshot / rollback follow the reference's
-``decode_window``, ``snapshot_kv_window`` and ``rollback_kv_window``.
+(``decode_window``, greedy or sampled) and its KV snapshot / rollback follow
+the reference's ``decode_window``, ``snapshot_kv_window`` and
+``rollback_kv_window``; a prefill chunk (``prefill_chunk_model``) appends C
+positions to the same caches, the reference's ``prefill_chunk_model``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sampling as sampling_mod
 from repro_torch.models.layers import Params, apply_norm, embed_init, init_norm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -88,12 +91,15 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     """Attention + residual, then the MoE input norm: (x_mid, h2 [T, D], state).
     ``prefill`` rewrites ``state`` in place (a fresh cache when it is None);
     ``decode`` updates ``state`` in place at ``cur_len`` (an int or a device
-    scalar)."""
+    scalar); ``chunk`` appends x's C positions to ``state`` in place at
+    ``cur_len``."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     if mode == "prefill":
         y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len, state)
     elif mode == "decode":
         y = attn.attention_decode(p["attn"], cfg.attention, h, state, cur_len)
+    elif mode == "chunk":
+        y = attn.attention_prefill_chunk(p["attn"], cfg.attention, h, state, cur_len)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x_mid = x + y
@@ -120,11 +126,45 @@ def decode_model(
     MoE inputs the demand GEMM reads) and ``route_x`` [L, T, D] (each block's
     input, the replay anchor)."""
     x = embed_tokens(params, token[:, None])
-    b, _, d = x.shape
+    x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency)
+    return lm_logits(cfg, params, x[:, -1:])[:, 0], aux
+
+
+def prefill_chunk_model(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,             # [B, C] the chunk's tokens
+    state: List[Dict[str, torch.Tensor]],
+    cur_len: Union[int, torch.Tensor],  # tokens already cached (int or device scalar)
+    residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
+    with_head: bool = True,
+) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
+    """One prefill chunk: append C prompt positions to the caches (in place)
+    through every layer in ``chunk`` mode, the multi-token sibling of
+    :func:`decode_model`; the MoE half routes all B*C chunk tokens (K3's
+    fused entry) and, past ``moe.PER_PICK_MAX`` picks, runs K1's ragged
+    entry. Returns (logits [B, V] at the chunk's last position, or None with
+    ``with_head=False``, and aux), aux as :func:`decode_model`'s with T =
+    B*C."""
+    x = embed_tokens(params, tokens)
+    x, aux = _run_stack(cfg, params, x, "chunk", state, cur_len, residency)
+    if not with_head:
+        return None, aux
+    return lm_logits(cfg, params, x[:, -1:])[:, 0], aux
+
+
+def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
+               state: List[Dict[str, torch.Tensor]], cur_len: Union[int, torch.Tensor],
+               residency: Optional[List[Tuple[Params, torch.Tensor]]]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Every layer in ``mode`` (``decode`` or ``chunk``): attention, routing,
+    the routed experts through each layer's residency. Returns the last
+    hidden [B, S, D] and the routing telemetry stacked over layers."""
+    d = x.shape[-1]
     tel: Dict[str, List[torch.Tensor]] = {n: [] for n in ("ids", "weights", "miss", "h", "x")}
     for li, p in enumerate(params["layers"]):
         tel["x"].append(x.reshape(-1, d))
-        x_mid, h2, _ = attn_half(cfg, p, x, "decode", state[li], cur_len, 0)
+        x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0)
         ids, weights = moe_mod.route(p["moe"], h2, cfg.moe)
         slots, lut = residency[li] if residency is not None else (None, None)
         y2, miss = moe_mod.moe_apply_routed(p["moe"], h2, ids, weights,
@@ -132,9 +172,7 @@ def decode_model(
         x = x_mid + y2.reshape(x_mid.shape)
         for n, v in (("ids", ids), ("weights", weights), ("miss", miss), ("h", h2)):
             tel[n].append(v)
-    logits = lm_logits(cfg, params, x[:, -1:])[:, 0]
-    aux = {f"route_{n}": torch.stack(v) for n, v in tel.items()}
-    return logits, aux
+    return x, {f"route_{n}": torch.stack(v) for n, v in tel.items()}
 
 
 def decode_window(
@@ -146,19 +184,27 @@ def decode_window(
     k_steps: int,
     residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
     aux_fn: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
+    sample: Optional[sampling_mod.SampleParams] = None,
+    rng_keys: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """``k_steps`` self-drafted decode steps (the speculative window; the
-    reference's ``decode_window`` with greedy drafting).
+    reference's ``decode_window``).
 
     Position ``j`` runs :func:`decode_model` at ``cur_len + j`` (a device
     scalar stays on the device, so a CUDA graph can capture the window) and
-    drafts the next position's token by argmax on the device; every position
-    gathers from the same ``residency`` and writes its KV slot in place.
+    drafts the next position's token by argmax on the device, or with
+    ``sample`` (and ``rng_keys`` [B, 2], the per-row base keys) by a draw
+    from the warped distribution keyed by ``fold_in(row_key, cur_len + j)``
+    (``sampling.sample_step``); every position gathers from the same
+    ``residency`` and writes its KV slot in place.
     Returns ``(draft [K, B], logits [K, B, V] f32, aux)``: ``draft[j]`` is
     the argmax of ``logits[j]`` (the token position j+1 consumed),
     ``logits[-1]`` is the reference's ``last_logits``, and every aux entry
     (after ``aux_fn``, applied per position) is stacked with a leading window
-    axis: ``route_ids`` [K, L, T, k], ``route_x`` [K, L, T, D], ..."""
+    axis: ``route_ids`` [K, L, T, k], ``route_x`` [K, L, T, D], ..., and when
+    sampling ``sample_probs`` [K, B, V] (the warped distributions, draft and
+    verifier of a self-drafting window) and ``sample_p`` [K, B] (the drawn
+    token's probability)."""
     tok = token
     drafts: List[torch.Tensor] = []
     logits_all: List[torch.Tensor] = []
@@ -167,7 +213,11 @@ def decode_window(
         logits, aux = decode_model(cfg, params, tok, state, cur_len + j, residency)
         if aux_fn is not None:
             aux = aux_fn(aux)
-        tok = torch.argmax(logits, dim=-1)          # lowest index on ties, as jnp / np
+        if sample is None:
+            tok = torch.argmax(logits, dim=-1)      # lowest index on ties, as jnp / np
+        else:
+            tok, probs, p_tok = sampling_mod.sample_step(logits, rng_keys, cur_len + j, sample)
+            aux = {**aux, "sample_probs": probs, "sample_p": p_tok}
         drafts.append(tok)
         logits_all.append(logits.float())
         auxs.append(aux)

@@ -413,7 +413,8 @@ def test_engine_on_card_matches_cpu(card):
     from repro_torch.models.transformer import Runtime, init_params
 
     cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype="float32")
-    # 2 x 40 prompt tokens x top-2 picks: grouped by slot (the tiled K1 body)
+    # 2 x 40 prompt tokens x top-2 picks: sorted by slot (K1's ragged entry,
+    # counted under the tiled body)
     prompt = np.random.default_rng(0).integers(0, 200, (2, 40)).astype(np.int32)
     out = {}
     for dev in ("cpu", "cuda"):
@@ -425,7 +426,10 @@ def test_engine_on_card_matches_cpu(card):
         out[dev] = (eng.generate(prompt, 8), eng.stats.replayed_steps, ops.launch_counts())
     np.testing.assert_array_equal(out["cpu"][0], out["cuda"][0])
     assert out["cuda"][1] > 0
-    bf16_kernels = {n: c for n, c in out["cuda"][2].items() if "_int" not in n}
+    # the legacy prefill walk and decode: every bf16/f32 kernel but K4's
+    # chunk entry (its engine test is test_chunk_graph_equals_eager_chunk)
+    bf16_kernels = {n: c for n, c in out["cuda"][2].items()
+                    if "_int" not in n and not n.endswith("_chunk")}
     assert all(n > 0 for n in bf16_kernels.values()), out["cuda"][2]
     assert all(n == 0 for n in out["cpu"][2].values())
 
@@ -883,3 +887,266 @@ def test_hot_walk_waits_on_the_routing_not_on_the_moe_half(card):
         toks.append(eng.decode(eng.last_logits, 1))
     np.testing.assert_array_equal(np.concatenate(toks, axis=1), want)
     assert len(running) >= 4 * eng.num_moe_layers and all(running)
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: K4's chunk-append entry, K1's ragged entry, chunk graphs
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [1, 5, 64, 130])
+@pytest.mark.parametrize("cur", [0, 77, 384])
+@pytest.mark.parametrize("window,soft_cap", [(None, None), (100, None), (None, 30.0)])
+def test_flash_attention_chunk_kernel_matches_plain(card, dtype, c, cur, window, soft_cap):
+    """C queries at positions cur .. cur + C - 1 against a 512-slot cache
+    (slots past cur + C hold stale values the kernel must not read), the
+    offset read from an int64 on the device."""
+    b, h, hkv, dh, cap = 2, 8, 2, 128, 512
+    q = _randn((b, c, h, dh), dtype, 0, card)
+    k = _randn((b, cap, hkv, dh), dtype, 1, card)
+    v = _randn((b, cap, hkv, dh), dtype, 2, card)
+    cl = torch.tensor(cur, device=card)
+    ops.reset_launch_counts()
+    out = ops.flash_attention_chunk(q, k, v, cl, window=window, soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_chunk"] == 1
+    want = ref.flash_attention_chunk_ref(q, k, v, cur, window=window, soft_cap=soft_cap)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    k2 = k.clone()
+    k2[:, cur + c:] = float("nan")                       # never read: past the live keys
+    out2 = ops.flash_attention_chunk(q, k2, v, cl, window=window, soft_cap=soft_cap)
+    assert torch.equal(out2, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_chunk_query_is_independent_of_chunk_length(card, dtype):
+    """A query's output does not depend on how many queries share its chunk
+    or where in it it sits: rows of one 200-query chunk equal, bit for bit,
+    the same positions scored in chunks of 1, 3 and 64 at other starts."""
+    b, h, hkv, dh, cap = 1, 32, 4, 128, 1024
+    q = _randn((b, 200, h, dh), dtype, 3, card)
+    k = _randn((b, cap, hkv, dh), dtype, 4, card)
+    v = _randn((b, cap, hkv, dh), dtype, 5, card)
+    start = 50
+    full = ops.flash_attention_chunk(q, k, v, torch.tensor(start, device=card))
+    for lo, n in ((0, 1), (7, 1), (63, 1), (64, 3), (100, 64), (199, 1), (136, 64)):
+        part = ops.flash_attention_chunk(q[:, lo:lo + n].contiguous(), k, v,
+                                         torch.tensor(start + lo, device=card))
+        assert torch.equal(part, full[:, lo:lo + n]), (lo, n)
+
+
+def test_flash_attention_chunk_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = _randn((1, 4, 8, 64), torch.bfloat16, 0, card)
+    k = _randn((1, 16, 2, 64), torch.bfloat16, 1, card)
+    with pytest.raises(ValueError, match="int64"):
+        fa.flash_attention_chunk(q, k, k, torch.tensor(3, dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="capacity"):
+        fa.flash_attention_chunk(_randn((1, 17, 8, 64), torch.bfloat16, 0, card), k, k,
+                                 torch.tensor(0, device=card))
+
+
+def _ragged_case(n, s1, seed, device, empty=(1, 4)):
+    """Slot ids of ``n`` picks over ``s1`` store rows (some slots empty, the
+    last the MISS row), sorted, and their offsets [s1 + 1] int32."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, s1, n)
+    ids[np.isin(ids, empty)] = s1 - 1
+    ids.sort()
+    offsets = np.searchsorted(ids, np.arange(s1 + 1)).astype(np.int32)
+    return torch.from_numpy(offsets).to(device)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "f32"])
+@pytest.mark.parametrize("n,d,f", [(1024, 2048, 768), (300, 768, 2048), (70, 130, 72)])
+def test_slot_gmm_ragged_kernel_matches_plain(card, kind, n, d, f):
+    """K1's ragged entry (the tensor-core body for bf16 x, the CUDA-core body
+    for f32 x and for rows that are not whole 16-byte copies) against its
+    plain version: MISS rows are zeros; without a MISS slot the last row
+    computes."""
+    from repro_torch.kernels import moe_gmm as gmm
+
+    s1 = 7
+    if kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        w = _randn((s1, d, f), dt, 1, card, scale=d ** -0.5)
+        scale = mn = None
+    else:
+        if d % 2:
+            pytest.skip("int4 packs rows in pairs")
+        w, scale, mn = _quant_store(kind, s1, d, f, 64 if d % 64 == 0 else 2, card, 1)
+        dt = torch.bfloat16
+    x = _randn((n, d), dt, 0, card)
+    offsets = _ragged_case(n, s1, n, card)
+    for miss in (s1 - 1, None):
+        ops.reset_launch_counts()
+        out = ops.slot_gmm_ragged(x, w, offsets, scale, mn, miss_slot=miss)
+        torch.cuda.synchronize()
+        stem = "slot_gmm" + ("" if kind in ("bf16", "f32") else f"_{kind}")
+        assert ops.symbol_launch_counts()[stem + "_tiled"] == {
+            f"{stem}_ragged_{'f32' if kind == 'f32' else 'bf16'}": 1}
+        want = ref.slot_gmm_ragged_ref(x, w, offsets, scale, mn, miss_slot=miss)
+        tol = TOL[torch.bfloat16] if kind == "bf16" else dict(atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(out.float(), want.float(), **tol)
+        if miss is not None:
+            assert not out[int(offsets[s1 - 1]):].float().abs().sum()
+    assert gmm.tiled_plan(d, f, dt, w.dtype, 64).tensor_cores == (kind != "f32" and d % 8 == 0)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_slot_gmm_ragged_rows_equal_the_grouped_body_bitwise(card, kind):
+    """A row gives the same bits through the ragged entry as through the
+    grouped tiled body: one slot's rows grouped [1, C, D] and the same rows
+    among other slots' in a ragged batch."""
+    d, f, s1 = 768, 384, 7
+    w, scale, mn = _tiled_store(kind, d, f, card)
+    x = _randn((200, d), torch.bfloat16, 0, card)
+    offsets = torch.tensor([0, 30, 30, 100, 133, 170, 200, 200], dtype=torch.int32, device=card)
+    ragged = ops.slot_gmm_ragged(x, w, offsets, scale, mn, miss_slot=s1 - 1)
+    for s in range(s1 - 1):
+        a, b = int(offsets[s]), int(offsets[s + 1])
+        if a == b:
+            continue
+        lut = torch.tensor([s], dtype=torch.int32, device=card)
+        grouped = ops.slot_gmm(x[None, a:b].contiguous(), w, lut, scale, mn)[0]
+        if b - a > 4:                                    # the tiled body (C <= 4: the GEMV)
+            assert torch.equal(ragged[a:b], grouped), s
+
+
+def test_ragged_moe_half_captures_in_a_graph(card):
+    """The chunk's MoE half (argsort, offsets, three ragged launches, the
+    scatter back) captured in a CUDA graph and replayed equals it eager, and
+    equals bit for bit each slot's rows run as one group [1, C, D] through
+    the tiled body's grouped entry (zero rows pad C past the GEMV's)."""
+    from repro_torch.models import moe
+
+    d, f, s1, e, t, k = 512, 256, 13, 32, 96, 4
+    src = {n: _randn(shape, torch.bfloat16, i, card, scale=shape[1] ** -0.5)
+           for i, (n, shape) in enumerate((("w_gate", (s1, d, f)), ("w_up", (s1, d, f)),
+                                           ("w_down", (s1, f, d))))}
+    for w in src.values():
+        w[s1 - 1] = 0
+    lut = torch.from_numpy(np.random.default_rng(0).permutation(e)).to(card, torch.int32)
+    lut = torch.where(lut < s1 - 1, lut, torch.full_like(lut, s1 - 1))
+    h2 = _randn((t, d), torch.bfloat16, 7, card)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, e, (t, k))).to(card, torch.int32)
+    wts = torch.rand((t, k), device=card)
+    eager, miss = moe.moe_apply_routed({}, h2, ids, wts, slot_buffer=src, lut=lut)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_apply_routed({}, h2, ids, wts, slot_buffer=src, lut=lut)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = moe.moe_apply_routed({}, h2, ids, wts, slot_buffer=src, lut=lut)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert miss.any() and torch.equal(out, eager)
+    gidx = lut[ids.long()].reshape(-1)
+    outs = torch.zeros((t * k, d), dtype=torch.bfloat16, device=card)
+    for s in range(s1 - 1):                          # every slot but MISS
+        rows = torch.nonzero(gidx == s).flatten()
+        if rows.numel():
+            xs = torch.zeros((1, max(rows.numel(), 8), d), dtype=h2.dtype, device=card)
+            xs[0, :rows.numel()] = h2[rows // k]
+            slot = torch.tensor([s], dtype=torch.int32, device=card)
+            outs[rows] = moe.expert_ffn(src, xs, slot)[0, :rows.numel()]
+    w_eff = wts * (gidx.reshape(t, k) < s1 - 1).float()
+    grouped = (outs.float().reshape(t, k, d) * w_eff[..., None]).sum(dim=1).to(h2.dtype)
+    assert torch.equal(grouped, eager)
+
+
+def _chunked_prefill(eng, prompt):
+    logits = eng.prefill(prompt)
+    return (logits, [(c["k"].cpu(), c["v"].cpu()) for c in eng.state],
+            {k: v for k, v in dataclasses.asdict(eng.stats).items() if k not in _MEASURED})
+
+
+@pytest.mark.parametrize("slots,prefetch,dtype", [
+    (0, False, "bfloat16"), (3, False, "float32"), (3, False, "bfloat16"),
+    (5, True, "bfloat16")])
+def test_chunk_graph_equals_eager_chunk(card, slots, prefetch, dtype):
+    """Chunked prefill with each chunk length one captured graph (plan [8, 8,
+    4, 1] over two requests) against the same chunks run eagerly on the
+    card: bitwise the same logits, caches and EngineStats; the chunked walk
+    gives the same logits and caches too. Three chunk lengths, three
+    captures; every chunk attends through K4's chunk entry."""
+    prompts = [np.random.default_rng(i).integers(0, 200, (2, 21)).astype(np.int32)
+               for i in range(2)]
+    out = {}
+    for variant in ("graph", "eager", "walk"):
+        switches = dict(fused_decode=False) if variant == "walk" else {}
+        _, eng = _reduced_engine(card, slots=slots, prefetch=prefetch and variant != "walk",
+                                 dtype=dtype, cache_len=64, prefill_chunk=8, **switches)
+        eng._capture = variant == "graph"
+        ops.reset_launch_counts()
+        runs = [_chunked_prefill(eng, p) for p in prompts]
+        torch.cuda.synchronize()
+        out[variant] = (runs, eng.graph_captures, eng.graph_replays, ops.launch_counts())
+    for (lg, kv, st), (le, kve, ste) in zip(out["graph"][0], out["eager"][0]):
+        assert lg.tobytes() == le.tobytes() and st == ste
+        assert all(torch.equal(a, b) for pa, pb in zip(kv, kve) for a, b in zip(pa, pb))
+    for (lg, kv, _), (lw, kvw, _) in zip(out["graph"][0], out["walk"][0]):
+        assert lg.tobytes() == lw.tobytes()
+        assert all(torch.equal(a, b) for pa, pb in zip(kv, kvw) for a, b in zip(pa, pb))
+    captures, replays, counts = out["graph"][1:]
+    assert captures == 3 and replays == 2 * 4 - 3    # (8), (4) and (1, with the head)
+    assert counts["flash_attention_chunk"] > 0 and counts["flash_attention"] == 0
+    if slots == 3:
+        assert out["graph"][0][0][2]["prefill_replays"] > 0
+
+
+def test_chunk_graph_runs_the_ragged_entry(card):
+    """Chunks of 32 tokens at batch 2 (128 picks a layer) take K1's ragged
+    entry inside the chunk graph; the graph equals the eager chunk and the
+    walk bit for bit."""
+    prompt = np.random.default_rng(3).integers(0, 200, (2, 40)).astype(np.int32)
+    out = {}
+    for variant in ("graph", "eager", "walk"):
+        switches = dict(fused_decode=False) if variant == "walk" else {}
+        _, eng = _reduced_engine(card, slots=3, dtype="bfloat16", cache_len=64,
+                                 prefill_chunk=32, **switches)
+        eng._capture = variant == "graph"
+        ops.reset_launch_counts()
+        out[variant] = (_chunked_prefill(eng, prompt), ops.symbol_launch_counts())
+    assert out["graph"][0][0].tobytes() == out["eager"][0][0].tobytes() \
+        == out["walk"][0][0].tobytes()
+    assert out["graph"][0][2] == out["eager"][0][2]
+    for variant in ("graph", "walk"):
+        tiled = out[variant][1]["slot_gmm_tiled"]
+        assert tiled.get("slot_gmm_ragged_bf16", 0) > 0 and set(tiled) == {"slot_gmm_ragged_bf16"}
+
+
+@pytest.mark.parametrize("spec_k,slots,prefetch,dtype", [
+    (1, 0, False, "bfloat16"), (4, 3, False, "float32"), (4, 3, False, "bfloat16"),
+    (2, 6, True, "bfloat16")])
+def test_sampled_window_graphs_equal_eager_windows(card, spec_k, slots, prefetch, dtype):
+    """Sampled windows (one graph per size and sampler) and the draw between
+    them (one graph per sampler) against the same windows and draws run
+    eagerly on the card: the same tokens, bitwise the same logits at every
+    committed position and the same EngineStats; the spec-K stream equals
+    the spec-1 stream."""
+    from repro_torch.serving.sampler import SamplerConfig
+
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 12)).astype(np.int32)
+    sc = SamplerConfig(temperature=0.8, top_k=50, top_p=0.95, seed=7)
+    out = {}
+    for capture in (True, False):
+        _, eng = _reduced_engine(card, slots=slots, prefetch=prefetch, dtype=dtype,
+                                 spec_k=spec_k)
+        eng._capture = capture
+        logits = eng.prefill(prompt)
+        eng.logit_log = [logits]
+        toks = eng.decode(logits, 15, sampler=sc)
+        stats = {k: v for k, v in dataclasses.asdict(eng.stats).items() if k not in _MEASURED}
+        out[capture] = (toks, eng.logged_logits(), stats, eng.graph_captures, sorted(
+            map(str, eng._graphs)))
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    assert sum(key.startswith("('draw'") for key in out[True][4]) == 1
+    assert out[True][1].tobytes() == out[False][1].tobytes()
+    assert out[True][2] == out[False][2] and out[True][2]["spec_windows"] > 0
+    assert out[True][3] > 0 and out[False][3] == 0
+    _, single = _reduced_engine(card, slots=slots, prefetch=prefetch, dtype=dtype)
+    np.testing.assert_array_equal(single.decode(single.prefill(prompt), 15, sampler=sc),
+                                  out[True][0])

@@ -192,8 +192,9 @@ def test_route_matches_jax_router_and_keeps_the_plain_bits(arch):
 def test_fused_step_walk_and_replay_route_through_ops_router_topk(monkeypatch):
     """On a reduced qwen36 run with 3 of 8 slots (misses, so replays), every
     routing call goes through ``ops.router_topk``: L per prefill walk, L per
-    fused decode step, one per replayed layer; the logits-in gate is never
-    called on the engine's path."""
+    fused decode step (``decode_model``'s layer loop, ``_run_stack``), one
+    per replayed layer; the logits-in gate is never called on the engine's
+    path."""
     from repro_torch.config import ResidencyConfig
     from repro_torch.core.engine import RotaryEngine
     from repro_torch.kernels import ops
@@ -220,6 +221,6 @@ def test_fused_step_walk_and_replay_route_through_ops_router_topk(monkeypatch):
     n_layers = len(tparams["layers"])
     assert eng.stats.replayed_steps > 0
     assert sites["_run_layers"] == n_layers
-    assert sites["decode_model"] == n_layers * steps
+    assert sites["_run_stack"] == n_layers * steps
     assert eng.stats.replayed_steps <= sites["_replay_fused"] <= eng.stats.replayed_steps * n_layers
-    assert set(sites) == {"_run_layers", "decode_model", "_replay_fused"}
+    assert set(sites) == {"_run_layers", "_run_stack", "_replay_fused"}

@@ -16,7 +16,7 @@ residency the logits, bitwise), ceil(T/K) pulls and launches when miss-free,
 accept rate 1 at full residency. Model and manager level, against JAX: the
 KV window snapshot / rollback (with a ring cache) and the window rotation,
 which also equals K sequential rotations. Small contracts: the accept rule,
-the flag rules, sampled decode refused, the serve CLI with ``--spec-k``.
+the flag rules, sampled decode accepted, the serve CLI with ``--spec-k``.
 """
 import dataclasses
 import math
@@ -258,7 +258,9 @@ def test_greedy_accept_rule():
 
 def test_spec_flag_rules_and_sampled_decode_refused():
     """Windows ride the fused step (no LRU, no host routing, no forced walk)
-    and fit the cache; sampled decode is not ported and raises."""
+    and fit the cache. Sampled decode is ported now and no longer refused
+    (``test_torch_sampling.py`` holds its streams to JAX's): ``greedy=False``
+    decodes in windows; only a sampler without a temperature is refused."""
     _, _, tcfg, np_params = _setup()
     params = from_reference(tcfg, np_params)
     rt = TRuntime(cache_len=32)
@@ -273,9 +275,10 @@ def test_spec_flag_rules_and_sampled_decode_refused():
         TEngine(tcfg, params, TRes(mode="full"), rt=rt, device="cpu", spec_k=0)
     eng = TEngine(tcfg, params, TRes(mode="full"), rt=rt, batch=2, device="cpu", spec_k=4)
     logits = eng.prefill(np.zeros((2, 4), np.int32))
-    for kw in (dict(greedy=False), dict(sampler=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            eng.decode(logits, 4, **kw)
+    toks = eng.decode(logits, 4, greedy=False)
+    assert toks.shape == (2, 4) and eng.stats.spec_windows == 1
+    with pytest.raises(AttributeError, match="temperature"):
+        eng.decode(eng.last_logits, 4, sampler=object())
 
 
 def test_serve_cli_runs_spec_windows_on_the_cpu(capsys, monkeypatch):

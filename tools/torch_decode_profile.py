@@ -2,14 +2,17 @@
 """Where a decode token's time goes, path by path, on the card.
 
     python3 tools/torch_decode_profile.py [--paths full,bf16,bf16-prefetch,int4-prefetch]
-                                          [--tokens 24] [--warm 4] [--out FILE] [--tree DIR]
+                                          [--tokens 24] [--warm 4] [--prefills 1]
+                                          [--out FILE] [--tree DIR]
 
 Imports the port and ``chip_smoke.py`` of the tree at ``DIR`` (default: this
 checkout) and builds each named path of its ``chip_smoke.py`` (``PATHS``:
 qwen36-35b-a3b at its published widths, 8 layers, the path's residency,
 slot format and decode switches: prefetch, the hot walk, host routing, LRU,
 speculative windows; the same random weights), prefills one prompt of 512
-tokens and decodes ``--warm`` tokens (a windowed path: one window of each
+tokens ``--prefills`` times (each timed: the path's prefill, legacy walk or
+chunked, from the residency the one before left) and decodes ``--warm``
+tokens (a windowed path: one window of each
 size, so every graph is captured before the measurement), then measures
 ``--tokens`` decode tokens, in one decode call, twice:
 
@@ -23,7 +26,11 @@ size, so every graph is captured before the measurement), then measures
    blocking uploads), the walk's pre-gating transitions (``prepare_layer``,
    also inside the rotations), the KV rollback, the upload calls
    (``SlotStore.write_batch``), the host miss GEMM, the rotations (step,
-   window) and ``begin_prefetch``;
+   window), ``begin_prefetch``, and on a sampled path the windows (launch to
+   rotation) and the draw between them (``RotaryEngine._draw``: the
+   logits' upload, a graph replay and the pull; a tree from before that
+   graph draws eagerly, timed as ``sampling.sample_step``; the draws inside
+   a window are graph replays);
 2. device split: the same number of tokens under ``torch.profiler`` (CPU and
    CUDA activity): device time per token by kernel or copy name (the top
    ones), the device's total (kernels and copies, summed over streams), its
@@ -92,13 +99,21 @@ def _timers(engine, acc):
                         ("begin_prefetch", "begin_prefetch")):
         wrap(m, name, label)
     wrap(tfm, "rollback_kv_window", "KV rollback")
+    if hasattr(engine, "_window_launch"):              # trees with sampled decode
+        from repro_torch.models import sampling
+
+        wrap(engine, "_decode_window_fused", "window (launch to rotation)")
+        if hasattr(engine, "_draw"):
+            wrap(engine, "_draw", "draw between windows (upload, graph, pull)")
+        else:
+            wrap(sampling, "sample_step", "draw between windows (eager)")
     wrap(torch.cuda.Event, "synchronize", "routing waits (event)")
     wrap(slots_mod.SlotStore, "write_batch", "upload calls")
     wrap(torch.Tensor, "cpu", "blocking pulls (.cpu)")
     return lambda: [u() for u in reversed(undo)]
 
 
-def profile_path(dev, cfg, depth, spec, tokens, warm):
+def profile_path(dev, cfg, depth, spec, tokens, warm, prefills=1):
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -111,9 +126,17 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
     engine = cs.make_engine(dev, cfg, params, spec)
     del params
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, cs.PROMPT)).astype(np.int32)
-    engine.decode(engine.prefill(prompt), warm)
+    # a sampled path draws its tokens (trees older than sampled decode have no sampler_of)
+    kw = {"sampler": cs.sampler_of(spec)} if getattr(spec, "sample", None) else {}
+    prefill_ms = []
+    for _ in range(max(prefills, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = engine.prefill(prompt)
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    engine.decode(logits, warm, **kw)
     for k in range(getattr(spec, "spec_k", 1) - 1, 0, -1):      # capture every window size
-        engine.decode(engine.last_logits, k)
+        engine.decode(engine.last_logits, k, **kw)
     st = engine.stats
 
     def counters():
@@ -129,7 +152,7 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
     c0 = counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.decode(engine.last_logits, tokens)
+    engine.decode(engine.last_logits, tokens, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     undo()
@@ -140,7 +163,7 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.decode(engine.last_logits, tokens)
+        engine.decode(engine.last_logits, tokens, **kw)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     rows = []
@@ -157,7 +180,8 @@ def profile_path(dev, cfg, depth, spec, tokens, warm):
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     out = dict(
-        path=spec.label, tokens=tokens, wall_ms_per_token=1e3 * wall / tokens,
+        path=spec.label, tokens=tokens, prefill_ms=prefill_ms,
+        wall_ms_per_token=1e3 * wall / tokens,
         host_ms_per_token=host,
         per_token=dict(replayed=(c1["replayed"] - c0["replayed"]) / tokens,
                        relaunched=(c1["relaunched"] - c0["relaunched"]) / tokens,
@@ -185,6 +209,7 @@ def main() -> int:
     ap.add_argument("--paths", default="full,bf16,bf16-prefetch,int4-prefetch")
     ap.add_argument("--tokens", type=int, default=24)
     ap.add_argument("--warm", type=int, default=4)
+    ap.add_argument("--prefills", type=int, default=1)
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     ap.add_argument("--tree", default=str(ROOT))
     args = ap.parse_args()
@@ -208,10 +233,11 @@ def main() -> int:
     results = []
     for label in args.paths.split(","):
         r = profile_path(torch.device("cuda"), cfg, full.num_layers, specs[label], args.tokens,
-                         args.warm)
+                         args.warm, args.prefills)
         results.append(r)
         r["tree"] = tree.name
-        print(f"[{tree.name}/{label}] wall {r['wall_ms_per_token']:.2f} ms/token; per token: "
+        print(f"[{tree.name}/{label}] prefill ms {r['prefill_ms']}; "
+              f"wall {r['wall_ms_per_token']:.2f} ms/token; per token: "
               f"{r['per_token']}; host (inclusive ms/token): "
               + ", ".join(f"{k} {v:.2f}" for k, v in r["host_ms_per_token"].items()), flush=True)
         print(f"  device {r['device_ms_per_token']:.3f} ms/token of "
