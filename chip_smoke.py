@@ -204,6 +204,7 @@ REPLACES = {
     "slot_gmm_int4": "src/repro/kernels/moe_gmm.py:78",
     "slot_gmm_int4_tiled": "src/repro/kernels/moe_gmm.py:78",
     "decode_attention": "src/repro/kernels/decode_attention.py:70",
+    "decode_attention_paged": "src/repro/kernels/decode_attention.py:70",
     "topk_gate": "src/repro/kernels/topk_gate.py:81",
     "router_topk": "src/repro/kernels/topk_gate.py:81",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
@@ -220,6 +221,7 @@ SOURCE = {
     "slot_gmm_int4": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "slot_gmm_int4_tiled": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "decode_attention_paged": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "topk_gate": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "router_topk": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -229,6 +231,9 @@ SOURCE = {
     "slot_gmm_int4_ragged": "src/repro_torch/kernels/csrc/moe_gmm.cu",
 }
 ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", "router_topk_"),
+         "decode_attention": ("decode_attention", ("decode_attention_bf16",
+                                                   "decode_attention_f32")),
+         "decode_attention_paged": ("decode_attention", "decode_attention_paged_"),
          **{f"slot_gmm{q}_{e}": (f"slot_gmm{q}_tiled", f"slot_gmm{q}_{e}_")
             for q in ("", "_int8", "_int4") for e in ("tiled", "ragged")}}
 ROUTE_MARGIN = 1e-6                # probability gap that a summation order cannot close
@@ -458,6 +463,7 @@ def kernel_phase(dev):
         bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * length * h * dh,
         shape=f"q [1,{h},{dh}] vs cache [1,{s},{hkv},{dh}] bf16 at length {length}",
     )
+    rows["decode_attention_paged"] = paged_row(dev, g)
 
     # --- K3 topk_gate: T in {1, 512}, E=128, k=8, forced ties -------------------
     err = 0.0
@@ -527,12 +533,88 @@ def kernel_phase(dev):
                 f"{pf['plain_device_ms']:.4f}; library {pf['library_ms']:.4f} / "
                 f"{pf['library_device_ms']:.4f}; bound_ms {pf['bound_ms']:.5f} ({pf['bound_by']}); "
                 f"{rate(pf)}")
+        if "gather_k2_ms" in r:
+            log(f"    {name}: gather + the contiguous entry {r['gather_k2_ms']:.4f} per call "
+                f"(wall), {r['gather_k2_device_ms']:.4f} device; the contiguous entry alone on "
+                f"the view gathered beforehand {r['contiguous_ms']:.4f} / "
+                f"{r['contiguous_device_ms']:.4f}")
         for label, sub in (("decode", r), ("prefill", r.get("prefill"))):
             if sub and "three_call_ms" in sub:
                 log(f"    {name} ({label}): the three calls it replaced (h2.float(), f32 GEMM, "
                     f"logits-in gate) {sub['three_call_ms']:.4f} per call (wall), "
                     f"{sub['three_call_device_ms']:.4f} device")
     return rows
+
+
+PAGED_ROWS, PAGE = 4, 16
+PAGED_LENS = (37, 300, 576, 1024)
+
+
+def paged_row(dev, g):
+    """Phase 3 for K2's paged entry at the serving shape: 4 rows of the
+    1024-position logical cache in pages of 16 (64 pages a row, shuffled
+    over shared planes whose spare pages hold garbage), lengths 37 / 300 /
+    576 / 1024. Held to its plain version (with and without the soft-cap),
+    bitwise to the contiguous entry on the gathered view, and batch
+    invariant (row 0 alone against row 0 among 4, bitwise); timed beside
+    the plain version, gather + SDPA with a length mask (``library``),
+    gather + the contiguous entry, and the contiguous entry alone on a view
+    gathered beforehand (what the page table's addressing costs); bound:
+    the valid K/V read once, q and out, the table rows used."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    h, hkv, dh, b = 32, 4, 128, PAGED_ROWS
+    n_pages = CACHE // PAGE
+    planes = b * n_pages + 1 + 7                     # the scratch page and spares
+    kp = torch.randn((planes, PAGE, hkv, dh), generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn((planes, PAGE, hkv, dh), generator=g, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(planes - 1, generator=g, device=dev)[:b * n_pages] + 1
+    pt = perm.reshape(b, n_pages).to(torch.int32)
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, h, dh), generator=g, device=dev).to(torch.bfloat16)
+
+    def gather():
+        return (kp[pt.long()].reshape(b, CACHE, hkv, dh), vp[pt.long()].reshape(b, CACHE, hkv, dh))
+
+    err = 0.0
+    for cap in (None, 30.0):
+        got = dec.decode_attention_paged(q, kp, vp, pt, lens, soft_cap=cap)
+        err = max(err, check_close(f"decode_attention_paged soft_cap={cap}", got,
+                                   ref.decode_attention_paged_ref(q, kp, vp, pt, lens,
+                                                                  soft_cap=cap), **KERNEL_TOL))
+        if not torch.equal(got, dec.decode_attention(q, *gather(), lens, soft_cap=cap)):
+            raise AssertionError("decode_attention_paged: not bitwise the contiguous entry on "
+                                 "the gathered view")
+    full = dec.decode_attention_paged(q, kp, vp, pt, lens)
+    if not torch.equal(dec.decode_attention_paged(q[:1], kp, vp, pt[:1], lens[:1]), full[:1]):
+        raise AssertionError("decode_attention_paged: row 0 alone differs from row 0 among 4")
+    mask = (torch.arange(CACHE, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+    def sdpa():
+        k, v = gather()
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    kg, vg = gather()
+    valid = sum(PAGED_LENS)
+    nbytes = (2 * valid * hkv * dh * 2 + 2 * b * h * dh * 2
+              + 4 * sum(-(-n // PAGE) for n in PAGED_LENS) + 4 * b)
+    b_ms, b_by = bound(nbytes, 4 * valid * h * dh)
+    return dict(
+        max_abs_err=err,
+        **timed(kernel=lambda: dec.decode_attention_paged(q, kp, vp, pt, lens),
+                plain=lambda: ref.decode_attention_paged_ref(q, kp, vp, pt, lens),
+                library=sdpa, gather_k2=lambda: dec.decode_attention(q, *gather(), lens),
+                contiguous=lambda: dec.decode_attention(q, kg, vg, lens)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * valid * h * dh,
+        shape=f"q [{b},{h},{dh}] vs planes [{planes},{PAGE},{hkv},{dh}] bf16 through a "
+              f"shuffled page table [{b},{n_pages}], lengths {'/'.join(map(str, PAGED_LENS))}; "
+              f"bitwise the contiguous entry on the gathered view, row 0 alone == row 0 among "
+              f"{b}; library: gather + SDPA with a length mask")
 
 
 def chunk_row(dev, g):
@@ -854,6 +936,14 @@ def reference_logits(cfg, engine, tokens, dtype):
     every expert resident, in ``dtype``, on the engine's weights cast to it
     (a quantized warehouse dequantized first), calling ``kernels/ref.py``
     directly."""
+    s = tokens.shape[1]
+    return reference_rows(cfg, engine, tokens, [list(range(s))], dtype)[0]
+
+
+def reference_rows(cfg, engine, tokens, rows, dtype):
+    """:func:`reference_logits` over a batch ``tokens`` [B, S] (right-padded
+    rows: the forward is causal, so pads reach no earlier position), the
+    logits at positions ``rows[b]`` of each row b only, [B, R, V] f32."""
     import torch
     import torch.nn.functional as F
 
@@ -871,14 +961,15 @@ def reference_logits(cfg, engine, tokens, dtype):
     m = cfg.moe
     emb = cast(engine.embed_params)
     x = tfm.embed_tokens(emb, torch.as_tensor(tokens, device=dev))
-    s, d = x.shape[1], x.shape[2]
+    b, s, d = x.shape
     pos = torch.arange(s, device=dev)[None, :]
     for li, p in enumerate(engine.layers):
-        p = cast(p)
+        p = cast({k: v for k, v in p.items() if k != "moe"}
+                 | {"moe": {k: v for k, v in p["moe"].items() if k != "experts"}})
         h = apply_norm(cfg.norm, p["ln1"], x)
         q, k, v = attn._project_qkv(p["attn"], cfg.attention, h, pos)
-        x = x + ref.flash_attention_ref(q, k, v, causal=True).reshape(1, s, -1) @ p["attn"]["wo"]
-        h2 = apply_norm(cfg.norm, p["ln2"], x).reshape(s, d)
+        x = x + ref.flash_attention_ref(q, k, v, causal=True).reshape(b, s, -1) @ p["attn"]["wo"]
+        h2 = apply_norm(cfg.norm, p["ln2"], x).reshape(b * s, d)
         ids, w = ref.topk_gate_ref(h2.float() @ p["moe"]["router"], m.top_k,
                                    normalize=m.norm_topk_prob)
         experts = float_experts(engine, li, dtype)
@@ -898,10 +989,12 @@ def reference_logits(cfg, engine, tokens, dtype):
         ys = ref.slot_gmm_ref(hid, experts["w_down"], used)
         outs = torch.empty((flat.numel(), d), dtype=x.dtype, device=dev)
         outs[order] = ys[grp[flat[order]], row]
-        y = (outs.float().reshape(s, m.top_k, d) * w[..., None]).sum(1).to(x.dtype)
-        x = x + y.reshape(1, s, d)
+        y = (outs.float().reshape(b * s, m.top_k, d) * w[..., None]).sum(1).to(x.dtype)
+        x = x + y.reshape(b, s, d)
         del experts, xs, hid, ys, outs
-    return tfm.lm_logits(cfg, emb, x)[0].float()
+    idx = torch.as_tensor(rows, device=dev)                              # [B, R]
+    picked = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))
+    return tfm.lm_logits(cfg, emb, picked).float()
 
 
 def sure_positions(truth, plain):
@@ -1317,6 +1410,269 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 5 for the serving engine (continuous batching, paged KV)
+# ---------------------------------------------------------------------------
+SERVE_REQUESTS, SERVE_NEW, SERVE_ROWS, SPEC_CAP = 8, 32, 4, 4
+SERVE_LENS = (64, 512)                 # prompt lengths drawn in this range from the run's seed
+
+
+class ServeSpec(NamedTuple):
+    label: str
+    quantization: Optional[str]
+    slots: int                          # 0: full residency
+    prefetch: bool
+    sample: Optional[Tuple[float, int, float, int]] = None
+    isolated: bool = False              # each request also served alone: the same tokens
+    baseline: Optional[str] = None      # tokens and residency transitions equal this path's
+
+
+SERVE_PATHS = (
+    ServeSpec("serve-full", None, 0, False, isolated=True),
+    ServeSpec("serve-bf16", None, SLOTS, False),
+    ServeSpec("serve-int4", "int4", SLOTS, False),
+    ServeSpec("serve-int4-prefetch", "int4", SLOTS, True, baseline="serve-int4"),
+    ServeSpec("serve-sample", None, 0, False, sample=SAMPLE, isolated=True),
+)
+
+
+def make_server(dev, cfg, params, spec: ServeSpec):
+    """The path's ``ServingEngine``: 4 rows, cache_len CACHE, pages of PAGE,
+    speculative windows up to SPEC_CAP."""
+    from repro_torch.config import ResidencyConfig
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serving import SamplerConfig, ServingEngine
+
+    res = None
+    if spec.slots:
+        res = ResidencyConfig(mode="rotary", num_slots=spec.slots,
+                              quantization=spec.quantization, quant_group_size=GROUP)
+    smp = None
+    if spec.sample:
+        t, k, p, seed = spec.sample
+        smp = SamplerConfig(temperature=t, top_k=k, top_p=p, seed=seed)
+    return ServingEngine(cfg, params, rt=Runtime(cache_len=CACHE), num_slots=SERVE_ROWS,
+                         residency=res, sampler=smp, spec_cap=SPEC_CAP, kv_page_size=PAGE,
+                         prefetch=spec.prefetch, device=dev)
+
+
+class _Weights(NamedTuple):
+    """What ``reference_rows`` reads of an engine: the serving engine's float
+    experts per layer (on the card at full residency, the pinned warehouse
+    else, the float store its prefill reads under quantized slots)."""
+    device: object
+    embed_params: dict
+    layers: list
+    host_experts: list
+
+
+def serve_weights(engine) -> _Weights:
+    if engine.res_mgr is None:
+        experts = [p["moe"]["experts"] for p in engine.layers]
+    else:
+        experts = engine._float_experts or engine.host_experts
+    return _Weights(engine.device, engine.embed_params, engine.layers, experts)
+
+
+def draw_margin(truth_row, key, pos: int, sample) -> float:
+    """The top-2 gap of the Gumbel-max scores that drew position ``pos``
+    (``sampling.draw`` with the request's key) under the truth's logits:
+    how far the drawn token led."""
+    import torch
+
+    from repro_torch.models import sampling as sm
+
+    t, k, p, _ = sample
+    sp = sm.SampleParams(t, k, p)
+    logits = torch.as_tensor(truth_row, device=key.device)[None]
+    probs = sm.warp_probs(logits, sp)
+    score = sm.gumbel(sm.position_keys(key[None], pos), logits.shape[-1]) + torch.where(
+        probs > 0, torch.log(probs), torch.full_like(probs, float("-inf")))
+    top2 = torch.topk(score[0], 2).values
+    return float(top2[0] - top2[1])
+
+
+def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
+    """Phases 4 and 5 for one serving path: eight requests of mixed prompt
+    lengths submitted at once to a ServingEngine, after ``warmup`` captured
+    its window graphs; the launch counters zeroed just before ``run`` and
+    read just after. Holds every request's first-token logits (its admission
+    prefill) to the f32 truth, and, as the path asks, each request's tokens
+    to the same request served alone (margin guard), a sampled run to a
+    second one, or the tokens and transitions to a baseline path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import sampling as sm
+    from repro_torch.models.transformer import init_params
+
+    label = spec.label
+    experts = cfg.moe.num_experts
+    where = (f"rotary residency {spec.slots}/{experts} slots" if spec.slots
+             else f"all {experts} experts resident")
+    how = ("sampled (temperature %s, top-k %s, top-p %s)" % spec.sample[:3] if spec.sample
+           else "greedy")
+    log(f"[4/{label}] ServingEngine, {cfg.name} at published widths, {LAYERS} of {depth} "
+        f"layers, {where} in {spec.quantization or 'bf16'}, {SERVE_ROWS} rows, pages of {PAGE}, "
+        f"windows up to {SPEC_CAP}, {'prefetch, ' if spec.prefetch else ''}{how}, "
+        f"{SERVE_REQUESTS} requests submitted at once, {SERVE_NEW} new tokens each, cache_len "
+        f"{CACHE}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, dev, expert_device="cpu")
+    engine = make_server(dev, cfg, params, spec)
+    del params
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    seeds = [100 + i for i in range(SERVE_REQUESTS)] if spec.sample else [None] * SERVE_REQUESTS
+    t0 = time.perf_counter()
+    graphs = engine.warmup()
+    warm_s = time.perf_counter() - t0
+    log(f"  set-up {setup_s:.1f} s; warmup captured {graphs} window graphs in "
+        f"{warm_s * 1e3:.0f} ms ({engine.graph_capture_s * 1e3:.0f} ms in the captures); prompt "
+        f"lengths {lens.tolist()}")
+    first = {}
+    prefill = engine._prefill_admitted
+
+    def record(admitted):
+        out = prefill(admitted)
+        for req, logits, _ in out:
+            first[req.uid] = logits[0]
+        return out
+
+    def serve(batch):
+        reqs = [engine.submit(prompts[i], SERVE_NEW, seed=seeds[i]) for i in batch]
+        engine.run()
+        return [r.output for r in reqs], reqs
+
+    st = engine.stats
+    engine._prefill_admitted = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bytes0, captures0 = st.bytes_uploaded, engine.graph_captures
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, reqs = serve(range(SERVE_REQUESTS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    symbols = ops.symbol_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del engine._prefill_admitted
+    summ = engine.summary()
+    committed = SERVE_REQUESTS * SERVE_NEW
+    layers = st.layers.values()
+    transitions = dict(loads=sum(l.loads for l in layers), hits=st.hits, misses=st.misses,
+                       forward=sum(l.forward_rotations for l in layers),
+                       reverse=sum(l.reverse_rotations for l in layers))
+    mb_per_token = (st.bytes_uploaded - bytes0) / 2**20 / committed
+    log(f"  {committed} tokens in {wall:.2f} s: {committed / wall:.1f} tok/s aggregate; TTFT "
+        f"p50 {summ['ttft_p50_ms']:.1f} / p99 {summ['ttft_p99_ms']:.1f} ms, ITL p50 "
+        f"{summ['itl_p50_ms']:.2f} / p99 {summ['itl_p99_ms']:.2f} ms; windows {st.windows} "
+        f"(spec {st.spec_windows}, accept rate {st.accept_rate:.3f}), misses {st.misses} "
+        f"({st.misses / committed:.3f} per token), pages high-water {st.kv_pages_hwm} of "
+        f"{engine.pool.num_pages}, {mb_per_token:.2f} MB uploaded per token, transitions "
+        f"{transitions}, peak device memory {peak / 2**30:.2f} GiB; graph replays "
+        f"{engine.graph_replays}")
+    if spec.prefetch:
+        log(f"  prefetch: launched {st.prefetch_launched} uploads, hits {st.prefetch_hits}, "
+            f"wasted {st.prefetch_wasted_bytes / 2**20:.1f} MB, overlap_ms {st.overlap_ms:.1f}")
+    log(f"  kernel launches: {counts}; by entry: "
+        f"{ {n: symbols[n] for n in ('decode_attention', 'topk_gate') if symbols.get(n)} }")
+    paged = entry_launches(symbols, "decode_attention_paged")
+    fused = entry_launches(symbols, "router_topk")
+    gemv = "slot_gmm" if not spec.quantization else f"slot_gmm_{spec.quantization}"
+    ok = (st.windows > 0 and engine.graph_captures == captures0 and paged > 0
+          and entry_launches(symbols, "decode_attention") == 0 and counts["flash_attention"] > 0
+          and counts["flash_attention_chunk"] == 0 and fused == counts["topk_gate"] > 0
+          and counts[gemv] > 0 and entry_launches(symbols, "slot_gmm_ragged") > 0
+          and all(len(t) == SERVE_NEW for t in tokens)
+          and st.kv_pages_released == st.kv_pages_allocated > 0)
+    if not ok:
+        raise AssertionError(f"{label}: windows {st.windows}, captures {engine.graph_captures} "
+                             f"(warmup {captures0}), paged K2 {paged}, launches {counts}, "
+                             f"tokens per request {[len(t) for t in tokens]}, pages "
+                             f"{st.kv_pages_allocated}/{st.kv_pages_released}")
+
+    log(f"[5/{label}] first-token logits (the admission prefill) vs the plain full-residency "
+        f"forward on the card")
+    weights = serve_weights(engine)
+    width = int(lens.max()) + SERVE_NEW - 1
+    seqs = np.zeros((SERVE_REQUESTS, width), np.int32)
+    for i, (p, t) in enumerate(zip(prompts, tokens)):
+        seqs[i, :len(p) + SERVE_NEW - 1] = np.concatenate([p, np.asarray(t[:-1], np.int32)])
+    span = SERVE_NEW if spec.isolated else 1          # positions whose truth is needed
+    rows = [list(range(n - 1, n - 1 + span)) for n in lens]
+    truth = reference_rows(cfg, weights, seqs, rows, torch.float32).cpu().numpy()
+    plain = reference_rows(cfg, weights, seqs, rows, torch.bfloat16).cpu().numpy()
+    got = np.stack([first[r.uid] for r in reqs])
+    if not judge(f"{SERVE_REQUESTS} requests' first tokens", got, truth[:, 0], plain[:, 0]):
+        raise AssertionError(f"{label}: first-token logits farther from the truth than bf16")
+    if spec.isolated and not spec.sample:        # miss-free greedy: the decode is exact too
+        checked = agree = 0
+        for i in range(SERVE_REQUESTS):
+            sure = sure_positions(truth[i], plain[i])
+            wrong = [j for j in range(SERVE_NEW)
+                     if sure[j] and tokens[i][j] != truth[i, j].argmax()]
+            if wrong:
+                raise AssertionError(f"{label} request {i}: greedy id differs from the truth's at "
+                                     f"sure positions {wrong}")
+            checked += int(sure.sum())
+            agree += sum(int(t == truth[i, j].argmax()) for j, t in enumerate(tokens[i]))
+        log(f"  greedy ids equal the truth's at all {checked} positions whose margin is sure, at "
+            f"{agree}/{SERVE_REQUESTS * SERVE_NEW} in all")
+    summary = dict(
+        label=label, counts=counts, symbols=symbols, tokens=tokens, tok_s=committed / wall,
+        ttft=(summ["ttft_p50_ms"], summ["ttft_p99_ms"]),
+        itl=(summ["itl_p50_ms"], summ["itl_p99_ms"]),
+        windows=st.windows, spec_windows=st.spec_windows, accept_rate=st.accept_rate,
+        misses_per_token=st.misses / committed, hwm=st.kv_pages_hwm, mb_per_token=mb_per_token,
+        peak_gib=peak / 2**30, capture_ms=engine.graph_capture_s * 1e3, graphs=graphs,
+        transitions=transitions)
+    if spec.isolated:
+        differ = 0
+        for i in range(SERVE_REQUESTS):
+            alone = serve([i])[0][0]
+            j = next((j for j, (a, b) in enumerate(zip(alone, tokens[i])) if a != b), None)
+            if j is None:
+                continue
+            differ += 1
+            e_pl = float(np.abs(plain[i, j] - truth[i, j]).max())
+            if spec.sample:
+                key = sm.request_key(seeds[i], dev)
+                margin = draw_margin(truth[i, j], key, int(lens[i]) - 1 + j, spec.sample)
+                limit = 4 * e_pl / spec.sample[0]
+            else:
+                top2 = np.sort(truth[i, j])[-2:]
+                margin, limit = float(top2[1] - top2[0]), 2 * e_pl
+            log(f"  request {i}: alone differs from concurrent first at token {j} "
+                f"({alone[j]} vs {tokens[i][j]}), truth margin {margin:.4f} (guard {limit:.4f})")
+            if margin > limit:
+                raise AssertionError(f"{label} request {i}: served alone it differs at token {j} "
+                                     f"where the margin {margin:.4f} exceeds {limit:.4f}")
+        summary["isolated_differ"] = differ
+        log(f"  each request served alone: {SERVE_REQUESTS - differ}/{SERVE_REQUESTS} streams "
+            f"bitwise the concurrent ones, the rest parted only under the margin guard")
+    if spec.sample:
+        again = serve(range(SERVE_REQUESTS))[0]
+        if again != tokens:
+            raise AssertionError(f"{label}: a second concurrent run drew other tokens")
+        log(f"  a second concurrent run reproduced all {SERVE_REQUESTS} streams")
+    if spec.baseline:
+        base = done[spec.baseline]
+        if tokens != base["tokens"] or transitions != base["transitions"]:
+            raise AssertionError(f"{label}: tokens or transitions differ from {spec.baseline}'s "
+                                 f"({transitions} against {base['transitions']})")
+        log(f"  tokens and residency transitions equal {spec.baseline}'s ({transitions})")
+    del engine, weights
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1374,6 +1730,13 @@ def main() -> int:
         for name, syms in summary["symbols"].items():
             for sym, n in syms.items():
                 symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
+    for spec in SERVE_PATHS:
+        done[spec.label] = summary = run_serve_path(dev, cfg, full.num_layers, spec, done)
+        for name, n in summary["counts"].items():
+            counts[name] += n
+        for name, syms in summary["symbols"].items():
+            for sym, n in syms.items():
+                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
     multi = {counter for counter, _ in ENTRY.values()}          # kernels with several entries
     log(f"  kernel launches over the {len(PATHS)} paths: {counts}; by entry: "
         f"{ {name: syms for name, syms in symbols.items() if name in multi and syms} }")
@@ -1388,6 +1751,8 @@ def main() -> int:
         "relaunched of decode steps; MB uploaded per decode token; host conversion; loads; "
         "overlapped pulls; windows and accept rate)")
     for r in done.values():
+        if r["label"].startswith("serve-"):
+            continue
         accept = f"{r['accept_rate']:.3f}" if r["accept_rate"] is not None else "-"
         log(f"  {r['label']:>19}: decode {' / '.join(f'{x:.2f}' for x in r['tok_s'])} tok/s "
             f"({' / '.join(f'{x:.2f}' for x in r['steady_tok_s'])} after the first {r['unit']}, "
@@ -1400,6 +1765,19 @@ def main() -> int:
             f"{r['windows']} accept rate {accept}, prefetch launched {r['prefetch_launched']} "
             f"hits {r['prefetch_hits']}, prefill chunks {r['prefill_chunks']} replayed "
             f"{r['prefill_replays']}, peak {r['peak_gib']:.2f} GiB")
+    log("  serving paths (aggregate tok/s; TTFT and ITL p50 / p99 ms; windows, spec windows, "
+        "accept rate; misses per token; pages high-water; MB uploaded per token; peak; graph "
+        "captures and their ms)")
+    for spec in SERVE_PATHS:
+        r = done[spec.label]
+        log(f"  {r['label']:>19}: {r['tok_s']:.1f} tok/s, TTFT {r['ttft'][0]:.1f} / "
+            f"{r['ttft'][1]:.1f} ms, ITL {r['itl'][0]:.2f} / {r['itl'][1]:.2f} ms, windows "
+            f"{r['windows']} spec {r['spec_windows']} accept {r['accept_rate']:.3f}, misses/token "
+            f"{r['misses_per_token']:.3f}, pages hwm {r['hwm']}, {r['mb_per_token']:.2f} MB/token, "
+            f"peak {r['peak_gib']:.2f} GiB, {r['graphs']} graphs in {r['capture_ms']:.0f} ms")
+    for name in ("decode_attention", "decode_attention_paged"):
+        if entry_launches(symbols, name) <= 0:
+            raise AssertionError(f"entry {name} never launched on any path")
     kernels = []
     for name, r in rows.items():
         counter, prefix = ENTRY.get(name, (name, None))
@@ -1413,7 +1791,8 @@ def main() -> int:
         }
         if prefix:            # an entry of K3 or K1's tiled body: its own launches beside the kernel's
             row["entry_launches"] = entry_launches(symbols, name)
-        for key in ("three_call_ms", "three_call_device_ms"):
+        for key in ("three_call_ms", "three_call_device_ms", "gather_k2_ms", "gather_k2_device_ms",
+                    "contiguous_ms", "contiguous_device_ms"):
             if key in r:
                 row[key] = r[key]
         if "prefill" in r:

@@ -182,6 +182,66 @@ def _host_ffn(hw: Dict[str, torch.Tensor], e: int, x: torch.Tensor,
     return mm(h, "w_down"), convert_s
 
 
+def host_correct(x: torch.Tensor, h2: torch.Tensor, ids: np.ndarray, weights: np.ndarray,
+                 miss: np.ndarray, hw: Dict[str, torch.Tensor],
+                 scratch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int, float, int]:
+    """Exact host GEMM correction of a layer's missed picks (the reference's
+    ``_host_correct``, shared by both engines): ``x`` [.., D] on the device
+    plus, per missed pick ``(t, j)`` of ``miss`` [T, k], its routing weight
+    times the pick's expert FFN of ``h2`` row t, computed on the host from
+    the warehouse ``hw`` (one GEMM per missed expert over all its rows, summed
+    in pick order). Returns (x, picks corrected, seconds converting weights,
+    experts converted)."""
+    h2_host = h2.detach().cpu().float().reshape(ids.shape[0], -1)
+    corr = torch.zeros_like(h2_host)
+    picks = list(zip(*np.nonzero(miss)))
+    by_expert: Dict[int, List[Tuple[int, int]]] = {}
+    for t_i, j in picks:
+        by_expert.setdefault(int(ids[t_i, j]), []).append((t_i, j))
+    outs: Dict[Tuple[int, int], torch.Tensor] = {}
+    convert = 0.0
+    for e, tj in by_expert.items():
+        y, convert_s = _host_ffn(hw, e, h2_host[[t_i for t_i, _ in tj]], scratch)
+        convert += convert_s
+        outs.update(zip(tj, y))
+    for t_i, j in picks:
+        corr[t_i] += float(weights[t_i, j]) * outs[(t_i, j)]
+    x = x + corr.to(device=x.device, dtype=x.dtype).reshape(x.shape)
+    return x, len(picks), convert, len(by_expert)
+
+
+def demand_program(h_all: torch.Tensor, routers_next: torch.Tensor) -> torch.Tensor:
+    """The pre-gating demand program over stacked per-layer MoE inputs
+    h_all [L, T, D] and the next layers' routers [L, D, E]:
+    ``softmax(h_l @ R_{l+1})`` averaged over tokens, [L, E] (the
+    reference's in-graph demand GEMM, ``_demand_aux_fn``)."""
+    dl = torch.einsum("ltd,lde->lte", h_all.float(), routers_next)
+    return torch.softmax(dl, dim=-1).mean(dim=1)
+
+
+def window_outputs(cfg: ModelConfig, params: Params, tok: torch.Tensor, state: Any,
+                   cur: torch.Tensor, k: int, residency: Any,
+                   aux_fn: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]], *,
+                   snapshot: bool, sample: Optional[SampleParams] = None,
+                   keys: Optional[torch.Tensor] = None,
+                   page_table: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """A ``k``-position window on the device, the body both engines capture
+    (the counterpart of ``build_window_fns``): first, with ``snapshot``, the
+    pre-window contents of the KV slots it writes (``saved``); then
+    ``tfm.decode_window``, drafting by argmax or, with ``sample``, by
+    position-keyed draws from ``keys``. ``page_table`` (the serving engine):
+    ``state`` is the paged pool and ``cur`` per row. Outputs: ``draft``
+    [K, B], ``logits`` [K, B, V] f32, the telemetry stacked [K, L, ...] and,
+    sampled, ``sample_probs`` / ``sample_p``."""
+    out: Dict[str, Any] = {}
+    if snapshot:
+        out["saved"] = tfm.snapshot_kv_window(state, cur, k, page_table=page_table)
+    draft, logits, aux = tfm.decode_window(cfg, params, tok, state, cur, k, residency,
+                                           aux_fn=aux_fn, sample=sample, rng_keys=keys,
+                                           page_table=page_table)
+    return {**out, "draft": draft, "logits": logits, **aux}
+
+
 def _pinned(lead: Tuple[int, ...], **shapes) -> Dict[str, torch.Tensor]:
     """Host buffers for telemetry, pinned where a card is present:
     ``name=(tail shape, dtype)``, each ``lead + tail``."""
@@ -234,6 +294,59 @@ class _Graph:
     out: Dict[str, Any]
     ptrs: Tuple[int, ...]
     launches: Dict[str, Dict[str, int]]
+
+
+class GraphSet:
+    """The captured launches of one engine, one CUDA graph per key (a
+    window size, a rows bucket, a sampler, a chunk length): :meth:`launch`
+    captures a body on its key's first use and replays it after, checking
+    first that nothing it reads has moved. ``capture`` False runs every body
+    eagerly (the CPU, and the card's graph-against-eager tests)."""
+
+    def __init__(self, capture: bool):
+        self.capture = capture
+        self.graphs: Dict[Any, _Graph] = {}
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0                  # wall s of first uses: the warm-up and the capture
+
+    def launch(self, key: Any, body: Callable[[], Dict[str, Any]],
+               ptrs: Callable[[], Tuple[int, ...]]) -> Dict[str, Any]:
+        """Run ``body`` once: eagerly, or a replay of ``key``'s graph
+        (captured now on first use). ``ptrs()`` lists the addresses of
+        everything a replay reads besides the weights; a replay whose
+        addresses moved since the capture raises."""
+        if not self.capture:
+            return body()
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture_graph(key, body, ptrs())
+        if ptrs() != g.ptrs:
+            raise RuntimeError("captured graph: a plane, LUT, cache or input it reads has moved "
+                               "since the capture")
+        g.graph.replay()
+        ops.add_launches(g.launches)
+        self.replays += 1
+        return g.out
+
+    def _capture_graph(self, key: Any, body: Callable[[], Dict[str, Any]],
+                       ptrs: Tuple[int, ...]) -> Dict[str, Any]:
+        """Capture ``body`` as a CUDA graph. Its warm-up, eager on the compute
+        stream (the kernels' first launches set their attributes there), IS
+        this launch, whose outputs are returned; the capture launches nothing.
+        A capture that fails raises (the launch has no eager fall back)."""
+        t0 = time.perf_counter()
+        out = body()
+        before = ops.symbol_launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            graph_out = body()
+        launches = ops.launches_since(before)
+        ops.add_launches(launches, -1)     # recorded, not launched
+        self.graphs[key] = _Graph(graph, graph_out, ptrs, launches)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return out
 
 
 class RotaryEngine:
@@ -421,15 +534,32 @@ class RotaryEngine:
         # the captured launches (card only): 1 the step, K a greedy window,
         # (K, SampleParams) a sampled one, ("chunk", C, with_head) a chunk,
         # ("draw", SampleParams) the draw between windows
-        self._capture = dev.type == "cuda"       # False: eager on the card (parity tests)
-        self._graphs: Dict[Any, _Graph] = {}
-        self.graph_captures = 0
-        self.graph_replays = 0
+        self._gs = GraphSet(dev.type == "cuda")   # capture False: eager on the card (parity tests)
         self.launches = 0                        # fused launches: captures, replays, eager
         # None, or a list each decoded position appends the logits it
         # produced to (``logged_logits``), for checks against a reference
         self.logit_log: Optional[List[Any]] = None
         self._warm_start()
+
+    @property
+    def _capture(self) -> bool:
+        return self._gs.capture
+
+    @_capture.setter
+    def _capture(self, on: bool) -> None:
+        self._gs.capture = on
+
+    @property
+    def _graphs(self) -> Dict[Any, _Graph]:
+        return self._gs.graphs
+
+    @property
+    def graph_captures(self) -> int:
+        return self._gs.captures
+
+    @property
+    def graph_replays(self) -> int:
+        return self._gs.replays
 
     # ------------------------------------------------------------------
     def _warm_start(self) -> None:
@@ -450,26 +580,12 @@ class RotaryEngine:
     def _host_correct(self, x: torch.Tensor, moe_li: int, h2: torch.Tensor,
                       ids: np.ndarray, weights: np.ndarray,
                       miss: np.ndarray) -> torch.Tensor:
-        """Exact host GEMM correction for missed experts."""
-        h2_host = h2.detach().cpu().float().reshape(ids.shape[0], -1)
-        corr = torch.zeros_like(h2_host)
-        hw = self.host_experts[moe_li]
-        picks = list(zip(*np.nonzero(miss)))
-        # one host GEMM per missed expert over all its rows (each expert's
-        # weights leave the warehouse's type once), summed in pick order
-        by_expert: Dict[int, List[Tuple[int, int]]] = {}
-        for t_i, j in picks:
-            by_expert.setdefault(int(ids[t_i, j]), []).append((t_i, j))
-        outs: Dict[Tuple[int, int], torch.Tensor] = {}
-        for e, tj in by_expert.items():
-            y, convert_s = _host_ffn(hw, e, h2_host[[t_i for t_i, _ in tj]], self._f32_scratch)
-            self.stats.host_dequant_s += convert_s
-            self.stats.host_dequant_experts += 1
-            outs.update(zip(tj, y))
-        for t_i, j in picks:
-            corr[t_i] += float(weights[t_i, j]) * outs[(t_i, j)]
-        n_host = len(picks)
-        x = x + corr.to(device=x.device, dtype=x.dtype).reshape(x.shape)
+        """Exact host GEMM correction for missed experts (:func:`host_correct`)."""
+        x, n_host, convert_s, n_experts = host_correct(x, h2, ids, weights, miss,
+                                                       self.host_experts[moe_li],
+                                                       self._f32_scratch)
+        self.stats.host_dequant_s += convert_s
+        self.stats.host_dequant_experts += n_experts
         self.stats.layer(moe_li).host_computed += n_host
         self.clock.host(self.cost.host_compute_s(self.manager.host_expert_flops(n_host)))
         return x
@@ -646,8 +762,7 @@ class RotaryEngine:
         [L, E]. The decode step runs it inside its graph; both chunked
         prefill paths run it eagerly at the chunk boundary on the same
         inputs, so their residency evolves bit for bit alike."""
-        dl = torch.einsum("ltd,lde->lte", h_all.float(), self._routers_next)
-        return torch.softmax(dl, dim=-1).mean(dim=1)
+        return demand_program(h_all, self._routers_next)
 
     def _step_body(self) -> Dict[str, torch.Tensor]:
         """The decode step on the device, from the static inputs and the
@@ -667,15 +782,10 @@ class RotaryEngine:
         ``sample``, by position-keyed draws from the static keys. Outputs:
         ``draft`` [K, B], ``logits`` [K, B, V] f32, the telemetry stacked
         [K, L, ...] and, sampled, ``sample_probs`` / ``sample_p``."""
-        tok = self._inputs[:self.batch]
-        cur = self._inputs[self.batch]
-        out: Dict[str, Any] = {}
-        if self._spec_needs_rollback:
-            out["saved"] = tfm.snapshot_kv_window(self.state, cur, k)
-        draft, logits, aux = tfm.decode_window(self.cfg, self._dparams, tok, self.state, cur, k,
-                                               self._residency, aux_fn=self._telemetry,
-                                               sample=sample, rng_keys=self._keys)
-        return {**out, "draft": draft, "logits": logits, **aux}
+        return window_outputs(self.cfg, self._dparams, self._inputs[:self.batch], self.state,
+                              self._inputs[self.batch], k, self._residency, self._telemetry,
+                              snapshot=self._spec_needs_rollback, sample=sample,
+                              keys=self._keys)
 
     def _chunk_body(self, c: int, with_head: bool) -> Dict[str, Any]:
         """A prefill chunk of ``c`` tokens on the device from its static token
@@ -721,37 +831,8 @@ class RotaryEngine:
         if model:
             self._residency = self.manager.residency()     # device LUTs rewritten in place
         self.launches += 1
-        body = body or self._step_body
-        if not self._capture:
-            return body()
-        g = self._graphs.get(key)
-        if g is None:
-            return self._capture_graph(key, body, extra, model)
-        if self._graph_inputs(extra, model) != g.ptrs:
-            raise RuntimeError("captured graph: a plane, LUT, cache or input it reads has moved "
-                               "since the capture")
-        g.graph.replay()
-        ops.add_launches(g.launches)
-        self.graph_replays += 1
-        return g.out
-
-    def _capture_graph(self, key: Any, body: Callable[[], Dict[str, Any]],
-                       extra: Tuple[torch.Tensor, ...] = (), model: bool = True
-                       ) -> Dict[str, Any]:
-        """Capture ``body`` as a CUDA graph. Its warm-up, eager on the compute
-        stream (the kernels' first launches set their attributes there), IS
-        this launch, whose outputs are returned; the capture launches nothing.
-        A capture that fails raises (the launch has no eager fall back)."""
-        out = body()
-        before = ops.symbol_launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            graph_out = body()
-        launches = ops.launches_since(before)
-        ops.add_launches(launches, -1)     # recorded, not launched
-        self._graphs[key] = _Graph(graph, graph_out, self._graph_inputs(extra, model), launches)
-        self.graph_captures += 1
-        return out
+        return self._gs.launch(key, body or self._step_body,
+                               lambda: self._graph_inputs(extra, model))
 
     def _queue_telemetry(self, out: Dict[str, torch.Tensor], pull: Dict[str, torch.Tensor],
                          k: Optional[int] = None) -> None:

@@ -618,36 +618,63 @@ class RotaryResidencyManager:
         demand_next: np.ndarray,         # [K, L, E]; [s, l] = step s's demand of (l+1)%L
         clock: Optional[TransferClock] = None,
         record: bool = True,
+        accepted: Optional[np.ndarray] = None,
     ) -> None:
         """Window-boundary rotation from a speculative window's committed
-        steps (the reference's ``rotate_window_from_telemetry``, batch-uniform
-        commits). The host transitions (EMA folds, ring moves, LUT updates)
-        run once per step in step order, so residency after the window is
-        what feeding the steps one at a time through ``rotate_from_telemetry``
-        leaves; the uploads coalesce to the last write per slot and ship as
-        one batch per layer (or, with a pending prefetch plan, one commit per
-        layer)."""
+        steps (the reference's ``rotate_window_from_telemetry``). The host
+        transitions (EMA folds, ring moves, LUT updates) run once per step in
+        step order, so residency after the window is what feeding the steps
+        one at a time through ``rotate_from_telemetry`` leaves; the uploads
+        coalesce to the last write per slot and ship as one batch per layer
+        (or, with a pending prefetch plan, one commit per layer).
+
+        ``accepted`` [B] (the serving engine's ragged commits; None: the
+        rotary engine, which commits batch-uniformly and pre-slices): the
+        window is cut to ``accepted.max()`` steps, and step ``s`` records a
+        row's routing and folds it into the predictor (``observe`` then
+        ``update`` per step) only while ``s < accepted[row]``, so pad rows
+        and rejected suffixes touch neither."""
         tr = self.tracer
         if tr is not None:
             with tr.span("rotation", "rotation", args={"kind": "window"}):
                 return self._rotate_window(predictor, ids, weights, miss, demand_next,
-                                           clock, record)
-        return self._rotate_window(predictor, ids, weights, miss, demand_next, clock, record)
+                                           clock, record, accepted)
+        return self._rotate_window(predictor, ids, weights, miss, demand_next, clock, record,
+                                   accepted)
 
-    def _rotate_window(self, predictor, ids, weights, miss, demand_next, clock, record) -> None:
+    def _rotate_window(self, predictor, ids, weights, miss, demand_next, clock, record,
+                       accepted=None) -> None:
         n = len(self.policies)
+        if accepted is not None:
+            accepted = np.asarray(accepted)
+            k_eff = int(accepted.max(initial=0))
+            if k_eff == 0:
+                return
+            ids, weights, miss, demand_next = (a[:k_eff] for a in (ids, weights, miss, demand_next))
         k_steps = ids.shape[0]
+
+        def rows(s: int):
+            return slice(None) if accepted is None else accepted > s
+
         copy = self._copy_stream
         if copy is not None and self._pending is not None:
             copy.wait_stream(torch.cuda.current_stream(self.device))
         if record:
             for s in range(k_steps):
                 for l in range(n):
-                    self.record_routing(l, ids[s, l], miss[s, l])
+                    self.record_routing(l, ids[s, l][rows(s)], miss[s, l][rows(s)])
         pending: List[List[Tuple[int, int]]] = [[] for _ in range(n)]
         for l in range(n):
             nxt = (l + 1) % n
-            smoothed = predictor.fold_window(nxt, ids[:, nxt], weights[:, nxt], demand_next[:, l])
+            if accepted is None:
+                smoothed = predictor.fold_window(nxt, ids[:, nxt], weights[:, nxt],
+                                                 demand_next[:, l])
+            else:
+                smoothed = []
+                for s in range(k_steps):
+                    sel = rows(s)
+                    predictor.observe(nxt, ids[s, nxt][sel], weights[s, nxt][sel])
+                    smoothed.append(predictor.update(nxt, demand_next[s, l]))
             for s in range(k_steps):
                 pending[nxt].extend(self._transition(nxt, smoothed[s], steer=demand_next[s, l]))
         for l in range(n):

@@ -40,6 +40,16 @@
 // Positions at or past the length score NEG_INF before the max, as in
 // _decode_kernel; the softmax runs in base 2 with log2(e) folded into the
 // scores.
+//
+// The paged entry (decode_attention_paged_*) serves the serving engine's
+// KV pool: k/v are planes [P, ps, Hkv, dh] shared by every row, and row b's
+// logical position s lives at plane row page_table[b, s / ps] * ps + s % ps.
+// It is the reference's gather (repro/models/attention.py:420-432) and
+// scoring in one launch, with no [B, cap, Hkv, dh] copy: only the loader's
+// address changes (``stage_rows`` finds each row's page, so a tile may
+// cross page boundaries anywhere), never the plan, the scoring or the
+// merge. So it is bitwise the contiguous entry on the gathered view and
+// keeps its batch invariance.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -59,11 +69,27 @@ struct DecodeArgs {
     const void* k;
     const void* v;
     const int32_t* lengths;
+    const int32_t* page_table;   // [B, npages], or null: the contiguous cache
     void* out;
     int H, Hkv, S, dh, span;
+    int npages, ps;              // the paged entry's table width and page size
     float scale;     // 1/sqrt(dh)
     float soft_cap;  // 0: none
 };
+
+// Where row b's cache starts, and its page table: the contiguous cache
+// [B, S, Hkv, dh], or (paged) the shared plane [P * ps, Hkv, dh], whose
+// rows ``stage_rows`` finds through the table.
+template <typename T>
+__device__ __forceinline__ const T* cache_base(const DecodeArgs& a, const void* c, int b, int hk,
+                                               const int32_t** pt) {
+    if (a.page_table) {
+        *pt = a.page_table + (size_t)b * a.npages;
+        return static_cast<const T*>(c) + (size_t)hk * a.dh;
+    }
+    *pt = nullptr;
+    return static_cast<const T*>(c) + ((size_t)b * a.S * a.Hkv + hk) * a.dh;
+}
 
 // The state a block leaves for the merge, in its shared memory: per head
 // the running max (base 2) and sum, and the unnormalized context [16][dh].
@@ -114,25 +140,33 @@ __device__ void merge_splits(const DecodeArgs& a, const Partial& part, const flo
     cluster.sync();                                       // keep the partials alive for the readers
 }
 
-// rows [r0, r0 + rows) of a [*, ld] matrix of T into a shared tile with row
-// stride ``lds`` elements: 16-byte copies (``vec``: rows of whole 16-byte
-// chunks, 16-byte aligned) or element loads; rows at or past ``end`` read
-// as zeros
+// The row of a [*, ld] matrix that logical row r lives in: r itself, or
+// through a page table of ``ps``-row pages
+__device__ __forceinline__ size_t phys_row(int r, const int32_t* pt, int ps) {
+    return pt ? (size_t)pt[r / ps] * ps + r % ps : (size_t)r;
+}
+
+// rows [r0, r0 + rows) of a [*, ld] matrix of T (logical rows, mapped by
+// ``pt`` when it is not null) into a shared tile with row stride ``lds``
+// elements: 16-byte copies (``vec``: rows of whole 16-byte chunks, 16-byte
+// aligned) or element loads; rows at or past ``end`` read as zeros
 template <typename T>
 __device__ __forceinline__ void stage_rows(T* s, int lds, const T* g, size_t ld, int r0, int rows,
-                                           int end, int width, bool vec) {
+                                           int end, int width, bool vec,
+                                           const int32_t* pt = nullptr, int ps = 1) {
     if (vec) {
         constexpr int E = 16 / sizeof(T);
         const int ch = width / E;
         for (int i = threadIdx.x; i < rows * ch; i += DA_THREADS) {
             const int r = i / ch, c = i % ch;
             const bool ok = r0 + r < end;
-            cp_async16(s + r * lds + c * E, g + (size_t)(ok ? r0 + r : 0) * ld + c * E, ok);
+            cp_async16(s + r * lds + c * E, g + (ok ? phys_row(r0 + r, pt, ps) : 0) * ld + c * E,
+                       ok);
         }
     } else {
         for (int i = threadIdx.x; i < rows * width; i += DA_THREADS) {
             const int r = i / width, c = i % width;
-            s[r * lds + c] = r0 + r < end ? g[(size_t)(r0 + r) * ld + c] : from_f<T>(0.f);
+            s[r * lds + c] = r0 + r < end ? g[phys_row(r0 + r, pt, ps) * ld + c] : from_f<T>(0.f);
         }
     }
 }
@@ -164,8 +198,9 @@ decode_tc(DecodeArgs a) {
     const int ntiles = end > start ? (end - start + TT - 1) / TT : 0;
     const int live = min((int)gridDim.x, (len + a.span - 1) / a.span);
     const size_t ldk = (size_t)a.Hkv * DH;
-    const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.S * a.Hkv + hk) * DH;
-    const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.S * a.Hkv + hk) * DH;
+    const int32_t* pt;
+    const bf16* kg = cache_base<bf16>(a, a.k, b, hk, &pt);
+    const bf16* vg = cache_base<bf16>(a, a.v, b, hk, &pt);
     const bf16* qg = static_cast<const bf16*>(a.q) + ((size_t)b * a.H + (size_t)hk * g) * DH;
 
     if (tid < DA_MAXG) {
@@ -181,18 +216,20 @@ decode_tc(DecodeArgs a) {
     // commit groups in order: Q + K_0, V_0, K_1, V_1, ...
     if (ntiles > 0) {
         stage_rows(Qs, LDS, qg, DH, 0, 16, g, DH, true);
-        stage_rows(Ks, LDS, kg, ldk, start, TT, end, DH, true);
+        stage_rows(Ks, LDS, kg, ldk, start, TT, end, DH, true, pt, a.ps);
     }
     cp_async_commit();
-    if (ntiles > 0) stage_rows(Vs, LDS, vg, ldk, start, TT, end, DH, true);
+    if (ntiles > 0) stage_rows(Vs, LDS, vg, ldk, start, TT, end, DH, true, pt, a.ps);
     cp_async_commit();
 
     uint32_t qb[KD][4];
     for (int j = 0; j < ntiles; ++j) {
         const int k0 = start + j * TT, st = (j + 1) & 1;
-        if (j + 1 < ntiles) stage_rows(Ks + st * TT * LDS, LDS, kg, ldk, k0 + TT, TT, end, DH, true);
+        if (j + 1 < ntiles)
+            stage_rows(Ks + st * TT * LDS, LDS, kg, ldk, k0 + TT, TT, end, DH, true, pt, a.ps);
         cp_async_commit();
-        if (j + 1 < ntiles) stage_rows(Vs + st * TT * LDS, LDS, vg, ldk, k0 + TT, TT, end, DH, true);
+        if (j + 1 < ntiles)
+            stage_rows(Vs + st * TT * LDS, LDS, vg, ldk, k0 + TT, TT, end, DH, true, pt, a.ps);
         cp_async_commit();
         cp_async_wait<3>();                                     // K_j (and Q) have landed
         __syncthreads();
@@ -364,8 +401,9 @@ decode_cc(DecodeArgs a, int vec) {
     const int ntiles = end > start ? (end - start + TT - 1) / TT : 0;
     const int live = min((int)gridDim.x, (len + a.span - 1) / a.span);
     const size_t ldk = (size_t)a.Hkv * dh;
-    const T* kg = static_cast<const T*>(a.k) + ((size_t)b * a.S * a.Hkv + hk) * dh;
-    const T* vg = static_cast<const T*>(a.v) + ((size_t)b * a.S * a.Hkv + hk) * dh;
+    const int32_t* pt;
+    const T* kg = cache_base<T>(a, a.k, b, hk, &pt);
+    const T* vg = cache_base<T>(a, a.v, b, hk, &pt);
     const T* qg = static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)hk * g) * dh;
 
     if (tid < DA_MAXG) {
@@ -376,15 +414,17 @@ decode_cc(DecodeArgs a, int vec) {
         Qf[i] = to_f(qg[i]);
         Os[i] = 0.f;
     }
-    if (ntiles > 0) stage_rows(Ks, lds, kg, ldk, start, TT, end, dh, vec);
+    if (ntiles > 0) stage_rows(Ks, lds, kg, ldk, start, TT, end, dh, vec, pt, a.ps);
     cp_async_commit();
-    if (ntiles > 0) stage_rows(Vs, lds, vg, ldk, start, TT, end, dh, vec);
+    if (ntiles > 0) stage_rows(Vs, lds, vg, ldk, start, TT, end, dh, vec, pt, a.ps);
     cp_async_commit();
     for (int j = 0; j < ntiles; ++j) {
         const int k0 = start + j * TT, st = (j + 1) & 1, n = min(TT, end - k0);
-        if (j + 1 < ntiles) stage_rows(Ks + st * TT * lds, lds, kg, ldk, k0 + TT, TT, end, dh, vec);
+        if (j + 1 < ntiles)
+            stage_rows(Ks + st * TT * lds, lds, kg, ldk, k0 + TT, TT, end, dh, vec, pt, a.ps);
         cp_async_commit();
-        if (j + 1 < ntiles) stage_rows(Vs + st * TT * lds, lds, vg, ldk, k0 + TT, TT, end, dh, vec);
+        if (j + 1 < ntiles)
+            stage_rows(Vs + st * TT * lds, lds, vg, ldk, k0 + TT, TT, end, dh, vec, pt, a.ps);
         cp_async_commit();
         cp_async_wait<3>();                                     // K_j has landed
         __syncthreads();
@@ -495,15 +535,21 @@ static bool plan_ok(int B, int H, int Hkv, int S, int dh, int splits, int tile, 
     return true;
 }
 
+// ``page_table`` null: the contiguous cache of S positions; else the paged
+// planes, each row's table ``npages`` pages of ``ps`` (S = npages * ps).
 template <typename T>
 static int launch_decode(const void* q, const void* k, const void* v, const void* lengths,
+                         const void* page_table, int npages, int ps,
                          int B, int H, int Hkv, int S, int dh, float scale, float soft_cap,
                          int splits, int tile, int span, int tensor_cores, int vec, void* out,
                          void* stream) {
     if (!plan_ok(B, H, Hkv, S, dh, splits, tile, span, tensor_cores, vec, (int)sizeof(T)))
         return (int)cudaErrorInvalidValue;
-    const DecodeArgs a{q, k, v, static_cast<const int32_t*>(lengths), out,
-                       H, Hkv, S, dh, span, scale, soft_cap};
+    if (page_table && (npages < 1 || ps < 1 || (long)npages * ps != S))
+        return (int)cudaErrorInvalidValue;
+    const DecodeArgs a{q, k, v, static_cast<const int32_t*>(lengths),
+                       static_cast<const int32_t*>(page_table), out,
+                       H, Hkv, S, dh, span, npages, ps, scale, soft_cap};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (sizeof(T) == 2) {
         if (tensor_cores) {
@@ -524,14 +570,37 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
                                      const void* lengths, int B, int H, int Hkv, int S, int dh,
                                      float scale, float soft_cap, int splits, int tile, int span,
                                      int tensor_cores, int vec, void* out, void* stream) {
-    return launch_decode<__nv_bfloat16>(q, k, v, lengths, B, H, Hkv, S, dh, scale, soft_cap,
-                                        splits, tile, span, tensor_cores, vec, out, stream);
+    return launch_decode<__nv_bfloat16>(q, k, v, lengths, nullptr, 0, 0, B, H, Hkv, S, dh, scale,
+                                        soft_cap, splits, tile, span, tensor_cores, vec, out,
+                                        stream);
 }
 
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* lengths, int B, int H, int Hkv, int S, int dh,
                                     float scale, float soft_cap, int splits, int tile, int span,
                                     int tensor_cores, int vec, void* out, void* stream) {
-    return launch_decode<float>(q, k, v, lengths, B, H, Hkv, S, dh, scale, soft_cap,
-                                splits, tile, span, tensor_cores, vec, out, stream);
+    return launch_decode<float>(q, k, v, lengths, nullptr, 0, 0, B, H, Hkv, S, dh, scale,
+                                soft_cap, splits, tile, span, tensor_cores, vec, out, stream);
+}
+
+// The paged entry: k/v the shared planes [P, ps, Hkv, dh], page_table
+// [B, npages] int32; the plan is the contiguous entry's at S = npages * ps.
+extern "C" int decode_attention_paged_bf16(const void* q, const void* k, const void* v,
+                                           const void* lengths, const void* page_table, int B,
+                                           int H, int Hkv, int npages, int ps, int dh, float scale,
+                                           float soft_cap, int splits, int tile, int span,
+                                           int tensor_cores, int vec, void* out, void* stream) {
+    return launch_decode<__nv_bfloat16>(q, k, v, lengths, page_table, npages, ps, B, H, Hkv,
+                                        npages * ps, dh, scale, soft_cap, splits, tile, span,
+                                        tensor_cores, vec, out, stream);
+}
+
+extern "C" int decode_attention_paged_f32(const void* q, const void* k, const void* v,
+                                          const void* lengths, const void* page_table, int B,
+                                          int H, int Hkv, int npages, int ps, int dh, float scale,
+                                          float soft_cap, int splits, int tile, int span,
+                                          int tensor_cores, int vec, void* out, void* stream) {
+    return launch_decode<float>(q, k, v, lengths, page_table, npages, ps, B, H, Hkv, npages * ps,
+                                dh, scale, soft_cap, splits, tile, span, tensor_cores, vec, out,
+                                stream);
 }

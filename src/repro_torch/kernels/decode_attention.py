@@ -11,6 +11,12 @@ rest on CUDA cores. The plan (:func:`decode_plan`) reads S, dh, g and the
 type only, so a row gives the same bits whatever the batch and the other
 rows' lengths. Bound: bytes (each valid K/V element read once). Plain
 version: ``kernels.ref.decode_attention_ref``.
+
+The paged entry (:func:`decode_attention_paged`) scores the serving
+engine's KV pool: shared planes [P, ps, Hkv, dh] read through each row's
+page table by the kernel itself (no gathered copy), with the contiguous
+entry's plan at S = pages * ps, so it gives the contiguous entry's bits on
+the gathered view. Plain version: ``kernels.ref.decode_attention_paged_ref``.
 """
 from __future__ import annotations
 
@@ -29,12 +35,19 @@ MAX_SPLITS = 16     # spans of one cluster; DA_MAXSPLITS (non-portable above 8)
 TILES = (32, 64)    # positions per tile the kernel takes
 TENSOR_CORE_DH = (64, 128, 256)
 
-KERNEL = CudaKernel(
-    "decode_attention", "decode_attention.cu",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-)
+_CONTIGUOUS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+               + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# q, k, v, lengths, page_table, B, H, Hkv, npages, ps, dh, scale, soft_cap,
+# splits, tile, span, tensor_cores, vec, out
+_PAGED = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+          + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+KERNEL = CudaKernel("decode_attention", "decode_attention.cu", {
+    "decode_attention_bf16": _CONTIGUOUS, "decode_attention_f32": _CONTIGUOUS,
+    "decode_attention_paged_bf16": _PAGED, "decode_attention_paged_f32": _PAGED,
+})
 _SYMBOL = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
+PAGED_SYMBOLS = {torch.bfloat16: "decode_attention_paged_bf16",
+                 torch.float32: "decode_attention_paged_f32"}
 
 
 @dataclass(frozen=True)
@@ -67,6 +80,13 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _check_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention launches on CUDA tensors, got {q.device}")
+    if q.dtype not in _SYMBOL or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"bf16 or f32 q/k/v of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
 def decode_attention(
     q: torch.Tensor,            # [B, H, dh]
     k: torch.Tensor,            # [B, S, Hkv, dh]
@@ -75,10 +95,7 @@ def decode_attention(
     *,
     soft_cap: Optional[float] = None,
 ) -> torch.Tensor:
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention launches on CUDA tensors, got {q.device}")
-    if q.dtype not in _SYMBOL or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"bf16 or f32 q/k/v of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_q(q, k, v)
     b, h, dh = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh or v.shape != k.shape:
         raise ValueError(f"cache k/v must be [B, S, Hkv, dh], got {tuple(k.shape)}, {tuple(v.shape)}")
@@ -94,6 +111,46 @@ def decode_attention(
     KERNEL(_SYMBOL[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            lengths.data_ptr(), b, h, hkv, s, dh, 1.0 / math.sqrt(dh),
            float(soft_cap) if soft_cap is not None else 0.0,
+           plan.splits, plan.tile, plan.span, int(plan.tensor_cores and vec), int(vec),
+           out.data_ptr())
+    return out
+
+
+def decode_attention_paged(
+    q: torch.Tensor,            # [B, H, dh]
+    k: torch.Tensor,            # [P, ps, Hkv, dh] shared planes
+    v: torch.Tensor,
+    page_table: torch.Tensor,   # [B, n_pages] int32 plane pages of each row
+    lengths: torch.Tensor,      # [B] int: valid positions per row, >= 1
+    *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """K2's paged entry: row b's logical position s is plane row
+    ``page_table[b, s // ps] * ps + s % ps``; scores ``lengths[b]``
+    positions of the row's logical cache of ``n_pages * ps``."""
+    _check_q(q, k, v)
+    b, h, dh = q.shape
+    if k.dim() != 4 or k.shape[3] != dh or v.shape != k.shape:
+        raise ValueError(f"planes k/v must be [P, ps, Hkv, dh], got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != b or page_table.device != q.device:
+        raise ValueError(f"page_table must be [B, pages] on {q.device}, got "
+                         f"{tuple(page_table.shape)} on {page_table.device}")
+    ps, hkv = k.shape[1], k.shape[2]
+    if h % hkv or h // hkv > MAX_GROUP:
+        raise ValueError(f"H={h} must be a multiple of Hkv={hkv} with at most {MAX_GROUP} "
+                         f"per group")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    page_table = page_table.to(torch.int32).contiguous()
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    n_pages = page_table.shape[1]
+    plan = decode_plan(n_pages * ps, dh, h // hkv, q.dtype)
+    vec = (dh * q.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v))
+    out = torch.empty_like(q)
+    KERNEL(PAGED_SYMBOLS[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           lengths.data_ptr(), page_table.data_ptr(), b, h, hkv, n_pages, ps, dh,
+           1.0 / math.sqrt(dh), float(soft_cap) if soft_cap is not None else 0.0,
            plan.splits, plan.tile, plan.span, int(plan.tensor_cores and vec), int(vec),
            out.data_ptr())
     return out

@@ -107,13 +107,26 @@ def slot_gmm_ragged(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lengths: torch.Tensor, soft_cap: Optional[float] = None,
+    page_table: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Adapter for the model's decode path: q [B, 1, H, dh], cache k/v
     [B, S, Hkv, dh], ``lengths`` [B] int on q's device: each row's valid
     positions (the new token's KV already written; a length past S scores
     all S, a full ring cache). The lengths stay on the device, so a CUDA
     graph can capture the call with the host setting them before a replay
-    (the reference's adapter takes ``cur_len``, scalar or [B], and adds 1)."""
+    (the reference's adapter takes ``cur_len``, scalar or [B], and adds 1).
+
+    ``page_table`` [B, n_pages] int32: k/v are the serving pool's shared
+    planes [P, ps, Hkv, dh] and each row's cache is its pages; on the card
+    K2's paged entry reads them through the table, with no gathered copy."""
+    if page_table is not None:
+        if _on_card(q):
+            out = _dec.decode_attention_paged(q[:, 0], k, v, page_table, lengths,
+                                              soft_cap=soft_cap)
+        else:
+            out = ref.decode_attention_paged_ref(q[:, 0], k, v, page_table, lengths,
+                                                 soft_cap=soft_cap)
+        return out[:, None]
     if _on_card(q):
         out = _dec.decode_attention(q[:, 0], k, v, lengths, soft_cap=soft_cap)
     else:

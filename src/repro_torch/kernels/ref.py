@@ -90,6 +90,26 @@ def decode_attention_ref(
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+def decode_attention_paged_ref(
+    q: torch.Tensor,           # [B, H, dh]
+    k: torch.Tensor,           # [P, ps, Hkv, dh] shared planes
+    v: torch.Tensor,
+    page_table: torch.Tensor,  # [B, n_pages] int plane pages of each row
+    lengths: torch.Tensor,     # [B] int
+    *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """The paged entry's plain version: each row's logical view gathered
+    through its page table (the reference's ``k[page_table].reshape(B,
+    cap, Hkv, dh)``), then :func:`decode_attention_ref`."""
+    b, n_pages = page_table.shape
+    tail = k.shape[2:]
+    pt = page_table.long()
+    kr = k[pt].reshape((b, n_pages * k.shape[1]) + tail)
+    vr = v[pt].reshape((b, n_pages * v.shape[1]) + tail)
+    return decode_attention_ref(q, kr, vr, lengths, soft_cap=soft_cap)
+
+
 def topk_gate_ref(
     logits: torch.Tensor,      # [T, E]
     k: int,

@@ -1,6 +1,18 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve --arch <id>``.
 
-The ``--engine rotary`` path of ``repro.launch.serve`` on the card: host
+``--engine batch`` serves through ``ServingEngine``, continuous batching
+over a paged KV pool (the reference's default engine): ``--requests`` of
+mixed prompt lengths (drawn in 4..``--prompt-len``, as the reference draws
+them) decode in ``--batch-slots`` rows, with per-row speculative windows up
+to ``--spec-cap``, a pool of ``--kv-pages`` pages of ``--kv-page-size``
+positions, optional ``--warmup`` (captures the window graphs first) and
+``--arrival-rate`` (a seeded Poisson replay on the wall clock: requests
+join between ticks); it prints each request's tokens, then ``summary()``
+(TTFT and inter-token p50/p99, windows, pages high-water mark, misses).
+``--residency``, ``--slots``, ``--quantization``, ``--prefetch`` and the
+sampling flags apply as to the rotary engine.
+
+The ``--engine rotary`` path (the default) of ``repro.launch.serve`` on the card: host
 warehouse, rotating device slots, pre-gated rotation, host miss correction.
 Weights are random from ``--seed``. Like the reference CLI it runs the
 reduced config by default; ``--full-width`` keeps the published widths and
@@ -26,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import numpy as np
 
@@ -37,6 +50,9 @@ QUANT_CHOICES = {"none": None, "int8": "int8", "int4": "int4"}
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--engine", default="rotary", choices=["rotary", "batch"],
+                    help="rotary: RotaryEngine, one group of --batch requests at a time; "
+                         "batch: ServingEngine, continuous batching over a paged KV pool")
     ap.add_argument("--residency", default="rotary", choices=["full", "rotary", "lru", "static"])
     ap.add_argument("--slots", type=int, default=0, help="residency slots per layer")
     ap.add_argument("--requests", type=int, default=2)
@@ -83,6 +99,20 @@ def main() -> None:
     ap.add_argument("--sample-seed", type=int, default=None,
                     help="seed of the sampling streams (default: --seed); draws are keyed "
                          "per row and position, so a seed reproduces its tokens bitwise")
+    ap.add_argument("--batch-slots", type=int, default=4,
+                    help="batch engine: rows decoding at once")
+    ap.add_argument("--spec-cap", type=int, default=4,
+                    help="batch engine: per-row speculative length cap (1 disables "
+                         "speculation)")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="batch engine: KV pool size in pages (0 = batch-slots full rows)")
+    ap.add_argument("--kv-page-size", type=int, default=16,
+                    help="batch engine: KV pool page size in cache positions")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="batch engine: Poisson arrival rate (requests/s); requests are "
+                         "submitted on a seeded arrival trace while the engine ticks")
+    ap.add_argument("--warmup", action="store_true",
+                    help="batch engine: capture the window graphs before serving")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -101,11 +131,15 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, segments=((("attn_moe",), args.layers),))
     params = init_params(cfg, args.seed, device, expert_device="cpu")
     slots = args.slots or cfg.moe.num_experts * 3 // 4
+    rescfg = ResidencyConfig(mode=args.residency, num_slots=slots,
+                             quantization=QUANT_CHOICES[args.quantization],
+                             quant_group_size=args.quant_group)
+    if args.engine == "batch":
+        _serve_batch(args, cfg, params, rescfg, device)
+        return
     b = max(1, args.batch)
     eng = RotaryEngine(
-        cfg, params, ResidencyConfig(mode=args.residency, num_slots=slots,
-                                     quantization=QUANT_CHOICES[args.quantization],
-                                     quant_group_size=args.quant_group),
+        cfg, params, rescfg,
         rt=Runtime(cache_len=args.cache_len), batch=b, seed=args.seed,
         host_routing=args.host_routing, fused_decode=args.fused_decode,
         spec_k=max(1, args.spec_k), prefetch=args.prefetch,
@@ -126,6 +160,50 @@ def main() -> None:
     print("stats:", eng.stats.summary())
     print("per-layer residency:")
     print(eng.stats.per_layer_table())
+
+
+def _serve_batch(args, cfg, params, rescfg, device) -> None:
+    """``--engine batch``: the ServingEngine over mixed prompt lengths."""
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serving import SamplerConfig, ServingEngine
+
+    eng = ServingEngine(
+        cfg, params, rt=Runtime(cache_len=args.cache_len), num_slots=args.batch_slots,
+        residency=rescfg,
+        sampler=SamplerConfig(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p,
+                              seed=args.seed if args.sample_seed is None else args.sample_seed),
+        spec_cap=max(1, args.spec_cap), kv_page_size=args.kv_page_size,
+        kv_pages=args.kv_pages or None, prefetch=args.prefetch, device=device)
+    if args.warmup:
+        print(f"warmup: {eng.warmup()} graphs captured")
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, args.prompt_len + 1)))
+               for _ in range(args.requests)]
+    if args.arrival_rate > 0:
+        # live Poisson replay: requests join the window at their arrival
+        # times and the engine ticks between joins
+        at = np.cumsum(rng.exponential(1.0 / args.arrival_rate, args.requests))
+        at -= at[0]
+        i, t0 = 0, time.perf_counter()
+        while i < len(prompts) or not eng.scheduler.idle:
+            now = time.perf_counter() - t0
+            while i < len(prompts) and at[i] <= now:
+                eng.submit(prompts[i], args.max_new)
+                i += 1
+            if not eng.scheduler.idle:
+                eng.tick()
+            elif i < len(prompts):
+                time.sleep(min(1e-3, max(0.0, at[i] - now)))
+        eng.stats.wall_s += time.perf_counter() - t0
+        done = eng.scheduler.completed
+    else:
+        for p in prompts:
+            eng.submit(p, args.max_new)
+        done = eng.run()
+    for r in done:
+        print(f"req {r.uid}: prompt_len={len(r.prompt)} -> {r.output}")
+    print("stats:", eng.summary())
 
 
 if __name__ == "__main__":

@@ -15,6 +15,11 @@ to the same caches in place and scores them with K4's chunk-append entry,
 ``cur_len`` again a device scalar, so one CUDA graph per chunk length serves
 every chunk start.
 
+The serving engine's paged pool (``attention_decode(page_table=...)``, per
+row ``cur_len`` [B]) writes each row's new K/V through its page table into
+planes shared by every row and scores them with K2's paged entry, which
+reads the pages through the table itself.
+
 Sliding-window (ring) caches need no ring mask in K2: the cache holds
 ``cap = min(window, cache_len)`` slots, and after the write every filled
 slot holds a position in ``(cur_len - cap, cur_len]``, inside the window, so
@@ -193,10 +198,24 @@ def _ring_chunk_plain(acfg: AttentionConfig, q: torch.Tensor, pre_k: torch.Tenso
 def attention_decode(
     p: Params, acfg: AttentionConfig, x: torch.Tensor,
     cache: Dict[str, torch.Tensor], cur_len: Union[int, torch.Tensor],
+    page_table: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One-token decode. x [B, 1, D]; cache k/v [B, cap, Hkv, dh], updated IN
     PLACE at slot ``cur_len % cap`` before scoring. Returns y [B, 1, D].
-    ``cur_len`` is an int or a 0-d integer tensor on x's device.
+    ``cur_len`` is an int or an integer tensor on x's device, a scalar or
+    per row [B] (the serving engine's ragged rows): each row writes its own
+    slot and rotates at its own position. A device ``cur_len`` stays there,
+    so a CUDA graph can capture the write.
+
+    ``page_table`` [B, cap // ps] int32 switches the cache to the serving
+    engine's paged pool (the reference's ``page_table=``): k/v are planes
+    [P, ps, Hkv, dh] shared by every row, and row b's slot s lives at
+    ``(page_table[b, s // ps], s % ps)``. The new K/V go there; scoring
+    reads the row's pages through the table (K2's paged entry on the card;
+    on the CPU the row's gathered logical view, scored as the contiguous
+    path scores it, so paged decode is bitwise the contiguous decode).
+    Pad rows carry all-zero tables: their writes land in the scratch page 0,
+    never scored unmasked.
 
     Re-running this at the same ``cur_len`` (the engine's suffix replay and
     miss relaunch) overwrites the very slot the first pass wrote, as in the
@@ -204,16 +223,24 @@ def attention_decode(
     b = x.shape[0]
     h, hkv, dh = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
     ck, cv = cache["k"], cache["v"]
-    cap = ck.shape[1]
-    if not isinstance(cur_len, torch.Tensor):
-        cur_len = torch.full((), cur_len, dtype=torch.int64, device=x.device)
-    positions = cur_len.to(torch.int64).reshape(1, 1).expand(b, 1)
-    q, k_new, v_new = _project_qkv(p, acfg, x, positions)
-    slot = torch.remainder(cur_len.to(torch.int64), cap).reshape(1)
-    ck.index_copy_(1, slot, k_new)
-    cv.index_copy_(1, slot, v_new)
-    lengths = torch.clamp(cur_len.to(torch.int32) + 1, max=cap).expand(b)
-    ctx = ops.decode_attention(q, ck, cv, lengths=lengths, soft_cap=acfg.logit_soft_cap)
+    cl = torch.as_tensor(cur_len, device=x.device).to(torch.int64).reshape(-1).expand(b)
+    q, k_new, v_new = _project_qkv(p, acfg, x, cl[:, None])
+    if page_table is None:
+        cap = ck.shape[1]
+        slot = torch.remainder(cl, cap)
+        where = (torch.arange(b, device=x.device), slot)
+    else:
+        ps = ck.shape[1]
+        cap = page_table.shape[1] * ps
+        slot = torch.remainder(cl, cap)
+        page = torch.gather(page_table.long(), 1,
+                            torch.div(slot, ps, rounding_mode="floor")[:, None])[:, 0]
+        where = (page, torch.remainder(slot, ps))
+    ck.index_put_(where, k_new[:, 0])
+    cv.index_put_(where, v_new[:, 0])
+    lengths = torch.clamp(cl.to(torch.int32) + 1, max=cap)
+    ctx = ops.decode_attention(q, ck, cv, lengths=lengths, soft_cap=acfg.logit_soft_cap,
+                               page_table=page_table)
     return ctx.reshape(b, 1, h * dh) @ p["wo"]
 
 

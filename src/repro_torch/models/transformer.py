@@ -11,6 +11,12 @@ over layers needs no stacking). The KV state is a list of per-layer
 the reference's ``decode_window``, ``snapshot_kv_window`` and
 ``rollback_kv_window``; a prefill chunk (``prefill_chunk_model``) appends C
 positions to the same caches, the reference's ``prefill_chunk_model``.
+
+The serving engine's paged KV pool (``paged_zero_state``: per layer, planes
+[P, ps, Hkv, dh] shared by every row) runs through the same decode step and
+window with a ``page_table`` [B, pages] and a per-row ``cur_len`` [B], and
+its admission prefill is ``prefill_model`` (right-padded rows, the logits at
+each row's ``last_index`` and a fresh contiguous state to splice into pages).
 """
 from __future__ import annotations
 
@@ -75,6 +81,21 @@ def zero_state(cfg: ModelConfig, batch: int, cache_len: int,
             for _ in range(cfg.num_layers)]
 
 
+def paged_zero_state(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device) -> List[Dict[str, torch.Tensor]]:
+    """Decode state over the serving engine's PAGED KV pool (the reference's
+    ``paged_zero_state``): per layer ``{"k", "v"}`` planes [num_pages,
+    page_size, Hkv, dh] shared by every row and addressed through per-row
+    page tables (``attention_decode(page_table=...)``). ``num_pages`` counts
+    the scratch page the pool keeps at index 0."""
+    a = cfg.attention
+    shape = (num_pages, page_size, a.num_kv_heads, a.head_dim)
+    dtype = torch_dtype(cfg)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
@@ -86,18 +107,19 @@ def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor
 
 
 def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: Any,
-              cur_len: Union[int, torch.Tensor],
-              cache_len: int) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+              cur_len: Union[int, torch.Tensor], cache_len: int,
+              page_table: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Attention + residual, then the MoE input norm: (x_mid, h2 [T, D], state).
     ``prefill`` rewrites ``state`` in place (a fresh cache when it is None);
     ``decode`` updates ``state`` in place at ``cur_len`` (an int or a device
-    scalar); ``chunk`` appends x's C positions to ``state`` in place at
+    scalar or per-row [B]; with ``page_table``, ``state`` is a layer of the
+    paged pool); ``chunk`` appends x's C positions to ``state`` in place at
     ``cur_len``."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     if mode == "prefill":
         y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len, state)
     elif mode == "decode":
-        y = attn.attention_decode(p["attn"], cfg.attention, h, state, cur_len)
+        y = attn.attention_decode(p["attn"], cfg.attention, h, state, cur_len, page_table)
     elif mode == "chunk":
         y = attn.attention_prefill_chunk(p["attn"], cfg.attention, h, state, cur_len)
     else:
@@ -112,10 +134,13 @@ def decode_model(
     params: Params,
     token: torch.Tensor,              # [B] current token
     state: List[Dict[str, torch.Tensor]],
-    cur_len: Union[int, torch.Tensor],  # tokens already in the cache (int or device scalar)
+    cur_len: Union[int, torch.Tensor],  # tokens already in the cache (int, device scalar or [B])
     residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
+    page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over every layer: returns (logits [B, V], aux).
+    ``page_table`` [B, pages]: ``state`` is the serving engine's paged pool
+    (:func:`paged_zero_state`) instead of per-row caches.
 
     ``residency`` gives each layer's (slot buffers, device LUT); None reads
     the full expert store in ``params``. ``state`` is updated in place. With
@@ -126,8 +151,57 @@ def decode_model(
     MoE inputs the demand GEMM reads) and ``route_x`` [L, T, D] (each block's
     input, the replay anchor)."""
     x = embed_tokens(params, token[:, None])
-    x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency)
+    x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency, page_table)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], aux
+
+
+def prefill_model(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,             # [B, S] right-padded prompts
+    cache_len: int,
+    *,
+    last_index: Optional[torch.Tensor] = None,
+    residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
+    correct: Optional[Callable[..., torch.Tensor]] = None,
+    experts: Optional[Callable[[int], Params]] = None,
+) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """The serving engine's admission prefill (the reference's
+    ``prefill_model`` under its scan over rows): returns (logits [B, V] at
+    each row's ``last_index`` [B] (default: the last position), a fresh
+    contiguous state [B, cache_len] per layer). Each row runs as a batch-1
+    prefill, layer by layer, so a row's outputs do not depend on the others.
+    Attention is K4's causal entry over the padded row, so pads after a
+    row's last position cannot reach it.
+
+    The reference reads every routed expert from ``params``. Here each
+    layer's MoE half reads the layer's expert store (``experts(li)`` when
+    given, called once per layer before its rows: the serving engine's
+    float store staged on the device under quantized slots), or, with
+    ``residency``, each layer's (slot buffers, LUT) serves the resident
+    picks and ``correct(li, row, x, h2, ids, weights, miss)`` returns x
+    with the missed picks added (the engine's host GEMM). Nothing here
+    resolves, rotates or records: the residency a caller holds is left as
+    it was."""
+    b = tokens.shape[0]
+    state = zero_state(cfg, b, cache_len, tokens.device)
+    xs = [embed_tokens(params, tokens[i:i + 1]) for i in range(b)]
+    for li, p in enumerate(params["layers"]):
+        moe_p = p["moe"] if experts is None else {**p["moe"], "experts": experts(li)}
+        slots, lut = residency[li] if residency is not None else (None, None)
+        for i in range(b):
+            cache = {n: state[li][n][i:i + 1] for n in ("k", "v")}
+            x_mid, h2, _ = attn_half(cfg, p, xs[i], "prefill", cache, 0, cache_len)
+            ids, weights = moe_mod.route(moe_p, h2, cfg.moe)
+            y2, miss = moe_mod.moe_apply_routed(moe_p, h2, ids, weights,
+                                                slot_buffer=slots, lut=lut)
+            xs[i] = x_mid + y2.reshape(x_mid.shape)
+            if correct is not None:
+                xs[i] = correct(li, i, xs[i], h2, ids, weights, miss)
+    last = ([x.shape[1] - 1] * b if last_index is None
+            else [int(v) for v in last_index.reshape(-1).tolist()])
+    h = torch.cat([x[:, j] for x, j in zip(xs, last)])
+    return lm_logits(cfg, params, h[:, None])[:, 0], state
 
 
 def prefill_chunk_model(
@@ -155,16 +229,18 @@ def prefill_chunk_model(
 
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
                state: List[Dict[str, torch.Tensor]], cur_len: Union[int, torch.Tensor],
-               residency: Optional[List[Tuple[Params, torch.Tensor]]]
+               residency: Optional[List[Tuple[Params, torch.Tensor]]],
+               page_table: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every layer in ``mode`` (``decode`` or ``chunk``): attention, routing,
     the routed experts through each layer's residency. Returns the last
-    hidden [B, S, D] and the routing telemetry stacked over layers."""
+    hidden [B, S, D] and the routing telemetry stacked over layers.
+    ``page_table`` (decode): ``state`` is the paged pool."""
     d = x.shape[-1]
     tel: Dict[str, List[torch.Tensor]] = {n: [] for n in ("ids", "weights", "miss", "h", "x")}
     for li, p in enumerate(params["layers"]):
         tel["x"].append(x.reshape(-1, d))
-        x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0)
+        x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0, page_table)
         ids, weights = moe_mod.route(p["moe"], h2, cfg.moe)
         slots, lut = residency[li] if residency is not None else (None, None)
         y2, miss = moe_mod.moe_apply_routed(p["moe"], h2, ids, weights,
@@ -186,6 +262,7 @@ def decode_window(
     aux_fn: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
     sample: Optional[sampling_mod.SampleParams] = None,
     rng_keys: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """``k_steps`` self-drafted decode steps (the speculative window; the
     reference's ``decode_window``).
@@ -196,7 +273,9 @@ def decode_window(
     ``sample`` (and ``rng_keys`` [B, 2], the per-row base keys) by a draw
     from the warped distribution keyed by ``fold_in(row_key, cur_len + j)``
     (``sampling.sample_step``); every position gathers from the same
-    ``residency`` and writes its KV slot in place.
+    ``residency`` and writes its KV slot in place. The serving engine passes
+    its paged pool as ``state`` with ``page_table`` [B, pages] and a per-row
+    ``cur_len`` [B]; each row draws at its own positions.
     Returns ``(draft [K, B], logits [K, B, V] f32, aux)``: ``draft[j]`` is
     the argmax of ``logits[j]`` (the token position j+1 consumed),
     ``logits[-1]`` is the reference's ``last_logits``, and every aux entry
@@ -210,7 +289,7 @@ def decode_window(
     logits_all: List[torch.Tensor] = []
     auxs: List[Dict[str, torch.Tensor]] = []
     for j in range(k_steps):
-        logits, aux = decode_model(cfg, params, tok, state, cur_len + j, residency)
+        logits, aux = decode_model(cfg, params, tok, state, cur_len + j, residency, page_table)
         if aux_fn is not None:
             aux = aux_fn(aux)
         if sample is None:
@@ -241,16 +320,42 @@ def _kv_window_slots(cache: torch.Tensor, cur_len: Union[int, torch.Tensor],
     return torch.arange(b, device=cache.device)[:, None], (cl[:, None] + offs[None, :]) % cap
 
 
+def _kv_window_slots_paged(cache: torch.Tensor, page_table: torch.Tensor,
+                           cur_len: Union[int, torch.Tensor],
+                           k_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plane (page, offset) index tensors [B, K] of the ``k_steps`` logical
+    slots ``(cur_len + j) % cap`` a window writes through ``page_table``
+    [B, cap // ps] (the reference's ``_kv_window_slots_paged``). cache
+    [P, ps, Hkv, dh]."""
+    ps = cache.shape[1]
+    b, cap = page_table.shape[0], page_table.shape[1] * ps
+    if k_steps > cap:
+        raise ValueError(f"speculative window ({k_steps}) exceeds KV capacity ({cap})")
+    cl = torch.as_tensor(cur_len, device=cache.device).to(torch.int64).reshape(-1).expand(b)
+    slots = (cl[:, None] + torch.arange(k_steps, device=cache.device)[None, :]) % cap
+    pages = torch.gather(page_table.long(), 1, torch.div(slots, ps, rounding_mode="floor"))
+    return pages, slots % ps
+
+
+def _window_index(cache: torch.Tensor, cur_len: Union[int, torch.Tensor], k_steps: int,
+                  page_table: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    if page_table is None:
+        return _kv_window_slots(cache, cur_len, k_steps)
+    return _kv_window_slots_paged(cache, page_table, cur_len, k_steps)
+
+
 def snapshot_kv_window(state: List[Dict[str, torch.Tensor]],
                        cur_len: Union[int, torch.Tensor],
-                       k_steps: int) -> List[Dict[str, torch.Tensor]]:
+                       k_steps: int,
+                       page_table: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
     """Pre-window copies of the KV slots the next ``k_steps`` positions
     overwrite, per layer ``{"k", "v"}`` [B, K, Hkv, dh]: what
     :func:`rollback_kv_window` restores (zeros for a full cache, the previous
-    lap's entries for a ring cache)."""
+    lap's entries for a ring cache). ``page_table`` [B, pages]: ``state`` is
+    the paged pool, read through each row's pages."""
     out = []
     for cache in state:
-        rows, slots = _kv_window_slots(cache["k"], cur_len, k_steps)
+        rows, slots = _window_index(cache["k"], cur_len, k_steps, page_table)
         out.append({n: cache[n][rows, slots] for n in ("k", "v")})
     return out
 
@@ -258,14 +363,17 @@ def snapshot_kv_window(state: List[Dict[str, torch.Tensor]],
 def rollback_kv_window(state: List[Dict[str, torch.Tensor]],
                        saved: List[Dict[str, torch.Tensor]],
                        cur_len: Union[int, torch.Tensor], k_steps: int,
-                       keep: Union[int, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+                       keep: Union[int, torch.Tensor],
+                       page_table: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
     """KV truncate after a partly rejected window, IN PLACE: the slots of
     window offsets ``>= keep`` (scalar or per-row [B]) get their ``saved``
     pre-window contents back, offsets ``< keep`` (the accepted prefix) stay.
     The cache then equals the one a sequential decode holds at length
-    ``cur_len + keep``. Returns ``state``."""
+    ``cur_len + keep``. ``page_table`` [B, pages]: the paged pool, written
+    through each row's pages (pad rows' duplicate writes land in the scratch
+    page). Returns ``state``."""
     for cache, sv in zip(state, saved):
-        rows, slots = _kv_window_slots(cache["k"], cur_len, k_steps)
+        rows, slots = _window_index(cache["k"], cur_len, k_steps, page_table)
         b = slots.shape[0]
         kp = torch.as_tensor(keep, device=slots.device).to(torch.int64).reshape(-1).expand(b)
         mask = (torch.arange(k_steps, device=slots.device)[None, :] >= kp[:, None])[..., None, None]

@@ -1150,3 +1150,177 @@ def test_sampled_window_graphs_equal_eager_windows(card, spec_k, slots, prefetch
     _, single = _reduced_engine(card, slots=slots, prefetch=prefetch, dtype=dtype)
     np.testing.assert_array_equal(single.decode(single.prefill(prompt), 15, sampler=sc),
                                   out[True][0])
+
+
+# ---------------------------------------------------------------------------
+# K2's paged entry and the serving engine's windows
+# ---------------------------------------------------------------------------
+def _paged_case(device, dtype, ps, lens, b=None, seed=0, spare=5):
+    """q [B, 32, 128], planes [P, ps, 4, 128] whose spare pages hold garbage,
+    a shuffled page table [B, 1024 // ps] and lengths ``lens``."""
+    b = b or len(lens)
+    n_pages = 1024 // ps
+    planes = b * n_pages + 1 + spare
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    kp = (torch.randn((planes, ps, 4, 128), generator=gen) * 3).to(device=device, dtype=dtype)
+    vp = torch.randn((planes, ps, 4, 128), generator=gen).to(device=device, dtype=dtype)
+    pt = (torch.randperm(planes - 1, generator=gen)[:b * n_pages] + 1).reshape(b, n_pages)
+    q = torch.randn((b, 32, 128), generator=gen).to(device=device, dtype=dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, kp, vp, pt.to(device=device, dtype=torch.int32), lengths
+
+
+def _gathered(planes, pt):
+    b, n = pt.shape
+    return planes[pt.long()].reshape((b, n * planes.shape[1]) + tuple(planes.shape[2:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_decode_attention_paged_matches_plain_and_contiguous(card, dtype, ps, soft_cap):
+    """Lengths on and around page boundaries (and the whole row), pages in
+    shuffled order: the paged entry within the tolerance of its plain
+    version, and bitwise the contiguous entry on the gathered view."""
+    from repro_torch.kernels import decode_attention as dec
+
+    lens = [1, ps - 1, ps, ps + 1, 2 * ps, 300, 577, 1024]
+    q, kp, vp, pt, lengths = _paged_case(card, dtype, ps, lens)
+    got = dec.decode_attention_paged(q, kp, vp, pt, lengths, soft_cap=soft_cap)
+    want = ref.decode_attention_paged_ref(q, kp, vp, pt, lengths, soft_cap=soft_cap)
+    contiguous = dec.decode_attention(q, _gathered(kp, pt), _gathered(vp, pt), lengths,
+                                      soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, contiguous)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_paged_is_bitwise_stable_and_batch_invariant(card, dtype):
+    """A row's output does not depend on the other rows, the batch or the
+    call: each row alone equals itself among 4, twice over."""
+    from repro_torch.kernels import decode_attention as dec
+
+    q, kp, vp, pt, lengths = _paged_case(card, dtype, 16, [37, 300, 576, 1024])
+    full = dec.decode_attention_paged(q, kp, vp, pt, lengths)
+    assert torch.equal(full, dec.decode_attention_paged(q, kp, vp, pt, lengths))
+    for i in range(4):
+        alone = dec.decode_attention_paged(q[i:i + 1], kp, vp, pt[i:i + 1], lengths[i:i + 1])
+        assert torch.equal(alone, full[i:i + 1]), i
+
+
+def test_paged_pad_rows_leave_valid_rows_untouched(card):
+    """Pad rows (all-zero tables, cur_len 0) write their K/V into the
+    scratch page 0, duplicates racing there: the valid rows' outputs are
+    bitwise those of the valid rows decoded without pads (K2's paged entry),
+    and no page but 0 and the valid rows' written slots changes."""
+    from repro_torch.config.base import AttentionConfig
+    from repro_torch.models import attention as attn
+
+    acfg = AttentionConfig(num_heads=32, num_kv_heads=4, head_dim=128)
+    gen = torch.Generator(device=card).manual_seed(3)
+    p = attn.init_attention(gen, 256, acfg, torch.float32, card)
+    q, kp, vp, pt, lengths = _paged_case(card, torch.float32, 16, [37, 300], b=2)
+    pad_pt = torch.cat([pt, torch.zeros_like(pt)])
+    pad_len = torch.cat([lengths, torch.ones_like(lengths)])
+    with_pads = ops.decode_attention(torch.cat([q, q])[:, None], kp, vp, lengths=pad_len,
+                                     page_table=pad_pt)
+    alone = ops.decode_attention(q[:, None], kp, vp, lengths=lengths, page_table=pt)
+    torch.cuda.synchronize()
+    assert torch.equal(with_pads[:2], alone)
+    x = torch.randn((4, 1, 256), generator=gen, device=card)
+    cur = torch.tensor([36, 299, 0, 0], device=card)
+    planes = {"k": kp.clone(), "v": vp.clone()}
+    attn.attention_decode(p, acfg, x, planes, cur, page_table=pad_pt)
+    torch.cuda.synchronize()
+    changed = (planes["k"] != kp).flatten(2).any(-1)                # [P, ps]
+    written = {(0, int(s)) for s in range(16)} | {
+        (int(pt[i, int(c) // 16]), int(c) % 16) for i, c in enumerate(cur[:2].tolist())}
+    assert {tuple(ix) for ix in changed.nonzero().tolist()} <= written
+
+
+def _reduced_server(device, slots=6, dtype="float32", prefetch=False, sample=None):
+    from repro_torch.config import ResidencyConfig, get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.serving import SamplerConfig, ServingEngine
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen36-35b-a3b")), dtype=dtype)
+    res = ResidencyConfig(mode="rotary", num_slots=slots) if slots else None
+    smp = SamplerConfig(temperature=0.8, top_k=20, top_p=0.95, seed=3) if sample else None
+    return cfg, ServingEngine(cfg, init_params(cfg, 0, "cpu"), rt=Runtime(cache_len=64),
+                              num_slots=3, residency=res, sampler=smp, spec_cap=4,
+                              kv_page_size=8, prefetch=prefetch, device=device)
+
+
+def _serve_all(eng, vocab, n=4, new=10):
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(0, vocab, int(rng.integers(5, 30))), new, seed=10 + i)
+            for i in range(n)]
+    eng.run()
+    return [r.output for r in reqs]
+
+
+@pytest.mark.parametrize("slots,dtype,prefetch,sample", [
+    (6, "float32", False, False), (6, "bfloat16", False, False), (6, "bfloat16", True, False),
+    (0, "bfloat16", False, True),
+])
+def test_serving_window_graphs_equal_eager_windows(card, slots, dtype, prefetch, sample):
+    """Each (window size, rows bucket, sampler) captured once and replayed,
+    against the same windows run eagerly on the card, over windows that
+    miss and roll back (rotary at 6 of 8): the same tokens, bitwise the same
+    KV pages, the same EngineStats."""
+    out = {}
+    for capture in (True, False):
+        cfg, eng = _reduced_server(card, slots, dtype, prefetch, sample)
+        eng._gs.capture = capture
+        toks = _serve_all(eng, cfg.vocab_size)
+        stats = {k: v for k, v in dataclasses.asdict(eng.stats).items() if k not in _MEASURED}
+        out[capture] = (toks, [{n: c[n].cpu() for n in c} for c in eng.pool_state], stats,
+                        eng.graph_captures, eng.graph_replays, eng.stats.misses)
+    assert out[True][0] == out[False][0]
+    for a, b in zip(out[True][1], out[False][1]):
+        for n in ("k", "v"):
+            assert torch.equal(a[n][1:], b[n][1:])        # page 0 is the racing scratch page
+    assert out[True][2] == out[False][2]
+    assert out[True][3] > 0 and out[True][3] + out[True][4] == out[True][2]["windows"]
+    assert out[False][3:5] == (0, 0)
+    s = out[True][2]
+    if slots:
+        assert out[True][5] > 0 and s["accepted_tokens"] < s["drafted_tokens"]
+
+
+def test_serving_warmup_changes_no_output(card):
+    """``warmup()`` captures every (window size, rows bucket) graph before
+    traffic, writing only the scratch page: the same tokens and KV pages as
+    an engine that captures on first use, and no capture while serving."""
+    out = []
+    for warm in (False, True):
+        cfg, eng = _reduced_server(card, 6, "bfloat16")
+        if warm:
+            assert eng.warmup() == 4 * 3        # K 1..4 x rows buckets 1, 2, 4 (3 rows)
+        before = eng.graph_captures
+        toks = _serve_all(eng, cfg.vocab_size)
+        out.append((toks, [c["k"][1:].cpu() for c in eng.pool_state], eng.graph_captures - before))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    assert out[1][2] == 0 and out[0][2] > 0
+
+
+def test_serving_on_card_matches_cpu(card):
+    """f32, every expert resident and rotary at 6 of 8: the card's tokens
+    equal the CPU engine's."""
+    for slots in (0, 6):
+        got = []
+        for device in (card, torch.device("cpu")):
+            cfg, eng = _reduced_server(device, slots, "float32")
+            got.append(_serve_all(eng, cfg.vocab_size))
+        assert got[0] == got[1], slots
+
+
+def test_serving_replay_after_a_moved_plane_raises(card):
+    cfg, eng = _reduced_server(card, 6, "float32")
+    eng.warmup()
+    eng.pool_state[0]["k"] = eng.pool_state[0]["k"].clone()
+    with pytest.raises(RuntimeError, match="moved"):
+        _serve_all(eng, cfg.vocab_size, n=1, new=3)
