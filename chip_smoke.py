@@ -29,7 +29,13 @@ Phases, each failing loudly (nothing is caught):
    K1's ragged entry, a 128-token chunk's 1,024 picks over 97 slots in
    bf16, int8 and int4 (beside index_select (+ dequantize) + bmm over the
    rows padded by slot; its plain version reads the offsets on the host, so
-   only its wall time is taken);
+   only its wall time is taken). At the dense families' widths (``base``:
+   the kernel or entry a row is a width of): K4's causal entry at 512
+   queries for dh 64 (32/32 heads), 96 (32/32), 160 (32/8) and 256 (10/1),
+   its chunk entry at dh 160, and K2's contiguous and paged entries at dh 96
+   g 1, dh 160 g 4, dh 128 g 9 and g 12, each held to its plain version and
+   timed beside SDPA; the JSON row gives ``width_launches``, the launches on
+   the paths that run that width;
 4. run twenty paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at
    its published widths, cut to the first 8 of its 48 layers (the depth is
    the only cut: 8 layers of host warehouse are 9.7 GB, the whole model's
@@ -77,6 +83,26 @@ Phases, each failing loudly (nothing is caught):
      be equal), ``full-sample-spec4`` (windows of 4: its stream must equal
      ``full-sample``'s) and ``bf16-sample-spec4`` (96/128, its accept rate
      printed).
+   Then five ``ServingEngine`` paths on the same cut of qwen36 (4 rows,
+   pages of 16, windows up to 4, eight requests of prompts drawn in 64-512
+   from the run's seed + 32 new tokens each, all submitted at once:
+   ``serve-full``, ``serve-bf16``, ``serve-int4``, ``serve-int4-prefetch``,
+   ``serve-sample``), and the other families, each model made from the
+   run's seed and freed before the next:
+   * ``serve-qwen3-4b`` (36 layers), ``serve-starcoder2-7b`` (32) and
+     ``serve-phi3-mini`` (32): dense ``attn_mlp`` stacks at their published
+     widths and full depth through ``ServingEngine``, the serving paths'
+     traffic; every request's tokens equal the same request served alone
+     (margin guard), accept rate 1.000, no miss and no MoE kernel;
+   * ``pixtral-frontend`` (the first 16 of 40 layers, so that the f32
+     truth fits beside it) and ``musicgen-frontend`` (48 layers):
+     ``prefill_model`` with 1,024 (256) frontend embeddings drawn from the
+     seed before 512 (256) tokens, cache_len 2048 (1024), then 32 greedy
+     ``decode_model`` steps;
+   * ``dbrx-int4``: dbrx-132b at published widths, the first 2 of 40
+     layers (its 16 experts of 198M parameters are 12.7 GB a layer pair
+     in bf16), RotaryEngine with 12 of 16 int4 slots, 1 request of 512 +
+     32 tokens (K1 at D 6144 / F 10752, K3 at E 16, k 4).
    Each path starts from the same random weights and frees its engine, and
    its warehouse, before the next; the kernels' launch counters are zeroed
    just before each path and read just after (a graph replay adds the
@@ -86,8 +112,9 @@ Phases, each failing loudly (nothing is caught):
    counts its two entries (grouped, ragged) as one kernel, as K3 does; the
    JSON line gives each entry's own launches beside the kernel's. A quantized path
    also checks that the card's quantization of layer 0 equals the CPU
-   quantizer's byte for byte, and that every upload shipped exactly one
-   packed expert (2,654,208 bytes int4, 4,732,928 int8). Each path prints
+   quantizer's byte for byte (dbrx: its first expert), and that every
+   upload shipped exactly one packed expert (qwen36: 2,654,208 bytes int4,
+   4,732,928 int8; dbrx: 111,476,736 int4). Each path prints
    its graph captures and replays, relaunched and replayed steps, MB
    uploaded per decode token, missed experts converted on the host, the
    prefetch counters (with the copy stream's event-timed upload time) and
@@ -99,7 +126,10 @@ Phases, each failing loudly (nothing is caught):
    for ``bf16`` and ``int4`` a control follows: the first request again, fed
    the same tokens, with the host miss correction switched off, must fail
    that check (so the check can see a broken engine). A sampled request is
-   held to the truth on its own drawn tokens;
+   held to the truth on its own drawn tokens. The frontend paths hold their
+   prefill and every decode logits (the frontend embeddings first in the
+   truth too) and the dense serving paths their first-token logits and
+   greedy ids the same way;
 6. print the paths side by side, the kernels' JSON line, the card line, and
    last the result line.
 
@@ -160,6 +190,7 @@ class PathSpec(NamedTuple):
     sample: Optional[Tuple[float, int, float, int]] = None  # temperature, top-k, top-p, seed
     same_prompt: bool = False   # every request the first one again: the streams must be equal
     prefill_twin: Optional[str] = None      # the path whose prefill logits this one equals
+    quant_check: int = 0        # experts of layer 0 held to the CPU quantizer (0: all)
 
 
 CHUNK = 128
@@ -194,7 +225,6 @@ PATHS = (
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
 QUANT_TOL = dict(atol=1e-4, rtol=1e-4)
 GROUP = 64
-EXPERT_BYTES = {"int4": 2_654_208, "int8": 4_732_928}     # one packed expert on the link
 ERR_RATIO, RMS_SLACK, MAX_SLACK = 1.5, 0.01, 0.05
 REPLACES = {
     "slot_gmm": "src/repro/kernels/moe_gmm.py:111",
@@ -238,6 +268,16 @@ ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", 
             for q in ("", "_int8", "_int4") for e in ("tiled", "ragged")}}
 ROUTE_MARGIN = 1e-6                # probability gap that a summation order cannot close
 ROUTE_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def expert_bytes(cfg, quantization: str) -> int:
+    """One packed expert of ``cfg`` on the link (scale and min planes
+    included): what every upload of a ``quantization`` slot ships."""
+    from repro_torch.core.slots import quantized_expert_bytes
+
+    d, f = cfg.d_model, cfg.moe.expert_d_ff
+    shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    return quantized_expert_bytes(shapes, quantization, 2, GROUP)
 
 
 def entry_launches(symbols: dict, name: str) -> int:
@@ -515,6 +555,8 @@ def kernel_phase(dev):
     )
     rows["flash_attention_chunk"] = chunk_row(dev, g)
     rows.update(ragged_rows(dev, g, dict(up=w_up, down=w_down), slot_of))
+    del w_up, w_down, caches
+    rows.update(dense_rows(dev, g))
     for name, r in rows.items():
         log(f"  {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3e}, per call (wall): "
             f"kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
@@ -617,10 +659,11 @@ def paged_row(dev, g):
               f"{b}; library: gather + SDPA with a length mask")
 
 
-def chunk_row(dev, g):
+def chunk_row(dev, g, h=32, hkv=4, dh=128):
     """Phase 3 for K4's chunk-append entry: C queries at positions cur_len ..
-    against the 1024-slot cache (qwen36's heads: 32 q, 4 KV, dh 128), held
-    against its plain version at C in {1, 4, 128} and cur_len in {0, 384}
+    against the 1024-slot cache (qwen36's heads: 32 q, 4 KV, dh 128, or the
+    heads given), held against its plain version at C in {1, 4, 128} and
+    cur_len in {0, 384}
     (slots past the live keys hold stale values), and timed at C = 128,
     cur_len = 384 (a 512-token prompt's last chunk) beside the plain
     version, one library call (SDPA over the live keys with an explicit
@@ -631,8 +674,6 @@ def chunk_row(dev, g):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-
-    h, hkv, dh = 32, 4, 128
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -666,6 +707,170 @@ def chunk_row(dev, g):
         shape=f"q [1,{c},{h},{dh}] at cur_len {cur} vs cache [1,{CACHE},{hkv},{dh}] bf16 "
               f"(the last 128-token chunk of a 512-token prompt); library: SDPA over the "
               f"{live} live keys with an explicit causal-offset mask")
+
+
+# K4 and K2 at the dense families' shapes: (row, base kernel, dh, H, Hkv);
+# each row's ``width_paths`` are the paths that run that width and no other
+K4_WIDTHS = (("flash_attention_dh64", 64, 32, 32, ("musicgen-frontend",)),
+             ("flash_attention_dh96", 96, 32, 32, ("serve-phi3-mini",)),
+             ("flash_attention_dh160", 160, 32, 8, ("pixtral-frontend",)),
+             ("flash_attention_dh256", 256, 10, 1, ()))
+K2_WIDTHS = (("dh96_g1", 96, 32, 32, ("serve-phi3-mini",)),
+             ("dh160_g4", 160, 32, 8, ("pixtral-frontend",)),
+             ("dh128_g9", 128, 36, 4, ("serve-starcoder2-7b",)),
+             ("dh128_g12", 128, 24, 2, ()))
+
+
+def k4_row(dev, g, dh, h, hkv, s=PROMPT):
+    """K4's causal entry at ``s`` queries of ``h`` heads on ``hkv`` KV heads
+    of width ``dh`` in bf16: held to its plain version, row-invariant (the
+    first 64 queries alone equal their tile among all ``s``), timed beside
+    the plain version and SDPA; bound: q/k/v/out once, 4 dh H operations a
+    causal (query, key) pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = randn(1, s, h, dh), randn(1, s, hkv, dh), randn(1, s, hkv, dh)
+    out = fa.flash_attention(q, k, v)
+    err = check_close(f"flash_attention dh {dh} {h}/{hkv}", out,
+                      ref.flash_attention_ref(q, k, v), **KERNEL_TOL)
+    if not torch.equal(fa.flash_attention(q[:, :64].contiguous(), k[:, :64].contiguous(),
+                                          v[:, :64].contiguous()), out[:, :64]):
+        raise AssertionError(f"flash_attention dh {dh}: the first tile alone differs")
+    pairs = s * (s + 1) // 2
+    nbytes = (2 * s * h * dh + 2 * s * hkv * dh) * 2
+    b_ms, b_by = bound(nbytes, 4 * pairs * h * dh)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return dict(
+        max_abs_err=err,
+        **timed(20, kernel=lambda: fa.flash_attention(q, k, v),
+                plain=lambda: ref.flash_attention_ref(q, k, v),
+                library=lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * pairs * h * dh,
+        shape=f"q [1,{s},{h},{dh}] k/v [1,{s},{hkv},{dh}] bf16, causal (prefill)")
+
+
+def k2_rows(dev, g, dh, h, hkv):
+    """K2's contiguous and paged entries at the serving shape (4 rows,
+    lengths 37 / 300 / 576 / 1024 of a 1024-position cache, pages of 16
+    shuffled over shared planes) with ``h`` heads on ``hkv`` KV heads of
+    width ``dh`` in bf16: each held to its plain version (with and without
+    the soft cap), the paged entry bitwise the contiguous one on the
+    gathered view, row 0 alone bitwise itself among 4; timed beside the
+    plain versions and SDPA with a length mask (gathered first for the
+    paged entry); bound: the valid K/V once, q and out (and the table rows
+    used)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    b, n_pages = PAGED_ROWS, CACHE // PAGE
+    planes = b * n_pages + 1 + 7
+    bf = torch.bfloat16
+    kp = torch.randn((planes, PAGE, hkv, dh), generator=g, device=dev).to(bf)
+    vp = torch.randn((planes, PAGE, hkv, dh), generator=g, device=dev).to(bf)
+    pt = (torch.randperm(planes - 1, generator=g, device=dev)[:b * n_pages] + 1)
+    pt = pt.reshape(b, n_pages).to(torch.int32)
+    kc = kp[pt.long()].reshape(b, CACHE, hkv, dh)
+    vc = vp[pt.long()].reshape(b, CACHE, hkv, dh)
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, h, dh), generator=g, device=dev).to(bf)
+    err_c = err_p = 0.0
+    for cap in (None, 30.0):
+        got_c = dec.decode_attention(q, kc, vc, lens, soft_cap=cap)
+        got_p = dec.decode_attention_paged(q, kp, vp, pt, lens, soft_cap=cap)
+        err_c = max(err_c, check_close(f"decode_attention dh {dh} g {h // hkv}", got_c,
+                                       ref.decode_attention_ref(q, kc, vc, lens, soft_cap=cap),
+                                       **KERNEL_TOL))
+        err_p = max(err_p, check_close(f"decode_attention_paged dh {dh} g {h // hkv}", got_p,
+                                       ref.decode_attention_paged_ref(q, kp, vp, pt, lens,
+                                                                      soft_cap=cap),
+                                       **KERNEL_TOL))
+        if not torch.equal(got_p, got_c):
+            raise AssertionError(f"decode_attention_paged dh {dh}: not bitwise the contiguous "
+                                 f"entry on the gathered view")
+    if not torch.equal(dec.decode_attention(q[:1], kc[:1], vc[:1], lens[:1]),
+                       dec.decode_attention(q, kc, vc, lens)[:1]):
+        raise AssertionError(f"decode_attention dh {dh}: row 0 alone differs from row 0 among 4")
+    mask = (torch.arange(CACHE, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+    def sdpa(k, v):
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                                              attn_mask=mask, enable_gqa=True)
+
+    def gathered_sdpa():
+        return sdpa(kp[pt.long()].reshape(b, CACHE, hkv, dh),
+                    vp[pt.long()].reshape(b, CACHE, hkv, dh))
+
+    valid = sum(PAGED_LENS)
+    nbytes = 2 * valid * hkv * dh * 2 + 2 * b * h * dh * 2 + 4 * b
+    paged_bytes = nbytes + 4 * sum(-(-n // PAGE) for n in PAGED_LENS)
+    flops = 4 * valid * h * dh
+    plan = dec.decode_plan(CACHE, dh, h // hkv, bf)
+    body = "tensor cores" if plan.tensor_cores else "CUDA cores"
+    shape = (f"q [{b},{h},{dh}] vs {{}} bf16 (g {h // hkv}), lengths "
+             f"{'/'.join(map(str, PAGED_LENS))}; the {body} body (tile {plan.tile}, "
+             f"{plan.splits} spans)")
+    out = {}
+    b_ms, b_by = bound(nbytes, flops)
+    out["decode_attention"] = dict(
+        max_abs_err=err_c,
+        **timed(kernel=lambda: dec.decode_attention(q, kc, vc, lens),
+                plain=lambda: ref.decode_attention_ref(q, kc, vc, lens),
+                library=lambda: sdpa(kc, vc)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops,
+        shape=shape.format(f"cache [{b},{CACHE},{hkv},{dh}]") + "; library: SDPA, length mask")
+    b_ms, b_by = bound(paged_bytes, flops)
+    out["decode_attention_paged"] = dict(
+        max_abs_err=err_p,
+        **timed(kernel=lambda: dec.decode_attention_paged(q, kp, vp, pt, lens),
+                plain=lambda: ref.decode_attention_paged_ref(q, kp, vp, pt, lens),
+                library=gathered_sdpa),
+        bound_ms=b_ms, bound_by=b_by, nbytes=paged_bytes, flops=flops,
+        shape=shape.format(f"planes [{planes},{PAGE},{hkv},{dh}] through a shuffled page table "
+                           f"[{b},{n_pages}]") + "; bitwise the contiguous entry on the gathered "
+                                                 "view; library: gather + SDPA, length mask")
+    return out
+
+
+def dense_rows(dev, g):
+    """Phase 3 at the dense families' widths: K4's causal entry at 512
+    queries for dh 64 (musicgen, 32/32 heads), 96 (phi3, 32/32), 160
+    (pixtral, 32/8) and 256 (recurrentgemma's 10/1, for the next slice), its
+    chunk entry at dh 160, and K2's two entries at dh 96 g 1 (phi3), dh 160
+    g 4 (pixtral), dh 128 g 9 (starcoder2-7b) and g 12 (starcoder2-3b).
+    Each row carries ``base``, the kernel or entry it is a width of."""
+    rows = {}
+    for name, dh, h, hkv, _ in K4_WIDTHS:
+        rows[name] = dict(k4_row(dev, g, dh, h, hkv), base="flash_attention")
+    rows["flash_attention_chunk_dh160"] = dict(chunk_row(dev, g, 32, 8, 160),
+                                               base="flash_attention_chunk")
+    for tag, dh, h, hkv, _ in K2_WIDTHS:
+        for entry, r in k2_rows(dev, g, dh, h, hkv).items():
+            rows[f"{entry}_{tag}"] = dict(r, base=entry)
+    return rows
+
+
+def width_paths(name: str):
+    """The paths that run the width of phase-3 row ``name`` (and no other)."""
+    for row, _, _, _, paths in K4_WIDTHS:
+        if name == row:
+            return paths
+    if name == "flash_attention_chunk_dh160":
+        return ()
+    for tag, _, _, _, paths in K2_WIDTHS:
+        if name in (f"decode_attention_{tag}", f"decode_attention_paged_{tag}"):
+            return tuple(p for p in paths if p.startswith("serve-") == ("paged" in name))
+    return None
 
 
 def ragged_rows(dev, g, stores, slot_of):
@@ -921,6 +1126,8 @@ def float_experts(engine, li, dtype):
     hw = {n: t.to(engine.device) for n, t in engine.host_experts[li].items()}
     out = {}
     for name in ("w_gate", "w_up", "w_down"):
+        if name not in hw:
+            continue
         if f"min_{name}" in hw:
             w = dequantize_int4(hw[name], hw[f"scale_{name}"], hw[f"min_{name}"])
         elif f"scale_{name}" in hw:
@@ -940,17 +1147,19 @@ def reference_logits(cfg, engine, tokens, dtype):
     return reference_rows(cfg, engine, tokens, [list(range(s))], dtype)[0]
 
 
-def reference_rows(cfg, engine, tokens, rows, dtype):
+def reference_rows(cfg, engine, tokens, rows, dtype, frontend=None):
     """:func:`reference_logits` over a batch ``tokens`` [B, S] (right-padded
     rows: the forward is causal, so pads reach no earlier position), the
-    logits at positions ``rows[b]`` of each row b only, [B, R, V] f32."""
+    logits at positions ``rows[b]`` of each row b only, [B, R, V] f32. A
+    dense layer runs its MLP; ``frontend`` [B, F, frontend_dim] comes first
+    (``rows`` then count its positions)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.layers import apply_mlp, apply_norm
 
     def cast(tree):          # bf16: the weights as they are (routers stay f32)
         if isinstance(tree, dict):
@@ -961,18 +1170,29 @@ def reference_rows(cfg, engine, tokens, rows, dtype):
     m = cfg.moe
     emb = cast(engine.embed_params)
     x = tfm.embed_tokens(emb, torch.as_tensor(tokens, device=dev))
+    if frontend is not None:
+        x = tfm.prepend_frontend(cfg, emb, x, frontend)
     b, s, d = x.shape
     pos = torch.arange(s, device=dev)[None, :]
-    for li, p in enumerate(engine.layers):
-        p = cast({k: v for k, v in p.items() if k != "moe"}
-                 | {"moe": {k: v for k, v in p["moe"].items() if k != "experts"}})
+    mi = 0                                  # MoE ordinal: the warehouse's index
+    for p in engine.layers:
+        if "moe" in p:
+            p = cast({k: v for k, v in p.items() if k != "moe"}
+                     | {"moe": {k: v for k, v in p["moe"].items() if k != "experts"}})
+        else:
+            p = cast(p)
         h = apply_norm(cfg.norm, p["ln1"], x)
         q, k, v = attn._project_qkv(p["attn"], cfg.attention, h, pos)
         x = x + ref.flash_attention_ref(q, k, v, causal=True).reshape(b, s, -1) @ p["attn"]["wo"]
         h2 = apply_norm(cfg.norm, p["ln2"], x).reshape(b * s, d)
+        if "mlp" in p:
+            x = x + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(b, s, d)
+            del p
+            continue
         ids, w = ref.topk_gate_ref(h2.float() @ p["moe"]["router"], m.top_k,
                                    normalize=m.norm_topk_prob)
-        experts = float_experts(engine, li, dtype)
+        experts = float_experts(engine, mi, dtype)
+        mi += 1
         flat = ids.reshape(-1).long()
         counts = torch.bincount(flat, minlength=m.num_experts)
         used = torch.nonzero(counts).flatten()
@@ -984,14 +1204,17 @@ def reference_rows(cfg, engine, tokens, rows, dtype):
         grp[used] = torch.arange(used.numel(), device=dev)
         xs = torch.zeros((used.numel(), c_max, d), dtype=x.dtype, device=dev)
         xs[grp[flat[order]], row] = h2[order // m.top_k]
-        hid = (F.silu(ref.slot_gmm_ref(xs, experts["w_gate"], used))
-               * ref.slot_gmm_ref(xs, experts["w_up"], used))
+        if "w_gate" in experts:
+            hid = (F.silu(ref.slot_gmm_ref(xs, experts["w_gate"], used))
+                   * ref.slot_gmm_ref(xs, experts["w_up"], used))
+        else:
+            hid = F.gelu(ref.slot_gmm_ref(xs, experts["w_up"], used), approximate="tanh")
         ys = ref.slot_gmm_ref(hid, experts["w_down"], used)
         outs = torch.empty((flat.numel(), d), dtype=x.dtype, device=dev)
         outs[order] = ys[grp[flat[order]], row]
         y = (outs.float().reshape(b * s, m.top_k, d) * w[..., None]).sum(1).to(x.dtype)
         x = x + y.reshape(b, s, d)
-        del experts, xs, hid, ys, outs
+        del p, experts, xs, hid, ys, outs
     idx = torch.as_tensor(rows, device=dev)                              # [B, R]
     picked = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))
     return tfm.lm_logits(cfg, emb, picked).float()
@@ -1141,8 +1364,9 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     experts = cfg.moe.num_experts
     where = (f"all {experts} experts resident" if not path.slots else
              f"{'LRU' if path.lru else 'rotary'} residency {path.slots}/{experts} slots")
-    log(f"[4/{label}] {cfg.name} at published widths, {LAYERS} of {depth} layers, {where} in "
-        f"{quantization or 'bf16'}{f' (groups of {GROUP})' if quantization == 'int4' else ''}, "
+    log(f"[4/{label}] {cfg.name} at published widths, {cfg.num_layers} of {depth} layers, "
+        f"{where} in {quantization or 'bf16'}"
+        f"{f' (groups of {GROUP})' if quantization == 'int4' else ''}, "
         f"{describe(path)}, {requests} request(s) x ({' / '.join(map(str, lens))} prompt + "
         f"{new} new), batch 1, {'sampled' if sampler else 'greedy'}, cache_len {CACHE}")
     t0 = time.perf_counter()
@@ -1156,10 +1380,12 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     if quantization and not path.prefetch:     # the card's quantizer against the CPU's, one layer
         t0 = time.perf_counter()
         layer0 = params["layers"][0]["moe"]["experts"]
-        cpu = quantize_experts({n: w.cpu() for n, w in layer0.items()}, quantization, GROUP,
+        n_check = path.quant_check or experts
+        cpu = quantize_experts({n: w[:n_check].cpu() for n, w in layer0.items()}, quantization,
+                               GROUP,
                                device="cpu")
         for name, plane in cpu.items():
-            if not torch.equal(plane, engine.host_experts[0][name]):
+            if not torch.equal(plane, engine.host_experts[0][name][:n_check]):
                 raise AssertionError(f"layer 0 {name}: the card's {quantization} bytes differ "
                                      f"from the CPU quantizer's")
         log(f"  layer 0 quantized on the card equals the CPU quantizer byte for byte "
@@ -1241,13 +1467,14 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     elif fused <= 0 or fused != counts["topk_gate"]:
         raise AssertionError(f"{label}: K3 launched {entries}: every routing site must take the "
                              f"fused entry")
-    if quantization and not path.prefetch and st.bytes_uploaded != loads * EXPERT_BYTES[quantization]:
+    per_expert = expert_bytes(cfg, quantization) if quantization else 0
+    if quantization and not path.prefetch and st.bytes_uploaded != loads * per_expert:
         raise AssertionError(f"{st.bytes_uploaded} bytes uploaded for {loads} loads: not "
-                             f"{EXPERT_BYTES[quantization]} per {quantization} expert")
-    if quantization and path.prefetch and st.bytes_uploaded % EXPERT_BYTES[quantization]:
+                             f"{per_expert} per {quantization} expert")
+    if quantization and path.prefetch and st.bytes_uploaded % per_expert:
         # shadow uploads ship experts that no load counts: whole experts all the same
         raise AssertionError(f"{st.bytes_uploaded} bytes uploaded: not whole "
-                             f"{EXPERT_BYTES[quantization]}-byte {quantization} experts")
+                             f"{per_expert}-byte {quantization} experts")
     if not engine._fused_decode:                      # the walks launch no graph
         graphs_ok = engine.graph_captures == engine.launches == 0
     else:            # on the card every fused launch a replay but each graph's first
@@ -1294,7 +1521,7 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
                                      f"{pulls} pulls, {replayed} replays (plan {plan})")
     elif counts["flash_attention_chunk"]:
         raise AssertionError(f"{label}: the legacy prefill launched K4's chunk entry")
-    if path.fused_decode is False and dec["overlapped"] != 4 * LAYERS * dec["steps"]:
+    if path.fused_decode is False and dec["overlapped"] != 4 * cfg.num_layers * dec["steps"]:
         raise AssertionError(f"{label}: {dec['overlapped']} overlapped pulls in {dec['steps']} "
                              f"steps, not 4 a layer")
     if path.lru and not loads:
@@ -1425,6 +1652,7 @@ class ServeSpec(NamedTuple):
     sample: Optional[Tuple[float, int, float, int]] = None
     isolated: bool = False              # each request also served alone: the same tokens
     baseline: Optional[str] = None      # tokens and residency transitions equal this path's
+    arch: Optional[str] = None          # a dense arch at all its layers (default: qwen36's cut)
 
 
 SERVE_PATHS = (
@@ -1433,6 +1661,9 @@ SERVE_PATHS = (
     ServeSpec("serve-int4", "int4", SLOTS, False),
     ServeSpec("serve-int4-prefetch", "int4", SLOTS, True, baseline="serve-int4"),
     ServeSpec("serve-sample", None, 0, False, sample=SAMPLE, isolated=True),
+    ServeSpec("serve-qwen3-4b", None, 0, False, isolated=True, arch="qwen3-4b"),
+    ServeSpec("serve-starcoder2-7b", None, 0, False, isolated=True, arch="starcoder2-7b"),
+    ServeSpec("serve-phi3-mini", None, 0, False, isolated=True, arch="phi3-mini-3.8b"),
 )
 
 
@@ -1468,7 +1699,7 @@ class _Weights(NamedTuple):
 
 def serve_weights(engine) -> _Weights:
     if engine.res_mgr is None:
-        experts = [p["moe"]["experts"] for p in engine.layers]
+        experts = [p["moe"]["experts"] for p in engine.layers if "moe" in p]
     else:
         experts = engine._float_experts or engine.host_experts
     return _Weights(engine.device, engine.embed_params, engine.layers, experts)
@@ -1508,12 +1739,15 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
     from repro_torch.models.transformer import init_params
 
     label = spec.label
-    experts = cfg.moe.num_experts
-    where = (f"rotary residency {spec.slots}/{experts} slots" if spec.slots
-             else f"all {experts} experts resident")
+    if cfg.has_moe:
+        experts = cfg.moe.num_experts
+        where = (f"rotary residency {spec.slots}/{experts} slots" if spec.slots
+                 else f"all {experts} experts resident")
+    else:
+        where = "dense, every weight on the card"
     how = ("sampled (temperature %s, top-k %s, top-p %s)" % spec.sample[:3] if spec.sample
            else "greedy")
-    log(f"[4/{label}] ServingEngine, {cfg.name} at published widths, {LAYERS} of {depth} "
+    log(f"[4/{label}] ServingEngine, {cfg.name} at published widths, {cfg.num_layers} of {depth} "
         f"layers, {where} in {spec.quantization or 'bf16'}, {SERVE_ROWS} rows, pages of {PAGE}, "
         f"windows up to {SPEC_CAP}, {'prefetch, ' if spec.prefetch else ''}{how}, "
         f"{SERVE_REQUESTS} requests submitted at once, {SERVE_NEW} new tokens each, cache_len "
@@ -1584,10 +1818,16 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
     paged = entry_launches(symbols, "decode_attention_paged")
     fused = entry_launches(symbols, "router_topk")
     gemv = "slot_gmm" if not spec.quantization else f"slot_gmm_{spec.quantization}"
-    ok = (st.windows > 0 and engine.graph_captures == captures0 and paged > 0
+    if cfg.has_moe:
+        moe_ok = (fused == counts["topk_gate"] > 0 and counts[gemv] > 0
+                  and entry_launches(symbols, "slot_gmm_ragged") > 0)
+    else:                  # dense: no MoE kernel, nothing misses, every draft accepted
+        moe_ok = (not any(n for name, n in counts.items() if name.startswith(("slot_gmm",
+                                                                              "topk_gate")))
+                  and st.misses == 0 and st.accepted_tokens == st.drafted_tokens > 0)
+    ok = (st.windows > 0 and engine.graph_captures == captures0 and paged > 0 and moe_ok
           and entry_launches(symbols, "decode_attention") == 0 and counts["flash_attention"] > 0
-          and counts["flash_attention_chunk"] == 0 and fused == counts["topk_gate"] > 0
-          and counts[gemv] > 0 and entry_launches(symbols, "slot_gmm_ragged") > 0
+          and counts["flash_attention_chunk"] == 0
           and all(len(t) == SERVE_NEW for t in tokens)
           and st.kv_pages_released == st.kv_pages_allocated > 0)
     if not ok:
@@ -1673,6 +1913,118 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 5 for the frontend archs: prefill_model(frontend=) + decode_model
+# ---------------------------------------------------------------------------
+class FrontSpec(NamedTuple):
+    label: str
+    arch: str
+    layers: int                 # the first N layers (the depth cut; 0: all)
+    frontend_len: int           # embeddings from the seed before the prompt
+    prompt: int
+    cache: int
+
+
+FRONT_NEW = 32
+DBRX_LAYERS = 2
+DBRX_PATH = PathSpec("dbrx-int4", "int4", 12, False, 1, 32, False, None, quant_check=1)
+FRONT_PATHS = (
+    FrontSpec("pixtral-frontend", "pixtral-12b", 16, 1024, 512, 2048),
+    FrontSpec("musicgen-frontend", "musicgen-large", 0, 256, 256, CACHE),
+)
+
+
+def run_frontend_path(dev, cfg, depth: int, spec: FrontSpec) -> dict:
+    """Phases 4 and 5 for a frontend arch through the model's own entry
+    points: ``prefill_model`` with ``frontend_len`` embeddings drawn from the
+    run's seed (N(0, 0.02), as the token embeddings are made) before a
+    prompt of ``prompt`` tokens, then FRONT_NEW greedy ``decode_model``
+    steps (K2's contiguous entry), each pulled to the host. Holds the
+    first-token and every decode logits to the f32 truth of the same
+    weights and sequence, and the greedy ids to the truth's at every sure
+    position."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    layers = cfg.num_layers
+    a = cfg.attention
+    log(f"[4/{spec.label}] {cfg.name} at published widths, {layers} of {depth} layers "
+        f"(dense, dh {a.head_dim}, {a.num_heads}/{a.num_kv_heads} heads), bf16: prefill_model "
+        f"with {spec.frontend_len} {cfg.frontend} embeddings + {spec.prompt} tokens, then "
+        f"{FRONT_NEW} greedy decode_model steps, cache_len {spec.cache}")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fe = (torch.randn((1, spec.frontend_len, cfg.frontend_dim), generator=gen, device=dev)
+          * 0.02).to(tfm.torch_dtype(cfg))
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (1, spec.prompt)).astype(np.int64)
+    tokens = torch.from_numpy(prompt).to(dev)
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    torch.cuda.synchronize()
+    log(f"  set-up {time.perf_counter() - t0:.1f} s; weights {weight_gb:.2f} GB on the card")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill_model(cfg, params, tokens, spec.cache, frontend=fe)
+    first = logits.float().cpu().numpy()
+    prefill_s = time.perf_counter() - t0
+    got, toks, step_s = [first[0]], [int(first.argmax())], []
+    cur = spec.frontend_len + spec.prompt
+    for j in range(FRONT_NEW - 1):
+        t0 = time.perf_counter()
+        lg, _ = tfm.decode_model(cfg, params, torch.tensor([toks[-1]], device=dev), state, cur + j)
+        row = lg.float().cpu().numpy()[0]
+        step_s.append(time.perf_counter() - t0)
+        got.append(row)
+        toks.append(int(row.argmax()))
+    counts = ops.launch_counts()
+    symbols = ops.symbol_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = (FRONT_NEW - 1) / sum(step_s)
+    log(f"  prefill {prefill_s * 1e3:.1f} ms ({spec.frontend_len + spec.prompt} positions), decode "
+        f"{tok_s:.2f} tok/s (median step {np.median(step_s) * 1e3:.2f} ms over {len(step_s)} "
+        f"steps), first tokens {toks[:8]}, peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  kernel launches: {counts}")
+    if (counts["flash_attention"] != layers or entry_launches(symbols, "decode_attention")
+            != layers * (FRONT_NEW - 1) or entry_launches(symbols, "decode_attention_paged")
+            or any(n for name, n in counts.items() if name.startswith(("slot_gmm", "topk_gate")))):
+        raise AssertionError(f"{spec.label}: launches {counts}, by entry {symbols}")
+
+    log(f"[5/{spec.label}] prefill and decode logits vs the plain forward on the card")
+    weights = _Weights(dev, {k: v for k, v in params.items() if k != "layers"},
+                       params["layers"], [])
+    seq = np.concatenate([prompt[0], np.asarray(toks[:-1])])[None]
+    rows = [list(range(cur - 1, cur - 1 + FRONT_NEW))]
+    truth = reference_rows(cfg, weights, seq, rows, torch.float32, frontend=fe)[0].cpu().numpy()
+    plain = reference_rows(cfg, weights, seq, rows, torch.bfloat16, frontend=fe)[0].cpu().numpy()
+    got = np.stack(got)
+    if not np.isfinite(got).all() or got.shape != (FRONT_NEW, cfg.vocab_size):
+        raise AssertionError(f"{spec.label}: logits not finite or of shape {got.shape}")
+    if not judge(f"{spec.label} prefill + {FRONT_NEW - 1} decode steps", got, truth, plain):
+        raise AssertionError(f"{spec.label}: logits farther from the truth than bf16")
+    summary = dict(label=spec.label, frontend=True, counts=counts, symbols=symbols,
+                   prefill_ms=prefill_s * 1e3,
+                   tok_s=tok_s, median_ms=float(np.median(step_s)) * 1e3, peak_gib=peak / 2**30,
+                   layers=layers)
+    del params, state, weights, fe
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     try:
         import torch
@@ -1723,35 +2075,44 @@ def main() -> int:
     counts = {name: 0 for name in ops.KERNELS}
     symbols = {}
     done = {}
+
+    def add(summary):
+        done[summary["label"]] = summary
+        for name, n in summary["counts"].items():
+            counts[name] += n
+        for name, syms in summary["symbols"].items():
+            for sym, n in syms.items():
+                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
+
     for path in PATHS:
-        done[path.label] = summary = run_path(dev, cfg, full.num_layers, path, done)
-        for name, n in summary["counts"].items():
-            counts[name] += n
-        for name, syms in summary["symbols"].items():
-            for sym, n in syms.items():
-                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
-    for spec in SERVE_PATHS:
-        done[spec.label] = summary = run_serve_path(dev, cfg, full.num_layers, spec, done)
-        for name, n in summary["counts"].items():
-            counts[name] += n
-        for name, syms in summary["symbols"].items():
-            for sym, n in syms.items():
-                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
+        add(run_path(dev, cfg, full.num_layers, path, done))
+    for spec in SERVE_PATHS:          # qwen36's cut, then each dense arch whole
+        arch = get_config(spec.arch) if spec.arch else full
+        add(run_serve_path(dev, arch if spec.arch else cfg, arch.num_layers, spec, done))
+    for spec in FRONT_PATHS:
+        arch = get_config(spec.arch)
+        add(run_frontend_path(dev, dataclasses.replace(
+            arch, segments=((arch.segments[0][0], spec.layers or arch.num_layers),)),
+            arch.num_layers, spec))
+    dbrx = get_config("dbrx-132b")
+    add(run_path(dev, dataclasses.replace(dbrx, segments=((("attn_moe",), DBRX_LAYERS),)),
+                 dbrx.num_layers, DBRX_PATH, done))
+    n_paths = len(PATHS) + len(SERVE_PATHS) + len(FRONT_PATHS) + 1
     multi = {counter for counter, _ in ENTRY.values()}          # kernels with several entries
-    log(f"  kernel launches over the {len(PATHS)} paths: {counts}; by entry: "
+    log(f"  kernel launches over the {n_paths} paths: {counts}; by entry: "
         f"{ {name: syms for name, syms in symbols.items() if name in multi and syms} }")
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on any path")
 
     # phase 6 ---------------------------------------------------------------
-    log("[6] paths side by side (decode tok/s per request, over all its new tokens and over "
-        "those after the first step or window, whose time holds the graph's capture on a "
+    log(f"[6] {card}: paths side by side (decode tok/s per request, over all its new tokens "
+        "and over those after the first step or window, whose time holds the graph's capture on a "
         "path's first request; median step or window ms after it; prefill ms; steps replayed / "
         "relaunched of decode steps; MB uploaded per decode token; host conversion; loads; "
         "overlapped pulls; windows and accept rate)")
     for r in done.values():
-        if r["label"].startswith("serve-"):
+        if r["label"].startswith("serve-") or r.get("frontend"):
             continue
         accept = f"{r['accept_rate']:.3f}" if r["accept_rate"] is not None else "-"
         log(f"  {r['label']:>19}: decode {' / '.join(f'{x:.2f}' for x in r['tok_s'])} tok/s "
@@ -1765,8 +2126,8 @@ def main() -> int:
             f"{r['windows']} accept rate {accept}, prefetch launched {r['prefetch_launched']} "
             f"hits {r['prefetch_hits']}, prefill chunks {r['prefill_chunks']} replayed "
             f"{r['prefill_replays']}, peak {r['peak_gib']:.2f} GiB")
-    log("  serving paths (aggregate tok/s; TTFT and ITL p50 / p99 ms; windows, spec windows, "
-        "accept rate; misses per token; pages high-water; MB uploaded per token; peak; graph "
+    log(f"  {card}: serving paths (aggregate tok/s; TTFT and ITL p50 / p99 ms; windows, spec "
+        "windows, accept rate; misses per token; pages high-water; MB uploaded per token; peak; graph "
         "captures and their ms)")
     for spec in SERVE_PATHS:
         r = done[spec.label]
@@ -1775,14 +2136,21 @@ def main() -> int:
             f"{r['windows']} spec {r['spec_windows']} accept {r['accept_rate']:.3f}, misses/token "
             f"{r['misses_per_token']:.3f}, pages hwm {r['hwm']}, {r['mb_per_token']:.2f} MB/token, "
             f"peak {r['peak_gib']:.2f} GiB, {r['graphs']} graphs in {r['capture_ms']:.0f} ms")
+    log(f"  {card}: frontend paths (prefill ms of frontend + prompt positions; decode tok/s and "
+        f"median step ms of decode_model, one pull a step; peak)")
+    for spec in FRONT_PATHS:
+        r = done[spec.label]
+        log(f"  {r['label']:>19}: prefill {r['prefill_ms']:.1f} ms, decode {r['tok_s']:.2f} tok/s "
+            f"(median step {r['median_ms']:.2f} ms), peak {r['peak_gib']:.2f} GiB")
     for name in ("decode_attention", "decode_attention_paged"):
         if entry_launches(symbols, name) <= 0:
             raise AssertionError(f"entry {name} never launched on any path")
     kernels = []
     for name, r in rows.items():
-        counter, prefix = ENTRY.get(name, (name, None))
+        base = r.get("base", name)             # a row at a new width: the kernel or entry it is of
+        counter, prefix = ENTRY.get(base, (base, None))
         row = {
-            "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCE[base], "replaces": REPLACES[base],
             "launches": counts[counter], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
@@ -1790,7 +2158,12 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
         }
         if prefix:            # an entry of K3 or K1's tiled body: its own launches beside the kernel's
-            row["entry_launches"] = entry_launches(symbols, name)
+            row["entry_launches"] = entry_launches(symbols, base)
+        paths = width_paths(name)
+        if paths is not None:  # the launches of the paths that run this width (and no other)
+            row["width_launches"] = sum(
+                entry_launches(done[p]["symbols"], base) if prefix else done[p]["counts"][counter]
+                for p in paths)
         for key in ("three_call_ms", "three_call_device_ms", "gather_k2_ms", "gather_k2_device_ms",
                     "contiguous_ms", "contiguous_device_ms"):
             if key in r:

@@ -35,7 +35,10 @@ def _map(tree: Any, fn) -> Any:
 
 def from_reference(cfg: ModelConfig, params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """``repro.models.init_params`` output with every leaf as numpy -> the
-    port's ``{"embed", "layers": [...], "final_norm", "lm_head"}``."""
+    port's ``{"embed", "layers": [...], "final_norm"}`` with ``lm_head``
+    (untied configs) and ``frontend_proj`` where the reference has them. A
+    layer keeps its block's subtree as it is (``attn`` and ``mlp`` or
+    ``moe``)."""
     layers = []
     for si, (unit, reps) in enumerate(cfg.segments):
         for r in range(reps):
@@ -44,6 +47,7 @@ def from_reference(cfg: ModelConfig, params: Dict[str, Any], device="cpu") -> Di
                 layers.append(_map(stacked, lambda a, r=r: to_tensor(np.asarray(a)[r], device)))
     out = {"embed": to_tensor(params["embed"], device), "layers": layers,
            "final_norm": _map(params["final_norm"], lambda a: to_tensor(a, device))}
-    if "lm_head" in params:
-        out["lm_head"] = to_tensor(params["lm_head"], device)
+    for name in ("lm_head", "frontend_proj"):
+        if name in params:
+            out[name] = to_tensor(params[name], device)
     return out

@@ -9,8 +9,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-# The block kind the port's model assembly (repro_torch.models.transformer) runs.
-BLOCK_KINDS = ("attn_moe",)     # full attention + MoE FFN
+# The block kinds the port's model assembly (repro_torch.models.transformer) runs.
+BLOCK_KINDS = (
+    "attn_mlp",     # full attention + dense MLP
+    "attn_moe",     # full attention + MoE FFN
+)
+# The reference's other kinds, still to port (ROADMAP.md Queue 1, the
+# recurrent families: recurrentgemma-2b and xlstm-350m).
+UNPORTED_KINDS = ("local_attn", "mlstm", "slstm", "rglru")
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclass(frozen=True)
@@ -70,33 +78,79 @@ class ModelConfig:
 
     ``segments`` encodes the layer stack as a sequence of (unit, repeats): the
     unit is a tuple of block kinds executed in order, repeated ``repeats``
-    times, e.g. ``((("attn_moe",), 48),)`` = 48 layers.
+    times, e.g. ``((("attn_moe",), 48),)`` = 48 layers. ``attn_mlp`` blocks
+    run a dense MLP of width ``d_ff``; ``attn_moe`` blocks need ``moe``.
+    A ``frontend`` arch prepends ``frontend_len`` precomputed embeddings of
+    width ``frontend_dim`` (projected to ``d_model`` when the widths
+    differ) to the prompt at prefill.
     """
 
     name: str
+    family: str                        # one of FAMILIES
     d_model: int
     vocab_size: int
     segments: Tuple[Tuple[Tuple[str, ...], int], ...]
     attention: AttentionConfig
-    moe: MoEConfig
+    moe: Optional[MoEConfig] = None
+    d_ff: int = 0                      # dense-MLP hidden size
     mlp: str = "swiglu"                # "swiglu" | "gelu_mlp"
     norm: str = "rmsnorm"              # "rmsnorm" | "layernorm"
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    frontend: Optional[str] = None     # None | "vision_patches" | "audio_frames"
+    frontend_len: int = 0
+    frontend_dim: int = 0
     source: str = ""                   # provenance note [paper/hf id; tier]
 
     def __post_init__(self) -> None:
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
         for unit, reps in self.segments:
             if reps <= 0:
                 raise ValueError("segment repeats must be positive")
             for kind in unit:
-                if kind not in BLOCK_KINDS:
+                if kind in UNPORTED_KINDS:
                     raise NotImplementedError(
-                        f"{self.name}: the port runs {BLOCK_KINDS} stacks only, got {kind!r}")
+                        f"{self.name}: block kind {kind!r} is not ported yet (ROADMAP.md "
+                        f"Queue 1, the recurrent families); the port runs {BLOCK_KINDS}")
+                if kind not in BLOCK_KINDS:
+                    raise ValueError(f"unknown block kind {kind!r}")
+        if self.mlp not in ("swiglu", "gelu_mlp"):
+            raise ValueError(f"unknown mlp {self.mlp!r}")
+        if self.has_moe and self.moe is None:
+            raise ValueError(f"{self.name}: attn_moe blocks present but no MoEConfig")
+        if "attn_mlp" in self.layer_kinds and self.d_ff <= 0:
+            raise ValueError(f"{self.name}: attn_mlp blocks need d_ff > 0")
 
     @property
     def num_layers(self) -> int:
         return sum(len(unit) * reps for unit, reps in self.segments)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        kinds: list = []
+        for unit, reps in self.segments:
+            kinds.extend(list(unit) * reps)
+        return tuple(kinds)
+
+    @property
+    def has_moe(self) -> bool:
+        return any(k == "attn_moe" for k in self.layer_kinds)
+
+    @property
+    def uses_kv_cache(self) -> bool:
+        return any(k in ("attn_mlp", "attn_moe") for k in self.layer_kinds)
+
+    @property
+    def num_moe_layers(self) -> int:
+        return sum(k == "attn_moe" for k in self.layer_kinds)
+
+    def require_moe(self, what: str) -> MoEConfig:
+        """``moe`` for a caller that needs MoE layers; a dense config raises."""
+        if not self.has_moe:
+            raise ValueError(f"{what} requires an MoE architecture; {self.name} has no "
+                             f"attn_moe layers")
+        return self.moe
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ from repro_torch.config import AttentionConfig, ModelConfig, MoEConfig, register
 def qwen2_moe() -> ModelConfig:
     return ModelConfig(
         name="qwen2-moe-a2.7b",
+        family="moe",
         d_model=2048,
         vocab_size=151936,
         segments=((("attn_moe",), 24),),

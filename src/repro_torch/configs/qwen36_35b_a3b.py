@@ -12,6 +12,7 @@ from repro_torch.config import AttentionConfig, ModelConfig, MoEConfig, register
 def qwen36_35b_a3b() -> ModelConfig:
     return ModelConfig(
         name="qwen36-35b-a3b",
+        family="moe",
         d_model=2048,
         vocab_size=151936,
         segments=((("attn_moe",), 48),),

@@ -17,7 +17,7 @@ def reduce_for_smoke(
     """Shrink a full config while preserving its structure.
 
     Preserved: block-kind units, GQA-ness (MHA stays MHA, MQA stays MQA, grouped stays
-    grouped), MoE shared/routed split, qk-norm, windowing, norm/mlp type.
+    grouped), MoE shared/routed split, qk-norm, windowing, frontend kind, norm/mlp type.
     """
     attn = cfg.attention
     if attn is not None:
@@ -55,4 +55,7 @@ def reduce_for_smoke(
         segments=segments,
         attention=attn,
         moe=moe,
+        d_ff=128 if cfg.d_ff else 0,
+        frontend_len=8 if cfg.frontend else 0,
+        frontend_dim=d_model if cfg.frontend else 0,
     )

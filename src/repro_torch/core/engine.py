@@ -388,8 +388,14 @@ class RotaryEngine:
         (``prefill_chunk_plan``): the fused engine launches one CUDA graph
         per chunk length, the walks walk the same chunks layer by layer.
         Every combination the reference refuses raises here, before
-        anything is built."""
-        m = cfg.moe
+        anything is built. The architecture must be MoE (the reference
+        asserts so); the port's engine takes stacks whose every layer is
+        ``attn_moe``."""
+        m = cfg.require_moe("RotaryEngine")
+        if cfg.num_moe_layers != cfg.num_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: RotaryEngine runs stacks of attn_moe layers only, got "
+                f"{sorted(set(cfg.layer_kinds))}")
         probe = make_policy(rescfg.mode, m.num_experts, rescfg.num_slots or m.num_experts, rescfg)
         self.host_routing = bool(host_routing)
         # LRU answers misses with blocking loads mid-step: that needs the
@@ -1226,7 +1232,7 @@ class RotaryEngine:
         if cached is None:
             from repro_torch.models.params import _block_params
 
-            n_static = float(_block_params(cfg, active_only=True))
+            n_static = float(_block_params(cfg, kind, active_only=True))
             m = cfg.moe
             mats = 3 if cfg.mlp == "swiglu" else 2
             n_static -= m.top_k * mats * cfg.d_model * m.expert_d_ff

@@ -74,7 +74,7 @@ def _attention_static_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
     m = cfg.moe
     mats = 3 if cfg.mlp == "swiglu" else 2
     total = analytic_params(cfg, active_only=False)
-    total -= cfg.num_layers * m.num_experts * mats * cfg.d_model * m.expert_d_ff
+    total -= cfg.num_moe_layers * m.num_experts * mats * cfg.d_model * m.expert_d_ff
     return total * dtype_bytes
 
 
@@ -94,8 +94,8 @@ def check_feasibility(
         fit ``hbm_budget_bytes``, or, when no budget is set and ``device`` is
         a card, the card's free memory (``torch.cuda.mem_get_info``).
     """
-    m = cfg.moe
-    moe_layers = cfg.num_layers
+    m = cfg.require_moe("expert residency")
+    moe_layers = cfg.num_moe_layers
     # exact packed bytes per expert (int4 includes its group scale/min planes)
     shapes = {"w_up": (cfg.d_model, m.expert_d_ff), "w_down": (m.expert_d_ff, cfg.d_model)}
     if cfg.mlp == "swiglu":

@@ -17,8 +17,9 @@
 // buy little at 64-row tiles). A block of 4 warps owns a 64-row query tile of
 // one head, 16 rows per warp, and loops over 64-row KV tiles itself:
 //  * Q, K and V stay bf16 in shared memory, rows padded by 16 bytes so the
-//    ldmatrix loads of the mma fragments are free of bank conflicts; Q's
-//    fragments are loaded into registers once;
+//    ldmatrix loads of the mma fragments are free of bank conflicts; up to
+//    dh 128 Q's fragments are loaded into registers once, past it they are
+//    loaded from shared memory for each KV tile (see below);
 //  * K/V tiles arrive by cp.async into a ring of 2 stages: tile j+1 loads
 //    while tile j is computed, and V_j while K_j is used; ragged rows are
 //    zero-filled by the copy;
@@ -33,10 +34,19 @@
 //    zeros;
 //  * the output goes through the warp's own rows of the Q tile in shared
 //    memory so each row leaves in 16-byte stores.
-// The kernel is templated on dh, every multiple of 16 up to 128.
+// The kernel is templated on dh, every multiple of 16 up to 256. What bounds
+// the wide heads is registers: a warp's O accumulators are dh / 2 floats a
+// thread (80 at dh 160, 128 at dh 256) beside 32 of S, so past dh 128 the
+// Q fragments (dh / 4 registers) are not held but read again from shared
+// memory for each tile (one ldmatrix per 16 columns, a quarter more shared
+// loads than K's), which keeps the 160 and 256 instances free of spills.
+// Shared memory is (64 + 4 x 64) x (dh + 8) bf16: 105 KB at dh 160 (two
+// blocks an SM), 165 KB at dh 256 (one).
 //
 // f32 entry: the first port's CUDA-core body (f32 on tensor cores would be
-// TF32, which the f32 tolerance rejects); f32 is not on the main path.
+// TF32, which the f32 tolerance rejects); f32 is not on the main path. It
+// keeps dh / 16 accumulator columns a thread, up to 8 (dh 128) or 16 (dh
+// 256), a template parameter.
 //
 // Chunk-append entries (chunked prefill, one CUDA graph per chunk length):
 // the same two bodies with the C queries at absolute positions cur_len ..
@@ -57,8 +67,9 @@ using namespace repro;
 // ---------------------------------------------------------------------------
 constexpr int FA_B = 64;        // query rows and key rows per tile
 constexpr int FA_THREADS = 256;
-constexpr int FA_MAXDC = 8;     // dh / 16 <= 8, i.e. head_dim <= 128
+constexpr int FA_MAXDH = 256;   // head_dim <= 256, a multiple of 16
 
+template <int FA_MAXDC>         // dh / 16 <= FA_MAXDC
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv, int H,
@@ -212,6 +223,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
           bf16* __restrict__ out, int Sq, int Skv, int H, int Hkv, float scale, int causal,
           int window, float soft_cap, const long long* __restrict__ q_off) {
     constexpr int LDS = DH + PAD, KD = DH / 16, ND = DH / 8, NT = BN / 8;
+    constexpr bool Q_REGS = DH <= 128;                  // Q's fragments held in registers
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // [BM, LDS]
     bf16* Ks = Qs + BM * LDS;                           // [2, BN, LDS]
@@ -239,7 +251,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     if (n_tiles > 0) load_tile<DH>(Vs, vg, ldk, k_begin, Skv, tid);
     cp_async_commit();
 
-    uint32_t qf[KD][4];
+    uint32_t qf[Q_REGS ? KD : 1][4];
     float o[ND][4];
 #pragma unroll
     for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -255,10 +267,12 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         cp_async_commit();
         cp_async_wait<3>();                             // K_j (and Q) have landed
         __syncthreads();
-        if (j == 0) {
+        const bf16* Qw = Qs + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
+        if constexpr (Q_REGS) {
+            if (j == 0) {
 #pragma unroll
-            for (int kk = 0; kk < KD; ++kk)
-                ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+                for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], Qw + kk * 16);
+            }
         }
         const bf16* Kt = Ks + (j & 1) * BN * LDS;
         const bf16* Vt = Vs + (j & 1) * BN * LDS;
@@ -269,13 +283,20 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < KD; ++kk) {
+            uint32_t qa[4];
+            if constexpr (Q_REGS) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+            } else {
+                ldmatrix_x4(qa, Qw + kk * 16);
+            }
 #pragma unroll
             for (int nn = 0; nn < NT / 2; ++nn) {
                 uint32_t kb[4];
                 ldmatrix_x4(kb, Kt + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16
                                     + ((lane >> 3) & 1) * 8);
-                mma(s[2 * nn], qf[kk], kb[0], kb[1]);
-                mma(s[2 * nn + 1], qf[kk], kb[2], kb[3]);
+                mma(s[2 * nn], qa, kb[0], kb[1]);
+                mma(s[2 * nn + 1], qa, kb[2], kb[3]);
             }
         }
 
@@ -409,6 +430,8 @@ static int run_bf16(const void* q, const void* k, const void* v, void* out, int 
     switch (dh) {
         FA_DH_CASE(16) FA_DH_CASE(32) FA_DH_CASE(48) FA_DH_CASE(64)
         FA_DH_CASE(80) FA_DH_CASE(96) FA_DH_CASE(112) FA_DH_CASE(128)
+        FA_DH_CASE(144) FA_DH_CASE(160) FA_DH_CASE(176) FA_DH_CASE(192)
+        FA_DH_CASE(208) FA_DH_CASE(224) FA_DH_CASE(240) FA_DH_CASE(256)
         default: return (int)cudaErrorInvalidValue;
     }
 #undef FA_DH_CASE
@@ -417,12 +440,14 @@ static int run_bf16(const void* q, const void* k, const void* v, void* out, int 
 static int run_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                    int Skv, int H, int Hkv, int dh, float scale, int causal, int window,
                    float soft_cap, const long long* q_off, void* stream) {
+    if (dh < 16 || dh % 16 || dh > FA_MAXDH) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)(2 * FA_B * (dh + 1) + FA_B * dh + FA_B * (FA_B + 1)) * sizeof(float);
+    auto kernel = dh <= 128 ? flash_fwd_f32<8> : flash_fwd_f32<16>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Sq + FA_B - 1) / FA_B, H, B);
-    flash_fwd_f32<<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(out), Sq, Skv, H, Hkv, dh, scale, causal, window, soft_cap, q_off);
     return (int)cudaGetLastError();

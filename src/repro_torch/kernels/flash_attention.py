@@ -6,7 +6,9 @@ soft-cap, GQA (q head h reads KV head h // g), online softmax, unreachable
 KV tiles skipped. bf16 runs on tensor cores (``mma.sync`` with bf16
 operands and f32 sums, P rounded to bf16 before P V; a 64-row query tile
 per block, K/V tiles through a 2-stage ``cp.async`` ring, one kernel per
-head_dim); f32 keeps a CUDA-core body. Bound: bytes at the main path's
+head_dim, every multiple of 16 up to 256; past 128 the Q fragments are
+read from shared memory per tile instead of held in registers, which the
+wider O accumulators need); f32 keeps a CUDA-core body. Bound: bytes at the main path's
 prefill shape, operations at longer prompts. Plain version:
 ``kernels.ref.flash_attention_ref``.
 
@@ -37,6 +39,7 @@ CHUNK = CudaKernel(
                                                   ctypes.c_float],
 )
 _SYMBOL = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
+MAX_HEAD_DIM = 256          # csrc/flash_attention.cu: FA_MAXDH and the bf16 instances
 _CHUNK_SYMBOL = {torch.bfloat16: "flash_attention_chunk_bf16",
                  torch.float32: "flash_attention_chunk_f32"}
 
@@ -52,8 +55,8 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"k/v must be [B, Skv, Hkv, dh], got {tuple(k.shape)}, {tuple(v.shape)}")
     if h % k.shape[2]:
         raise ValueError(f"H={h} must be a multiple of Hkv={k.shape[2]}")
-    if dh % 16 or dh > 128:
-        raise ValueError(f"head_dim {dh} must be a multiple of 16 and at most 128")
+    if dh % 16 or not 16 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {dh} must be a multiple of 16 and at most {MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
 

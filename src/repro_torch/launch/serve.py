@@ -10,7 +10,10 @@ positions, optional ``--warmup`` (captures the window graphs first) and
 join between ticks); it prints each request's tokens, then ``summary()``
 (TTFT and inter-token p50/p99, windows, pages high-water mark, misses).
 ``--residency``, ``--slots``, ``--quantization``, ``--prefetch`` and the
-sampling flags apply as to the rotary engine.
+sampling flags apply as to the rotary engine. A dense arch (``attn_mlp``
+stacks: ``starcoder2-3b``, ``qwen3-4b``, ...) serves with every weight on
+the device and no residency; ``--engine rotary`` refuses it, as the
+reference's assert does.
 
 The ``--engine rotary`` path (the default) of ``repro.launch.serve`` on the card: host
 warehouse, rotating device slots, pre-gated rotation, host miss correction.
@@ -128,14 +131,18 @@ def main() -> None:
     if not args.full_width:
         cfg = reduce_for_smoke(cfg)
     if args.layers:
-        cfg = dataclasses.replace(cfg, segments=((("attn_moe",), args.layers),))
+        unit = cfg.segments[0][0]          # the config's own unit, repeated
+        cfg = dataclasses.replace(cfg, segments=((unit, args.layers),))
+    if args.engine == "rotary" and not cfg.has_moe:
+        raise ValueError(f"--engine rotary requires an MoE arch; {cfg.name} is dense "
+                         f"(serve it with --engine batch)")
     params = init_params(cfg, args.seed, device, expert_device="cpu")
-    slots = args.slots or cfg.moe.num_experts * 3 // 4
+    slots = args.slots or (cfg.moe.num_experts * 3 // 4 if cfg.has_moe else 0)
     rescfg = ResidencyConfig(mode=args.residency, num_slots=slots,
                              quantization=QUANT_CHOICES[args.quantization],
                              quant_group_size=args.quant_group)
     if args.engine == "batch":
-        _serve_batch(args, cfg, params, rescfg, device)
+        _serve_batch(args, cfg, params, rescfg if cfg.has_moe else None, device)
         return
     b = max(1, args.batch)
     eng = RotaryEngine(

@@ -98,3 +98,31 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The reference's ``jax.nn.gelu`` default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Dense MLPs (plain matmuls: the reference leaves them to XLA, outside any
+# Pallas kernel)
+# ---------------------------------------------------------------------------
+def init_mlp(kind: str, gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype,
+             device) -> Params:
+    if kind == "swiglu":
+        return {
+            "w_gate": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_up": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, device, fan_in=d_ff),
+        }
+    if kind == "gelu_mlp":
+        return {
+            "w_up": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, device, fan_in=d_ff),
+        }
+    raise ValueError(f"unknown mlp {kind!r}")
+
+
+def apply_mlp(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if kind == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if kind == "gelu_mlp":
+        return gelu(x @ p["w_up"]) @ p["w_down"]
+    raise ValueError(f"unknown mlp {kind!r}")

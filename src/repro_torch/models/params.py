@@ -9,19 +9,21 @@ from __future__ import annotations
 from repro_torch.config.base import ModelConfig
 
 
-def _block_params(cfg: ModelConfig, active_only: bool) -> int:
-    """One ``attn_moe`` block (the only kind ``ModelConfig`` admits)."""
+def _block_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
+    """One ``attn_mlp`` or ``attn_moe`` block."""
     d = cfg.d_model
     norm = d if cfg.norm == "rmsnorm" else 2 * d
+    mats = 3 if cfg.mlp == "swiglu" else 2
     a = cfg.attention
     n = 2 * norm
     n += d * a.num_heads * a.head_dim * 2                  # wq, wo
     n += d * a.num_kv_heads * a.head_dim * 2               # wk, wv
     if a.qk_norm:
         n += 2 * a.head_dim
+    if kind == "attn_mlp":
+        return n + mats * d * cfg.d_ff
     m = cfg.moe
     experts = m.top_k if active_only else m.storage_experts
-    mats = 3 if cfg.mlp == "swiglu" else 2
     n += d * m.num_experts                                 # router (always read)
     n += experts * mats * d * m.expert_d_ff
     if m.num_shared_experts:
@@ -34,5 +36,7 @@ def analytic_params(cfg: ModelConfig, active_only: bool = False) -> int:
     n = cfg.vocab_size * cfg.d_model                       # embed
     if not cfg.tie_embeddings:
         n += cfg.d_model * cfg.vocab_size                  # lm head
+    if cfg.frontend is not None and cfg.frontend_dim != cfg.d_model:
+        n += cfg.frontend_dim * cfg.d_model
     n += cfg.d_model if cfg.norm == "rmsnorm" else 2 * cfg.d_model
-    return n + cfg.num_layers * _block_params(cfg, active_only)
+    return n + sum(_block_params(cfg, kind, active_only) for kind in cfg.layer_kinds)

@@ -1,11 +1,18 @@
 """Decoder assembly for the engine path: init, per-layer KV state, the decode
 step over the layer stack, and the lm head.
 
-The counterpart of ``repro/models/transformer.py`` for MoE stacks of
-``attn_moe`` blocks. Parameters are plain dicts of tensors: ``embed``,
-``final_norm``, ``lm_head`` and ``layers``, a list with one dict per layer
-(the reference stacks repeated layers for its ``lax.scan``; a Python loop
-over layers needs no stacking). The KV state is a list of per-layer
+The counterpart of ``repro/models/transformer.py`` for KV-cache stacks of
+``attn_mlp`` (attention + dense MLP) and ``attn_moe`` (attention + MoE)
+blocks. Parameters are plain dicts of tensors: ``embed``, ``final_norm``,
+``lm_head`` (untied configs), ``frontend_proj`` (a frontend whose width is
+not ``d_model``) and ``layers``, a list with one dict per layer (the
+reference stacks repeated layers for its ``lax.scan``; a Python loop over
+layers needs no stacking). Residency, routing telemetry and the prefill's
+expert callbacks count MoE layers only (their ordinal among the
+``attn_moe`` layers), as the reference's ``moe_segments`` order does; a
+dense stack routes nothing and returns no telemetry. A frontend arch
+(``cfg.frontend``) prepends its precomputed embeddings to the prompt at
+prefill (``frontend=``), so they take the first cache positions. The KV state is a list of per-layer
 ``{"k", "v"}`` caches that decode updates in place. The speculative window
 (``decode_window``, greedy or sampled) and its KV snapshot / rollback follow
 the reference's ``decode_window``, ``snapshot_kv_window`` and
@@ -29,7 +36,9 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling as sampling_mod
-from repro_torch.models.layers import Params, apply_norm, embed_init, init_norm
+from repro_torch.models.layers import (
+    Params, apply_mlp, apply_norm, embed_init, init_mlp, init_norm,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -56,14 +65,18 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda", *,
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     layers: List[Params] = []
-    for _ in range(cfg.num_layers):
-        layers.append({
+    for kind in cfg.layer_kinds:
+        layer = {
             "ln1": init_norm(cfg.norm, cfg.d_model, dtype, device),
             "attn": attn.init_attention(gen, cfg.d_model, cfg.attention, dtype, device),
             "ln2": init_norm(cfg.norm, cfg.d_model, dtype, device),
-            "moe": moe_mod.init_moe(gen, cfg.d_model, cfg.moe, cfg.mlp, dtype, device,
-                                    expert_device=expert_device),
-        })
+        }
+        if kind == "attn_moe":
+            layer["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, cfg.mlp, dtype, device,
+                                            expert_device=expert_device)
+        else:
+            layer["mlp"] = init_mlp(cfg.mlp, gen, cfg.d_model, cfg.d_ff, dtype, device)
+        layers.append(layer)
     p: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device),
         "layers": layers,
@@ -71,6 +84,8 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda", *,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), dtype, device)
+    if cfg.frontend is not None and cfg.frontend_dim != cfg.d_model:
+        p["frontend_proj"] = embed_init(gen, (cfg.frontend_dim, cfg.d_model), dtype, device)
     return p
 
 
@@ -100,6 +115,32 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
 
+def prepend_frontend(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                     frontend: Optional[torch.Tensor]) -> torch.Tensor:
+    """The frontend's precomputed embeddings [B, F, frontend_dim] (cast to
+    x's type, projected when ``frontend_proj`` exists) before the prompt's
+    [B, S, D]; x unchanged for an arch without a frontend, which raises when
+    ``frontend`` is missing (the reference asserts)."""
+    if cfg.frontend is None:
+        return x
+    if frontend is None:
+        raise ValueError(f"{cfg.name} requires frontend embeddings (frontend=)")
+    fe = frontend.to(device=x.device, dtype=x.dtype)
+    if "frontend_proj" in params:
+        fe = fe @ params["frontend_proj"]
+    return torch.cat([fe, x], dim=1)
+
+
+def moe_ordinals(params: Params) -> List[Optional[int]]:
+    """Per layer, its ordinal among the MoE layers, or None for a dense one."""
+    out: List[Optional[int]] = []
+    n = 0
+    for p in params["layers"]:
+        out.append(n if "moe" in p else None)
+        n += "moe" in p
+    return out
+
+
 def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg.norm, params["final_norm"], h)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -109,7 +150,7 @@ def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor
 def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: Any,
               cur_len: Union[int, torch.Tensor], cache_len: int,
               page_table: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
-    """Attention + residual, then the MoE input norm: (x_mid, h2 [T, D], state).
+    """Attention + residual, then the FFN's input norm: (x_mid, h2 [T, D], state).
     ``prefill`` rewrites ``state`` in place (a fresh cache when it is None);
     ``decode`` updates ``state`` in place at ``cur_len`` (an int or a device
     scalar or per-row [B]; with ``page_table``, ``state`` is a layer of the
@@ -146,10 +187,11 @@ def decode_model(
     the full expert store in ``params``. ``state`` is updated in place. With
     a device ``cur_len`` the step makes no host round trip, so a CUDA graph
     can capture it. aux
-    holds the routing telemetry stacked over layers: ``route_ids`` /
+    holds the routing telemetry stacked over the MoE layers: ``route_ids`` /
     ``route_weights`` / ``route_miss`` [L, T, k], ``route_h`` [L, T, D] (the
     MoE inputs the demand GEMM reads) and ``route_x`` [L, T, D] (each block's
-    input, the replay anchor)."""
+    input, the replay anchor); empty for a dense stack. ``residency`` has
+    one entry per MoE layer."""
     x = embed_tokens(params, token[:, None])
     x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency, page_table)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], aux
@@ -165,6 +207,7 @@ def prefill_model(
     residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
     correct: Optional[Callable[..., torch.Tensor]] = None,
     experts: Optional[Callable[[int], Params]] = None,
+    frontend: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """The serving engine's admission prefill (the reference's
     ``prefill_model`` under its scan over rows): returns (logits [B, V] at
@@ -182,23 +225,34 @@ def prefill_model(
     picks and ``correct(li, row, x, h2, ids, weights, miss)`` returns x
     with the missed picks added (the engine's host GEMM). Nothing here
     resolves, rotates or records: the residency a caller holds is left as
-    it was."""
+    it was. ``li`` in the callbacks and ``residency`` count MoE layers; an
+    ``attn_mlp`` layer runs its dense MLP.
+
+    ``frontend`` [B, F, frontend_dim]: a frontend arch's embeddings, which
+    take positions 0 .. F - 1 of every row before its tokens (``last_index``
+    then counts them too); such an arch raises without them."""
     b = tokens.shape[0]
     state = zero_state(cfg, b, cache_len, tokens.device)
-    xs = [embed_tokens(params, tokens[i:i + 1]) for i in range(b)]
-    for li, p in enumerate(params["layers"]):
-        moe_p = p["moe"] if experts is None else {**p["moe"], "experts": experts(li)}
-        slots, lut = residency[li] if residency is not None else (None, None)
+    xs = [prepend_frontend(cfg, params, embed_tokens(params, tokens[i:i + 1]),
+                           None if frontend is None else frontend[i:i + 1])
+          for i in range(b)]
+    for li, (p, mi) in enumerate(zip(params["layers"], moe_ordinals(params))):
+        if mi is not None:
+            moe_p = p["moe"] if experts is None else {**p["moe"], "experts": experts(mi)}
+            slots, lut = residency[mi] if residency is not None else (None, None)
         for i in range(b):
             cache = {n: state[li][n][i:i + 1] for n in ("k", "v")}
             x_mid, h2, _ = attn_half(cfg, p, xs[i], "prefill", cache, 0, cache_len)
+            if mi is None:
+                xs[i] = x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
+                continue
             ids, weights = moe_mod.route(moe_p, h2, cfg.moe)
             y2, miss = moe_mod.moe_apply_routed(moe_p, h2, ids, weights,
                                                 slot_buffer=slots, lut=lut)
             xs[i] = x_mid + y2.reshape(x_mid.shape)
             if correct is not None:
-                xs[i] = correct(li, i, xs[i], h2, ids, weights, miss)
-    last = ([x.shape[1] - 1] * b if last_index is None
+                xs[i] = correct(mi, i, xs[i], h2, ids, weights, miss)
+    last = ([xs[0].shape[1] - 1] * b if last_index is None
             else [int(v) for v in last_index.reshape(-1).tolist()])
     h = torch.cat([x[:, j] for x, j in zip(xs, last)])
     return lm_logits(cfg, params, h[:, None])[:, 0], state
@@ -232,22 +286,29 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
                residency: Optional[List[Tuple[Params, torch.Tensor]]],
                page_table: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Every layer in ``mode`` (``decode`` or ``chunk``): attention, routing,
-    the routed experts through each layer's residency. Returns the last
-    hidden [B, S, D] and the routing telemetry stacked over layers.
+    """Every layer in ``mode`` (``decode`` or ``chunk``): attention, then
+    the dense MLP, or routing and the routed experts through the MoE
+    layer's residency. Returns the last hidden [B, S, D] and the routing
+    telemetry stacked over the MoE layers (none for a dense stack).
     ``page_table`` (decode): ``state`` is the paged pool."""
     d = x.shape[-1]
     tel: Dict[str, List[torch.Tensor]] = {n: [] for n in ("ids", "weights", "miss", "h", "x")}
-    for li, p in enumerate(params["layers"]):
-        tel["x"].append(x.reshape(-1, d))
+    for li, (p, mi) in enumerate(zip(params["layers"], moe_ordinals(params))):
+        x_in = x
         x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0, page_table)
+        if mi is None:
+            x = x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
+            continue
         ids, weights = moe_mod.route(p["moe"], h2, cfg.moe)
-        slots, lut = residency[li] if residency is not None else (None, None)
+        slots, lut = residency[mi] if residency is not None else (None, None)
         y2, miss = moe_mod.moe_apply_routed(p["moe"], h2, ids, weights,
                                             slot_buffer=slots, lut=lut)
         x = x_mid + y2.reshape(x_mid.shape)
-        for n, v in (("ids", ids), ("weights", weights), ("miss", miss), ("h", h2)):
+        for n, v in (("ids", ids), ("weights", weights), ("miss", miss), ("h", h2),
+                     ("x", x_in.reshape(-1, d))):
             tel[n].append(v)
+    if not tel["ids"]:
+        return x, {}
     return x, {f"route_{n}": torch.stack(v) for n, v in tel.items()}
 
 

@@ -52,6 +52,11 @@ allocation after, which therefore never fails mid-flight).
   while the window is in flight, at steering margin 0, so the transitions
   stay those of the synchronous run.
 
+* **Dense archs** (``attn_mlp`` stacks): no expert store, router,
+  predictor or residency manager; a non-full ``ResidencyConfig`` is
+  ignored, as in the reference. Nothing misses, so a greedy window accepts
+  every draft and its KV needs no snapshot.
+
 Out of scope here: the reference's group tick (``paged=False``), which
 raises; recurrent stacks; the trace spans; the Prometheus server.
 """
@@ -127,7 +132,9 @@ class ServingEngine:
         if pages < row_pages:
             raise ValueError(f"kv_pages={pages} cannot hold one full row "
                              f"({row_pages} pages of {page_size})")
-        rotating = residency is not None and residency.mode != "full"
+        # residency rotates MoE layers only: on a dense arch a non-full
+        # ResidencyConfig is ignored, as in the reference
+        rotating = residency is not None and residency.mode != "full" and cfg.has_moe
         if prefetch:
             if not rotating:
                 raise ValueError(
@@ -175,6 +182,9 @@ class ServingEngine:
         experts: List[Dict[str, torch.Tensor]] = []
         routers: List[np.ndarray] = []
         for p_l in params["layers"]:
+            if "moe" not in p_l:                 # a dense layer: all of it on the device
+                layers.append(_to_device(p_l, dev))
+                continue
             moe_p = {k: v for k, v in p_l["moe"].items() if k != "experts"}
             if rotating:
                 hw = dict(p_l["moe"]["experts"])
@@ -215,7 +225,7 @@ class ServingEngine:
                 # sequence must stay the synchronous run's. Before the warm
                 # start, which then lands in the folded planes
                 self.res_mgr.enable_prefetch(margin=0)
-            for li in range(len(layers)):
+            for li in range(len(experts)):
                 self.res_mgr.prepare_layer(li, self.predictor.smoothed[li])
             self._routers_next = torch.as_tensor(self.predictor.next_layer_routers()).to(dev)
         self.prefetch = bool(prefetch)
@@ -418,10 +428,10 @@ class ServingEngine:
         largest window (made per rows bucket on first use)."""
         bufs = self._pulls.get(rows)
         if bufs is None:
-            kk, k_top = self._spec_cap_eff, self.cfg.moe.top_k
+            kk = self._spec_cap_eff
             shapes = dict(draft=((rows,), torch.int64))
             if self.res_mgr is not None:
-                n_l, e = len(self._dparams["layers"]), self.cfg.moe.num_experts
+                n_l, e, k_top = len(self.host_experts), self.cfg.moe.num_experts, self.cfg.moe.top_k
                 shapes.update(ids=((n_l, rows, k_top), torch.int32),
                               weights=((n_l, rows, k_top), torch.float32),
                               miss=((n_l, rows, k_top), torch.bool),

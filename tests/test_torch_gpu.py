@@ -399,8 +399,8 @@ def test_slot_gmm_gemv_past_4096_stored_rows(card, kind, g, c, d, f):
 def test_wrapper_refuses_a_bad_launch_loudly(card):
     from repro_torch.kernels import flash_attention as fa
 
-    q = torch.zeros((1, 4, 2, 160), device=card)               # head_dim above the limit
-    with pytest.raises(ValueError):
+    q = torch.zeros((1, 4, 2, 272), device=card)               # head_dim above the limit (256)
+    with pytest.raises(ValueError, match="at most 256"):
         fa.flash_attention(q, q, q)
 
 
@@ -1324,3 +1324,160 @@ def test_serving_replay_after_a_moved_plane_raises(card):
     eng.pool_state[0]["k"] = eng.pool_state[0]["k"].clone()
     with pytest.raises(RuntimeError, match="moved"):
         _serve_all(eng, cfg.vocab_size, n=1, new=3)
+
+
+# ---------------------------------------------------------------------------
+# the dense model families: K4 at head dims up to 256, K2 at new widths and
+# query groups, a dense serving engine's window graphs
+# ---------------------------------------------------------------------------
+WIDE_HEADS = [(64, 8, 8), (96, 8, 8), (160, 8, 2), (256, 5, 1)]     # (dh, H, Hkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh,h,hkv", WIDE_HEADS)
+def test_flash_attention_wide_heads_match_plain(card, dh, h, hkv, dtype):
+    """K4's causal entry at the dense archs' head dims (musicgen 64, phi3
+    96, pixtral 160, recurrentgemma 256: past 128 the Q fragments come from
+    shared memory) over two rows of a ragged length, with and without a
+    window and a soft cap, against the plain version; row 1 launched alone
+    equals row 1 among 2 bit for bit."""
+    b, s = 2, 200
+    q = _randn((b, s, h, dh), dtype, 0, card)
+    k = _randn((b, s, hkv, dh), dtype, 1, card)
+    v = _randn((b, s, hkv, dh), dtype, 2, card)
+    for window, soft_cap in ((None, None), (48, None), (None, 20.0)):
+        out = ops.flash_attention(q, k, v, causal=True, window=window, soft_cap=soft_cap)
+        torch.cuda.synchronize()
+        exp = ref.flash_attention_ref(q, k, v, causal=True, window=window, soft_cap=soft_cap)
+        torch.testing.assert_close(out.float(), exp.float(), **TOL[dtype])
+    full = ops.flash_attention(q, k, v, causal=True)
+    alone = ops.flash_attention(q[1:].contiguous(), k[1:].contiguous(), v[1:].contiguous(),
+                                causal=True)
+    assert torch.equal(alone, full[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh,h,hkv", WIDE_HEADS)
+def test_flash_attention_chunk_wide_heads_match_plain(card, dh, h, hkv, dtype):
+    """K4's chunk-append entry at the same head dims: C queries at cur_len
+    77 against a 256-slot cache whose slots past the live keys hold stale
+    values (NaN keys, large values: masked, never scored), against the
+    plain version; a query's output equals the same position scored in a
+    chunk of one, bit for bit."""
+    b, c, cap, cur = 2, 64, 256, 77
+    q = _randn((b, c, h, dh), dtype, 0, card)
+    k = _randn((b, cap, hkv, dh), dtype, 1, card)
+    v = _randn((b, cap, hkv, dh), dtype, 2, card)
+    want = ref.flash_attention_chunk_ref(q, k, v, cur)
+    k[:, cur + c:] = float("nan")
+    v[:, cur + c:] = 1e4
+    cl = torch.tensor(cur, device=card)
+    out = ops.flash_attention_chunk(q, k, v, cl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    one = ops.flash_attention_chunk(q[:, 10:11].contiguous(), k, v,
+                                    torch.tensor(cur + 10, device=card))
+    assert torch.equal(one, out[:, 10:11])
+
+
+K2_SHAPES = [(96, 1), (96, 4), (160, 1), (160, 4), (128, 9), (128, 12), (64, 9), (256, 12)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh,g", K2_SHAPES)
+def test_decode_attention_dense_widths_and_groups(card, dh, g, dtype):
+    """K2 at the dense archs' shapes: dh 96 and 160 (bf16 on the CUDA-core
+    body), query groups 1 (phi3, musicgen), 4 (pixtral), 9 (starcoder2-7b)
+    and 12 (starcoder2-3b) on either tensor-core fragment count. The
+    contiguous entry over rows of lengths 1000 / 77 / 1 against the plain
+    version, row 1 alone bitwise itself among 3; the paged entry bitwise
+    the contiguous entry on the gathered view."""
+    from repro_torch.kernels import decode_attention as dec
+
+    hkv, s, ps = 2, 1024, 16
+    q, k, v = _decode_inputs(3, s, g * hkv, hkv, dh, dtype, card)
+    lengths = torch.tensor([1000, 77, 1], dtype=torch.int32, device=card)
+    for cap in (None, 20.0):
+        out = dec.decode_attention(q, k, v, lengths, soft_cap=cap)
+        torch.cuda.synchronize()
+        exp = ref.decode_attention_ref(q, k, v, lengths, soft_cap=cap)
+        torch.testing.assert_close(out.float(), exp.float(), **TOL[dtype])
+    full = dec.decode_attention(q, k, v, lengths)
+    assert torch.equal(dec.decode_attention(q[1:2], k[1:2], v[1:2], lengths[1:2]), full[1:2])
+    n_pages = s // ps
+    planes = 3 * n_pages + 4
+    gen = torch.Generator(device="cpu").manual_seed(dh + g)
+    pt = (torch.randperm(planes - 1, generator=gen)[:3 * n_pages] + 1).reshape(3, n_pages)
+    pt = pt.to(device=card, dtype=torch.int32)
+    kp = _randn((planes, ps, hkv, dh), dtype, 5, card)
+    vp = _randn((planes, ps, hkv, dh), dtype, 6, card)
+    got = dec.decode_attention_paged(q, kp, vp, pt, lengths)
+    want = ref.decode_attention_paged_ref(q, kp, vp, pt, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, dec.decode_attention(q, _gathered(kp, pt), _gathered(vp, pt),
+                                                 lengths))
+
+
+def _dense_server(device, arch="starcoder2-3b", dtype="bfloat16"):
+    from repro_torch.config import get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)), dtype=dtype)
+    return cfg, ServingEngine(cfg, init_params(cfg, 0, "cpu"), rt=Runtime(cache_len=64),
+                              num_slots=3, spec_cap=4, kv_page_size=8, device=device)
+
+
+@pytest.mark.parametrize("arch,dtype", [("starcoder2-3b", "bfloat16"),
+                                        ("phi3-mini-3.8b", "float32")])
+def test_dense_serving_window_graphs_equal_eager_windows(card, arch, dtype):
+    """A dense arch's serving windows (no residency, no KV snapshot)
+    captured once per (window size, rows bucket) and replayed, against the
+    same windows run eagerly on the card: the same tokens, KV pages and
+    stats; every draft accepted; K2's paged entry and K4 launched, no MoE
+    kernel."""
+    out = {}
+    for capture in (True, False):
+        cfg, eng = _dense_server(card, arch, dtype)
+        eng._gs.capture = capture
+        ops.reset_launch_counts()
+        toks = _serve_all(eng, cfg.vocab_size)
+        counts = ops.launch_counts()
+        stats = {k: v for k, v in dataclasses.asdict(eng.stats).items() if k not in _MEASURED}
+        out[capture] = (toks, [{n: c[n].cpu() for n in c} for c in eng.pool_state], stats)
+        assert counts["decode_attention"] > 0 and counts["flash_attention"] > 0
+        assert counts["topk_gate"] == counts["slot_gmm"] == counts["slot_gmm_tiled"] == 0
+        assert eng.stats.accepted_tokens == eng.stats.drafted_tokens > 0
+    assert out[True][0] == out[False][0]
+    for a, b in zip(out[True][1], out[False][1]):
+        for n in ("k", "v"):
+            assert torch.equal(a[n][1:], b[n][1:])
+    assert out[True][2] == out[False][2]
+
+
+def test_dense_prefill_with_frontend_on_card_matches_cpu(card):
+    """pixtral's reduced backbone (dh 16, frontend of 8 embeddings) in f32:
+    prefill_model(frontend=) and three decode_model steps on the card
+    against the CPU within 1e-4."""
+    from repro_torch.config import get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.core.engine import _to_device
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("pixtral-12b")), dtype="float32")
+    params = tfm.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))
+    fe = torch.from_numpy(rng.standard_normal((2, 8, cfg.frontend_dim)).astype(np.float32))
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        p = {**_to_device({k: v for k, v in params.items() if k != "layers"}, dev),
+             "layers": [_to_device(layer, dev) for layer in params["layers"]]}
+        logits, state = tfm.prefill_model(cfg, p, tokens[:, :6].to(dev), 32, frontend=fe.to(dev))
+        rows = [logits]
+        for t in range(3):
+            rows.append(tfm.decode_model(cfg, p, tokens[:, 6 + t].to(dev), state, 14 + t)[0])
+        got[dev.type] = torch.stack(rows).cpu()
+    torch.testing.assert_close(got["cuda"], got["cpu"], atol=1e-4, rtol=1e-4)
