@@ -714,19 +714,23 @@ def chunk_row(dev, g, h=32, hkv=4, dh=128):
 K4_WIDTHS = (("flash_attention_dh64", 64, 32, 32, ("musicgen-frontend",)),
              ("flash_attention_dh96", 96, 32, 32, ("serve-phi3-mini",)),
              ("flash_attention_dh160", 160, 32, 8, ("pixtral-frontend",)),
-             ("flash_attention_dh256", 256, 10, 1, ()))
+             ("flash_attention_dh256", 256, 10, 1, ("serve-recurrentgemma-2b",)))
+# recurrentgemma's local attention: K4 at its window over a prompt longer than
+# the window (KV tiles behind the band skipped), K2 over a full ring cache
+RG_WINDOW, RG_LONG, RG_CACHE = 2048, 3072, 4096
 K2_WIDTHS = (("dh96_g1", 96, 32, 32, ("serve-phi3-mini",)),
              ("dh160_g4", 160, 32, 8, ("pixtral-frontend",)),
              ("dh128_g9", 128, 36, 4, ("serve-starcoder2-7b",)),
              ("dh128_g12", 128, 24, 2, ()))
 
 
-def k4_row(dev, g, dh, h, hkv, s=PROMPT):
+def k4_row(dev, g, dh, h, hkv, s=PROMPT, window=None):
     """K4's causal entry at ``s`` queries of ``h`` heads on ``hkv`` KV heads
-    of width ``dh`` in bf16: held to its plain version, row-invariant (the
-    first 64 queries alone equal their tile among all ``s``), timed beside
-    the plain version and SDPA; bound: q/k/v/out once, 4 dh H operations a
-    causal (query, key) pair."""
+    of width ``dh`` in bf16 (``window``: a sliding window): held to its
+    plain version, row-invariant (the first 64 queries alone equal their
+    tile among all ``s``), timed beside the plain version and SDPA (with an
+    explicit band mask under a window); bound: q/k/v/out once, 4 dh H
+    operations a causal (query, key) pair inside the band."""
     import torch
     import torch.nn.functional as F
 
@@ -737,24 +741,78 @@ def k4_row(dev, g, dh, h, hkv, s=PROMPT):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     q, k, v = randn(1, s, h, dh), randn(1, s, hkv, dh), randn(1, s, hkv, dh)
-    out = fa.flash_attention(q, k, v)
-    err = check_close(f"flash_attention dh {dh} {h}/{hkv}", out,
-                      ref.flash_attention_ref(q, k, v), **KERNEL_TOL)
+    out = fa.flash_attention(q, k, v, window=window)
+    err = check_close(f"flash_attention dh {dh} {h}/{hkv} window {window}", out,
+                      ref.flash_attention_ref(q, k, v, window=window), **KERNEL_TOL)
     if not torch.equal(fa.flash_attention(q[:, :64].contiguous(), k[:, :64].contiguous(),
-                                          v[:, :64].contiguous()), out[:, :64]):
+                                          v[:, :64].contiguous(), window=window), out[:, :64]):
         raise AssertionError(f"flash_attention dh {dh}: the first tile alone differs")
-    pairs = s * (s + 1) // 2
+    pos = torch.arange(s, device=dev)
+    pairs = int(torch.clamp(pos + 1, max=window).sum()) if window else s * (s + 1) // 2
     nbytes = (2 * s * h * dh + 2 * s * hkv * dh) * 2
     b_ms, b_by = bound(nbytes, 4 * pairs * h * dh)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window:
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     return dict(
         max_abs_err=err,
-        **timed(20, kernel=lambda: fa.flash_attention(q, k, v),
-                plain=lambda: ref.flash_attention_ref(q, k, v),
-                library=lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+        **timed(20, kernel=lambda: fa.flash_attention(q, k, v, window=window),
+                plain=lambda: ref.flash_attention_ref(q, k, v, window=window),
+                library=library),
         bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * pairs * h * dh,
-        shape=f"q [1,{s},{h},{dh}] k/v [1,{s},{hkv},{dh}] bf16, causal (prefill)")
+        shape=f"q [1,{s},{h},{dh}] k/v [1,{s},{hkv},{dh}] bf16, causal (prefill)"
+              + (f", window {window} ({pairs} band pairs); library: SDPA with an explicit "
+                 f"band mask" if window else ""))
+
+
+def k2_ring_row(dev, g, dh=256, h=10, hkv=1, cap=RG_WINDOW):
+    """K2's contiguous entry over recurrentgemma's ring cache (4 rows of
+    ``cap`` slots, two full, the rest partly filled) at dh 256 and g 10 (two
+    n8 fragments of query heads, the second partly empty): held to its
+    plain version, row 0 alone bitwise itself among 4, timed beside the
+    plain version and SDPA (GQA, length mask); bound: the valid K/V once,
+    q and out."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    b, bf = PAGED_ROWS, torch.bfloat16
+    lens_h = (cap, cap, cap // 2, 300)
+    kc = torch.randn((b, cap, hkv, dh), generator=g, device=dev).to(bf)
+    vc = torch.randn((b, cap, hkv, dh), generator=g, device=dev).to(bf)
+    q = torch.randn((b, h, dh), generator=g, device=dev).to(bf)
+    lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
+    err = check_close(f"decode_attention dh {dh} g {h // hkv}", dec.decode_attention(q, kc, vc, lens),
+                      ref.decode_attention_ref(q, kc, vc, lens), **KERNEL_TOL)
+    if not torch.equal(dec.decode_attention(q[:1], kc[:1], vc[:1], lens[:1]),
+                       dec.decode_attention(q, kc, vc, lens)[:1]):
+        raise AssertionError(f"decode_attention dh {dh} g {h // hkv}: row 0 alone differs")
+    mask = (torch.arange(cap, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    valid = sum(lens_h)
+    nbytes = 2 * valid * hkv * dh * 2 + 2 * b * h * dh * 2 + 4 * b
+    flops = 4 * valid * h * dh
+    b_ms, b_by = bound(nbytes, flops)
+    plan = dec.decode_plan(cap, dh, h // hkv, bf)
+    return dict(
+        max_abs_err=err,
+        **timed(kernel=lambda: dec.decode_attention(q, kc, vc, lens),
+                plain=lambda: ref.decode_attention_ref(q, kc, vc, lens),
+                library=lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+                    enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops,
+        shape=f"q [{b},{h},{dh}] vs ring cache [{b},{cap},{hkv},{dh}] bf16 (g {h // hkv}), "
+              f"lengths {'/'.join(map(str, lens_h))}; the "
+              f"{'tensor cores' if plan.tensor_cores else 'CUDA cores'} body (tile {plan.tile}, "
+              f"{plan.splits} spans); library: SDPA (GQA), length mask")
 
 
 def k2_rows(dev, g, dh, h, hkv):
@@ -843,17 +901,22 @@ def k2_rows(dev, g, dh, h, hkv):
 
 
 def dense_rows(dev, g):
-    """Phase 3 at the dense families' widths: K4's causal entry at 512
-    queries for dh 64 (musicgen, 32/32 heads), 96 (phi3, 32/32), 160
-    (pixtral, 32/8) and 256 (recurrentgemma's 10/1, for the next slice), its
-    chunk entry at dh 160, and K2's two entries at dh 96 g 1 (phi3), dh 160
-    g 4 (pixtral), dh 128 g 9 (starcoder2-7b) and g 12 (starcoder2-3b).
-    Each row carries ``base``, the kernel or entry it is a width of."""
+    """Phase 3 at the dense and recurrent families' widths: K4's causal
+    entry at 512 queries for dh 64 (musicgen, 32/32 heads), 96 (phi3,
+    32/32), 160 (pixtral, 32/8) and 256 (recurrentgemma's 10/1), and at
+    recurrentgemma's window 2048 over 3,072 queries; its chunk entry at dh
+    160; K2's two entries at dh 96 g 1 (phi3), dh 160 g 4 (pixtral), dh 128
+    g 9 (starcoder2-7b) and g 12 (starcoder2-3b), and its contiguous entry
+    at dh 256 g 10 over a ring of 2,048 (recurrentgemma). Each row carries
+    ``base``, the kernel or entry it is a width of."""
     rows = {}
     for name, dh, h, hkv, _ in K4_WIDTHS:
         rows[name] = dict(k4_row(dev, g, dh, h, hkv), base="flash_attention")
     rows["flash_attention_chunk_dh160"] = dict(chunk_row(dev, g, 32, 8, 160),
                                                base="flash_attention_chunk")
+    rows["flash_attention_dh256_w2048"] = dict(
+        k4_row(dev, g, 256, 10, 1, s=RG_LONG, window=RG_WINDOW), base="flash_attention")
+    rows["decode_attention_dh256_g10"] = dict(k2_ring_row(dev, g), base="decode_attention")
     for tag, dh, h, hkv, _ in K2_WIDTHS:
         for entry, r in k2_rows(dev, g, dh, h, hkv).items():
             rows[f"{entry}_{tag}"] = dict(r, base=entry)
@@ -867,6 +930,8 @@ def width_paths(name: str):
             return paths
     if name == "flash_attention_chunk_dh160":
         return ()
+    if name in ("flash_attention_dh256_w2048", "decode_attention_dh256_g10"):
+        return ("serve-recurrentgemma-2b",)
     for tag, _, _, _, paths in K2_WIDTHS:
         if name in (f"decode_attention_{tag}", f"decode_attention_paged_{tag}"):
             return tuple(p for p in paths if p.startswith("serve-") == ("paged" in name))
@@ -1151,11 +1216,15 @@ def reference_rows(cfg, engine, tokens, rows, dtype, frontend=None):
     """:func:`reference_logits` over a batch ``tokens`` [B, S] (right-padded
     rows: the forward is causal, so pads reach no earlier position), the
     logits at positions ``rows[b]`` of each row b only, [B, R, V] f32. A
-    dense layer runs its MLP; ``frontend`` [B, F, frontend_dim] comes first
-    (``rows`` then count its positions)."""
+    dense layer runs its MLP, a local-attention layer masks outside its
+    window, a recurrent layer runs the port's plain cell over the rows (a
+    causal scan, so pads after a row's positions reach none of them);
+    ``frontend`` [B, F, frontend_dim] comes first (``rows`` then count its
+    positions)."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.config.base import KV_KINDS
     from repro_torch.kernels import ref
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
@@ -1175,15 +1244,20 @@ def reference_rows(cfg, engine, tokens, rows, dtype, frontend=None):
     b, s, d = x.shape
     pos = torch.arange(s, device=dev)[None, :]
     mi = 0                                  # MoE ordinal: the warehouse's index
-    for p in engine.layers:
+    for kind, p in zip(cfg.layer_kinds, engine.layers):
         if "moe" in p:
             p = cast({k: v for k, v in p.items() if k != "moe"}
                      | {"moe": {k: v for k, v in p["moe"].items() if k != "experts"}})
         else:
             p = cast(p)
+        if kind not in KV_KINDS:
+            x = tfm.recurrent_block(cfg, kind, p, x, "prefill", None)[0]
+            del p
+            continue
         h = apply_norm(cfg.norm, p["ln1"], x)
         q, k, v = attn._project_qkv(p["attn"], cfg.attention, h, pos)
-        x = x + ref.flash_attention_ref(q, k, v, causal=True).reshape(b, s, -1) @ p["attn"]["wo"]
+        x = x + ref.flash_attention_ref(q, k, v, causal=True, window=cfg.attention.window
+                                        ).reshape(b, s, -1) @ p["attn"]["wo"]
         h2 = apply_norm(cfg.norm, p["ln2"], x).reshape(b * s, d)
         if "mlp" in p:
             x = x + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(b, s, d)
@@ -1652,7 +1726,10 @@ class ServeSpec(NamedTuple):
     sample: Optional[Tuple[float, int, float, int]] = None
     isolated: bool = False              # each request also served alone: the same tokens
     baseline: Optional[str] = None      # tokens and residency transitions equal this path's
-    arch: Optional[str] = None          # a dense arch at all its layers (default: qwen36's cut)
+    arch: Optional[str] = None          # another arch at all its layers (default: qwen36's cut)
+    paged: Optional[bool] = None        # False: the group tick (None: the engine's choice)
+    cache: int = CACHE
+    long_prompt: int = 0                # then one request of this many prompt tokens
 
 
 SERVE_PATHS = (
@@ -1661,15 +1738,18 @@ SERVE_PATHS = (
     ServeSpec("serve-int4", "int4", SLOTS, False),
     ServeSpec("serve-int4-prefetch", "int4", SLOTS, True, baseline="serve-int4"),
     ServeSpec("serve-sample", None, 0, False, sample=SAMPLE, isolated=True),
+    ServeSpec("serve-full-group", None, 0, False, baseline="serve-full", paged=False),
     ServeSpec("serve-qwen3-4b", None, 0, False, isolated=True, arch="qwen3-4b"),
     ServeSpec("serve-starcoder2-7b", None, 0, False, isolated=True, arch="starcoder2-7b"),
     ServeSpec("serve-phi3-mini", None, 0, False, isolated=True, arch="phi3-mini-3.8b"),
+    ServeSpec("serve-recurrentgemma-2b", None, 0, False, isolated=True, arch="recurrentgemma-2b",
+              cache=RG_CACHE, long_prompt=RG_LONG),
 )
 
 
 def make_server(dev, cfg, params, spec: ServeSpec):
-    """The path's ``ServingEngine``: 4 rows, cache_len CACHE, pages of PAGE,
-    speculative windows up to SPEC_CAP."""
+    """The path's ``ServingEngine``: 4 rows, the path's cache_len, pages of
+    PAGE (paged), speculative windows up to SPEC_CAP (KV-only stacks)."""
     from repro_torch.config import ResidencyConfig
     from repro_torch.models.transformer import Runtime
     from repro_torch.serving import SamplerConfig, ServingEngine
@@ -1682,9 +1762,9 @@ def make_server(dev, cfg, params, spec: ServeSpec):
     if spec.sample:
         t, k, p, seed = spec.sample
         smp = SamplerConfig(temperature=t, top_k=k, top_p=p, seed=seed)
-    return ServingEngine(cfg, params, rt=Runtime(cache_len=CACHE), num_slots=SERVE_ROWS,
-                         residency=res, sampler=smp, spec_cap=SPEC_CAP, kv_page_size=PAGE,
-                         prefetch=spec.prefetch, device=dev)
+    return ServingEngine(cfg, params, rt=Runtime(cache_len=spec.cache), num_slots=SERVE_ROWS,
+                         residency=res, sampler=smp, spec_cap=SPEC_CAP, paged=spec.paged,
+                         kv_page_size=PAGE, prefetch=spec.prefetch, device=dev)
 
 
 class _Weights(NamedTuple):
@@ -1705,37 +1785,21 @@ def serve_weights(engine) -> _Weights:
     return _Weights(engine.device, engine.embed_params, engine.layers, experts)
 
 
-def draw_margin(truth_row, key, pos: int, sample) -> float:
-    """The top-2 gap of the Gumbel-max scores that drew position ``pos``
-    (``sampling.draw`` with the request's key) under the truth's logits:
-    how far the drawn token led."""
-    import torch
-
-    from repro_torch.models import sampling as sm
-
-    t, k, p, _ = sample
-    sp = sm.SampleParams(t, k, p)
-    logits = torch.as_tensor(truth_row, device=key.device)[None]
-    probs = sm.warp_probs(logits, sp)
-    score = sm.gumbel(sm.position_keys(key[None], pos), logits.shape[-1]) + torch.where(
-        probs > 0, torch.log(probs), torch.full_like(probs, float("-inf")))
-    top2 = torch.topk(score[0], 2).values
-    return float(top2[0] - top2[1])
-
-
 def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
     """Phases 4 and 5 for one serving path: eight requests of mixed prompt
     lengths submitted at once to a ServingEngine, after ``warmup`` captured
-    its window graphs; the launch counters zeroed just before ``run`` and
-    read just after. Holds every request's first-token logits (its admission
-    prefill) to the f32 truth, and, as the path asks, each request's tokens
-    to the same request served alone (margin guard), a sampled run to a
-    second one, or the tokens and transitions to a baseline path."""
+    its graphs; the launch counters zeroed just before ``run`` and read just
+    after. Holds every request's first-token logits (its admission prefill)
+    to the f32 truth, and, as the path asks, each request's tokens to the
+    same request served alone (bitwise: a row's bits do not depend on what
+    else is live), a sampled run to a second one, or the tokens and
+    transitions to a baseline path. ``long_prompt``: then one request of
+    that many prompt tokens alone, its first-token and decode logits and
+    greedy ids held to the truth."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.models import sampling as sm
     from repro_torch.models.transformer import init_params
 
     label = spec.label
@@ -1744,19 +1808,21 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
         where = (f"rotary residency {spec.slots}/{experts} slots" if spec.slots
                  else f"all {experts} experts resident")
     else:
-        where = "dense, every weight on the card"
+        where = "no MoE layer, every weight on the card"
     how = ("sampled (temperature %s, top-k %s, top-p %s)" % spec.sample[:3] if spec.sample
            else "greedy")
-    log(f"[4/{label}] ServingEngine, {cfg.name} at published widths, {cfg.num_layers} of {depth} "
-        f"layers, {where} in {spec.quantization or 'bf16'}, {SERVE_ROWS} rows, pages of {PAGE}, "
-        f"windows up to {SPEC_CAP}, {'prefetch, ' if spec.prefetch else ''}{how}, "
-        f"{SERVE_REQUESTS} requests submitted at once, {SERVE_NEW} new tokens each, cache_len "
-        f"{CACHE}")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, dev, expert_device="cpu")
     engine = make_server(dev, cfg, params, spec)
     del params
     setup_s = time.perf_counter() - t0
+    tick = (f"pages of {PAGE}" if engine._paged else
+            "the group tick (a fixed contiguous batch)")
+    log(f"[4/{label}] ServingEngine, {cfg.name} at published widths, {cfg.num_layers} of {depth} "
+        f"layers, {where} in {spec.quantization or 'bf16'}, {SERVE_ROWS} rows, {tick}, "
+        f"windows up to {engine._spec_cap_eff}, {'prefetch, ' if spec.prefetch else ''}{how}, "
+        f"{SERVE_REQUESTS} requests submitted at once, {SERVE_NEW} new tokens each, cache_len "
+        f"{spec.cache}")
     rng = np.random.default_rng(0)
     lens = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
@@ -1764,7 +1830,7 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
     t0 = time.perf_counter()
     graphs = engine.warmup()
     warm_s = time.perf_counter() - t0
-    log(f"  set-up {setup_s:.1f} s; warmup captured {graphs} window graphs in "
+    log(f"  set-up {setup_s:.1f} s; warmup captured {graphs} graphs in "
         f"{warm_s * 1e3:.0f} ms ({engine.graph_capture_s * 1e3:.0f} ms in the captures); prompt "
         f"lengths {lens.tolist()}")
     first = {}
@@ -1776,8 +1842,8 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
             first[req.uid] = logits[0]
         return out
 
-    def serve(batch):
-        reqs = [engine.submit(prompts[i], SERVE_NEW, seed=seeds[i]) for i in batch]
+    def serve(batch, prompt_of=prompts.__getitem__):
+        reqs = [engine.submit(prompt_of(i), SERVE_NEW, seed=seeds[i]) for i in batch]
         engine.run()
         return [r.output for r in reqs], reqs
 
@@ -1794,7 +1860,6 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
     counts = ops.launch_counts()
     symbols = ops.symbol_launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    del engine._prefill_admitted
     summ = engine.summary()
     committed = SERVE_REQUESTS * SERVE_NEW
     layers = st.layers.values()
@@ -1802,38 +1867,47 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
                        forward=sum(l.forward_rotations for l in layers),
                        reverse=sum(l.reverse_rotations for l in layers))
     mb_per_token = (st.bytes_uploaded - bytes0) / 2**20 / committed
+    window_ms = engine.metrics.histogram("window_ms", "").percentile(50)
+    pages = (f"pages high-water {st.kv_pages_hwm} of {engine.pool.num_pages}" if engine._paged
+             else "no pages (contiguous batch)")
     log(f"  {committed} tokens in {wall:.2f} s: {committed / wall:.1f} tok/s aggregate; TTFT "
         f"p50 {summ['ttft_p50_ms']:.1f} / p99 {summ['ttft_p99_ms']:.1f} ms, ITL p50 "
         f"{summ['itl_p50_ms']:.2f} / p99 {summ['itl_p99_ms']:.2f} ms; windows {st.windows} "
-        f"(spec {st.spec_windows}, accept rate {st.accept_rate:.3f}), misses {st.misses} "
-        f"({st.misses / committed:.3f} per token), pages high-water {st.kv_pages_hwm} of "
-        f"{engine.pool.num_pages}, {mb_per_token:.2f} MB uploaded per token, transitions "
-        f"{transitions}, peak device memory {peak / 2**30:.2f} GiB; graph replays "
-        f"{engine.graph_replays}")
+        f"(spec {st.spec_windows}, accept rate {st.accept_rate:.3f}), decode launches "
+        f"{st.steps} steps, median tick {window_ms:.2f} ms, misses {st.misses} "
+        f"({st.misses / committed:.3f} per token), {pages}, {mb_per_token:.2f} MB uploaded per "
+        f"token, transitions {transitions}, peak device memory {peak / 2**30:.2f} GiB; graph "
+        f"replays {engine.graph_replays}")
     if spec.prefetch:
         log(f"  prefetch: launched {st.prefetch_launched} uploads, hits {st.prefetch_hits}, "
             f"wasted {st.prefetch_wasted_bytes / 2**20:.1f} MB, overlap_ms {st.overlap_ms:.1f}")
     log(f"  kernel launches: {counts}; by entry: "
         f"{ {n: symbols[n] for n in ('decode_attention', 'topk_gate') if symbols.get(n)} }")
     paged = entry_launches(symbols, "decode_attention_paged")
+    contiguous = entry_launches(symbols, "decode_attention")
     fused = entry_launches(symbols, "router_topk")
     gemv = "slot_gmm" if not spec.quantization else f"slot_gmm_{spec.quantization}"
     if cfg.has_moe:
         moe_ok = (fused == counts["topk_gate"] > 0 and counts[gemv] > 0
                   and entry_launches(symbols, "slot_gmm_ragged") > 0)
-    else:                  # dense: no MoE kernel, nothing misses, every draft accepted
+    else:                  # no MoE kernel, nothing misses, every draft accepted
         moe_ok = (not any(n for name, n in counts.items() if name.startswith(("slot_gmm",
                                                                               "topk_gate")))
-                  and st.misses == 0 and st.accepted_tokens == st.drafted_tokens > 0)
-    ok = (st.windows > 0 and engine.graph_captures == captures0 and paged > 0 and moe_ok
-          and entry_launches(symbols, "decode_attention") == 0 and counts["flash_attention"] > 0
-          and counts["flash_attention_chunk"] == 0
-          and all(len(t) == SERVE_NEW for t in tokens)
-          and st.kv_pages_released == st.kv_pages_allocated > 0)
+                  and st.misses == 0 and st.accepted_tokens == st.drafted_tokens
+                  and (st.drafted_tokens > 0) == engine._spec_ok)
+    if engine._paged:      # K2's paged entry only, and every page returned
+        kv_ok = (st.windows > 0 and paged > 0 and contiguous == 0
+                 and st.kv_pages_released == st.kv_pages_allocated > 0)
+    else:                  # the group tick: K2's contiguous entry over the fixed batch
+        kv_ok = st.steps > 0 and contiguous > 0 and paged == 0
+    ok = (engine.graph_captures == captures0 and moe_ok and kv_ok
+          and counts["flash_attention"] > 0 and counts["flash_attention_chunk"] == 0
+          and all(len(t) == SERVE_NEW for t in tokens))
     if not ok:
-        raise AssertionError(f"{label}: windows {st.windows}, captures {engine.graph_captures} "
-                             f"(warmup {captures0}), paged K2 {paged}, launches {counts}, "
-                             f"tokens per request {[len(t) for t in tokens]}, pages "
+        raise AssertionError(f"{label}: windows {st.windows}, steps {st.steps}, captures "
+                             f"{engine.graph_captures} (warmup {captures0}), K2 paged {paged} "
+                             f"contiguous {contiguous}, launches {counts}, tokens per request "
+                             f"{[len(t) for t in tokens]}, pages "
                              f"{st.kv_pages_allocated}/{st.kv_pages_released}")
 
     log(f"[5/{label}] first-token logits (the admission prefill) vs the plain full-residency "
@@ -1863,6 +1937,7 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
             agree += sum(int(t == truth[i, j].argmax()) for j, t in enumerate(tokens[i]))
         log(f"  greedy ids equal the truth's at all {checked} positions whose margin is sure, at "
             f"{agree}/{SERVE_REQUESTS * SERVE_NEW} in all")
+    del truth, plain
     summary = dict(
         label=label, counts=counts, symbols=symbols, tokens=tokens, tok_s=committed / wall,
         ttft=(summ["ttft_p50_ms"], summ["ttft_p99_ms"]),
@@ -1870,31 +1945,20 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
         windows=st.windows, spec_windows=st.spec_windows, accept_rate=st.accept_rate,
         misses_per_token=st.misses / committed, hwm=st.kv_pages_hwm, mb_per_token=mb_per_token,
         peak_gib=peak / 2**30, capture_ms=engine.graph_capture_s * 1e3, graphs=graphs,
-        transitions=transitions)
+        transitions=transitions, tick_ms=window_ms)
     if spec.isolated:
-        differ = 0
+        # a row's logits and draws do not depend on the other live rows: each
+        # request alone must give its concurrent stream bit for bit
         for i in range(SERVE_REQUESTS):
             alone = serve([i])[0][0]
             j = next((j for j, (a, b) in enumerate(zip(alone, tokens[i])) if a != b), None)
-            if j is None:
-                continue
-            differ += 1
-            e_pl = float(np.abs(plain[i, j] - truth[i, j]).max())
-            if spec.sample:
-                key = sm.request_key(seeds[i], dev)
-                margin = draw_margin(truth[i, j], key, int(lens[i]) - 1 + j, spec.sample)
-                limit = 4 * e_pl / spec.sample[0]
-            else:
-                top2 = np.sort(truth[i, j])[-2:]
-                margin, limit = float(top2[1] - top2[0]), 2 * e_pl
-            log(f"  request {i}: alone differs from concurrent first at token {j} "
-                f"({alone[j]} vs {tokens[i][j]}), truth margin {margin:.4f} (guard {limit:.4f})")
-            if margin > limit:
-                raise AssertionError(f"{label} request {i}: served alone it differs at token {j} "
-                                     f"where the margin {margin:.4f} exceeds {limit:.4f}")
-        summary["isolated_differ"] = differ
-        log(f"  each request served alone: {SERVE_REQUESTS - differ}/{SERVE_REQUESTS} streams "
-            f"bitwise the concurrent ones, the rest parted only under the margin guard")
+            if j is not None:
+                raise AssertionError(f"{label} request {i}: served alone it differs from the "
+                                     f"concurrent stream first at token {j} ({alone[j]} vs "
+                                     f"{tokens[i][j]})")
+        summary["isolated_differ"] = 0
+        log(f"  each request served alone: {SERVE_REQUESTS}/{SERVE_REQUESTS} streams bitwise the "
+            f"concurrent ones")
     if spec.sample:
         again = serve(range(SERVE_REQUESTS))[0]
         if again != tokens:
@@ -1906,11 +1970,68 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
             raise AssertionError(f"{label}: tokens or transitions differ from {spec.baseline}'s "
                                  f"({transitions} against {base['transitions']})")
         log(f"  tokens and residency transitions equal {spec.baseline}'s ({transitions})")
+    if spec.long_prompt:
+        summary["long"] = serve_long(engine, cfg, weights, serve, first, spec)
+        for name, n in summary["long"].pop("counts").items():     # its launches are the path's
+            counts[name] += n
+        for name, syms in summary["long"].pop("symbols").items():
+            for sym, n in syms.items():
+                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
+    del engine._prefill_admitted
     del engine, weights
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return summary
+
+
+def serve_long(engine, cfg, weights, serve, first, spec: ServeSpec) -> dict:
+    """One request of ``spec.long_prompt`` tokens + SERVE_NEW alone on the
+    path's engine (recurrentgemma: the prompt outgrows the window, so K4
+    skips the KV tiles behind the band and the ring cache wraps): its
+    first-token logits against the truth and its greedy ids against the
+    truth's at every sure position. Its kernel launches, counted from zero
+    around it, are returned with it (K4 once per attention layer)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    n = spec.long_prompt
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, n).astype(np.int32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, reqs = serve([0], lambda _: prompt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, symbols = ops.launch_counts(), ops.symbol_launch_counts()
+    attn_layers = sum(k == "local_attn" for k in cfg.layer_kinds)
+    if counts["flash_attention"] != attn_layers:
+        raise AssertionError(f"{spec.label}: the long request launched K4 "
+                             f"{counts['flash_attention']} times, not once per attention layer")
+    toks = out[0]
+    ttft = (reqs[0].first_token_at - reqs[0].submitted_at) * 1e3
+    decode_s = reqs[0].finished_at - reqs[0].first_token_at
+    log(f"  one request of {n} prompt tokens + {SERVE_NEW}: {wall:.2f} s, TTFT {ttft:.1f} ms, "
+        f"decode {(SERVE_NEW - 1) / decode_s:.1f} tok/s after the first token; launches {counts}")
+    seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])[None]
+    rows = [list(range(n - 1, n - 1 + SERVE_NEW))]
+    truth = reference_rows(cfg, weights, seq, rows, torch.float32)[0].cpu().numpy()
+    plain = reference_rows(cfg, weights, seq, rows, torch.bfloat16)[0].cpu().numpy()
+    got = first[reqs[0].uid][None]
+    if not judge(f"the {n}-token request's first token", got, truth[:1], plain[:1]):
+        raise AssertionError(f"{spec.label}: the long request's first-token logits are farther "
+                             f"from the truth than bf16")
+    sure = sure_positions(truth, plain)
+    wrong = [j for j in range(SERVE_NEW) if sure[j] and toks[j] != truth[j].argmax()]
+    if wrong:
+        raise AssertionError(f"{spec.label}: the long request's greedy ids differ from the "
+                             f"truth's at sure positions {wrong}")
+    log(f"  its greedy ids equal the truth's at all {int(sure.sum())} sure positions, at "
+        f"{sum(int(t == truth[j].argmax()) for j, t in enumerate(toks))}/{SERVE_NEW} in all")
+    return dict(prompt=n, wall_s=wall, ttft_ms=ttft, decode_tok_s=(SERVE_NEW - 1) / decode_s,
+                counts=counts, symbols=symbols)
 
 
 # ---------------------------------------------------------------------------
@@ -2017,6 +2138,124 @@ def run_frontend_path(dev, cfg, depth: int, spec: FrontSpec) -> dict:
     return summary
 
 
+class DecodeSpec(NamedTuple):
+    label: str
+    arch: str
+    rows: int
+    prompt: int
+    cache: int
+
+
+DECODE_PATHS = (DecodeSpec("decode-xlstm-350m", "xlstm-350m", 4, PROMPT, CACHE),)
+
+
+def _greedy(cfg, params, tokens, cache, new):
+    """``prefill_model`` over ``tokens`` [B, S], then ``new - 1`` greedy
+    ``decode_model`` steps, each pulled to the host. Returns (ids [B, new],
+    logits [B, new, V] f32, prefill s, decode step s)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill_model(cfg, params, tokens, cache)
+    rows = [logits.float().cpu().numpy()]
+    prefill_s = time.perf_counter() - t0
+    step_s = []
+    for j in range(new - 1):
+        t0 = time.perf_counter()
+        lg, _ = tfm.decode_model(cfg, params, torch.from_numpy(rows[-1].argmax(-1)).to(tokens.device),
+                                 state, tokens.shape[1] + j)
+        rows.append(lg.float().cpu().numpy())
+        step_s.append(time.perf_counter() - t0)
+    got = np.stack(rows, 1)
+    return got.argmax(-1), got, prefill_s, step_s
+
+
+def run_decode_path(dev, cfg, spec: DecodeSpec) -> dict:
+    """Phases 4 and 5 for an arch without attention (xLSTM: the reference
+    cannot serve it, its path is ``prefill_model`` + ``decode_model``):
+    ``rows`` prompts of ``prompt`` tokens prefilled in one call, then
+    FRONT_NEW - 1 greedy ``decode_model`` steps; every row's prefill and
+    decode logits against the f32 truth of the same weights and tokens, its
+    greedy ids against the truth's at every sure position, and each row
+    run alone (batch 1) against its tokens among the rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    log(f"[4/{spec.label}] {cfg.name} at published widths, all {cfg.num_layers} layers "
+        f"({'/'.join(sorted(set(cfg.layer_kinds)))}, no attention), bf16: prefill_model of "
+        f"{spec.rows} rows of {spec.prompt} tokens, then {FRONT_NEW - 1} greedy decode_model "
+        f"steps")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, dev)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (spec.rows, spec.prompt))
+    tokens = torch.from_numpy(prompt).to(dev)
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    torch.cuda.synchronize()
+    log(f"  set-up {time.perf_counter() - t0:.1f} s; weights {weight_gb:.2f} GB on the card")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ids, got, prefill_s, step_s = _greedy(cfg, params, tokens, spec.cache, FRONT_NEW)
+    counts = ops.launch_counts()
+    symbols = ops.symbol_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = spec.rows * (FRONT_NEW - 1) / sum(step_s)
+    log(f"  prefill {prefill_s * 1e3:.1f} ms ({spec.rows} x {spec.prompt} positions), decode "
+        f"{tok_s:.2f} tok/s over the rows (median step {np.median(step_s) * 1e3:.2f} ms), peak "
+        f"device memory {peak / 2**30:.2f} GiB; kernel launches {counts} (the cells are plain "
+        f"PyTorch, as the reference's are jnp)")
+    if any(counts.values()):
+        raise AssertionError(f"{spec.label}: a kernel launched on a stack without attention or "
+                             f"MoE: {counts}")
+    log(f"[5/{spec.label}] prefill and decode logits vs the plain forward on the card")
+    weights = _Weights(dev, {k: v for k, v in params.items() if k != "layers"},
+                       params["layers"], [])
+    seqs = np.concatenate([prompt, ids[:, :-1]], axis=1)
+    rows = [list(range(spec.prompt - 1, spec.prompt - 1 + FRONT_NEW))] * spec.rows
+    truth = reference_rows(cfg, weights, seqs, rows, torch.float32).cpu().numpy()
+    plain = reference_rows(cfg, weights, seqs, rows, torch.bfloat16).cpu().numpy()
+    if not np.isfinite(got).all() or got.shape != (spec.rows, FRONT_NEW, cfg.vocab_size):
+        raise AssertionError(f"{spec.label}: logits not finite or of shape {got.shape}")
+    flat = (spec.rows * FRONT_NEW, cfg.vocab_size)
+    if not judge(f"{spec.label} {spec.rows} rows x (prefill + {FRONT_NEW - 1} decode steps)",
+                 got.reshape(flat), truth.reshape(flat), plain.reshape(flat)):
+        raise AssertionError(f"{spec.label}: logits farther from the truth than bf16")
+    parted = 0
+    for i in range(spec.rows):
+        alone = _greedy(cfg, params, tokens[i:i + 1], spec.cache, FRONT_NEW)[0][0]
+        j = next((j for j in range(FRONT_NEW) if alone[j] != ids[i, j]), None)
+        if j is None:
+            continue
+        # eager decode_model reads its weights at this batch's row count, so
+        # a row alone may sum in another order: it may part only where the
+        # truth cannot tell the two tokens apart
+        top2 = np.sort(truth[i, j])[-2:]
+        margin, limit = float(top2[1] - top2[0]), 2 * float(np.abs(plain[i] - truth[i]).max())
+        log(f"  row {i} alone parts from the batch at token {j} ({alone[j]} vs {ids[i, j]}), "
+            f"truth margin {margin:.4f} (guard {limit:.4f})")
+        if margin > limit:
+            raise AssertionError(f"{spec.label} row {i}: alone it differs at token {j} where the "
+                                 f"truth's margin {margin:.4f} exceeds {limit:.4f}")
+        parted += 1
+    log(f"  each row run as batch 1: {spec.rows - parted}/{spec.rows} streams equal to the "
+        f"batch's")
+    summary = dict(label=spec.label, frontend=True, counts=counts, symbols=symbols,
+                   prefill_ms=prefill_s * 1e3, tok_s=tok_s,
+                   median_ms=float(np.median(step_s)) * 1e3, peak_gib=peak / 2**30,
+                   layers=cfg.num_layers, parted=parted)
+    del params, weights
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2094,10 +2333,12 @@ def main() -> int:
         add(run_frontend_path(dev, dataclasses.replace(
             arch, segments=((arch.segments[0][0], spec.layers or arch.num_layers),)),
             arch.num_layers, spec))
+    for spec in DECODE_PATHS:
+        add(run_decode_path(dev, get_config(spec.arch), spec))
     dbrx = get_config("dbrx-132b")
     add(run_path(dev, dataclasses.replace(dbrx, segments=((("attn_moe",), DBRX_LAYERS),)),
                  dbrx.num_layers, DBRX_PATH, done))
-    n_paths = len(PATHS) + len(SERVE_PATHS) + len(FRONT_PATHS) + 1
+    n_paths = len(PATHS) + len(SERVE_PATHS) + len(FRONT_PATHS) + len(DECODE_PATHS) + 1
     multi = {counter for counter, _ in ENTRY.values()}          # kernels with several entries
     log(f"  kernel launches over the {n_paths} paths: {counts}; by entry: "
         f"{ {name: syms for name, syms in symbols.items() if name in multi and syms} }")
@@ -2135,10 +2376,11 @@ def main() -> int:
             f"{r['ttft'][1]:.1f} ms, ITL {r['itl'][0]:.2f} / {r['itl'][1]:.2f} ms, windows "
             f"{r['windows']} spec {r['spec_windows']} accept {r['accept_rate']:.3f}, misses/token "
             f"{r['misses_per_token']:.3f}, pages hwm {r['hwm']}, {r['mb_per_token']:.2f} MB/token, "
-            f"peak {r['peak_gib']:.2f} GiB, {r['graphs']} graphs in {r['capture_ms']:.0f} ms")
+            f"peak {r['peak_gib']:.2f} GiB, {r['graphs']} graphs in {r['capture_ms']:.0f} ms, "
+            f"median tick {r['tick_ms']:.2f} ms")
     log(f"  {card}: frontend paths (prefill ms of frontend + prompt positions; decode tok/s and "
         f"median step ms of decode_model, one pull a step; peak)")
-    for spec in FRONT_PATHS:
+    for spec in FRONT_PATHS + DECODE_PATHS:
         r = done[spec.label]
         log(f"  {r['label']:>19}: prefill {r['prefill_ms']:.1f} ms, decode {r['tok_s']:.2f} tok/s "
             f"(median step {r['median_ms']:.2f} ms), peak {r['peak_gib']:.2f} GiB")

@@ -1,10 +1,13 @@
-from repro_torch.config.base import AttentionConfig, ModelConfig, MoEConfig, ResidencyConfig
+from repro_torch.config.base import (
+    AttentionConfig, ModelConfig, MoEConfig, RecurrentConfig, ResidencyConfig,
+)
 from repro_torch.config.registry import get_config, list_archs, register
 
 __all__ = [
     "AttentionConfig",
     "ModelConfig",
     "MoEConfig",
+    "RecurrentConfig",
     "ResidencyConfig",
     "get_config",
     "list_archs",

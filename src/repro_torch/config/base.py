@@ -13,10 +13,14 @@ from typing import Optional, Tuple
 BLOCK_KINDS = (
     "attn_mlp",     # full attention + dense MLP
     "attn_moe",     # full attention + MoE FFN
+    "local_attn",   # sliding-window attention + dense MLP
+    "mlstm",        # xLSTM matrix-memory block
+    "slstm",        # xLSTM scalar-memory block
+    "rglru",        # RecurrentGemma RG-LRU block (+ dense MLP)
 )
-# The reference's other kinds, still to port (ROADMAP.md Queue 1, the
-# recurrent families: recurrentgemma-2b and xlstm-350m).
-UNPORTED_KINDS = ("local_attn", "mlstm", "slstm", "rglru")
+# Kinds whose per-layer decode state is a KV cache (the rest carry a
+# recurrent state, updated destructively by every step).
+KV_KINDS = ("attn_mlp", "attn_moe", "local_attn")
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -73,13 +77,25 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class RecurrentConfig:
+    """Settings for recurrent block kinds (rglru / xlstm)."""
+
+    lru_width: int = 0             # RG-LRU hidden width (0 -> d_model)
+    conv_width: int = 4            # temporal-conv width in the RG-LRU block
+    num_heads: int = 4             # recurrence heads (xLSTM / RG-LRU block diagonal)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Complete architecture description.
 
     ``segments`` encodes the layer stack as a sequence of (unit, repeats): the
     unit is a tuple of block kinds executed in order, repeated ``repeats``
-    times, e.g. ``((("attn_moe",), 48),)`` = 48 layers. ``attn_mlp`` blocks
-    run a dense MLP of width ``d_ff``; ``attn_moe`` blocks need ``moe``.
+    times, e.g. ``((("attn_moe",), 48),)`` = 48 layers. ``attn_mlp`` and
+    ``local_attn`` blocks run a dense MLP of width ``d_ff``; ``attn_moe``
+    blocks need ``moe``; the recurrent kinds (``rglru``, ``mlstm``,
+    ``slstm``) need ``recurrent``. A stack without attention blocks (xLSTM)
+    has ``attention`` None.
     A ``frontend`` arch prepends ``frontend_len`` precomputed embeddings of
     width ``frontend_dim`` (projected to ``d_model`` when the widths
     differ) to the prompt at prefill.
@@ -90,10 +106,11 @@ class ModelConfig:
     d_model: int
     vocab_size: int
     segments: Tuple[Tuple[Tuple[str, ...], int], ...]
-    attention: AttentionConfig
+    attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
-    d_ff: int = 0                      # dense-MLP hidden size
-    mlp: str = "swiglu"                # "swiglu" | "gelu_mlp"
+    recurrent: Optional[RecurrentConfig] = None
+    d_ff: int = 0                      # dense-MLP hidden size (0 for pure-ssm archs)
+    mlp: str = "swiglu"                # "swiglu" | "gelu_mlp" | "none"
     norm: str = "rmsnorm"              # "rmsnorm" | "layernorm"
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
@@ -109,18 +126,19 @@ class ModelConfig:
             if reps <= 0:
                 raise ValueError("segment repeats must be positive")
             for kind in unit:
-                if kind in UNPORTED_KINDS:
-                    raise NotImplementedError(
-                        f"{self.name}: block kind {kind!r} is not ported yet (ROADMAP.md "
-                        f"Queue 1, the recurrent families); the port runs {BLOCK_KINDS}")
                 if kind not in BLOCK_KINDS:
                     raise ValueError(f"unknown block kind {kind!r}")
-        if self.mlp not in ("swiglu", "gelu_mlp"):
+        if self.mlp not in ("swiglu", "gelu_mlp", "none"):
             raise ValueError(f"unknown mlp {self.mlp!r}")
+        kinds = set(self.layer_kinds)
+        if kinds & set(KV_KINDS) and self.attention is None:
+            raise ValueError(f"{self.name}: attention blocks present but no AttentionConfig")
         if self.has_moe and self.moe is None:
             raise ValueError(f"{self.name}: attn_moe blocks present but no MoEConfig")
-        if "attn_mlp" in self.layer_kinds and self.d_ff <= 0:
-            raise ValueError(f"{self.name}: attn_mlp blocks need d_ff > 0")
+        if kinds & {"rglru", "mlstm", "slstm"} and self.recurrent is None:
+            raise ValueError(f"{self.name}: recurrent blocks present but no RecurrentConfig")
+        if kinds & {"attn_mlp", "local_attn", "rglru"} and self.d_ff <= 0:
+            raise ValueError(f"{self.name}: {sorted(kinds)} blocks need d_ff > 0")
 
     @property
     def num_layers(self) -> int:
@@ -139,7 +157,12 @@ class ModelConfig:
 
     @property
     def uses_kv_cache(self) -> bool:
-        return any(k in ("attn_mlp", "attn_moe") for k in self.layer_kinds)
+        return any(k in KV_KINDS for k in self.layer_kinds)
+
+    @property
+    def kv_only(self) -> bool:
+        """Every layer's state is a KV cache (no recurrent layer)."""
+        return all(k in KV_KINDS for k in self.layer_kinds)
 
     @property
     def num_moe_layers(self) -> int:

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config.base import AttentionConfig, ModelConfig, MoEConfig
+from repro_torch.config.base import AttentionConfig, ModelConfig, MoEConfig, RecurrentConfig
 
 
 def reduce_for_smoke(
@@ -46,6 +46,13 @@ def reduce_for_smoke(
             shared_d_ff=48 if moe.num_shared_experts else 0,
             norm_topk_prob=moe.norm_topk_prob,
         )
+    rec = cfg.recurrent
+    if rec is not None:
+        rec = RecurrentConfig(
+            lru_width=d_model if rec.lru_width else 0,
+            conv_width=rec.conv_width,
+            num_heads=2,
+        )
     segments = tuple((unit, min(reps, max_repeats)) for unit, reps in cfg.segments)
     return dataclasses.replace(
         cfg,
@@ -55,6 +62,7 @@ def reduce_for_smoke(
         segments=segments,
         attention=attn,
         moe=moe,
+        recurrent=rec,
         d_ff=128 if cfg.d_ff else 0,
         frontend_len=8 if cfg.frontend else 0,
         frontend_dim=d_model if cfg.frontend else 0,

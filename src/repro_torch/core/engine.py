@@ -131,7 +131,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling as sampling_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import Params
+from repro_torch.models.layers import Params, apply_mlp
 from repro_torch.models.transformer import Runtime
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import resolve_tracer
@@ -210,13 +210,20 @@ def host_correct(x: torch.Tensor, h2: torch.Tensor, ids: np.ndarray, weights: np
     return x, len(picks), convert, len(by_expert)
 
 
-def demand_program(h_all: torch.Tensor, routers_next: torch.Tensor) -> torch.Tensor:
+def demand_program(h_all: torch.Tensor, routers_next: torch.Tensor,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The pre-gating demand program over stacked per-layer MoE inputs
     h_all [L, T, D] and the next layers' routers [L, D, E]:
     ``softmax(h_l @ R_{l+1})`` averaged over tokens, [L, E] (the
-    reference's in-graph demand GEMM, ``_demand_aux_fn``)."""
-    dl = torch.einsum("ltd,lde->lte", h_all.float(), routers_next)
-    return torch.softmax(dl, dim=-1).mean(dim=1)
+    reference's in-graph demand GEMM, ``_demand_aux_fn``). ``rows`` (a
+    device scalar) averages over the first ``rows`` tokens only: the serving
+    engine runs every window at its full row count and averages over the
+    rows bucket the reference's window would have run."""
+    probs = torch.softmax(torch.einsum("ltd,lde->lte", h_all.float(), routers_next), dim=-1)
+    if rows is None:
+        return probs.mean(dim=1)
+    keep = (torch.arange(probs.shape[1], device=probs.device) < rows).to(probs.dtype)
+    return (probs * keep[None, :, None]).sum(dim=1) / rows.to(probs.dtype)
 
 
 def window_outputs(cfg: ModelConfig, params: Params, tok: torch.Tensor, state: Any,
@@ -389,19 +396,23 @@ class RotaryEngine:
         per chunk length, the walks walk the same chunks layer by layer.
         Every combination the reference refuses raises here, before
         anything is built. The architecture must be MoE (the reference
-        asserts so); the port's engine takes stacks whose every layer is
-        ``attn_moe``."""
+        asserts so). A stack may mix dense layers (``attn_mlp``,
+        ``local_attn``) with its ``attn_moe`` ones: every path runs a dense
+        layer's MLP on the device, without residency, and the residency,
+        telemetry and predictor count MoE layers by ordinal. Recurrent
+        layers (the reference's walks take them) are not ported here."""
         m = cfg.require_moe("RotaryEngine")
-        if cfg.num_moe_layers != cfg.num_layers:
+        if not cfg.kv_only:
             raise NotImplementedError(
-                f"{cfg.name}: RotaryEngine runs stacks of attn_moe layers only, got "
+                f"{cfg.name}: RotaryEngine runs KV-cache stacks (attn_moe beside attn_mlp / "
+                f"local_attn); recurrent layers are not ported here, got "
                 f"{sorted(set(cfg.layer_kinds))}")
         probe = make_policy(rescfg.mode, m.num_experts, rescfg.num_slots or m.num_experts, rescfg)
         self.host_routing = bool(host_routing)
         # LRU answers misses with blocking loads mid-step: that needs the
         # routed ids on the host before the MoE half, i.e. the sync walk
         self._hot_decode = not host_routing and not getattr(probe, "needs_sync_resolve", False)
-        fused_ok = self._hot_decode          # every block is attn_moe: KV-cache-only
+        fused_ok = self._hot_decode          # every block is a KV kind
         if fused_decode and not fused_ok:
             raise ValueError("fused decode requires device routing (no host_routing, no "
                              "LRU) and KV-cache-only block kinds")
@@ -421,7 +432,7 @@ class RotaryEngine:
         if prefill_chunk is not None and (prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1)):
             raise ValueError(f"prefill_chunk must be a power of two, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
-        # every block is attn_moe (KV-cache only) and prompts are plain
+        # every block is a KV kind and prompts are plain
         # tokens: chunked prefill is open to every engine; the fused chunk
         # path also needs a window-free cache, because its suffix replay
         # re-reads pre-chunk cache content a ring overwrite would destroy
@@ -453,10 +464,15 @@ class RotaryEngine:
 
         host = torch.device("cpu")
         pin = torch.cuda.is_available()
+        # every layer on the device (a MoE layer without its experts); the
+        # residency, predictor and telemetry index MoE layers by ordinal
         self.layers: List[Params] = []
         experts: List[Dict[str, torch.Tensor]] = []
         routers: List[np.ndarray] = []
         for p_l in params["layers"]:
+            if "moe" not in p_l:
+                self.layers.append(_to_device(p_l, dev))
+                continue
             hw = dict(p_l["moe"]["experts"])
             if rescfg.quantization is None:         # else the manager packs them
                 for n, w in hw.items():
@@ -466,7 +482,10 @@ class RotaryEngine:
             routers.append(p_l["moe"]["router"].float().cpu().numpy())
             moe_p = {k: v for k, v in p_l["moe"].items() if k != "experts"}
             self.layers.append(_to_device({**p_l, "moe": moe_p}, dev))
-        self.num_moe_layers = len(self.layers)
+        # layer index -> MoE ordinal (None: dense), and MoE ordinal -> layer index
+        self.moe_of = tfm.moe_ordinals({"layers": self.layers})
+        self.moe_pos = [li for li, mi in enumerate(self.moe_of) if mi is not None]
+        self.num_moe_layers = len(self.moe_pos)
         self.embed_params = _to_device(
             {k: params[k] for k in ("embed", "final_norm", "lm_head") if k in params}, dev
         )
@@ -596,12 +615,28 @@ class RotaryEngine:
         self.clock.host(self.cost.host_compute_s(self.manager.host_expert_flops(n_host)))
         return x
 
-    def _moe_layer(self, li: int, x_mid: torch.Tensor, h2: torch.Tensor,
+    def _moe_layer(self, mi: int, x_mid: torch.Tensor, h2: torch.Tensor,
                    ids_dev: torch.Tensor, w_dev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        slots, lut = self.manager.layer_residency(li)
-        y2, miss = moe_mod.moe_apply_routed(self.layers[li]["moe"], h2, ids_dev, w_dev,
-                                            slot_buffer=slots, lut=lut)
+        """MoE layer ``mi`` (its ordinal)'s routed experts through its residency."""
+        slots, lut = self.manager.layer_residency(mi)
+        y2, miss = moe_mod.moe_apply_routed(self.layers[self.moe_pos[mi]]["moe"], h2, ids_dev,
+                                            w_dev, slot_buffer=slots, lut=lut)
         return x_mid + y2.reshape(x_mid.shape), miss
+
+    def _dense_layer(self, li: int, x: torch.Tensor, mode: str, cur) -> torch.Tensor:
+        """Dense layer ``li`` of a mixed stack: attention, then its MLP, on
+        the device (no residency, no routing)."""
+        x_mid, h2, _ = tfm.attn_half(self.cfg, self.layers[li], x, mode, self.state[li], cur,
+                                     self.rt.cache_len)
+        self.stats.device_dispatches += 1
+        return x_mid + apply_mlp(self.cfg.mlp, self.layers[li]["mlp"], h2).reshape(x_mid.shape)
+
+    def _suffix(self, start: int) -> List[Tuple[int, Optional[int]]]:
+        """(layer index, MoE ordinal or None) of every layer from MoE layer
+        ``start`` to the end of the stack: what a replay from that MoE
+        layer's saved input re-runs."""
+        first = self.moe_pos[start] if start < self.num_moe_layers else len(self.layers)
+        return [(li, self.moe_of[li]) for li in range(first, len(self.layers))]
 
     # ------------------------------------------------------------------
     # per-layer sync walk (prefill; decode for LRU / the host-routing baseline)
@@ -619,8 +654,13 @@ class RotaryEngine:
         pre-gating the next layer)."""
         cfg, clock, m = self.cfg, self.clock, self.cfg.moe
         cur = cur_len if mode == "prefill" else self._device_scalar(cur_len)
-        for li, p_l in enumerate(self.layers):
-            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, mode, self.state[li], cur, self.rt.cache_len)
+        for layer, p_l in enumerate(self.layers):
+            li = self.moe_of[layer]
+            if li is None:
+                x = self._dense_layer(layer, x, mode, cur)
+                continue
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, mode, self.state[layer], cur,
+                                         self.rt.cache_len)
             self.stats.sync_pulls += 1
             self.stats.device_dispatches += 1
             if self.host_routing:
@@ -680,9 +720,13 @@ class RotaryEngine:
         moved: List[Optional[int]] = []                  # bytes of the pre-gating each layer ran
         ids_all: List[np.ndarray] = []
         deferred = None
-        for li, p_l in enumerate(self.layers):
+        for layer, p_l in enumerate(self.layers):
+            li = self.moe_of[layer]
+            if li is None:
+                x = self._dense_layer(layer, x, "decode", cur)
+                continue
             x_ins.append(x)
-            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[li], cur, 0)
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[layer], cur, 0)
             ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             for name, t in (("ids", ids_dev), ("weights", w_dev), ("h2", h2)):
                 buf[name][li].copy_(t, non_blocking=True)
@@ -731,9 +775,12 @@ class RotaryEngine:
         in seed order."""
         cfg, clock = self.cfg, self.clock
         x = x0
-        for li in range(start, self.num_moe_layers):
-            p_l = self.layers[li]
-            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[li], cur, 0)
+        for layer, li in self._suffix(start):
+            if li is None:
+                x = self._dense_layer(layer, x, "decode", cur)
+                continue
+            p_l = self.layers[layer]
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[layer], cur, 0)
             ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
             ids = ids_dev.cpu().numpy()
@@ -994,9 +1041,12 @@ class RotaryEngine:
         x = anchor.reshape(self.batch, 1, -1)
         cur = self._device_scalar(cur_len)
         self.stats.device_dispatches += 1             # device-side slice
-        for li in range(start, self.num_moe_layers):
-            p_l = self.layers[li]
-            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[li], cur, 0)
+        for layer, li in self._suffix(start):
+            if li is None:
+                x = self._dense_layer(layer, x, "decode", cur)
+                continue
+            p_l = self.layers[layer]
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[layer], cur, 0)
             ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
             self.stats.device_dispatches += 2
@@ -1406,9 +1456,13 @@ class RotaryEngine:
         x = out["route_x"][start].reshape(self.batch, c, d)
         cur = self._device_scalar(cur_len)
         self.stats.device_dispatches += 1             # device-side slice
-        for li in range(start, self.num_moe_layers):
-            x_mid, h2, _ = tfm.attn_half(cfg, self.layers[li], x, "chunk", self.state[li], cur, 0)
-            ids_dev, w_dev = moe_mod.route(self.layers[li]["moe"], h2, cfg.moe)
+        for layer, li in self._suffix(start):
+            if li is None:
+                x = self._dense_layer(layer, x, "chunk", cur)
+                continue
+            p_l = self.layers[layer]
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "chunk", self.state[layer], cur, 0)
+            ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
             self.stats.device_dispatches += 2
             ids = ids_dev.cpu().numpy()

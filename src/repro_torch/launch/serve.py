@@ -13,7 +13,9 @@ join between ticks); it prints each request's tokens, then ``summary()``
 sampling flags apply as to the rotary engine. A dense arch (``attn_mlp``
 stacks: ``starcoder2-3b``, ``qwen3-4b``, ...) serves with every weight on
 the device and no residency; ``--engine rotary`` refuses it, as the
-reference's assert does.
+reference's assert does. A recurrent arch (``recurrentgemma-2b``) serves
+through the group tick, a fixed batch of ``--batch-slots`` rows, as the
+reference chooses it (``ServingEngine(paged=None)``).
 
 The ``--engine rotary`` path (the default) of ``repro.launch.serve`` on the card: host
 warehouse, rotating device slots, pre-gated rotation, host miss correction.
@@ -134,8 +136,8 @@ def main() -> None:
         unit = cfg.segments[0][0]          # the config's own unit, repeated
         cfg = dataclasses.replace(cfg, segments=((unit, args.layers),))
     if args.engine == "rotary" and not cfg.has_moe:
-        raise ValueError(f"--engine rotary requires an MoE arch; {cfg.name} is dense "
-                         f"(serve it with --engine batch)")
+        raise ValueError(f"--engine rotary requires an MoE arch; {cfg.name} has no MoE "
+                         f"layers (serve it with --engine batch)")
     params = init_params(cfg, args.seed, device, expert_device="cpu")
     slots = args.slots or (cfg.moe.num_experts * 3 // 4 if cfg.has_moe else 0)
     rescfg = ResidencyConfig(mode=args.residency, num_slots=slots,

@@ -10,17 +10,33 @@ from repro_torch.config.base import ModelConfig
 
 
 def _block_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
-    """One ``attn_mlp`` or ``attn_moe`` block."""
+    """One block of any kind, as the reference counts it."""
     d = cfg.d_model
     norm = d if cfg.norm == "rmsnorm" else 2 * d
     mats = 3 if cfg.mlp == "swiglu" else 2
+    if kind == "mlstm":
+        d_inner = 2 * d
+        h = cfg.recurrent.num_heads
+        # norm, up, q/k/v, i/f gates + bias, skip, down
+        return (norm + d * 2 * d_inner + 3 * d_inner * d_inner + d_inner * 2 * h + 2 * h
+                + d_inner + d_inner * d)
+    if kind == "slstm":
+        h = cfg.recurrent.num_heads
+        up = (4 * d) // 3
+        # norm, w_in + b, block-diagonal r, gated MLP
+        return norm + d * 4 * d + 4 * d + 4 * h * (d // h) ** 2 + d * 2 * up + up * d
+    if kind == "rglru":
+        w = cfg.recurrent.lru_width or d
+        # norms, branch in-projs, conv, gates + lambda, out, MLP
+        return (2 * norm + 2 * d * w + cfg.recurrent.conv_width * w + w + 2 * w * w + w
+                + w * d + mats * d * cfg.d_ff)
     a = cfg.attention
     n = 2 * norm
     n += d * a.num_heads * a.head_dim * 2                  # wq, wo
     n += d * a.num_kv_heads * a.head_dim * 2               # wk, wv
     if a.qk_norm:
         n += 2 * a.head_dim
-    if kind == "attn_mlp":
+    if kind != "attn_moe":                                 # attn_mlp, local_attn
         return n + mats * d * cfg.d_ff
     m = cfg.moe
     experts = m.top_k if active_only else m.storage_experts

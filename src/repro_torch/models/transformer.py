@@ -1,29 +1,38 @@
-"""Decoder assembly for the engine path: init, per-layer KV state, the decode
-step over the layer stack, and the lm head.
+"""Decoder assembly for the engine path: init, per-layer decode state, the
+decode step over the layer stack, and the lm head.
 
-The counterpart of ``repro/models/transformer.py`` for KV-cache stacks of
-``attn_mlp`` (attention + dense MLP) and ``attn_moe`` (attention + MoE)
-blocks. Parameters are plain dicts of tensors: ``embed``, ``final_norm``,
-``lm_head`` (untied configs), ``frontend_proj`` (a frontend whose width is
-not ``d_model``) and ``layers``, a list with one dict per layer (the
-reference stacks repeated layers for its ``lax.scan``; a Python loop over
-layers needs no stacking). Residency, routing telemetry and the prefill's
-expert callbacks count MoE layers only (their ordinal among the
-``attn_moe`` layers), as the reference's ``moe_segments`` order does; a
-dense stack routes nothing and returns no telemetry. A frontend arch
-(``cfg.frontend``) prepends its precomputed embeddings to the prompt at
-prefill (``frontend=``), so they take the first cache positions. The KV state is a list of per-layer
-``{"k", "v"}`` caches that decode updates in place. The speculative window
-(``decode_window``, greedy or sampled) and its KV snapshot / rollback follow
-the reference's ``decode_window``, ``snapshot_kv_window`` and
-``rollback_kv_window``; a prefill chunk (``prefill_chunk_model``) appends C
-positions to the same caches, the reference's ``prefill_chunk_model``.
+The counterpart of ``repro/models/transformer.py`` for every block kind:
+``attn_mlp`` / ``local_attn`` (attention, full or sliding-window, + dense
+MLP), ``attn_moe`` (attention + MoE) and the recurrent kinds ``rglru``
+(RG-LRU + dense MLP), ``mlstm`` and ``slstm`` (xLSTM cells). Parameters are
+plain dicts of tensors: ``embed``, ``final_norm``, ``lm_head`` (untied
+configs), ``frontend_proj`` (a frontend whose width is not ``d_model``) and
+``layers``, a list with one dict per layer (the reference stacks repeated
+layers for its ``lax.scan``; a Python loop over layers needs no stacking).
+Residency, routing telemetry and the prefill's expert callbacks count MoE
+layers only (their ordinal among the ``attn_moe`` layers), as the
+reference's ``moe_segments`` order does; a dense stack routes nothing and
+returns no telemetry. A frontend arch (``cfg.frontend``) prepends its
+precomputed embeddings to the prompt at prefill (``frontend=``), so they
+take the first cache positions.
+
+The decode state is a list with one dict per layer: ``{"k", "v"}`` caches
+for the KV kinds, the cell's f32 state for a recurrent one; decode updates
+both in place (``copy_`` for a recurrent state, so a CUDA graph's
+addresses hold). The speculative window (``decode_window``, greedy or
+sampled) and its KV snapshot / rollback follow the reference's
+``decode_window``, ``snapshot_kv_window`` and ``rollback_kv_window`` and
+touch KV layers only (a recurrent update cannot be rolled back, so the
+engines run windows on KV-only stacks); a prefill chunk
+(``prefill_chunk_model``) appends C positions to the same caches, the
+reference's ``prefill_chunk_model``, and raises on a recurrent layer.
 
 The serving engine's paged KV pool (``paged_zero_state``: per layer, planes
-[P, ps, Hkv, dh] shared by every row) runs through the same decode step and
-window with a ``page_table`` [B, pages] and a per-row ``cur_len`` [B], and
-its admission prefill is ``prefill_model`` (right-padded rows, the logits at
-each row's ``last_index`` and a fresh contiguous state to splice into pages).
+[P, ps, Hkv, dh] shared by every row; KV-only stacks) runs through the same
+decode step and window with a ``page_table`` [B, pages] and a per-row
+``cur_len`` [B]. Its admission prefill is ``prefill_model``: each row at its
+exact length (``last_index``), so neither a pad nor another row's length
+reaches a row's logits or state.
 """
 from __future__ import annotations
 
@@ -32,10 +41,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import KV_KINDS, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import sampling as sampling_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     Params, apply_mlp, apply_norm, embed_init, init_mlp, init_norm,
 )
@@ -64,19 +75,8 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda", *,
     device = torch.device(device)
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    layers: List[Params] = []
-    for kind in cfg.layer_kinds:
-        layer = {
-            "ln1": init_norm(cfg.norm, cfg.d_model, dtype, device),
-            "attn": attn.init_attention(gen, cfg.d_model, cfg.attention, dtype, device),
-            "ln2": init_norm(cfg.norm, cfg.d_model, dtype, device),
-        }
-        if kind == "attn_moe":
-            layer["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, cfg.mlp, dtype, device,
-                                            expert_device=expert_device)
-        else:
-            layer["mlp"] = init_mlp(cfg.mlp, gen, cfg.d_model, cfg.d_ff, dtype, device)
-        layers.append(layer)
+    layers = [_init_block(gen, kind, cfg, dtype, device, expert_device)
+              for kind in cfg.layer_kinds]
     p: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device),
         "layers": layers,
@@ -89,11 +89,41 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda", *,
     return p
 
 
+def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype: torch.dtype, device,
+                expert_device) -> Params:
+    """One layer's weights, the reference's ``_init_block`` layout."""
+    d = cfg.d_model
+    if kind in ("mlstm", "slstm"):
+        init = xlstm_mod.init_mlstm if kind == "mlstm" else xlstm_mod.init_slstm
+        return {"ln": init_norm(cfg.norm, d, dtype, device),
+                "cell": init(gen, d, cfg.recurrent, dtype, device)}
+    layer = {"ln1": init_norm(cfg.norm, d, dtype, device)}
+    if kind == "rglru":
+        layer["rec"] = rglru_mod.init_rglru(gen, d, cfg.recurrent, dtype, device)
+    else:
+        layer["attn"] = attn.init_attention(gen, d, cfg.attention, dtype, device)
+    layer["ln2"] = init_norm(cfg.norm, d, dtype, device)
+    if kind == "attn_moe":
+        layer["moe"] = moe_mod.init_moe(gen, d, cfg.moe, cfg.mlp, dtype, device,
+                                        expert_device=expert_device)
+    else:
+        layer["mlp"] = init_mlp(cfg.mlp, gen, d, cfg.d_ff, dtype, device)
+    return layer
+
+
+def _zero_block_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                     device) -> Dict[str, torch.Tensor]:
+    """One layer's decode state: a KV cache, or the recurrent cell's state."""
+    if kind in KV_KINDS:
+        return attn.zero_cache(cfg.attention, batch, cache_len, torch_dtype(cfg), device)
+    zero = {"rglru": rglru_mod.rglru_zero_state, "mlstm": xlstm_mod.mlstm_zero_state,
+            "slstm": xlstm_mod.slstm_zero_state}[kind]
+    return zero(batch, cfg.d_model, cfg.recurrent, device)
+
+
 def zero_state(cfg: ModelConfig, batch: int, cache_len: int,
                device) -> List[Dict[str, torch.Tensor]]:
-    dtype = torch_dtype(cfg)
-    return [attn.zero_cache(cfg.attention, batch, cache_len, dtype, device)
-            for _ in range(cfg.num_layers)]
+    return [_zero_block_state(cfg, kind, batch, cache_len, device) for kind in cfg.layer_kinds]
 
 
 def paged_zero_state(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -102,7 +132,11 @@ def paged_zero_state(cfg: ModelConfig, num_pages: int, page_size: int,
     ``paged_zero_state``): per layer ``{"k", "v"}`` planes [num_pages,
     page_size, Hkv, dh] shared by every row and addressed through per-row
     page tables (``attention_decode(page_table=...)``). ``num_pages`` counts
-    the scratch page the pool keeps at index 0."""
+    the scratch page the pool keeps at index 0. KV-only stacks: a recurrent
+    state is per row by construction and cannot be paged."""
+    for kind in cfg.layer_kinds:
+        if kind not in KV_KINDS:
+            raise ValueError(f"paged KV pool requires KV-cache blocks, got {kind!r}")
     a = cfg.attention
     shape = (num_pages, page_size, a.num_kv_heads, a.head_dim)
     dtype = torch_dtype(cfg)
@@ -170,6 +204,39 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     return x_mid, h2, state
 
 
+def recurrent_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, mode: str,
+                    state: Optional[Dict[str, torch.Tensor]]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A recurrent layer (``rglru``, ``mlstm``, ``slstm``; the reference's
+    ``_apply_block``) over x [B, S, D]: ``prefill`` from the zero state, or
+    one ``decode`` step from ``state``. Returns (x out, the new state); the
+    caller stores the state. A chunk raises, as in the reference: a
+    recurrent update consumes its state one position a call."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"chunked prefill requires KV-cache blocks, got {kind!r}")
+    decode = mode == "decode"
+    if kind == "rglru":
+        h = apply_norm(cfg.norm, p["ln1"], x)
+        y, new = (rglru_mod.rglru_decode(p["rec"], h, state) if decode
+                  else rglru_mod.rglru_prefill(p["rec"], h, cfg.recurrent))
+        x = x + y
+        return x + apply_mlp(cfg.mlp, p["mlp"], apply_norm(cfg.norm, p["ln2"], x)), new
+    h = apply_norm(cfg.norm, p["ln"], x)
+    if kind == "mlstm":
+        y, new = (xlstm_mod.mlstm_decode(p["cell"], h, state) if decode
+                  else xlstm_mod.mlstm_prefill(p["cell"], h, cfg.recurrent))
+    else:
+        y, new = (xlstm_mod.slstm_decode(p["cell"], h, state) if decode
+                  else xlstm_mod.slstm_prefill(p["cell"], h, cfg.recurrent))
+    return x + y, new
+
+
+def _store(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]) -> None:
+    """A recurrent state written into its tensors in place."""
+    for n, t in src.items():
+        dst[n].copy_(t)
+
+
 def decode_model(
     cfg: ModelConfig,
     params: Params,
@@ -212,10 +279,14 @@ def prefill_model(
     """The serving engine's admission prefill (the reference's
     ``prefill_model`` under its scan over rows): returns (logits [B, V] at
     each row's ``last_index`` [B] (default: the last position), a fresh
-    contiguous state [B, cache_len] per layer). Each row runs as a batch-1
-    prefill, layer by layer, so a row's outputs do not depend on the others.
-    Attention is K4's causal entry over the padded row, so pads after a
-    row's last position cannot reach it.
+    contiguous state per layer, [B, cache_len] caches or [B, ...] recurrent
+    states). Each row runs as a batch-1 prefill of its EXACT length,
+    ``last_index + 1`` positions, layer by layer, its logits through the
+    head alone: a row's bits depend neither on the pads of the bucket nor
+    on the other rows, and a pad never reaches a recurrent state (the
+    reference prefills its recurrent archs at exact lengths too). A
+    row's cache slots past its length stay zero; decode never reads them
+    before writing them.
 
     The reference reads every routed expert from ``params``. Here each
     layer's MoE half reads the layer's expert store (``experts(li)`` when
@@ -226,23 +297,32 @@ def prefill_model(
     with the missed picks added (the engine's host GEMM). Nothing here
     resolves, rotates or records: the residency a caller holds is left as
     it was. ``li`` in the callbacks and ``residency`` count MoE layers; an
-    ``attn_mlp`` layer runs its dense MLP.
+    ``attn_mlp`` or ``local_attn`` layer runs its dense MLP, a recurrent
+    layer its cell.
 
     ``frontend`` [B, F, frontend_dim]: a frontend arch's embeddings, which
     take positions 0 .. F - 1 of every row before its tokens (``last_index``
     then counts them too); such an arch raises without them."""
     b = tokens.shape[0]
+    n_front = cfg.frontend_len if cfg.frontend is not None else 0
+    last = ([tokens.shape[1] + n_front - 1] * b if last_index is None
+            else [int(v) for v in last_index.reshape(-1).tolist()])
     state = zero_state(cfg, b, cache_len, tokens.device)
-    xs = [prepend_frontend(cfg, params, embed_tokens(params, tokens[i:i + 1]),
+    xs = [prepend_frontend(cfg, params, embed_tokens(params, tokens[i:i + 1, :j + 1 - n_front]),
                            None if frontend is None else frontend[i:i + 1])
-          for i in range(b)]
-    for li, (p, mi) in enumerate(zip(params["layers"], moe_ordinals(params))):
+          for i, j in enumerate(last)]
+    for li, (kind, p, mi) in enumerate(zip(cfg.layer_kinds, params["layers"],
+                                           moe_ordinals(params))):
         if mi is not None:
             moe_p = p["moe"] if experts is None else {**p["moe"], "experts": experts(mi)}
             slots, lut = residency[mi] if residency is not None else (None, None)
         for i in range(b):
-            cache = {n: state[li][n][i:i + 1] for n in ("k", "v")}
-            x_mid, h2, _ = attn_half(cfg, p, xs[i], "prefill", cache, 0, cache_len)
+            row = {n: t[i:i + 1] for n, t in state[li].items()}
+            if kind not in KV_KINDS:
+                xs[i], new = recurrent_block(cfg, kind, p, xs[i], "prefill", None)
+                _store(row, new)
+                continue
+            x_mid, h2, _ = attn_half(cfg, p, xs[i], "prefill", row, 0, cache_len)
             if mi is None:
                 xs[i] = x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
                 continue
@@ -252,10 +332,8 @@ def prefill_model(
             xs[i] = x_mid + y2.reshape(x_mid.shape)
             if correct is not None:
                 xs[i] = correct(mi, i, xs[i], h2, ids, weights, miss)
-    last = ([xs[0].shape[1] - 1] * b if last_index is None
-            else [int(v) for v in last_index.reshape(-1).tolist()])
-    h = torch.cat([x[:, j] for x, j in zip(xs, last)])
-    return lm_logits(cfg, params, h[:, None])[:, 0], state
+    logits = torch.cat([lm_logits(cfg, params, x[:, -1:])[:, 0] for x in xs])
+    return logits, state
 
 
 def prefill_chunk_model(
@@ -288,12 +366,18 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every layer in ``mode`` (``decode`` or ``chunk``): attention, then
     the dense MLP, or routing and the routed experts through the MoE
-    layer's residency. Returns the last hidden [B, S, D] and the routing
-    telemetry stacked over the MoE layers (none for a dense stack).
+    layer's residency; a recurrent layer's cell, its state written in
+    place. Returns the last hidden [B, S, D] and the routing telemetry
+    stacked over the MoE layers (none for a stack without MoE layers).
     ``page_table`` (decode): ``state`` is the paged pool."""
     d = x.shape[-1]
     tel: Dict[str, List[torch.Tensor]] = {n: [] for n in ("ids", "weights", "miss", "h", "x")}
-    for li, (p, mi) in enumerate(zip(params["layers"], moe_ordinals(params))):
+    for li, (kind, p, mi) in enumerate(zip(cfg.layer_kinds, params["layers"],
+                                           moe_ordinals(params))):
+        if kind not in KV_KINDS:
+            x, new = recurrent_block(cfg, kind, p, x, mode, state[li])
+            _store(state[li], new)
+            continue
         x_in = x
         x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0, page_table)
         if mi is None:
@@ -413,9 +497,13 @@ def snapshot_kv_window(state: List[Dict[str, torch.Tensor]],
     overwrite, per layer ``{"k", "v"}`` [B, K, Hkv, dh]: what
     :func:`rollback_kv_window` restores (zeros for a full cache, the previous
     lap's entries for a ring cache). ``page_table`` [B, pages]: ``state`` is
-    the paged pool, read through each row's pages."""
-    out = []
+    the paged pool, read through each row's pages. A recurrent layer's
+    entry is empty (nothing of it can be rolled back)."""
+    out: List[Dict[str, torch.Tensor]] = []
     for cache in state:
+        if "k" not in cache:
+            out.append({})
+            continue
         rows, slots = _window_index(cache["k"], cur_len, k_steps, page_table)
         out.append({n: cache[n][rows, slots] for n in ("k", "v")})
     return out
@@ -434,6 +522,8 @@ def rollback_kv_window(state: List[Dict[str, torch.Tensor]],
     through each row's pages (pad rows' duplicate writes land in the scratch
     page). Returns ``state``."""
     for cache, sv in zip(state, saved):
+        if not sv:
+            continue
         rows, slots = _window_index(cache["k"], cur_len, k_steps, page_table)
         b = slots.shape[0]
         kp = torch.as_tensor(keep, device=slots.device).to(torch.int64).reshape(-1).expand(b)

@@ -1,11 +1,12 @@
-"""Request-level continuous batching over a paged KV pool, on the card.
+"""Request-level continuous batching over a paged KV pool, on the card,
+and the group tick over a fixed batch.
 
-The counterpart of ``repro/serving/engine.py`` on its paged path. Every
-decode tick is ONE window launch over whatever requests are live right now:
-rows join and leave the window BETWEEN launches. A finishing request frees
-its KV pages at once (``serving.kv_pool.KVPagePool``), and the next queued
-request prefills into them and joins the very next window. Admission is
-driven by page-pool pressure (worst-case page reservations at admit, lazy
+The counterpart of ``repro/serving/engine.py``. On its paged path every
+decode tick is ONE window launch over whatever requests are live right
+now: rows join and leave the window BETWEEN launches. A finishing request
+frees its KV pages at once (``serving.kv_pool.KVPagePool``), and the next
+queued request prefills into them and joins the very next window. Admission
+is driven by page-pool pressure (worst-case page reservations at admit, lazy
 allocation after, which therefore never fails mid-flight).
 
 * **KV** lives in planes shared by every row (``tfm.paged_zero_state``: per
@@ -14,16 +15,22 @@ allocation after, which therefore never fails mid-flight).
   row's new K/V through its table and scores the row's pages with K2's
   paged entry, which reads them through the table itself (on the CPU, the
   plain version gathers the row's view: bitwise the contiguous decode).
-* **Windows**: the live rows pack into a power-of-two rows bucket (pad rows
-  carry all-zero page tables, zero lengths and tokens: their writes land in
-  the scratch page, and ``accepted = 0`` masks them out of acceptance,
-  rotation and the predictor). The window size is 1 without speculation,
-  else the slowest live row's learned speculative length. On the card each
-  (window size, rows bucket, sampler) is one CUDA graph over static device
-  buffers (tokens and lengths, the page table, the per-request keys) and
-  the persistent pool planes, slot planes and LUTs (``core.engine.GraphSet``
-  and ``window_outputs``, shared with ``RotaryEngine``); a moved plane
-  raises, as does a failed capture, and nothing falls back to eager.
+* **Windows** run at the engine's full row count (the power-of-two cover of
+  ``num_slots``), whatever is live: pad rows carry all-zero page tables,
+  zero lengths and tokens (their writes land in the scratch page), and
+  ``accepted = 0`` masks them out of acceptance, rotation and the
+  predictor. Every matmul of a window then sees one row count, so a row's
+  logits and draws are bitwise the same alone or beside other rows (cuBLAS
+  picks its kernel, and so its sums' order, by row count). The demand
+  program still averages over the rows bucket the reference's window would
+  have run (the power-of-two cover of the live rows), so residency moves as
+  there. The window size is 1 without speculation, else the slowest live
+  row's learned speculative length. On the card each (window size,
+  sampler) is one CUDA graph over static device buffers (tokens, lengths
+  and the bucket, the page table, the per-request keys) and the persistent
+  pool planes, slot planes and LUTs (``core.engine.GraphSet`` and
+  ``window_outputs``, shared with ``RotaryEngine``); a moved plane raises,
+  as does a failed capture, and nothing falls back to eager.
 * **Misses are dropped in-step**, as the reference's serving does: a missed
   expert reads the zero MISS slot, the row commits up to its first missed
   position (at least one), the KV slots past that roll back
@@ -31,34 +38,45 @@ allocation after, which therefore never fails mid-flight).
   window-boundary rotation (``rotate_window_from_telemetry(accepted=)``)
   corrects the next window. There is no suffix replay and no host
   correction in a serving decode window.
-* **Admission prefill** (``tfm.prefill_model``): the admitted prompts,
-  right-padded to the scheduler's power-of-two bucket, each prefilled as a
-  batch-1 row (the reference's scan over rows) with K4's causal entry. The
-  reference reads every expert from ``params``; here the MoE half reads the
-  expert store at full residency; under unquantized rotary residency the
-  resident picks through the slot stores (K1's ragged entry) and the missed
-  picks on the host (``core.engine.host_correct``, valid positions only);
-  under int8/int4 slots the float store, staged on the device one layer at
-  a time (the slots hold quantized weights, the reference's prefill float
-  ones). So the function is the reference's. It never resolves, rotates or
-  records. One scatter per join copies the prefix into the request's pages.
+* **Admission prefill** (``tfm.prefill_model``): each admitted prompt
+  prefilled as a batch-1 row at its exact length (the reference's scan over
+  rows) with K4's causal entry. The reference reads every expert from
+  ``params``; here the MoE half reads the expert store at full residency;
+  under unquantized rotary residency the resident picks through the slot
+  stores (K1's ragged entry) and the missed picks on the host
+  (``core.engine.host_correct``); under int8/int4 slots the float store,
+  staged on the device one layer at a time (the slots hold quantized
+  weights, the reference's prefill float ones). So the function is the
+  reference's. It never resolves, rotates or records. One scatter per join
+  copies the prefix into the request's pages.
 * **Sampling** (temperature > 0): the window drafts by position-keyed draws
   with per-request keys (``fold_in(request_key(seed), position)``, each row
   at its own position), ``stochastic_accept`` runs on the pulled
   distributions, and the first token is drawn on the device at the last
   prompt position: a request's stream depends only on its seed.
-* **Prefetch** (``prefetch=True``, rotary residency): ``begin_prefetch``
+* **Prefetch** (``prefetch=True``, rotary residency, paged): ``begin_prefetch``
   ships the predicted next boundary's uploads into the shadow generation
   while the window is in flight, at steering margin 0, so the transitions
   stay those of the synchronous run.
-
 * **Dense archs** (``attn_mlp`` stacks): no expert store, router,
   predictor or residency manager; a non-full ``ResidencyConfig`` is
   ignored, as in the reference. Nothing misses, so a greedy window accepts
   every draft and its KV needs no snapshot.
 
-Out of scope here: the reference's group tick (``paged=False``), which
-raises; recurrent stacks; the trace spans; the Prometheus server.
+**The group tick** (``paged=False``, and the default for a stack with a
+recurrent layer, whose state is per row and cannot be paged): a fixed
+contiguous batch of ``num_slots`` rows (``tfm.zero_state``), rows claimed
+and freed by the scheduler. A tick is one single-step launch over every
+row (``_tick_single``, greedy or through the host ``Sampler``) or, on a
+KV-only stack with speculation, one window with contiguous KV snapshot and
+rollback (``_tick_window``). A recurrent arch prefills at exact length; the
+join splice (``_splice_row``) copies the row's state into the batch IN
+PLACE, and the step writes every recurrent state in place, so on the card
+the single step and each window size are one CUDA graph over the fixed
+batch. A stack without attention (xLSTM) raises: the reference cannot
+build it either; its path is ``prefill_model`` + ``decode_model``.
+
+Out of scope here: the trace spans; the Prometheus server.
 """
 from __future__ import annotations
 
@@ -112,26 +130,27 @@ class ServingEngine:
         number of batch rows (requests decoding at once). ``residency`` None
         or full keeps every expert on ``device``; a rotating mode keeps the
         warehouse in (pinned) host memory behind the slot stores.
-        ``spec_cap`` bounds the per-row speculative windows (1: none).
+        ``spec_cap`` bounds the per-row speculative windows (1: none; KV-only
+        stacks, and greedy on the group tick). ``paged`` None takes the
+        paged pool when every layer is a KV kind, else the group tick;
         ``kv_page_size`` (clamped to the largest divisor of the cache
         capacity) and ``kv_pages`` (default: ``num_slots`` full rows) size
-        the pool. ``prefetch`` needs rotary residency. ``paged`` False (the
-        reference's group tick) is not ported and raises. The reference's
-        rules raise here before anything is built."""
-        if paged is False:
-            raise NotImplementedError(
-                "ServingEngine(paged=False): the group-tick path is not ported yet "
-                "(ROADMAP.md Queue 1, serving follow-ups: the group tick)")
+        the pool. ``prefetch`` needs rotary residency and the paged pool.
+        The reference's rules raise here before anything is built."""
+        if cfg.attention is None:
+            raise ValueError(
+                f"{cfg.name}: ServingEngine serves stacks with attention, and "
+                f"{sorted(set(cfg.layer_kinds))} has none (the reference fails here too); "
+                f"run prefill_model + decode_model")
+        kv_only = cfg.kv_only
+        if paged is None:
+            paged = kv_only
+        if paged and not kv_only:
+            raise ValueError("paged KV pool requires a KV-cache-only stack; recurrent archs "
+                             f"keep the group-tick path ({cfg.layer_kinds})")
+        self._paged = bool(paged)
         self.rt = rt or Runtime(cache_len=1024)
         cap = attn_mod.cache_capacity(cfg.attention, self.rt.cache_len)
-        page_size = max(1, min(kv_page_size, cap))
-        while cap % page_size:
-            page_size -= 1               # largest divisor <= kv_page_size
-        row_pages = cap // page_size
-        pages = kv_pages if kv_pages is not None else num_slots * row_pages
-        if pages < row_pages:
-            raise ValueError(f"kv_pages={pages} cannot hold one full row "
-                             f"({row_pages} pages of {page_size})")
         # residency rotates MoE layers only: on a dense arch a non-full
         # ResidencyConfig is ignored, as in the reference
         rotating = residency is not None and residency.mode != "full" and cfg.has_moe
@@ -141,6 +160,9 @@ class ServingEngine:
                     "prefetch=True needs a rotating residency manager: pass a non-full "
                     "ResidencyConfig on an MoE architecture (full residency never rotates, "
                     "so there is nothing to prefetch)")
+            if not self._paged:
+                raise ValueError("prefetch=True rides the paged continuous-batching tick; the "
+                                 "group-tick path rotates synchronously")
             m = cfg.moe
             probe = make_policy(residency.mode, m.num_experts,
                                 residency.num_slots or m.num_experts, residency)
@@ -148,6 +170,16 @@ class ServingEngine:
                 raise ValueError(
                     "prefetch=True is incompatible with reactive (LRU-style) policies: their "
                     "mid-step blocking loads leave no boundary to flip at")
+        self.pool: Optional[KVPagePool] = None
+        if self._paged:
+            page_size = max(1, min(kv_page_size, cap))
+            while cap % page_size:
+                page_size -= 1               # largest divisor <= kv_page_size
+            row_pages = cap // page_size
+            pages = kv_pages if kv_pages is not None else num_slots * row_pages
+            if pages < row_pages:
+                raise ValueError(f"kv_pages={pages} cannot hold one full row "
+                                 f"({row_pages} pages of {page_size})")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.batch = num_slots
@@ -163,7 +195,11 @@ class ServingEngine:
             self._sample_params = SampleParams(float(c.temperature), int(c.top_k),
                                                float(c.top_p))
             self._accept_rng = np.random.default_rng(c.seed)
-        self._spec_cap_eff = max(1, min(spec_cap, cap))
+        # windows need KV-only state (rollback restores cache slots; a
+        # recurrent update is destructive); the group tick draws sampled
+        # tokens through the host Sampler, so it speculates greedy only
+        self._spec_ok = spec_cap > 1 and kv_only and (not self._sampled or self._paged)
+        self._spec_cap_eff = max(1, min(spec_cap, cap)) if self._spec_ok else 1
         self._spec_ok = self._spec_cap_eff > 1
         self.scheduler = Scheduler(num_slots, spec_cap=self._spec_cap_eff,
                                    max_prompt_len=self.rt.cache_len)
@@ -171,9 +207,17 @@ class ServingEngine:
         self.next_token = np.zeros((self.batch,), np.int32)
         self.active = np.zeros((self.batch,), bool)
 
-        # --- KV: the paged pool; plane page 0 is the scratch page -------
-        self.pool = KVPagePool(pages, page_size, row_pages)
-        self.pool_state = tfm.paged_zero_state(cfg, pages + 1, page_size, dev)
+        # --- KV: the paged pool (plane page 0 is the scratch page), or the
+        # group tick's contiguous batch [num_slots, cap] ----------------
+        self.pool_state: Optional[List[Dict[str, torch.Tensor]]] = None
+        self.state: Optional[List[Dict[str, torch.Tensor]]] = None
+        if self._paged:
+            self.pool = KVPagePool(pages, page_size, row_pages)
+            self.pool_state = tfm.paged_zero_state(cfg, pages + 1, page_size, dev)
+        else:
+            self.state = tfm.zero_state(cfg, num_slots, self.rt.cache_len, dev)
+        # every window runs at this many rows: one row count for every matmul
+        self._rows = 1 << max(0, num_slots - 1).bit_length() if self._paged else num_slots
 
         # --- weights: experts on the device (full) or the host warehouse --
         pin = torch.cuda.is_available()
@@ -213,7 +257,8 @@ class ServingEngine:
         if rotating:
             # feasibility prices KV bytes: the pool holds pages-worth of KV,
             # not num_slots full rows, so report the pool-equivalent batch
-            batch_eff = max(1, -(-self.pool.num_pages * self.pool.page_size // cap))
+            batch_eff = (max(1, -(-self.pool.num_pages * self.pool.page_size // cap))
+                         if self.pool is not None else num_slots)
             self.res_mgr = RotaryResidencyManager(
                 cfg, residency, experts, batch=batch_eff, cache_len=self.rt.cache_len,
                 device=dev, stats=self.stats, metrics=self.metrics)
@@ -231,10 +276,10 @@ class ServingEngine:
         self.prefetch = bool(prefetch)
         self._f32_scratch: Dict[str, torch.Tensor] = {}      # host miss GEMM (prefill)
 
-        # --- the window graphs and their static inputs per rows bucket ---
+        # --- the graphs and their static inputs and pinned pulls ---------
         self._gs = GraphSet(dev.type == "cuda")    # capture False: eager on the card (tests)
-        self._static: Dict[int, Dict[str, torch.Tensor]] = {}
-        self._pulls: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._static: Dict[str, torch.Tensor] = {}
+        self._pulls: Dict[str, torch.Tensor] = {}
         self._residency: Any = None
 
     # ------------------------------------------------------------------
@@ -290,16 +335,17 @@ class ServingEngine:
             self._stage[n].copy_(w, non_blocking=True)
         return self._stage
 
-    def _prefill_rows(self, prompts: List[np.ndarray], bucket: int
+    def _prefill_rows(self, prompts: List[np.ndarray], width: int
                       ) -> List[Tuple[np.ndarray, List[Dict[str, torch.Tensor]]]]:
-        """The prompts right-padded to ``bucket`` and prefilled, each row as
-        a batch-1 prefill (the reference's scan over rows), in one
-        ``prefill_model`` call. Unquantized rotary residency reads the
-        resident picks through the slot stores and corrects the missed ones
-        on the host; quantized slots read the float store, staged on the
-        device a layer at a time, as the reference reads ``params``.
-        Returns per row (logits [1, V] f32 on the host, its state [1, ...])."""
-        padded = np.zeros((len(prompts), bucket), np.int64)
+        """The prompts right-padded to ``width`` and prefilled in one
+        ``prefill_model`` call, each row as a batch-1 prefill at its exact
+        length (the reference's scan over rows). Unquantized rotary
+        residency reads the resident picks through the slot stores and
+        corrects the missed ones on the host; quantized slots read the float
+        store, staged on the device a layer at a time, as the reference
+        reads ``params``. Returns per row (logits [1, V] f32 on the host,
+        its state, every leaf [1, ...])."""
+        padded = np.zeros((len(prompts), width), np.int64)
         last = [len(p) - 1 for p in prompts]
         for i, p in enumerate(prompts):
             padded[i, :len(p)] = p
@@ -312,19 +358,18 @@ class ServingEngine:
             self.cfg, self._dparams, torch.from_numpy(padded).to(self.device),
             self.rt.cache_len, last_index=torch.tensor(last), **kw)
         logits = logits.float().cpu().numpy()
-        return [(logits[i:i + 1], [{n: c[n][i:i + 1] for n in ("k", "v")} for c in state])
+        return [(logits[i:i + 1], [{n: t[i:i + 1] for n, t in c.items()} for c in state])
                 for i in range(len(prompts))]
 
     def _prefill_admitted(self, admitted: List[Request]) -> List[Any]:
-        """One admission group at the scheduler's power-of-two bucket
-        covering every admitted prompt; per-row outputs are the batch-1
-        path's. Returns [(request, logits [1, V], row_state)]."""
+        """One admission group, each row at its exact length, so per-row
+        outputs are the batch-1 path's. Returns [(request, logits [1, V],
+        row_state)]."""
         if not admitted:
             return []
         lens = [len(r.prompt) for r in admitted]
-        bucket = Scheduler.prefill_bucket(lens, self.rt.cache_len)
         t0 = time.perf_counter()
-        rows = self._prefill_rows([r.prompt for r in admitted], bucket)
+        rows = self._prefill_rows([r.prompt for r in admitted], max(lens))
         dt = time.perf_counter() - t0
         if dt > 0:
             self.scheduler.observe_prefill_rate(sum(lens) / dt)
@@ -342,6 +387,14 @@ class ServingEngine:
                 plane[name].index_copy_(0, pg, blk)
         self.stats.device_dispatches += 1
 
+    def _splice_row(self, slot: int, row_state: List[Dict[str, torch.Tensor]]) -> None:
+        """The group tick's join splice: a batch-1 prefill state (KV caches
+        and recurrent states) into batch row ``slot``, in place, so the
+        graphs' addresses hold."""
+        for dst, src in zip(self.state, row_state):
+            for name, t in src.items():
+                dst[name][slot].copy_(t[0])
+
     def _account_pages(self, grew: int) -> None:
         if grew:
             self.stats.kv_pages_allocated += grew
@@ -353,33 +406,37 @@ class ServingEngine:
         self.stats.kv_pages_released += self.pool.release(req.uid)
 
     # ------------------------------------------------------------------
-    # the window: static inputs, graph, telemetry
+    # the launches: static inputs, graphs, telemetry
     # ------------------------------------------------------------------
-    def _static_inputs(self, rows: int) -> Dict[str, torch.Tensor]:
-        """The static device buffers of one rows bucket (and pinned host
-        twins): ``inputs`` [2 * rows] (tokens, then lengths), ``pt`` [rows,
-        row_pages] int32, ``keys`` [rows, 2]."""
-        st = self._static.get(rows)
-        if st is None:
+    def _static_inputs(self) -> Dict[str, torch.Tensor]:
+        """The static device buffers every launch reads (and pinned host
+        twins): ``inputs`` [2 * rows + 1] (tokens, lengths, then the demand
+        program's rows bucket), ``pt`` [rows, row_pages] int32 (paged),
+        ``keys`` [rows, 2]."""
+        st = self._static
+        if not st:
             pin = self.device.type == "cuda"
-            rp = self.pool.row_pages
-            st = {"inputs": torch.zeros((2 * rows,), dtype=torch.int64, device=self.device),
-                  "pt": torch.zeros((rows, rp), dtype=torch.int32, device=self.device),
-                  "keys": torch.zeros((rows, 2), dtype=torch.int64, device=self.device),
-                  "inputs_h": torch.zeros((2 * rows,), dtype=torch.int64, pin_memory=pin),
-                  "pt_h": torch.zeros((rows, rp), dtype=torch.int32, pin_memory=pin),
-                  "keys_h": torch.zeros((rows, 2), dtype=torch.int64, pin_memory=pin)}
-            self._static[rows] = st
+            rows = self._rows
+            rp = self.pool.row_pages if self.pool is not None else 1
+            for n, shape, dt in (("inputs", (2 * rows + 1,), torch.int64),
+                                 ("pt", (rows, rp), torch.int32),
+                                 ("keys", (rows, 2), torch.int64)):
+                st[n] = torch.zeros(shape, dtype=dt, device=self.device)
+                st[n + "_h"] = torch.zeros(shape, dtype=dt, pin_memory=pin)
         return st
 
-    def _set_inputs(self, rows: int, tok: np.ndarray, lens: np.ndarray, pt: np.ndarray,
-                    keys: Optional[np.ndarray]) -> Dict[str, torch.Tensor]:
-        st = self._static_inputs(rows)
+    def _set_inputs(self, tok: np.ndarray, lens: np.ndarray, bucket: int,
+                    pt: Optional[np.ndarray] = None,
+                    keys: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        st = self._static_inputs()
+        rows = self._rows
         st["inputs_h"][:rows] = torch.from_numpy(tok.astype(np.int64))
-        st["inputs_h"][rows:] = torch.from_numpy(lens.astype(np.int64))
-        st["pt_h"].copy_(torch.from_numpy(pt))
+        st["inputs_h"][rows:2 * rows] = torch.from_numpy(lens.astype(np.int64))
+        st["inputs_h"][2 * rows] = bucket
         st["inputs"].copy_(st["inputs_h"], non_blocking=True)
-        st["pt"].copy_(st["pt_h"], non_blocking=True)
+        if pt is not None:
+            st["pt_h"].copy_(torch.from_numpy(pt))
+            st["pt"].copy_(st["pt_h"], non_blocking=True)
         if keys is not None:
             st["keys_h"].copy_(torch.from_numpy(keys))
             st["keys"].copy_(st["keys_h"], non_blocking=True)
@@ -387,48 +444,67 @@ class ServingEngine:
 
     def _telemetry(self, aux: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A position's telemetry: the routing and the on-device demand
-        program (the reference's ``_demand_aux_fn`` without replay anchors);
-        none at full residency, which never rotates."""
+        program (the reference's ``_demand_aux_fn`` without replay anchors;
+        on the paged path averaged over the rows bucket); none without a
+        residency manager, which never rotates."""
         if self.res_mgr is None:
             return {}
+        bucket = self._static_inputs()["inputs"][2 * self._rows] if self._paged else None
         return {"ids": aux["route_ids"], "weights": aux["route_weights"],
                 "miss": aux["route_miss"],
-                "demand_next": demand_program(aux["route_h"], self._routers_next)}
+                "demand_next": demand_program(aux["route_h"], self._routers_next, bucket)}
 
-    def _window_body(self, k: int, rows: int, sp: Optional[SampleParams]) -> Dict[str, Any]:
-        st = self._static_inputs(rows)
-        return window_outputs(self.cfg, self._dparams, st["inputs"][:rows], self.pool_state,
-                              st["inputs"][rows:], k, self._residency, self._telemetry,
+    def _window_body(self, k: int, sp: Optional[SampleParams]) -> Dict[str, Any]:
+        st = self._static_inputs()
+        rows = self._rows
+        state = self.pool_state if self._paged else self.state
+        return window_outputs(self.cfg, self._dparams, st["inputs"][:rows], state,
+                              st["inputs"][rows:2 * rows], k, self._residency, self._telemetry,
                               snapshot=self.res_mgr is not None, sample=sp,
-                              keys=st["keys"] if sp is not None else None, page_table=st["pt"])
+                              keys=st["keys"] if sp is not None else None,
+                              page_table=st["pt"] if self._paged else None)
 
-    def _graph_inputs(self, rows: int) -> Tuple[int, ...]:
-        """Addresses a window replay reads besides the weights: the bucket's
-        static inputs, every slot plane and device LUT, every pool plane."""
-        st = self._static_inputs(rows)
+    def _step_body(self) -> Dict[str, Any]:
+        """The group tick's single step over the fixed batch: logits [B, V]
+        f32 and the telemetry."""
+        st = self._static_inputs()
+        rows = self._rows
+        logits, aux = tfm.decode_model(self.cfg, self._dparams, st["inputs"][:rows], self.state,
+                                       st["inputs"][rows:2 * rows], self._residency)
+        return {"logits": logits.float(), **self._telemetry(aux)}
+
+    def _graph_inputs(self) -> Tuple[int, ...]:
+        """Addresses a replay reads besides the weights: the static inputs,
+        every slot plane and device LUT, every pool plane or batch state."""
+        st = self._static_inputs()
         ptrs = [st[n].data_ptr() for n in ("inputs", "pt", "keys")]
         for planes, lut in self._residency or ():
             ptrs += [t.data_ptr() for t in planes.values()] + [lut.data_ptr()]
-        for plane in self.pool_state:
-            ptrs += [plane["k"].data_ptr(), plane["v"].data_ptr()]
+        for layer in (self.pool_state if self._paged else self.state):
+            ptrs += [t.data_ptr() for t in layer.values()]
         return tuple(ptrs)
 
-    def _window_launch(self, k: int, rows: int) -> Dict[str, Any]:
-        """One window of ``k`` positions over a rows bucket: a replay of its
-        graph (key: window size, rows bucket, sampler), captured on first
-        use on the card; eager on the CPU."""
+    def _launch(self, key: Any, body) -> Dict[str, Any]:
+        """One launch: a replay of ``key``'s graph, captured on first use on
+        the card; eager on the CPU. The device LUTs are rewritten in place
+        first."""
         if self.res_mgr is not None:
-            self._residency = self.res_mgr.residency()     # device LUTs rewritten in place
-        sp = self._sample_params
-        return self._gs.launch((k, rows, sp), lambda: self._window_body(k, rows, sp),
-                               lambda: self._graph_inputs(rows))
+            self._residency = self.res_mgr.residency()
+        return self._gs.launch(key, body, self._graph_inputs)
 
-    def _pull_buffers(self, rows: int) -> Dict[str, torch.Tensor]:
-        """Pinned buffers a window's outputs land in, leading axis the
-        largest window (made per rows bucket on first use)."""
-        bufs = self._pulls.get(rows)
-        if bufs is None:
-            kk = self._spec_cap_eff
+    def _window_launch(self, k: int) -> Dict[str, Any]:
+        """One window of ``k`` positions over the full row count (key: window
+        size, sampler)."""
+        sp = self._sample_params
+        return self._launch((k, sp), lambda: self._window_body(k, sp))
+
+    def _pull_buffers(self) -> Dict[str, torch.Tensor]:
+        """Pinned buffers the launches' outputs land in, leading axis the
+        largest window (made on first use); the group tick's single step
+        writes position 0 and ``logits``."""
+        bufs = self._pulls
+        if not bufs:
+            kk, rows = self._spec_cap_eff, self._rows
             shapes = dict(draft=((rows,), torch.int64))
             if self.res_mgr is not None:
                 n_l, e, k_top = len(self.host_experts), self.cfg.moe.num_experts, self.cfg.moe.top_k
@@ -436,34 +512,58 @@ class ServingEngine:
                               weights=((n_l, rows, k_top), torch.float32),
                               miss=((n_l, rows, k_top), torch.bool),
                               demand_next=((n_l, e), torch.float32))
-            if self._sampled:
+            if self._sampled and self._paged:
                 shapes.update(sample_probs=((rows, self.cfg.vocab_size), torch.float32))
-            bufs = self._pulls[rows] = _pinned((kk,), **shapes)
+            bufs.update(_pinned((kk,), **shapes))
+            if not self._paged:
+                bufs.update(_pinned((), logits=((rows, self.cfg.vocab_size), torch.float32)))
         return bufs
+
+    def _pull_telemetry(self, out: Dict[str, Any], k: Optional[int]) -> None:
+        """Queue the telemetry's copies into the pinned buffers (a window's
+        first ``k`` positions, or the single step's at position 0), before
+        the blocking pull."""
+        bufs = self._pull_buffers()
+        for name in ("ids", "weights", "miss", "demand_next", "sample_probs"):
+            if name in bufs:
+                (bufs[name][:k] if k is not None else bufs[name][0]).copy_(
+                    out[name], non_blocking=True)
+                self.stats.overlapped_pulls += 1
+
+    def _read_telemetry(self, k: Optional[int]) -> Tuple[np.ndarray, ...]:
+        bufs = self._pull_buffers()
+        sl = slice(None, k) if k is not None else 0
+        return tuple(bufs[n][sl].numpy().copy() for n in ("ids", "weights", "miss", "demand_next"))
 
     # ------------------------------------------------------------------
     def warmup(self) -> int:
-        """Capture the window graph family before traffic: every window size
-        up to the speculative cap at every power-of-two rows bucket up to the
-        cover of ``num_slots`` (for this engine's sampler). Warm-up windows
-        write only the scratch page (all-zero page tables, zero lengths) and
-        touch no host bookkeeping, residency or stats. The admission prefill
-        runs eagerly, so nothing is captured for it. Returns the number of
-        graphs captured."""
+        """Capture the launch family before traffic: every window size up
+        to the speculative cap at the full row count (for this engine's
+        sampler); on the group tick, the single step and the windows. Paged
+        warm-up windows write only the scratch page (all-zero page tables,
+        zero lengths); the group tick's write row positions a request's
+        splice overwrites whole, so call it before submitting. Neither
+        touches host bookkeeping, residency or stats. The admission
+        prefill runs eagerly, so nothing is captured for it. Returns the
+        number of graphs captured."""
         before = self._gs.captures
+        rows = self._rows
+        zeros = np.zeros((rows,), np.int32)
         ks = range(1, self._spec_cap_eff + 1) if self._spec_ok else (1,)
+        if self._paged:
+            keys = np.zeros((rows, 2), np.int64) if self._sampled else None
+            st = self._set_inputs(zeros, zeros, 1, np.zeros((rows, self.pool.row_pages), np.int32),
+                                  keys)
+        else:
+            st = self._set_inputs(zeros, zeros, rows)
+            self._launch(("step",), self._step_body)
+            ks = [k for k in ks if k > 1]
         for k in ks:
-            rows = 1
-            while rows < 2 * self.batch:           # every power-of-two bucket a tick can use
-                zeros = np.zeros((rows,), np.int32)
-                keys = np.zeros((rows, 2), np.int64) if self._sampled else None
-                st = self._set_inputs(rows, zeros, zeros,
-                                      np.zeros((rows, self.pool.row_pages), np.int32), keys)
-                out = self._window_launch(k, rows)
-                if self.res_mgr is not None:
-                    tfm.rollback_kv_window(self.pool_state, out["saved"], st["inputs"][rows:],
-                                           k, 0, page_table=st["pt"])
-                rows *= 2
+            out = self._window_launch(k)
+            if self.res_mgr is not None:
+                tfm.rollback_kv_window(self.pool_state if self._paged else self.state,
+                                       out["saved"], st["inputs"][rows:2 * rows], k, 0,
+                                       page_table=st["pt"] if self._paged else None)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self._gs.captures - before
@@ -475,7 +575,7 @@ class ServingEngine:
         """``seed`` fixes this request's sampled stream (default: the
         engine sampler's seed); greedy engines ignore it."""
         prompt = np.asarray(prompt, np.int32)
-        if len(prompt) > self.rt.cache_len:
+        if self.pool is not None and len(prompt) > self.rt.cache_len:
             raise ValueError(
                 f"prompt length {len(prompt)} exceeds the per-request KV capacity "
                 f"{self.rt.cache_len} ({self.pool.row_pages} pages x {self.pool.page_size} "
@@ -497,7 +597,7 @@ class ServingEngine:
 
     def tick(self) -> None:
         """One serving iteration: request-level joins (admission against
-        pool pressure, prefill into owned pages), then ONE window launch
+        pool pressure or free rows, prefill, the splice), then ONE launch
         over the live rows. Public so arrival-driven loops can interleave
         submissions with ticks on the wall clock."""
         now = time.perf_counter()
@@ -507,10 +607,13 @@ class ServingEngine:
         # stamps it with the tick's start, which leaves the prefill out of TTFT)
         t_first = time.perf_counter()
         for req, logits, row_state in prefilled:
-            self._account_pages(self.pool.ensure(req.uid, len(req.prompt)))
-            self._splice_row_paged(req.uid, row_state)
+            if self._paged:
+                self._account_pages(self.pool.ensure(req.uid, len(req.prompt)))
+                self._splice_row_paged(req.uid, row_state)
+            else:
+                self._splice_row(req.slot, row_state)
             self.lengths[req.slot] = len(req.prompt)
-            if self._sampled:
+            if self._sampled and self._paged:
                 # the first token is keyed at the last PROMPT position, so it
                 # is the same whenever and wherever the request is admitted
                 fn = sampling_mod.build_sample_fn(self._sample_params)
@@ -525,18 +628,32 @@ class ServingEngine:
             self.scheduler.step_done(req.slot, tok, t_first, self.eos)
             if req.done:
                 self.active[req.slot] = False
-                self._release_request(req)
+                if self._paged:
+                    self._release_request(req)
         if not self.scheduler.running:
             return
-        self._tick_paged()
+        if self._paged:
+            self._tick_paged()
+            return
+        # the group tick: the window as far as the slowest running row's
+        # learned speculative length allows (acceptance and rollback per row)
+        k = 1
+        if self._spec_ok:
+            k = max(1, min(min(self.scheduler.spec_len(s) for s in self.scheduler.running),
+                           self._spec_cap_eff))
+        if k > 1:
+            self._tick_window(k)
+        else:
+            self._tick_single()
 
     def _tick_paged(self) -> None:
         """One continuous-batching window over the paged pool (the
-        reference's ``_tick_paged``): the live rows in a power-of-two rows
-        bucket, one launch and one blocking pull, per-row acceptance up to
-        the first missed position (at least 1) and the budget, the rejected
-        suffixes' pages rolled back, then the window-boundary rotation with
-        ``accepted`` masking pad rows and rejected positions."""
+        reference's ``_tick_paged``): the live rows first, pad rows after, at
+        the full row count; one launch and one blocking pull, per-row
+        acceptance up to the first missed position (at least 1) and the
+        budget, the rejected suffixes' pages rolled back, then the
+        window-boundary rotation with ``accepted`` masking pad rows and
+        rejected positions."""
         sch = self.scheduler
         live = [s for s in sorted(sch.running) if self.active[s]]
         if not live:
@@ -549,7 +666,7 @@ class ServingEngine:
         # admission reservation sized this worst-case, so ensure cannot fail
         for s in live:
             self._account_pages(self.pool.ensure(sch.running[s].uid, int(self.lengths[s]) + k))
-        rows = 1 << max(0, len(live) - 1).bit_length()        # pow2 bucket >= live
+        rows = self._rows
         pt = np.zeros((rows, self.pool.row_pages), np.int32)
         tok = np.zeros((rows,), np.int32)
         lens = np.zeros((rows,), np.int32)
@@ -562,32 +679,32 @@ class ServingEngine:
                 # request-intrinsic base keys: a row's draws depend only on
                 # (its seed, its positions), never its slot or neighbours
                 keys[i] = self._request_key(sch.running[s]).numpy()
-        st = self._set_inputs(rows, tok, lens, pt, keys)
+        # the reference's rows bucket (pow2 cover of the live rows): the
+        # rows its demand program averages over
+        bucket = 1 << max(0, len(live) - 1).bit_length()
+        st = self._set_inputs(tok, lens, bucket, pt, keys)
         if self.res_mgr is not None:
             self.stats.device_dispatches += 1     # the KV snapshot, the window's first op
-        out = self._window_launch(k, rows)
+        out = self._window_launch(k)
         self.stats.device_dispatches += 1
         self.stats.windows += 1
         if k > 1:
             self.stats.spec_windows += 1
-        bufs = self._pull_buffers(rows)
-        for name, buf in bufs.items():
-            if name != "draft":
-                buf[:k].copy_(out[name], non_blocking=True)
-                self.stats.overlapped_pulls += 1
+        self._pull_telemetry(out, k)
         if self.prefetch:
             # the window is in flight: ship the predicted boundary's uploads
             # into the shadow generation under it
             self.res_mgr.begin_prefetch(self.predictor)
+        bufs = self._pull_buffers()
         bufs["draft"][:k].copy_(out["draft"])                # THE queue-draining pull
         self.stats.sync_pulls += 1
         draft_np = bufs["draft"][:k].numpy().copy()          # [K, rows]
         accepted = np.zeros((rows,), np.int32)
         accepted[:len(live)] = k
-        miss = None
+        tel = None
         if self.res_mgr is not None:
-            miss = bufs["miss"][:k].numpy().copy()           # [K, L, rows, top_k]
-            step_row_miss = miss.any(axis=(1, 3))            # [K, rows]
+            tel = self._read_telemetry(k)
+            step_row_miss = tel[2].any(axis=(1, 3))           # [K, rows]
             any_miss = step_row_miss.any(axis=0)
             first = np.where(any_miss, step_row_miss.argmax(axis=0), k)
             accepted[:len(live)] = np.maximum(first[:len(live)], 1)
@@ -612,8 +729,8 @@ class ServingEngine:
             accepted[i] = min(int(accepted[i]), budget)
         if self.res_mgr is not None and (accepted[:len(live)] < k).any():
             keep = torch.from_numpy(accepted.astype(np.int64)).to(self.device)
-            tfm.rollback_kv_window(self.pool_state, out["saved"], st["inputs"][rows:], k, keep,
-                                   page_table=st["pt"])
+            tfm.rollback_kv_window(self.pool_state, out["saved"], st["inputs"][rows:2 * rows], k,
+                                   keep, page_table=st["pt"])
             self.stats.device_dispatches += 1
         now = time.perf_counter()
         fed_total = 0
@@ -640,11 +757,111 @@ class ServingEngine:
                 self.stats.accepted_tokens += fed
         self.stats.steps += k_committed
         self.stats.tokens += fed_total
+        if tel is not None:
+            self.res_mgr.rotate_window_from_telemetry(self.predictor, *tel, accepted=accepted)
+        self.metrics.histogram("window_ms", "wall ms per serving window").observe(
+            (time.perf_counter() - t_tick) * 1e3)
+
+    # ------------------------------------------------------------------
+    # the group tick (paged=False; recurrent stacks)
+    # ------------------------------------------------------------------
+    def _tick_single(self) -> None:
+        """One single-step launch over the fixed contiguous batch (the
+        reference's ``_tick_single``): every row steps, running or not (a
+        free row's state is overwritten whole by the next splice); the host
+        ``Sampler`` picks each row's token; rotation from the step's
+        telemetry."""
+        t_tick = time.perf_counter()
+        self._set_inputs(self.next_token, self.lengths, self._rows)
+        out = self._launch(("step",), self._step_body)
+        self.stats.device_dispatches += 1
+        self._pull_telemetry(out, None)
+        bufs = self._pull_buffers()
+        bufs["logits"].copy_(out["logits"])                  # THE queue-draining pull
+        self.stats.sync_pulls += 1
+        logits_np = bufs["logits"].numpy().copy()
+        self.lengths += self.active
+        toks = self.sampler(logits_np)
+        now = time.perf_counter()
+        sch = self.scheduler
+        for slot in list(sch.running):
+            self.next_token[slot] = toks[slot]
+            sch.step_done(slot, toks[slot], now, self.eos)
+            if slot in sch.free_slots:
+                self.active[slot] = False
+            if self._spec_ok:
+                # a plain tick is a size-1 window that accepted its token:
+                # feedback that lets a fresh row's spec length grow
+                sch.observe_accept(slot, 1, 1)
+        self.stats.steps += 1
+        self.stats.tokens += int(self.active.sum())
         if self.res_mgr is not None:
-            self.res_mgr.rotate_window_from_telemetry(
-                self.predictor, bufs["ids"][:k].numpy().copy(),
-                bufs["weights"][:k].numpy().copy(), miss,
-                bufs["demand_next"][:k].numpy().copy(), accepted=accepted)
+            self.res_mgr.rotate_from_telemetry(self.predictor, *self._read_telemetry(None))
+        self.metrics.histogram("window_ms", "wall ms per serving window").observe(
+            (time.perf_counter() - t_tick) * 1e3)
+
+    def _tick_window(self, k: int) -> None:
+        """One speculative group tick (the reference's ``_tick_window``):
+        ``k`` self-drafted positions for the whole batch in one launch. A
+        row commits up to its first missed position (at least 1, serving
+        drops misses); rejected positions' KV slots roll back from the
+        window's contiguous snapshot (per-row ``keep``) and re-draft next
+        tick, after rotation."""
+        t_tick = time.perf_counter()
+        st = self._set_inputs(self.next_token, self.lengths, self._rows)
+        if self.res_mgr is not None:
+            self.stats.device_dispatches += 1     # the KV snapshot, the window's first op
+        out = self._window_launch(k)
+        self.stats.device_dispatches += 1
+        self.stats.spec_windows += 1
+        self._pull_telemetry(out, k)
+        bufs = self._pull_buffers()
+        bufs["draft"][:k].copy_(out["draft"])                # THE queue-draining pull
+        self.stats.sync_pulls += 1
+        draft_np = bufs["draft"][:k].numpy().copy()          # [K, B]
+        accepted = np.where(self.active, k, 0).astype(np.int32)
+        tel = None
+        if self.res_mgr is not None:
+            tel = self._read_telemetry(k)
+            step_row_miss = tel[2].any(axis=(1, 3))           # [K, B]
+            any_miss = step_row_miss.any(axis=0)
+            first = np.where(any_miss, step_row_miss.argmax(axis=0), k)
+            accepted = np.where(self.active, np.maximum(first, 1), 0).astype(np.int32)
+        sch = self.scheduler
+        offered: Dict[int, int] = {}
+        for slot, req in sch.running.items():
+            if self.active[slot]:
+                budget = req.max_new - len(req.output)
+                offered[slot] = min(k, budget)
+                accepted[slot] = min(int(accepted[slot]), budget)
+        if self.res_mgr is not None and (accepted < k).any():
+            keep = torch.from_numpy(accepted.astype(np.int64)).to(self.device)
+            tfm.rollback_kv_window(self.state, out["saved"], st["inputs"][self._rows:2 * self._rows],
+                                   k, keep)
+            self.stats.device_dispatches += 1
+        self.lengths += accepted
+        now = time.perf_counter()
+        fed_total = 0
+        for slot in list(sch.running):
+            if not self.active[slot]:
+                continue
+            fed = 0
+            for j in range(int(accepted[slot])):
+                t = int(draft_np[j, slot])
+                self.next_token[slot] = t
+                sch.step_done(slot, t, now, self.eos)
+                fed += 1
+                if slot in sch.free_slots:
+                    self.active[slot] = False
+                    break
+            fed_total += fed
+            sch.observe_accept(slot, offered[slot], fed)
+            self.stats.drafted_tokens += offered[slot]
+            self.stats.accepted_tokens += fed
+        self.stats.steps += int(accepted.max(initial=0))
+        self.stats.tokens += fed_total
+        if tel is not None:
+            self.res_mgr.rotate_window_from_telemetry(self.predictor, *tel, accepted=accepted)
         self.metrics.histogram("window_ms", "wall ms per serving window").observe(
             (time.perf_counter() - t_tick) * 1e3)
 

@@ -9,7 +9,7 @@ frontends of 8 embeddings) on the reference's weights
   the six ``attn_mlp`` archs and ``dbrx-132b``; decode against teacher
   forcing in the port (``prefill_model`` over the longer prompt);
 * ``apply_mlp`` (``swiglu``, ``gelu_mlp``) against JAX's;
-* ``analytic_params`` equal to the reference's for all nine KV-cache archs at
+* ``analytic_params`` equal to the reference's for all eleven archs at
   their published widths (no allocation), and every published value equal;
 * ``ServingEngine`` on ``starcoder2-3b``: tokens and counters equal JAX's
   ``ServingEngine`` with and without windows, concurrent == each request
@@ -18,7 +18,8 @@ frontends of 8 embeddings) on the reference's weights
 * ``RotaryEngine`` on ``dbrx-132b`` (LayerNorm, 16 experts top-4; reduced:
   8 experts top-2): the same tokens and misses as JAX's at full residency
   and at 4 of 8 slots;
-* the block kinds still to port raise ``NotImplementedError``.
+* ``local_attn``, ``rglru``, ``mlstm`` and ``slstm`` layers beside an
+  ``attn_mlp`` one: prefill and a decode step equal JAX's.
 
 Tolerance: 1e-4 absolute + 1e-4 relative on f32 logits (XLA and PyTorch sum
 in other orders, through two layers and the head); tokens exact. The JAX
@@ -35,6 +36,9 @@ import pytest
 import torch
 
 from repro.config import ResidencyConfig as JRes
+from repro.config.base import AttentionConfig as JAttn
+from repro.config.base import ModelConfig as JModel
+from repro.config.base import RecurrentConfig as JRec
 from repro.config import get_config as jget
 from repro.configs import reduce_for_smoke as jreduce
 from repro.core import RotaryEngine as JEngine
@@ -48,6 +52,7 @@ from repro_torch.config import ResidencyConfig as TRes
 from repro_torch.config import get_config as tget
 from repro_torch.config.base import AttentionConfig as TAttn
 from repro_torch.config.base import ModelConfig as TModel
+from repro_torch.config.base import RecurrentConfig as TRec
 from repro_torch.configs import ALL_ARCHS, DENSE_ARCHS
 from repro_torch.configs import reduce_for_smoke as treduce
 from repro_torch.core.engine import RotaryEngine as TEngine
@@ -299,8 +304,27 @@ def test_serve_cli_serves_a_dense_arch_on_the_cpu(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["local_attn", "rglru", "mlstm", "slstm"])
-def test_unported_block_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TModel(name="x", family="hybrid", d_model=64, vocab_size=256,
-               segments=(((kind, "attn_mlp"), 2),), d_ff=128,
-               attention=TAttn(num_heads=4, num_kv_heads=1, head_dim=16))
+def test_ported_block_kinds_decode_like_jax(kind):
+    """Each block kind the port took last (beside an ``attn_mlp`` layer,
+    f32, a window of 4 under a 6-token prompt): prefill and one decode step
+    on JAX's weights, logits within 1e-4 of JAX's."""
+    kw = dict(name="x", family="hybrid", d_model=64, vocab_size=256,
+              segments=(((kind, "attn_mlp"), 2),), d_ff=128, dtype="float32")
+    window = 4 if kind == "local_attn" else None
+    cfg = JModel(**kw, attention=JAttn(num_heads=4, num_kv_heads=1, head_dim=16, window=window),
+                 recurrent=JRec(num_heads=2))
+    tcfg = TModel(**kw, attention=TAttn(num_heads=4, num_kv_heads=1, head_dim=16, window=window),
+                  recurrent=TRec(num_heads=2))
+    params = jax.jit(jinit, static_argnums=0)(cfg, jax.random.PRNGKey(1))
+    tparams = from_reference(tcfg, jax.tree.map(np.asarray, params))
+    tokens, _ = _inputs(tcfg, seed=3)
+    rt = jtfm.Runtime(cache_len=CACHE)
+    jl, state = jax.jit(jtfm.prefill_model, static_argnums=(0, 3))(
+        cfg, params, jnp.asarray(tokens[:, :PROMPT]), rt)
+    tl, tstate = ttfm.prefill_model(tcfg, tparams, torch.from_numpy(tokens[:, :PROMPT]), CACHE)
+    _close(tl, jl)
+    tok = tokens[:, PROMPT]
+    jl, _, _ = jax.jit(jtfm.decode_model, static_argnums=(0, 5))(
+        cfg, params, jnp.asarray(tok), state, jnp.int32(PROMPT), rt)
+    tl, _ = ttfm.decode_model(tcfg, tparams, torch.from_numpy(tok), tstate, PROMPT)
+    _close(tl, jl)

@@ -1291,14 +1291,14 @@ def test_serving_window_graphs_equal_eager_windows(card, slots, dtype, prefetch,
 
 
 def test_serving_warmup_changes_no_output(card):
-    """``warmup()`` captures every (window size, rows bucket) graph before
+    """``warmup()`` captures every window size's graph before
     traffic, writing only the scratch page: the same tokens and KV pages as
     an engine that captures on first use, and no capture while serving."""
     out = []
     for warm in (False, True):
         cfg, eng = _reduced_server(card, 6, "bfloat16")
         if warm:
-            assert eng.warmup() == 4 * 3        # K 1..4 x rows buckets 1, 2, 4 (3 rows)
+            assert eng.warmup() == 4            # K 1..4 at the full row count (4 for 3 slots)
         before = eng.graph_captures
         toks = _serve_all(eng, cfg.vocab_size)
         out.append((toks, [c["k"][1:].cpu() for c in eng.pool_state], eng.graph_captures - before))
@@ -1380,7 +1380,8 @@ def test_flash_attention_chunk_wide_heads_match_plain(card, dh, h, hkv, dtype):
     assert torch.equal(one, out[:, 10:11])
 
 
-K2_SHAPES = [(96, 1), (96, 4), (160, 1), (160, 4), (128, 9), (128, 12), (64, 9), (256, 12)]
+K2_SHAPES = [(96, 1), (96, 4), (160, 1), (160, 4), (128, 9), (128, 12), (64, 9), (256, 12),
+             (256, 10)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1388,7 +1389,8 @@ K2_SHAPES = [(96, 1), (96, 4), (160, 1), (160, 4), (128, 9), (128, 12), (64, 9),
 def test_decode_attention_dense_widths_and_groups(card, dh, g, dtype):
     """K2 at the dense archs' shapes: dh 96 and 160 (bf16 on the CUDA-core
     body), query groups 1 (phi3, musicgen), 4 (pixtral), 9 (starcoder2-7b)
-    and 12 (starcoder2-3b) on either tensor-core fragment count. The
+    and 12 (starcoder2-3b) on either tensor-core fragment count, and dh 256
+    g 10 (recurrentgemma: two fragments, the second partly empty). The
     contiguous entry over rows of lengths 1000 / 77 / 1 against the plain
     version, row 1 alone bitwise itself among 3; the paged entry bitwise
     the contiguous entry on the gathered view."""
@@ -1481,3 +1483,105 @@ def test_dense_prefill_with_frontend_on_card_matches_cpu(card):
             rows.append(tfm.decode_model(cfg, p, tokens[:, 6 + t].to(dev), state, 14 + t)[0])
         got[dev.type] = torch.stack(rows).cpu()
     torch.testing.assert_close(got["cuda"], got["cpu"], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: recurrentgemma's local attention at its window,
+# serving windows that give a row the same bits whatever else is live, and
+# the group tick's graphs
+# ---------------------------------------------------------------------------
+def test_flash_attention_window_shorter_than_the_prompt(card):
+    """K4 at recurrentgemma's shape: dh 256, 10 query heads on 1 KV head,
+    window 2048 over 3,072 queries (KV tiles behind the band skipped),
+    against the plain version; the last 64 queries launched alone against
+    their band's keys equal their tile among all 3,072."""
+    s, h, dh, w = 3072, 10, 256, 2048
+    q = _randn((1, s, h, dh), torch.bfloat16, 0, card)
+    k = _randn((1, s, 1, dh), torch.bfloat16, 1, card)
+    v = _randn((1, s, 1, dh), torch.bfloat16, 2, card)
+    out = ops.flash_attention(q, k, v, causal=True, window=w)
+    torch.cuda.synchronize()
+    exp = ref.flash_attention_ref(q, k, v, causal=True, window=w)
+    torch.testing.assert_close(out.float(), exp.float(), **TOL[torch.bfloat16])
+    assert torch.isfinite(out.float()).all()
+
+
+def _live_row_logits(eng, vocab, others):
+    """Row 0's window logits, position by position, for one request alone
+    or beside ``others`` more (greedy, windows of 1)."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, vocab, int(rng.integers(5, 30))) for _ in range(1 + others)]
+    seen = []
+    launch = eng._window_launch
+
+    def record(k):
+        out = launch(k)
+        seen.append(out["logits"][:k, 0].clone())
+        return out
+
+    eng._window_launch = record
+    first = eng.submit(prompts[0], 10)
+    for p in prompts[1:]:
+        eng.submit(p, 10)
+    eng.run()
+    return first.output, torch.cat(seen)[:len(first.output) - 1]
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen36-35b-a3b"])
+def test_serving_row_bits_do_not_depend_on_the_other_rows(card, arch):
+    """The repair of alone != concurrent: a serving window runs at the
+    engine's full row count whatever is live, so row 0's logits (a dense
+    config and an MoE one, bf16, every matmul on cuBLAS) are bitwise the
+    same with 0 and with 3 other live rows."""
+    from repro_torch.config import get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)), dtype="bfloat16")
+    params = init_params(cfg, 0, "cpu")
+    got = []
+    for others in (0, 3):
+        eng = ServingEngine(cfg, params, rt=Runtime(cache_len=64), num_slots=4, spec_cap=1,
+                            kv_page_size=8, device=card)
+        got.append(_live_row_logits(eng, cfg.vocab_size, others))
+    assert got[0][0] == got[1][0]
+    assert torch.equal(got[0][1], got[1][1])
+
+
+def test_group_tick_graphs_equal_eager_steps(card):
+    """The group tick on reduced recurrentgemma (bf16): the single step
+    captured once and replayed against the same steps run eagerly on the
+    card: the same tokens, recurrent states and KV caches bit for bit, and
+    each request alone gives its concurrent tokens."""
+    from repro_torch.config import get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("recurrentgemma-2b")),
+                              dtype="bfloat16")
+    params = init_params(cfg, 0, "cpu")
+
+    def server():
+        return ServingEngine(cfg, params, rt=Runtime(cache_len=64), num_slots=3, device=card)
+
+    out = {}
+    for capture in (True, False):
+        eng = server()
+        assert not eng._paged
+        eng._gs.capture = capture
+        toks = _serve_all(eng, cfg.vocab_size)
+        out[capture] = (toks, [{n: t.cpu() for n, t in c.items()} for c in eng.state],
+                        eng.graph_captures, eng.graph_replays)
+    assert out[True][0] == out[False][0]
+    for a, b in zip(out[True][1], out[False][1]):
+        assert all(torch.equal(a[n], b[n]) for n in a)
+    assert out[True][2] == 1 and out[True][3] > 0 and out[False][2:] == (0, 0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(5, 30))) for _ in range(4)]
+    for i, p in enumerate(prompts):
+        eng = server()
+        r = eng.submit(p, 10)
+        eng.run()
+        assert r.output == out[True][0][i]

@@ -20,7 +20,8 @@ resident, rotary at 6 of 8 slots (misses dropped), int4 slots at 6 of 8,
 sampled (seeded streams) and with ``prefetch=True``. Port-internal:
 concurrent == each request alone, prefetch == synchronous, ``warmup``
 changes nothing, a pool smaller than the population recycles pages exactly,
-the flag rules, and the serve CLI's ``--engine batch``.
+the flag rules (prefetch needs the paged pool, as in the reference), and
+the serve CLI's ``--engine batch``.
 """
 import re
 import sys
@@ -452,8 +453,9 @@ def test_flag_rules_raise_before_building():
     _, _, tcfg, _ = _setup()
     params = _port_params()
     rt = TRuntime(cache_len=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TServing(tcfg, params, rt=rt, paged=False, device="cpu")
+    with pytest.raises(ValueError, match="paged continuous-batching"):
+        TServing(tcfg, params, rt=rt, paged=False, prefetch=True,
+                 residency=TRes(mode="rotary", num_slots=6), device="cpu")
     with pytest.raises(ValueError, match="rotating"):
         TServing(tcfg, params, rt=rt, prefetch=True, device="cpu")
     with pytest.raises(ValueError, match="reactive"):

@@ -16,7 +16,8 @@ graph replay over the 4 rows plus its blocking pull.
 ``--eager``: each ``arch[:layers]`` (its first N layers, else all) through
 ``prefill_model`` (with its frontend's embeddings) and ``--steps`` greedy
 ``decode_model`` steps run eagerly, as chip_smoke's frontend paths run
-them; the steps after two warm ones are profiled.
+them; a second prefill of the same prompt and the steps after two warm
+ones are profiled (``xlstm-350m``: its cells run a position at a time).
 
 For each: wall ms per tick or step (host clock, ending in a pull), and
 under ``torch.profiler`` (CPU and CUDA activity) the device time per tick
@@ -126,7 +127,8 @@ def profile_eager(dev, arch, layers, steps):
     from repro_torch.models import transformer as tfm
 
     full = get_config(arch)
-    cfg = dataclasses.replace(full, segments=((full.segments[0][0], layers or full.num_layers),))
+    cfg = (dataclasses.replace(full, segments=((full.segments[0][0], layers),)) if layers
+           else full)
     params = tfm.init_params(cfg, 0, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     fe = None
@@ -136,6 +138,12 @@ def profile_eager(dev, arch, layers, steps):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 512)))
     cache = 2048 if cfg.frontend_len + 512 > 1024 else 1024
     logits, state = tfm.prefill_model(cfg, params, tokens.to(dev), cache, frontend=fe)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tfm.prefill_model(cfg, params, tokens.to(dev), cache, frontend=fe)[0].float().cpu()
+        prefill_wall = 1e3 * (time.perf_counter() - t0)
+    prefill_dev, prefill_ops, _, _ = _device_split(prof, 1)
     cur = cfg.frontend_len + 512
     tok = [int(logits.float().argmax())]
 
@@ -158,6 +166,8 @@ def profile_eager(dev, arch, layers, steps):
         wall_prof = 1e3 * (time.perf_counter() - t0) / steps
     dev_ms, ops, top, classes = _device_split(prof, steps)
     out = dict(arch=arch, kind="eager decode_model", layers=cfg.num_layers,
+               prefill_wall_ms=prefill_wall, prefill_device_ms=prefill_dev,
+               prefill_busy_share=prefill_dev / prefill_wall, prefill_device_ops=prefill_ops,
                wall_ms_per_step=wall, profiled_wall_ms_per_step=wall_prof,
                device_ms_per_step=dev_ms, device_busy_share=dev_ms / wall_prof,
                device_ops_per_step=ops, device_ms_by_class=classes, top_device=top)
