@@ -99,6 +99,24 @@ Phases, each failing loudly (nothing is caught):
      ``prefill_model`` with 1,024 (256) frontend embeddings drawn from the
      seed before 512 (256) tokens, cache_len 2048 (1024), then 32 greedy
      ``decode_model`` steps;
+   * ``serve-full-group``, ``serve-recurrentgemma-2b`` and
+     ``decode-xlstm-350m`` (4 rows of 512 tokens, 31 greedy
+     ``decode_model`` steps; each row run again alone inside the batch's
+     allocation, ``prefill_model(rows=4)``, must give the batch's logits
+     bit for bit);
+   * the training paths, ``train-qwen36`` (the first 4 of 48 layers, 3.11
+     B parameters, MoE through the sorted dispatch at capacity factor 1.25,
+     so assignments drop) and ``train-recurrentgemma-2b`` (26 layers): 4 x
+     512 ``topic`` tokens a step, bf16, AdamW, ``dots_saveable``. Step 0's
+     loss and grad norm against an f32 recomputation on the card (the
+     weights upcast, the bf16 routing replayed: |loss diff| <= 0.05 nats,
+     |grad norm ratio - 1| <= 0.10); 6 straight steps with a checkpoint
+     after 3, the last loss below the first; 3 steps again from the seed,
+     the parameters bitwise the straight run's there; the checkpoint
+     restored into a fresh state and 3 more steps, bitwise the straight
+     run's end; no kernel launched (none has a backward). Each prints
+     median step ms, tokens/s, MFU (``model_flops`` over 989 TFLOP/s),
+     peak memory, and the checkpoint's MB and save / write / restore ms;
    * ``dbrx-int4``: dbrx-132b at published widths, the first 2 of 40
      layers (its 16 experts of 198M parameters are 12.7 GB a layer pair
      in bf16), RotaryEngine with 12 of 16 int4 slots, 1 request of 512 +
@@ -157,6 +175,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2149,10 +2168,11 @@ class DecodeSpec(NamedTuple):
 DECODE_PATHS = (DecodeSpec("decode-xlstm-350m", "xlstm-350m", 4, PROMPT, CACHE),)
 
 
-def _greedy(cfg, params, tokens, cache, new):
-    """``prefill_model`` over ``tokens`` [B, S], then ``new - 1`` greedy
-    ``decode_model`` steps, each pulled to the host. Returns (ids [B, new],
-    logits [B, new, V] f32, prefill s, decode step s)."""
+def _greedy(cfg, params, tokens, cache, new, rows=None):
+    """``prefill_model`` over ``tokens`` [B, S] into a state of ``rows`` rows
+    (default B; the rest empty), then ``new - 1`` greedy ``decode_model``
+    steps, each pulled to the host. Returns (ids [B, new], logits [B, new,
+    V] f32, prefill s, decode step s)."""
     import numpy as np
     import torch
 
@@ -2160,7 +2180,7 @@ def _greedy(cfg, params, tokens, cache, new):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, state = tfm.prefill_model(cfg, params, tokens, cache)
+    logits, state = tfm.prefill_model(cfg, params, tokens, cache, rows=rows)
     rows = [logits.float().cpu().numpy()]
     prefill_s = time.perf_counter() - t0
     step_s = []
@@ -2181,7 +2201,8 @@ def run_decode_path(dev, cfg, spec: DecodeSpec) -> dict:
     FRONT_NEW - 1 greedy ``decode_model`` steps; every row's prefill and
     decode logits against the f32 truth of the same weights and tokens, its
     greedy ids against the truth's at every sure position, and each row
-    run alone (batch 1) against its tokens among the rows."""
+    run alone inside the batch's allocation (``prefill_model(rows=)``, the
+    other rows empty) against the batch's logits, bit for bit."""
     import numpy as np
     import torch
 
@@ -2226,25 +2247,22 @@ def run_decode_path(dev, cfg, spec: DecodeSpec) -> dict:
     if not judge(f"{spec.label} {spec.rows} rows x (prefill + {FRONT_NEW - 1} decode steps)",
                  got.reshape(flat), truth.reshape(flat), plain.reshape(flat)):
         raise AssertionError(f"{spec.label}: logits farther from the truth than bf16")
+    # each row alone inside the batch's allocation (the other rows empty):
+    # eager decode_model runs every matmul at the state's row count, so the
+    # row's logits are the batch's, bit for bit
     parted = 0
     for i in range(spec.rows):
-        alone = _greedy(cfg, params, tokens[i:i + 1], spec.cache, FRONT_NEW)[0][0]
-        j = next((j for j in range(FRONT_NEW) if alone[j] != ids[i, j]), None)
-        if j is None:
-            continue
-        # eager decode_model reads its weights at this batch's row count, so
-        # a row alone may sum in another order: it may part only where the
-        # truth cannot tell the two tokens apart
-        top2 = np.sort(truth[i, j])[-2:]
-        margin, limit = float(top2[1] - top2[0]), 2 * float(np.abs(plain[i] - truth[i]).max())
-        log(f"  row {i} alone parts from the batch at token {j} ({alone[j]} vs {ids[i, j]}), "
-            f"truth margin {margin:.4f} (guard {limit:.4f})")
-        if margin > limit:
-            raise AssertionError(f"{spec.label} row {i}: alone it differs at token {j} where the "
-                                 f"truth's margin {margin:.4f} exceeds {limit:.4f}")
-        parted += 1
-    log(f"  each row run as batch 1: {spec.rows - parted}/{spec.rows} streams equal to the "
-        f"batch's")
+        a_ids, a_logits, _, _ = _greedy(cfg, params, tokens[i:i + 1], spec.cache, FRONT_NEW,
+                                        rows=spec.rows)
+        if not (np.array_equal(a_ids[0], ids[i]) and np.array_equal(a_logits[0], got[i])):
+            j = next((j for j in range(FRONT_NEW) if not np.array_equal(a_logits[0, j],
+                                                                       got[i, j])), None)
+            log(f"  row {i} alone parts from the batch at position {j}")
+            parted += 1
+    log(f"  each row alone in the batch's allocation: {spec.rows - parted}/{spec.rows} rows' "
+        f"logits bitwise the batch's")
+    if parted:
+        raise AssertionError(f"{spec.label}: {parted} rows alone differ from the batch")
     summary = dict(label=spec.label, frontend=True, counts=counts, symbols=symbols,
                    prefill_ms=prefill_s * 1e3, tok_s=tok_s,
                    median_ms=float(np.median(step_s)) * 1e3, peak_gib=peak / 2**30,
@@ -2254,6 +2272,224 @@ def run_decode_path(dev, cfg, spec: DecodeSpec) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return summary
+
+
+class TrainSpec(NamedTuple):
+    label: str
+    arch: str
+    layers: int                 # the first N units (the depth cut; 0: all)
+    batch: int
+    seq: int
+    steps: int                  # the straight run; the resume check runs half of it twice
+
+
+TRAIN_PATHS = (
+    TrainSpec("train-qwen36", "qwen36-35b-a3b", 4, 4, 512, 12),
+    TrainSpec("train-recurrentgemma-2b", "recurrentgemma-2b", 0, 4, 512, 12),
+)
+TRAIN_LR = dict(learning_rate=3e-4, warmup_steps=2, total_steps=12)
+# Step 0 against f32 (tools/torch_train_tolerance.py reads sound runs and planted bf16 faults)
+TRAIN_LOSS_TOL = 0.002          # |bf16 step-0 loss - f32|, nats
+TRAIN_GNORM_TOL = 0.01          # |bf16 step-0 grad norm / f32 - 1|
+H100_BF16_FLOPS = 989e12
+
+
+def _train_steps(cfg, rt, run, state, spec, dev, first: int, last: int):
+    """Steps ``first`` .. ``last - 1`` of the topic stream through the port's
+    loader and train step; returns (state, losses, grad norms, step s)."""
+    import torch
+
+    from repro_torch.data import Loader
+    from repro_torch.training import make_train_step
+
+    step_fn = make_train_step(cfg, rt, run)
+    losses, gnorms, times = [], [], []
+    with Loader(spec, dev, start_step=first) as loader:
+        for _ in range(first, last):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, tokens, labels = next(loader)
+            state, m = step_fn(state, tokens, labels)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return state, losses, gnorms, times
+
+
+def train_step0_vs_f32(cfg, params, tokens, labels, rt, frontend=None) -> dict:
+    """One bf16 ``lm_loss`` and its gradients, then the same in f32: the
+    weights upcast, the bf16 forward's top-k choice replayed (so the same
+    assignments drop). Returns the two losses and gradient norms and the
+    share of assignments dropped a MoE layer; ``params`` are left marked to
+    take gradients."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import global_norm
+    from repro_torch.tree import leaves, map_tree
+
+    for p in leaves(params):
+        p.requires_grad_(True)
+    routes = [moe_mod.Routing() for _ in range(cfg.num_moe_layers)]
+    loss, aux = tfm.lm_loss(cfg, params, tokens, labels, rt, frontend, routes=routes)
+    gnorm = float(global_norm(torch.autograd.grad(loss, leaves(params))))
+    dropped = (float(aux["moe_dropped_frac"]) / cfg.num_moe_layers
+               if "moe_dropped_frac" in aux else 0.0)
+    p32 = map_tree(lambda t: t.detach().float().requires_grad_(True), params)
+    loss32, _ = tfm.lm_loss(dataclasses.replace(cfg, dtype="float32"), p32, tokens, labels, rt,
+                            frontend, routes=[moe_mod.Routing(r.ids, replay=True)
+                                              for r in routes])
+    gnorm32 = float(global_norm(torch.autograd.grad(loss32, leaves(p32))))
+    return dict(loss=float(loss.detach()), loss32=float(loss32.detach()), gnorm=gnorm,
+                gnorm32=gnorm32, dropped=dropped)
+
+
+def run_train_path(dev, cfg, depth: int, spec: TrainSpec) -> dict:
+    """The training path (``lm_loss`` -> autograd -> AdamW, the reference's
+    ``make_train_step``) at published widths in bf16, batch x seq tokens of
+    the ``topic`` stream a step, ``dots_saveable`` remat, MoE layers through
+    the sorted dispatch at capacity factor 1.25 (assignments dropped):
+
+    * step 0's loss and grad norm against an f32 recomputation on the card
+      (the weights upcast, the bf16 forward's routing replayed, so the same
+      assignments drop);
+    * ``steps`` straight steps (a checkpoint saved after half of them): the
+      last loss below the first;
+    * half the steps again from the seed: the parameters bitwise those of
+      the straight run at that point;
+    * a restore of the checkpoint into a fresh state and the other half:
+      the parameters bitwise the straight run's at its end;
+    * no kernel launch on the path (none has a backward).
+    Prints median step ms (the steps before the checkpoint, step 0's
+    warm-up left out, and apart the steps its write thread overlaps),
+    tokens/s, MFU (``model_flops`` over 989 TFLOP/s), peak GiB, and the
+    checkpoint's save / write / restore ms and MB."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import RunConfig, ShardingConfig
+    from repro_torch.data import SyntheticSpec, batch_at_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import analytic_params, model_flops
+    from repro_torch.training import init_train_state
+    from repro_torch.tree import leaves
+
+    half = spec.steps // 2
+    moe_note = (f", MoE sorted at capacity factor {cfg.moe.capacity_factor}" if cfg.has_moe
+                else "")
+    log(f"[4/{spec.label}] {cfg.name} at published widths, {cfg.num_layers} of {depth} layers, "
+        f"bf16, {analytic_params(cfg) / 1e9:.2f} B parameters; {spec.batch} x {spec.seq} "
+        f"topic tokens a step, dots_saveable{moe_note}: {spec.steps} straight steps, "
+        f"{half} again from the seed, {spec.steps - half} after a restore")
+    rt = tfm.Runtime(sharding=ShardingConfig(remat_policy="dots_saveable", moe_impl="sorted"))
+    run = RunConfig(**TRAIN_LR)
+    data = SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=spec.seq, global_batch=spec.batch,
+                         kind="topic", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    # step 0 against f32, the bf16 routing replayed
+    params = tfm.init_params(cfg, 0, dev)
+    tokens, labels = (torch.from_numpy(a).to(dev) for a in batch_at_step(data, 0))
+    s0 = train_step0_vs_f32(cfg, params, tokens, labels, rt)
+    loss, loss32, gnorm, gnorm32, dropped = (s0[n] for n in ("loss", "loss32", "gnorm",
+                                                              "gnorm32", "dropped"))
+    log(f"  step 0: loss {loss:.5f} (f32 {loss32:.5f}, |diff| {abs(loss - loss32):.5f}, tolerance "
+        f"{TRAIN_LOSS_TOL}), grad norm {gnorm:.5f} (f32 {gnorm32:.5f}, ratio - 1 "
+        f"{gnorm / gnorm32 - 1:+.5f}, tolerance {TRAIN_GNORM_TOL}), assignments dropped a layer "
+        f"{100 * dropped:.2f}%")
+    if not (abs(loss - loss32) <= TRAIN_LOSS_TOL and abs(gnorm / gnorm32 - 1) <= TRAIN_GNORM_TOL):
+        raise AssertionError(f"{spec.label}: step 0 parts from its f32 recomputation")
+    if cfg.has_moe and dropped <= 0.0:
+        raise AssertionError(f"{spec.label}: capacity factor {cfg.moe.capacity_factor} dropped "
+                             f"nothing")
+
+    def snapshot(state):           # to the host: the card holds two train states at most
+        return [t.detach().cpu() for t in leaves(state["params"])]
+
+    def same(a, b):
+        return all(torch.equal(x, y.detach().cpu()) for x, y in zip(a, b))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        mgr = CheckpointManager(ckdir, keep=1, async_save=True)
+        # the straight run, a checkpoint after `half` steps
+        state = init_train_state(cfg, params)
+        state, losses, gnorms, times = _train_steps(cfg, rt, run, state, data, dev, 0, half)
+        if losses[0] != loss or gnorms[0] != gnorm:
+            raise AssertionError(f"{spec.label}: the train step's step 0 ({losses[0]}, "
+                                 f"{gnorms[0]}) is not the recomputed one ({loss}, {gnorm})")
+        t0 = time.perf_counter()
+        mgr.save(half, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        at_half = snapshot(state)
+        state, l2, g2, t2 = _train_steps(cfg, rt, run, state, data, dev, half, spec.steps)
+        losses, gnorms, times = losses + l2, gnorms + g2, times + t2
+        at_end = snapshot(state)
+        del state, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the first half again from the seed
+        state = init_train_state(cfg, tfm.init_params(cfg, 0, dev))
+        state, again, _, _ = _train_steps(cfg, rt, run, state, data, dev, 0, half)
+        det = same(at_half, leaves(state["params"])) and again == losses[:half]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mgr.wait()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        ck_mb = os.path.getsize(os.path.join(mgr.step_dir(half), "arrays.npz")) / 1e6
+        # a crash: restore into a fresh state, the second half
+        t0 = time.perf_counter()
+        step, state, _ = mgr.restore_latest(init_train_state(cfg, tfm.init_params(cfg, 0, dev)))
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        state, resumed, _, _ = _train_steps(cfg, rt, run, state, data, dev, step, spec.steps)
+        res = step == half and same(at_end, leaves(state["params"])) and resumed == losses[half:]
+        del state, at_half, at_end
+    counts = ops.launch_counts()
+    symbols = ops.symbol_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the steps before the checkpoint: later ones share the host with its write thread
+    med = float(np.median(times[1:half]))
+    busy_med = float(np.median(times[half:]))
+    tok_s = spec.batch * spec.seq / med
+    mfu = model_flops(cfg, spec.batch * spec.seq) / med / H100_BF16_FLOPS
+    log(f"  losses {' '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{' '.join(f'{x:.3f}' for x in gnorms)}; step ms "
+        f"{' '.join(f'{1e3 * x:.1f}' for x in times)}")
+    log(f"  median step {med * 1e3:.1f} ms (steps 1-{half - 1}; {busy_med * 1e3:.1f} ms while the "
+        f"checkpoint writes), {tok_s:.0f} tokens/s, MFU {100 * mfu:.2f}% (model_flops "
+        f"{model_flops(cfg, spec.batch * spec.seq) / 1e12:.2f} TFLOP a step over 989 TFLOP/s), "
+        f"peak {peak / 2**30:.2f} GiB; checkpoint {ck_mb:.0f} MB: snapshot {save_ms:.0f} ms on "
+        f"the caller's thread, write done {write_ms:.0f} ms after the second run, restore "
+        f"{restore_ms:.0f} ms")
+    log(f"  first {half} steps again from the seed: parameters bitwise the straight run's: {det}; "
+        f"restored at step {step} + {spec.steps - half} steps: bitwise the straight run's: {res}; "
+        f"kernel launches {counts}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{spec.label}: the loss did not go down ({losses})")
+    if not det:
+        raise AssertionError(f"{spec.label}: two runs from one seed differ")
+    if not res:
+        raise AssertionError(f"{spec.label}: save, restore and resume differ from the straight run")
+    if any(counts.values()):
+        raise AssertionError(f"{spec.label}: a kernel launched on the training path: {counts}")
+    return dict(label=spec.label, train=True, counts=counts, symbols=symbols, median_ms=med * 1e3,
+                writing_ms=busy_med * 1e3,
+                tok_s=tok_s, mfu=mfu, peak_gib=peak / 2**30, save_ms=save_ms,
+                write_ms=write_ms, restore_ms=restore_ms, ckpt_mb=ck_mb, losses=losses,
+                loss0=loss, loss0_f32=loss32, gnorm0=gnorm, gnorm0_f32=gnorm32,
+                dropped=dropped, layers=cfg.num_layers)
 
 
 def _leaves(tree):
@@ -2335,10 +2571,16 @@ def main() -> int:
             arch.num_layers, spec))
     for spec in DECODE_PATHS:
         add(run_decode_path(dev, get_config(spec.arch), spec))
+    for spec in TRAIN_PATHS:
+        arch = get_config(spec.arch)
+        if spec.layers:
+            arch = dataclasses.replace(arch, segments=((arch.segments[0][0], spec.layers),))
+        add(run_train_path(dev, arch, get_config(spec.arch).num_layers, spec))
     dbrx = get_config("dbrx-132b")
     add(run_path(dev, dataclasses.replace(dbrx, segments=((("attn_moe",), DBRX_LAYERS),)),
                  dbrx.num_layers, DBRX_PATH, done))
-    n_paths = len(PATHS) + len(SERVE_PATHS) + len(FRONT_PATHS) + len(DECODE_PATHS) + 1
+    n_paths = (len(PATHS) + len(SERVE_PATHS) + len(FRONT_PATHS) + len(DECODE_PATHS)
+               + len(TRAIN_PATHS) + 1)
     multi = {counter for counter, _ in ENTRY.values()}          # kernels with several entries
     log(f"  kernel launches over the {n_paths} paths: {counts}; by entry: "
         f"{ {name: syms for name, syms in symbols.items() if name in multi and syms} }")
@@ -2353,7 +2595,7 @@ def main() -> int:
         "relaunched of decode steps; MB uploaded per decode token; host conversion; loads; "
         "overlapped pulls; windows and accept rate)")
     for r in done.values():
-        if r["label"].startswith("serve-") or r.get("frontend"):
+        if r["label"].startswith("serve-") or r.get("frontend") or r.get("train"):
             continue
         accept = f"{r['accept_rate']:.3f}" if r["accept_rate"] is not None else "-"
         log(f"  {r['label']:>19}: decode {' / '.join(f'{x:.2f}' for x in r['tok_s'])} tok/s "
@@ -2384,6 +2626,16 @@ def main() -> int:
         r = done[spec.label]
         log(f"  {r['label']:>19}: prefill {r['prefill_ms']:.1f} ms, decode {r['tok_s']:.2f} tok/s "
             f"(median step {r['median_ms']:.2f} ms), peak {r['peak_gib']:.2f} GiB")
+    log(f"  {card}: training paths (median step ms, tokens/s, MFU over 989 TFLOP/s, peak; "
+        f"step 0 loss and grad norm beside f32; checkpoint MB, snapshot / write / restore ms)")
+    for spec in TRAIN_PATHS:
+        r = done[spec.label]
+        log(f"  {r['label']:>23}: step {r['median_ms']:.1f} ms ({r['writing_ms']:.1f} while the "
+            f"checkpoint writes), {r['tok_s']:.0f} tokens/s, MFU "
+            f"{100 * r['mfu']:.2f}%, peak {r['peak_gib']:.2f} GiB; loss {r['loss0']:.4f} (f32 "
+            f"{r['loss0_f32']:.4f}) -> {r['losses'][-1]:.4f}, grad norm {r['gnorm0']:.4f} (f32 "
+            f"{r['gnorm0_f32']:.4f}); checkpoint {r['ckpt_mb']:.0f} MB, {r['save_ms']:.0f} / "
+            f"{r['write_ms']:.0f} / {r['restore_ms']:.0f} ms")
     for name in ("decode_attention", "decode_attention_paged"):
         if entry_launches(symbols, name) <= 0:
             raise AssertionError(f"entry {name} never launched on any path")

@@ -1,5 +1,6 @@
 from repro_torch.config.base import (
-    AttentionConfig, ModelConfig, MoEConfig, RecurrentConfig, ResidencyConfig,
+    AttentionConfig, ModelConfig, MoEConfig, RecurrentConfig, ResidencyConfig, RunConfig,
+    ShardingConfig,
 )
 from repro_torch.config.registry import get_config, list_archs, register
 
@@ -9,6 +10,8 @@ __all__ = [
     "MoEConfig",
     "RecurrentConfig",
     "ResidencyConfig",
+    "RunConfig",
+    "ShardingConfig",
     "get_config",
     "list_archs",
     "register",

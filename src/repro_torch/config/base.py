@@ -1,8 +1,10 @@
-"""Config system: frozen dataclasses describing models and residency.
+"""Config system: frozen dataclasses describing models, residency and runs.
 
 Every architecture in ``repro_torch.configs`` builds a :class:`ModelConfig`;
-the engine pairs it with a :class:`ResidencyConfig`. Configs are plain data,
-so they can be constructed and diffed without touching device state.
+the engine pairs it with a :class:`ResidencyConfig`, the trainer with a
+:class:`ShardingConfig` (its training fields) and a :class:`RunConfig`.
+Configs are plain data, so they can be constructed and diffed without
+touching device state.
 """
 from __future__ import annotations
 
@@ -58,6 +60,12 @@ class MoEConfig:
     expert_d_ff: int
     num_shared_experts: int = 0
     shared_d_ff: int = 0
+    # the training / prefill dispatch (models/moe.py: moe_dense, moe_sorted)
+    # keeps at most max(k, ceil(T*k/E * capacity_factor)) assignments per
+    # expert and drops the rest; decode and the engines are dropless
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01       # Switch load-balance loss weight
+    router_z_coef: float = 1e-3         # router z-loss weight
     # normalize top-k router weights to sum to 1 (qwen-style) or use raw softmax mass
     norm_topk_prob: bool = True
     # EP padding: expert weights stored as [padded_experts, ...] with
@@ -211,3 +219,56 @@ class ResidencyConfig:
             raise ValueError(f"unknown quantization {self.quantization!r}")
         if self.quant_group_size < 2 or self.quant_group_size % 2:
             raise ValueError("quant_group_size must be an even integer >= 2")
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+REMAT_POLICIES = ("none", "full", "dots_saveable")
+MOE_IMPLS = ("dense", "sorted", "epsum")
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """The training fields of the reference's ``ShardingConfig``.
+
+    ``remat_policy``: per-layer activation checkpointing in training
+    (``none``; ``full`` recomputes the layer; ``dots_saveable`` keeps the
+    matmul outputs and recomputes the rest). ``moe_impl``: the training
+    forward's MoE dispatch, ``dense`` (GShard one-hot einsums) or ``sorted``
+    (sort + gather); ``epsum`` is the reference's expert-parallel dispatch,
+    which falls back to ``sorted`` without a device mesh, as here (one
+    device). ``grad_compression="int8_ef"`` is the cross-pod gradient
+    compression of the distributed slice, not ported yet.
+    """
+
+    remat_policy: str = "dots_saveable"
+    moe_impl: str = "epsum"
+    grad_compression: Optional[str] = None     # None | "int8_ef"
+
+    def __post_init__(self) -> None:
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat_policy!r}")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe impl {self.moe_impl!r}")
+        if self.grad_compression not in (None, "int8_ef"):
+            raise ValueError(f"unknown grad compression {self.grad_compression!r}")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Training run hyperparameters (the reference's ``RunConfig``). Its
+    fields that no code reads are left out: ``microbatch`` (the microbatch
+    count is ``make_train_step(num_micro=)``), ``seed`` (``init_params``'
+    and ``SyntheticSpec``'s), ``checkpoint_dir`` and ``keep_checkpoints``
+    (``CheckpointManager(directory, keep=)``)."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    checkpoint_every: int = 200
+    log_every: int = 10

@@ -44,6 +44,9 @@ def reduce_for_smoke(
             expert_d_ff=48,
             num_shared_experts=min(moe.num_shared_experts, 2),
             shared_d_ff=48 if moe.num_shared_experts else 0,
+            # cf=8 with E=8, k<=2 makes capacity >= T: reduced configs are
+            # DROPLESS, so train/prefill/decode paths agree exactly (tests)
+            capacity_factor=8.0,
             norm_topk_prob=moe.norm_topk_prob,
         )
     rec = cfg.recurrent

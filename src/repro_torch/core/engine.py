@@ -112,6 +112,7 @@ layer (the reference jits each half).
 from __future__ import annotations
 
 import functools
+import gc
 import math
 import time
 from dataclasses import dataclass
@@ -131,7 +132,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling as sampling_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import Params, apply_mlp
+from repro_torch.models.layers import Params
 from repro_torch.models.transformer import Runtime
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import resolve_tracer
@@ -341,13 +342,22 @@ class GraphSet:
         """Capture ``body`` as a CUDA graph. Its warm-up, eager on the compute
         stream (the kernels' first launches set their attributes there), IS
         this launch, whose outputs are returned; the capture launches nothing.
-        A capture that fails raises (the launch has no eager fall back)."""
+        A capture that fails raises (the launch has no eager fall back).
+        Python's cyclic garbage collector is off while capturing: a dead
+        engine's graphs it freed then would destroy CUDA graphs mid-capture,
+        which invalidates the capture."""
         t0 = time.perf_counter()
         out = body()
         before = ops.symbol_launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            graph_out = body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                graph_out = body()
+        finally:
+            if collecting:
+                gc.enable()
         launches = ops.launches_since(before)
         ops.add_launches(launches, -1)     # recorded, not launched
         self.graphs[key] = _Graph(graph, graph_out, ptrs, launches)
@@ -629,7 +639,7 @@ class RotaryEngine:
         x_mid, h2, _ = tfm.attn_half(self.cfg, self.layers[li], x, mode, self.state[li], cur,
                                      self.rt.cache_len)
         self.stats.device_dispatches += 1
-        return x_mid + apply_mlp(self.cfg.mlp, self.layers[li]["mlp"], h2).reshape(x_mid.shape)
+        return tfm.mlp_half(self.cfg, self.layers[li], x_mid, h2)
 
     def _suffix(self, start: int) -> List[Tuple[int, Optional[int]]]:
         """(layer index, MoE ordinal or None) of every layer from MoE layer

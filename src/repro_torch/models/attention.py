@@ -20,6 +20,14 @@ row ``cur_len`` [B]) writes each row's new K/V through its page table into
 planes shared by every row and scores them with K2's paged entry, which
 reads the pages through the table itself.
 
+Training (``attention_train``) runs no kernel: K4 has no backward (the
+reference trains with ``use_pallas=False``), so it scores with the
+reference's plain forms, ``reference_attention`` (the whole [S, S] score
+matrix, up to ``max(q_chunk, 128)`` positions) or ``chunked_attention``
+(the flash dataflow in plain PyTorch: an online softmax over KV chunks,
+unreachable chunk pairs skipped), both with bf16 operands upcast to f32
+sums as the reference's ``preferred_element_type=f32`` does.
+
 Sliding-window (ring) caches need no ring mask in K2: the cache holds
 ``cap = min(window, cache_len)`` slots, and after the write every filled
 slot holds a position in ``(cur_len - cap, cur_len]``, inside the window, so
@@ -87,6 +95,100 @@ def zero_cache(acfg: AttentionConfig, batch: int, cache_len: int,
     shape = (batch, cache_capacity(acfg, cache_len), acfg.num_kv_heads, acfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    m = torch.ones((qpos.numel(), kpos.numel()), dtype=torch.bool, device=qpos.device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        m &= kpos[None, :] > qpos[:, None] - window
+    return m
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor, soft_cap: Optional[float]) -> torch.Tensor:
+    """qg [B, Sq, Hkv, g, dh], k [B, Skv, Hkv, dh] -> f32 logits [B, Hkv, g, Sq, Skv]."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) / math.sqrt(qg.shape[-1])
+    if soft_cap is not None:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    return s
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        soft_cap: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
+    """The reference's O(S^2)-memory attention: q [B, Sq, H, dh], k/v [B,
+    Skv, Hkv, dh] -> [B, Sq, H, dh] in q's type; f32 logits and softmax, the
+    probabilities cast to v's type before the value sum."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    s = _scores(q.reshape(b, sq, hkv, h // hkv, dh), k, soft_cap)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    mask = _mask(qpos, torch.arange(skv, device=q.device), causal, window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      soft_cap: Optional[float] = None, q_chunk: int = 512,
+                      kv_chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
+    """The reference's flash-dataflow attention: per q chunk, an online
+    softmax over the KV chunks, O(q_chunk * kv_chunk) scores at once; a
+    (q chunk, KV chunk) pair that the causal or window mask empties is
+    skipped (decided on the host: the chunk starts are static)."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"seq lens ({sq},{skv}) must divide chunks ({q_chunk},{kv_chunk})")
+    outs = []
+    for q_start in range(0, sq, q_chunk):
+        qs = q_start + q_offset
+        qblk = q[:, q_start:q_start + q_chunk].reshape(b, q_chunk, hkv, g, dh)
+        qpos = qs + torch.arange(q_chunk, device=q.device)
+        m = torch.full((b, hkv, g, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, q_chunk, dh), dtype=torch.float32, device=q.device)
+        for k_start in range(0, skv, kv_chunk):
+            if causal and k_start > qs + q_chunk - 1:
+                continue
+            if window is not None and k_start + kv_chunk - 1 <= qs - window:
+                continue
+            s = _scores(qblk, k[:, k_start:k_start + kv_chunk], soft_cap)
+            kpos = k_start + torch.arange(kv_chunk, device=q.device)
+            s = torch.where(_mask(qpos, kpos, causal, window), s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            pr = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pr.sum(dim=-1)
+            vblk = v[:, k_start:k_start + kv_chunk]
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", pr.to(vblk.dtype).float(), vblk.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))                  # [B, qc, Hkv, g, dh]
+    return torch.cat(outs, dim=1).reshape(b, sq, h, dh)
+
+
+def attention_train(p: Params, acfg: AttentionConfig, x: torch.Tensor, *,
+                    q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+    """Full-sequence causal attention for training, x [B, S, D] -> [B, S, D]:
+    ``reference_attention`` up to ``max(q_chunk, 128)`` positions, else
+    ``chunked_attention`` (the reference's ``attention_train`` without
+    ``use_pallas``). No kernel, no cache, nothing written in place."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, acfg, x, torch.arange(s, device=x.device)[None, :])
+    kw = dict(causal=True, window=acfg.window, soft_cap=acfg.logit_soft_cap)
+    if s <= max(q_chunk, 128):
+        ctx = reference_attention(q, k, v, **kw)
+    else:
+        ctx = chunked_attention(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
+    return ctx.reshape(b, s, -1) @ p["wo"]
 
 
 def attention_prefill(

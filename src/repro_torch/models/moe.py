@@ -23,10 +23,23 @@ Misses keep the reference's sentinel: a routed expert whose LUT entry is
 the planes' last row (``num_slots`` for one generation of slots, the second
 generation's zero row when two are folded into the planes) reads
 zeros and its weight is dropped; the engine corrects it on the host.
+
+The training forward's dispatch (``moe_forward``: ``moe_dense``,
+``moe_sorted``) is the reference's, in plain PyTorch and differentiable (K1
+and K3 have no backward): ``topk_route_aux`` routes with the load-balance
+and z losses, and each expert keeps at most ``capacity(mcfg, T)``
+assignments, the rest dropped in the reference's order (``moe_sorted``:
+token-major; ``moe_dense``: k-major within each batch row). A scatter
+carries the sorted dispatch and a gather the combine (each token's k
+outputs summed in k order), so on the card the backward gathers, or
+accumulates by sorted index, never by atomics in a varying order: two runs
+give the same bits.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +49,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, dense_init, gelu
 
 PER_PICK_MAX = 64     # up to this many (token, pick) pairs: one group each
+
+Aux = Dict[str, torch.Tensor]
 
 
 def init_moe(gen: torch.Generator, d_model: int, mcfg: MoEConfig, mlp_kind: str,
@@ -197,3 +212,169 @@ def _ragged(src: Params, x2d: torch.Tensor, gidx: torch.Tensor,
     ys = expert_ffn_ragged(src, xs, offsets, miss_slot)
     return torch.empty_like(ys).index_copy_(0, order, ys)
 
+
+
+# ---------------------------------------------------------------------------
+# Training / prefill dispatch with a capacity (plain PyTorch, differentiable)
+# ---------------------------------------------------------------------------
+@dataclass
+class Routing:
+    """One MoE layer's top-k choice in a training forward. A forward given a
+    ``Routing`` records its ids [T, k] there; with ``replay`` it takes them
+    instead of its own top-k (its gate weights and aux losses still come
+    from its own router probabilities). Drops are a function of the ids and
+    the capacity, so a replayed forward drops the same assignments: an f32
+    recomputation of a bf16 step replays the bf16 routing."""
+
+    ids: Optional[torch.Tensor] = None
+    replay: bool = False
+
+
+def capacity(mcfg: MoEConfig, tokens: int) -> int:
+    """Assignments kept per expert over ``tokens`` routed tokens (the
+    reference's ``max(k, ceil(T*k/E * capacity_factor))``)."""
+    k = mcfg.top_k
+    return max(k, int(math.ceil(tokens * k / mcfg.num_experts * mcfg.capacity_factor)))
+
+
+def topk_route_aux(logits: torch.Tensor, mcfg: MoEConfig,
+                   routing: Optional[Routing] = None) -> Tuple[torch.Tensor, torch.Tensor, Aux]:
+    """logits [T, E] f32 -> (ids [T, k] int64, weights [T, k] f32, aux): the
+    reference's ``topk_route`` in plain PyTorch, differentiable through the
+    weights, with its Switch load-balance loss and router z-loss."""
+    probs = torch.softmax(logits, dim=-1)
+    if routing is not None and routing.replay:
+        ids = routing.ids
+        weights = torch.gather(probs, 1, ids)
+    else:
+        weights, ids = torch.topk(probs, mcfg.top_k, dim=-1)
+        if routing is not None:
+            routing.ids = ids.detach()
+    if mcfg.norm_topk_prob:
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    e = mcfg.num_experts
+    frac_tokens = F.one_hot(ids, e).float().sum(dim=1).mean(dim=0)          # [E]
+    aux: Aux = {
+        "load_balance": e * torch.sum(frac_tokens / mcfg.top_k * probs.mean(dim=0)),
+        "router_z": torch.logsumexp(logits, dim=-1).square().mean(),
+    }
+    return ids, weights, aux
+
+
+def expert_ranks(keys: torch.Tensor) -> torch.Tensor:
+    """keys [N] int64 -> each entry's rank among the earlier entries of its
+    key (0 for the first): a stable sort, each key's first sorted position
+    found by a search, the ranks scattered back to the input order."""
+    order = torch.argsort(keys, stable=True)
+    ks = keys[order]
+    pos = torch.arange(keys.numel(), device=keys.device) - torch.searchsorted(ks, ks)
+    return torch.zeros_like(keys).scatter(0, order, pos)
+
+
+def capacity_keep(ids: torch.Tensor, cap: int) -> torch.Tensor:
+    """ids [T, k] -> keep [T, k]: False for an assignment past its expert's
+    first ``cap`` in token-major order (``moe_sorted``'s drops)."""
+    return (expert_ranks(ids.reshape(-1)) < cap).reshape(ids.shape)
+
+
+def expert_ffn_dense(experts: Params, xs: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_expert_ffn``: xs [E, C, D] against the stacked
+    weights -> [E, C, D], batched matmuls in x's type with f32 sums (the
+    reference computes it with ``einsum``, outside any Pallas kernel)."""
+    if "w_gate" in experts:
+        h = F.silu(torch.bmm(xs, experts["w_gate"])) * torch.bmm(xs, experts["w_up"])
+    else:
+        h = gelu(torch.bmm(xs, experts["w_up"]))
+    return torch.bmm(h, experts["w_down"])
+
+
+def sorted_dispatch(x2d: torch.Tensor, ids: torch.Tensor, num_experts: int,
+                    cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's ``sorted_dispatch``: x2d [T, D], ids [T, k] -> (buffer
+    [E, C, D], dest [T*k], tok [T*k]). Assignment (t, j) to expert e writes
+    token t into row ``e * C + rank`` of the buffer, ``rank`` counting the
+    earlier tokens routed to e; past C it is dropped (dest -1; its write
+    lands in an overflow row cut off afterwards)."""
+    t, k = ids.shape
+    flat = ids.reshape(-1)
+    ranks = expert_ranks(flat)
+    keep = ranks < cap
+    tok = torch.arange(t, device=x2d.device).repeat_interleave(k)
+    slot = torch.where(keep, flat * cap + ranks, torch.full_like(flat, num_experts * cap))
+    buf = x2d.new_zeros((num_experts * cap + 1, x2d.shape[-1])).index_put((slot,), x2d[tok])
+    return (buf[:-1].reshape(num_experts, cap, -1),
+            torch.where(keep, slot, torch.full_like(slot, -1)), tok)
+
+
+def moe_sorted(p: Params, mcfg: MoEConfig, x2d: torch.Tensor, cap: Optional[int] = None,
+               routing: Optional[Routing] = None) -> Tuple[torch.Tensor, Aux]:
+    """x2d [T, D] -> [T, D] by sorted dispatch (the reference's
+    ``moe_sorted``) at capacity ``cap`` (default ``capacity(mcfg, T)``): the
+    experts run as batched matmuls over the [E, C, D] buffer, and each token
+    gathers its k outputs back, weighted in x's type and summed in f32 in k
+    order. A dropped assignment gathers a row of its own (``E * C >= T * k``
+    rows, so the gradient's accumulation meets no hot index) times a zero
+    weight. aux adds ``dropped_frac``."""
+    t, d = x2d.shape
+    e, k = mcfg.storage_experts, mcfg.top_k
+    cap = cap or capacity(mcfg, t)
+    ids, weights, aux = topk_route_aux(router_logits(p, x2d), mcfg, routing)
+    buf, dest, _ = sorted_dispatch(x2d, ids, e, cap)
+    out = expert_ffn_dense(p["experts"], buf).reshape(e * cap, d)
+    valid = dest >= 0
+    spread = torch.arange(t * k, device=x2d.device) % (e * cap)
+    rows = torch.where(valid, dest, spread).reshape(t, k)
+    valid = valid.reshape(t, k)
+    contrib = out[rows] * (weights * valid).to(out.dtype)[..., None]          # [T, k, D]
+    y = contrib[:, 0].float()
+    for j in range(1, k):
+        y = y + contrib[:, j].float()
+    y = y.to(x2d.dtype)
+    if mcfg.num_shared_experts > 0:
+        y = y + shared_ffn(p, x2d)
+    aux["dropped_frac"] = 1.0 - valid.float().mean()
+    return y, aux
+
+
+def moe_dense(p: Params, mcfg: MoEConfig, x: torch.Tensor,
+              routing: Optional[Routing] = None) -> Tuple[torch.Tensor, Aux]:
+    """x [B, S, D] -> [B, S, D] by GShard one-hot dispatch (the reference's
+    ``moe_dense``), capacity C = ``capacity(mcfg, S)`` per batch row, an
+    assignment's place in its expert counted k-major within the row (every
+    token's first pick before any second pick): dispatch and combine
+    tensors [B, S, E, C], expert batches [B, E, C, D]."""
+    b, s, d = x.shape
+    e, k = mcfg.storage_experts, mcfg.top_k
+    cap = capacity(mcfg, s)
+    ids, weights, aux = topk_route_aux(router_logits(p, x.reshape(-1, d)), mcfg, routing)
+    ids, weights = ids.reshape(b, s, k), weights.reshape(b, s, k)
+    row = torch.arange(b, device=x.device)[:, None, None] * e
+    keys = (ids + row).permute(0, 2, 1).reshape(-1)                          # k-major per row
+    pos = expert_ranks(keys).reshape(b, k, s).permute(0, 2, 1)                # [B, S, k]
+    keep = pos < cap
+    oh_e = F.one_hot(ids, e)                                                  # [B, S, k, E]
+    oh_c = F.one_hot(torch.where(keep, pos, torch.zeros_like(pos)), cap)      # [B, S, k, C]
+    disp = torch.einsum("bske,bskc->bsec", (oh_e * keep[..., None]).to(x.dtype), oh_c.to(x.dtype))
+    combine = torch.einsum("bske,bskc->bsec", oh_e.float() * (weights * keep)[..., None],
+                           oh_c.float())
+    xs = torch.einsum("bsec,bsd->becd", disp, x)                              # [B, E, C, D]
+    out = expert_ffn_dense(p["experts"], xs.permute(1, 0, 2, 3).reshape(e, b * cap, d))
+    out = out.reshape(e, b, cap, d).permute(1, 0, 2, 3)
+    y = torch.einsum("becd,bsec->bsd", out.float(), combine).to(x.dtype)
+    if mcfg.num_shared_experts > 0:
+        y = y + shared_ffn(p, x)
+    return y, aux
+
+
+def moe_forward(p: Params, mcfg: MoEConfig, x: torch.Tensor, impl: str = "dense",
+                routing: Optional[Routing] = None) -> Tuple[torch.Tensor, Aux]:
+    """The training forward's MoE half: x [B, S, D] -> ([B, S, D], aux).
+    ``epsum`` (expert parallelism) falls back to ``sorted`` without a device
+    mesh, as in the reference."""
+    b, s, d = x.shape
+    if impl == "dense":
+        return moe_dense(p, mcfg, x, routing)
+    if impl in ("sorted", "epsum"):
+        y, aux = moe_sorted(p, mcfg, x.reshape(-1, d), routing=routing)
+        return y.reshape(b, s, d), aux
+    raise ValueError(f"unknown moe impl {impl!r}")

@@ -1,12 +1,22 @@
-"""Analytic parameter counts (the counterpart of ``repro/models/params.py``).
+"""Parameter and model-FLOP accounting (the counterpart of
+``repro/models/params.py``).
 
-``analytic_params`` counts a configuration's parameters without allocating;
-``active_only`` restricts MoE layers to the top-k routed + shared experts a
-token reads. ``check_feasibility`` and the engine's modeled clock use them.
+``count_params`` walks a real parameter tree; ``analytic_params`` counts a
+configuration's parameters without allocating; ``active_only`` restricts
+MoE layers to the top-k routed + shared experts a token reads.
+``check_feasibility`` and the engine's modeled clock use them, and the
+trainer's MFU reads ``model_flops`` (6 x N(_active) x tokens).
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
 from repro_torch.config.base import ModelConfig
+from repro_torch.tree import leaves
+
+
+def count_params(params: Any) -> int:
+    return sum(int(p.numel()) for p in leaves(params))
 
 
 def _block_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
@@ -56,3 +66,19 @@ def analytic_params(cfg: ModelConfig, active_only: bool = False) -> int:
         n += cfg.frontend_dim * cfg.d_model
     n += cfg.d_model if cfg.norm == "rmsnorm" else 2 * cfg.d_model
     return n + sum(_block_params(cfg, kind, active_only) for kind in cfg.layer_kinds)
+
+
+def model_flops(cfg: ModelConfig, tokens: int) -> int:
+    """MODEL_FLOPS = 6 x N(_active) x tokens (forward + backward; a
+    forward-only caller divides by 3)."""
+    return 6 * analytic_params(cfg, active_only=cfg.has_moe) * tokens
+
+
+def param_summary(cfg: ModelConfig) -> Dict[str, float]:
+    total = analytic_params(cfg, active_only=False)
+    active = analytic_params(cfg, active_only=True)
+    return {
+        "total_params_B": total / 1e9,
+        "active_params_B": active / 1e9,
+        "bf16_bytes_GB": 2 * total / 2**30,
+    }

@@ -32,16 +32,34 @@ The serving engine's paged KV pool (``paged_zero_state``: per layer, planes
 decode step and window with a ``page_table`` [B, pages] and a per-row
 ``cur_len`` [B]. Its admission prefill is ``prefill_model``: each row at its
 exact length (``last_index``), so neither a pad nor another row's length
-reaches a row's logits or state.
+reaches a row's logits or state. Its MoE half is dropless, as the engines'
+decode is; ``moe_capacity`` drops what the reference's sorted dispatch
+drops at that capacity (a row alone, pads sorted after its tokens).
+
+An eager ``decode_model`` caller fixes the row count by the state it
+allocates (``prefill_model(rows=)``): fewer live tokens than state rows
+pad with empty rows, so every matmul runs at the state's row count and a
+row's logits do not depend on which other rows are live.
+
+Training (``forward_train``, ``lm_loss``) runs the same layers in a
+``train`` form: no state, nothing written in place, no kernel (K1-K4
+have no backward): ``attn_half`` in ``train`` mode
+(``attention.attention_train``), the MoE half through ``moe.moe_forward``
+(with a capacity and aux losses), a recurrent layer's ``prefill`` with its
+state dropped; each layer under the run's remat policy
+(``torch.utils.checkpoint``); the loss chunked over the sequence, each
+chunk recomputed in the backward, so no [B, S, V] tensor is kept.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.config.base import KV_KINDS, ModelConfig
+from repro_torch.config.base import KV_KINDS, ModelConfig, ShardingConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -56,9 +74,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch
 
 @dataclass(frozen=True)
 class Runtime:
-    """Execution context: the KV cache capacity decode runs against."""
+    """Execution context: the KV cache capacity decode runs against; for
+    training, the sharding config's training fields and the chunk lengths of
+    attention (queries, keys) and of the loss (positions)."""
 
     cache_len: int = 2048
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
+    q_chunk: int = 512
+    kv_chunk: int = 512
+    loss_chunk: int = 512
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -181,17 +205,23 @@ def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor
     return h @ head
 
 
-def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: Any,
-              cur_len: Union[int, torch.Tensor], cache_len: int,
-              page_table: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: Any = None,
+              cur_len: Union[int, torch.Tensor] = 0, cache_len: int = 0,
+              page_table: Optional[torch.Tensor] = None,
+              rt: Optional[Runtime] = None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Attention + residual, then the FFN's input norm: (x_mid, h2 [T, D], state).
     ``prefill`` rewrites ``state`` in place (a fresh cache when it is None);
     ``decode`` updates ``state`` in place at ``cur_len`` (an int or a device
     scalar or per-row [B]; with ``page_table``, ``state`` is a layer of the
     paged pool); ``chunk`` appends x's C positions to ``state`` in place at
-    ``cur_len``."""
+    ``cur_len``; ``train`` keeps no state (``attention_train`` at ``rt``'s
+    chunk lengths, no kernel)."""
     h = apply_norm(cfg.norm, p["ln1"], x)
-    if mode == "prefill":
+    if mode == "train":
+        rt = rt or Runtime()
+        y = attn.attention_train(p["attn"], cfg.attention, h,
+                                 q_chunk=rt.q_chunk, kv_chunk=rt.kv_chunk)
+    elif mode == "prefill":
         y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len, state)
     elif mode == "decode":
         y = attn.attention_decode(p["attn"], cfg.attention, h, state, cur_len, page_table)
@@ -204,14 +234,21 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     return x_mid, h2, state
 
 
+def mlp_half(cfg: ModelConfig, p: Params, x_mid: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """A dense layer's FFN half: x_mid + MLP(h2 [T, D]), in x_mid's shape."""
+    return x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
+
+
 def recurrent_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, mode: str,
                     state: Optional[Dict[str, torch.Tensor]]
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """A recurrent layer (``rglru``, ``mlstm``, ``slstm``; the reference's
     ``_apply_block``) over x [B, S, D]: ``prefill`` from the zero state, or
     one ``decode`` step from ``state``. Returns (x out, the new state); the
-    caller stores the state. A chunk raises, as in the reference: a
-    recurrent update consumes its state one position a call."""
+    caller stores the state. Training runs ``prefill`` and drops the state
+    (the reference's ``rglru_train``, ``mlstm_train``, ``slstm_train``).
+    A chunk raises, as in the reference: a recurrent update consumes its
+    state one position a call."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"chunked prefill requires KV-cache blocks, got {kind!r}")
     decode = mode == "decode"
@@ -258,10 +295,22 @@ def decode_model(
     ``route_weights`` / ``route_miss`` [L, T, k], ``route_h`` [L, T, D] (the
     MoE inputs the demand GEMM reads) and ``route_x`` [L, T, D] (each block's
     input, the replay anchor); empty for a dense stack. ``residency`` has
-    one entry per MoE layer."""
+    one entry per MoE layer.
+
+    A contiguous ``state`` fixes the row count: with fewer tokens than its
+    rows the batch pads with empty rows (token 0, a per-row ``cur_len``
+    with 0) and only the given rows' logits return (aux covers every
+    row), so each matmul runs at the state's row count, whatever rows are
+    live."""
+    b = token.shape[0]
+    rows = b if page_table is not None else next(iter(state[0].values())).shape[0]
+    if rows > b:
+        token = torch.cat([token, token.new_zeros(rows - b)])
+        if isinstance(cur_len, torch.Tensor) and cur_len.numel() > 1:
+            cur_len = torch.cat([cur_len, cur_len.new_zeros(rows - b)])
     x = embed_tokens(params, token[:, None])
     x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency, page_table)
-    return lm_logits(cfg, params, x[:, -1:])[:, 0], aux
+    return lm_logits(cfg, params, x[:b, -1:])[:, 0], aux
 
 
 def prefill_model(
@@ -275,6 +324,8 @@ def prefill_model(
     correct: Optional[Callable[..., torch.Tensor]] = None,
     experts: Optional[Callable[[int], Params]] = None,
     frontend: Optional[torch.Tensor] = None,
+    rows: Optional[int] = None,
+    moe_capacity: Optional[int] = None,
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """The serving engine's admission prefill (the reference's
     ``prefill_model`` under its scan over rows): returns (logits [B, V] at
@@ -302,12 +353,21 @@ def prefill_model(
 
     ``frontend`` [B, F, frontend_dim]: a frontend arch's embeddings, which
     take positions 0 .. F - 1 of every row before its tokens (``last_index``
-    then counts them too); such an arch raises without them."""
+    then counts them too); such an arch raises without them.
+
+    ``rows``: the state's row count (default B; rows past B stay empty), so
+    an eager ``decode_model`` after it runs at that count (a lone row inside
+    the batch's allocation). ``moe_capacity``: each MoE layer keeps at most
+    that many of a row's assignments per expert, in token order, and drops
+    the rest (their gate weight zeroed), as the reference's sorted dispatch
+    does over a batch-1 bucket whose capacity this is
+    (``moe.capacity(mcfg, bucket)``: the bucket's pads sort after the row's
+    tokens, so only the capacity carries the bucket); None is dropless."""
     b = tokens.shape[0]
     n_front = cfg.frontend_len if cfg.frontend is not None else 0
     last = ([tokens.shape[1] + n_front - 1] * b if last_index is None
             else [int(v) for v in last_index.reshape(-1).tolist()])
-    state = zero_state(cfg, b, cache_len, tokens.device)
+    state = zero_state(cfg, rows or b, cache_len, tokens.device)
     xs = [prepend_frontend(cfg, params, embed_tokens(params, tokens[i:i + 1, :j + 1 - n_front]),
                            None if frontend is None else frontend[i:i + 1])
           for i, j in enumerate(last)]
@@ -324,9 +384,11 @@ def prefill_model(
                 continue
             x_mid, h2, _ = attn_half(cfg, p, xs[i], "prefill", row, 0, cache_len)
             if mi is None:
-                xs[i] = x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
+                xs[i] = mlp_half(cfg, p, x_mid, h2)
                 continue
             ids, weights = moe_mod.route(moe_p, h2, cfg.moe)
+            if moe_capacity is not None:
+                weights = weights * moe_mod.capacity_keep(ids.long(), moe_capacity)
             y2, miss = moe_mod.moe_apply_routed(moe_p, h2, ids, weights,
                                                 slot_buffer=slots, lut=lut)
             xs[i] = x_mid + y2.reshape(x_mid.shape)
@@ -381,7 +443,7 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
         x_in = x
         x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0, page_table)
         if mi is None:
-            x = x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
+            x = mlp_half(cfg, p, x_mid, h2)
             continue
         ids, weights = moe_mod.route(p["moe"], h2, cfg.moe)
         slots, lut = residency[mi] if residency is not None else (None, None)
@@ -532,3 +594,125 @@ def rollback_kv_window(state: List[Dict[str, torch.Tensor]],
             c = cache[n]
             c[rows, slots] = torch.where(mask, sv[n], c[rows, slots])
     return state
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective checkpointing: keep matmul outputs, recompute the rest
+    (the reference's ``jax.checkpoint_policies.dots_saveable``)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the remat policy: ``none``, ``full`` (only the inputs
+    kept) or ``dots_saveable``; non-reentrant ``torch.utils.checkpoint``."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots_saveable":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                         _dots_saveable))
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def _train_block(cfg: ModelConfig, rt: Runtime, kind: str, p: Params,
+                 routing: Optional[moe_mod.Routing],
+                 x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One layer's train form (the reference's ``_apply_block`` in mode
+    ``train``): x [B, S, D] -> (x out, aux: the MoE layer's losses). The
+    blocks the engines run, with ``train`` attention, a recurrent cell's
+    prefill without its state, and the MoE half through ``moe_forward``."""
+    if kind not in KV_KINDS:
+        return recurrent_block(cfg, kind, p, x, "prefill", None)[0], {}
+    x_mid, h2, _ = attn_half(cfg, p, x, "train", rt=rt)
+    if kind != "attn_moe":
+        return mlp_half(cfg, p, x_mid, h2), {}
+    y, aux = moe_mod.moe_forward(p["moe"], cfg.moe, h2.reshape(x_mid.shape),
+                                 rt.sharding.moe_impl, routing)
+    return x_mid + y, aux
+
+
+def forward_train(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,             # [B, S_tok]
+    rt: Runtime,
+    frontend: Optional[torch.Tensor] = None,
+    routes: Optional[List[moe_mod.Routing]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens [B, S_tok] -> (hidden [B, S_total, D] before the final norm,
+    aux): the MoE losses summed over the layers (``moe_load_balance``,
+    ``moe_router_z``; ``moe_dropped_frac`` under sorted dispatch).
+    ``routes``: one ``moe.Routing`` per MoE layer, recording each layer's
+    top-k choice or replaying it."""
+    x = prepend_frontend(cfg, params, embed_tokens(params, tokens), frontend)
+    policy = rt.sharding.remat_policy
+    aux_tot: Dict[str, torch.Tensor] = {}
+    mi = 0
+    for kind, p in zip(cfg.layer_kinds, params["layers"]):
+        routing = None
+        if kind == "attn_moe":
+            routing = routes[mi] if routes is not None else None
+            mi += 1
+        x, aux = _remat(functools.partial(_train_block, cfg, rt, kind, p, routing), policy)(x)
+        for n, v in aux.items():
+            aux_tot[f"moe_{n}"] = aux_tot[f"moe_{n}"] + v if f"moe_{n}" in aux_tot else v
+    return x, aux_tot
+
+
+def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor,
+                head: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Summed next-token cross-entropy of one chunk (f32 logits), and its
+    count of labels that are not -1."""
+    logits = (hc @ head).float()
+    gold = torch.gather(logits, -1, torch.clamp(tc, min=0).long()[..., None])[..., 0]
+    valid = (tc >= 0).float()
+    return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
+
+
+def lm_loss(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,             # [B, S_tok]
+    labels: torch.Tensor,             # [B, S_tok], -1 = ignore
+    rt: Runtime,
+    frontend: Optional[torch.Tensor] = None,
+    routes: Optional[List[moe_mod.Routing]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (the reference's ``lm_loss``): the head and
+    the log-softmax over ``rt.loss_chunk`` positions at a time, each chunk
+    recomputed in the backward, so [B, S, V] never exists at once. A
+    frontend arch predicts every token from the position before it (the
+    last frontend position predicts the first token); else position i
+    predicts label i + 1. An MoE model adds ``router_aux_coef`` x the
+    load-balance loss and ``router_z_coef`` x the z-loss, each summed over
+    the layers and divided by ``num_layers``. Returns (loss, aux with
+    ``lm_loss``)."""
+    h, aux = forward_train(cfg, params, tokens, rt, frontend, routes)
+    f = cfg.frontend_len if cfg.frontend is not None else 0
+    pred_h, tgt = (h[:, f - 1:-1], labels) if f > 0 else (h[:, :-1], labels[:, 1:])
+    s = pred_h.shape[1]
+    chunk = min(rt.loss_chunk, s)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    hn = apply_norm(cfg.norm, params["final_norm"], pred_h)
+    loss_fn = _remat(_chunk_loss, "full")
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, s, chunk):
+        l, c = loss_fn(hn[:, start:start + chunk], tgt[:, start:start + chunk], head)
+        tot, cnt = tot + l, cnt + c
+    loss = tot / torch.clamp(cnt, min=1.0)
+    if cfg.has_moe:
+        m, n = cfg.moe, max(cfg.num_layers, 1)
+        loss = loss + m.router_aux_coef * aux.get("moe_load_balance", 0.0) / n
+        loss = loss + m.router_z_coef * aux.get("moe_router_z", 0.0) / n
+    aux["lm_loss"] = loss
+    return loss, aux

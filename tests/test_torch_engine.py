@@ -196,7 +196,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.bridge, repro_torch.core.engine, "
         "repro_torch.launch.serve, repro_torch.kernels.ops, repro_torch.configs, "
-        "repro_torch.quant\n"
+        "repro_torch.quant, repro_torch.training, repro_torch.data, repro_torch.checkpoint, "
+        "repro_torch.launch.train\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )

@@ -1585,3 +1585,93 @@ def test_group_tick_graphs_equal_eager_steps(card):
         r = eng.submit(p, 10)
         eng.run()
         assert r.output == out[True][0][i]
+
+
+# ---------------------------------------------------------------------------
+# Training on the card (no kernel: K1-K4 have no backward)
+# ---------------------------------------------------------------------------
+TRAIN_LOSS_TOL = 0.002           # |bf16 loss - f32 loss|, nats (chip_smoke's; the readings
+TRAIN_GNORM_TOL = 0.01           # |bf16 grad norm / f32 - 1|  of tools/torch_train_tolerance.py)
+
+
+@pytest.fixture
+def train_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _train_cfg(arch, layers):
+    from repro_torch.config import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, segments=((cfg.segments[0][0], layers),))
+
+
+@pytest.mark.parametrize("impl", ["sorted", "dense"])
+def test_train_steps_are_bitwise_deterministic_on_the_card(train_card, impl):
+    """qwen2-moe (shared and padded experts) at published widths, 2 layers,
+    2 x 256 topic tokens, capacity factor 1.25: two runs of 3 steps from
+    one seed give the same losses, gradient norms and parameters, bit for
+    bit, and launch no kernel."""
+    from repro_torch.config import RunConfig, ShardingConfig
+    from repro_torch.data import SyntheticSpec, batch_at_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = _train_cfg("qwen2-moe-a2.7b", 2)
+    rt = tfm.Runtime(sharding=ShardingConfig(moe_impl=impl))
+    spec = SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=256, global_batch=2)
+    runs = []
+    ops.reset_launch_counts()
+    for _ in range(2):
+        state = init_train_state(cfg, tfm.init_params(cfg, 0, train_card))
+        step_fn = make_train_step(cfg, rt, RunConfig(learning_rate=3e-4, warmup_steps=1))
+        metrics = []
+        for i in range(3):
+            t, l = (torch.from_numpy(a).to(train_card) for a in batch_at_step(spec, i))
+            state, m = step_fn(state, t, l)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((metrics, [p.detach().clone() for p in leaves(state["params"])]))
+        del state
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("arch,layers", [("qwen2-moe-a2.7b", 2), ("starcoder2-3b", 4),
+                                         ("pixtral-12b", 2)])
+def test_train_loss_matches_f32_on_the_card(train_card, arch, layers):
+    """At published widths (a second width beside chip_smoke's qwen36 and
+    recurrentgemma), 2 x 512 tokens (after pixtral's 1,024 frontend
+    positions: 1,536 take ``chunked_attention``): the bf16 loss and gradient norm
+    within TRAIN_LOSS_TOL / TRAIN_GNORM_TOL of an f32 recomputation with the
+    same weights upcast and the bf16 routing replayed."""
+    from repro_torch.data import SyntheticSpec, batch_at_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import global_norm
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = _train_cfg(arch, layers)
+    n_front = cfg.frontend_len if cfg.frontend else 0
+    spec = SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=512, global_batch=2)
+    tokens, labels = (torch.from_numpy(a).to(train_card) for a in batch_at_step(spec, 0))
+    fe = (_randn((2, n_front, cfg.frontend_dim), torch.float32, 1, train_card)
+          if cfg.frontend else None)
+    rt = tfm.Runtime()
+    params = tfm.init_params(cfg, 0, train_card)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    routes = [moe_mod.Routing() for _ in range(cfg.num_moe_layers)]
+    loss, _ = tfm.lm_loss(cfg, params, tokens, labels, rt, fe, routes=routes)
+    gnorm = float(global_norm(torch.autograd.grad(loss, leaves(params))))
+    p32 = map_tree(lambda t: t.detach().float().requires_grad_(True), params)
+    del params
+    loss32, _ = tfm.lm_loss(dataclasses.replace(cfg, dtype="float32"), p32, tokens, labels, rt,
+                            fe, routes=[moe_mod.Routing(r.ids, replay=True) for r in routes])
+    gnorm32 = float(global_norm(torch.autograd.grad(loss32, leaves(p32))))
+    assert abs(float(loss.detach()) - float(loss32.detach())) <= TRAIN_LOSS_TOL
+    assert abs(gnorm / gnorm32 - 1) <= TRAIN_GNORM_TOL
