@@ -109,11 +109,11 @@ Phases, each failing loudly (nothing is caught):
      so assignments drop) and ``train-recurrentgemma-2b`` (26 layers): 4 x
      512 ``topic`` tokens a step, bf16, AdamW, ``dots_saveable``. Step 0's
      loss and grad norm against an f32 recomputation on the card (the
-     weights upcast, the bf16 routing replayed: |loss diff| <= 0.05 nats,
-     |grad norm ratio - 1| <= 0.10); 6 straight steps with a checkpoint
-     after 3, the last loss below the first; 3 steps again from the seed,
+     weights upcast, the bf16 routing replayed: |loss diff| <= 0.002 nats,
+     |grad norm ratio - 1| <= 1%); 12 straight steps with a checkpoint
+     after 6, the last loss below the first; 6 steps again from the seed,
      the parameters bitwise the straight run's there; the checkpoint
-     restored into a fresh state and 3 more steps, bitwise the straight
+     restored into a fresh state and 6 more steps, bitwise the straight
      run's end; no kernel launched (none has a backward). Each prints
      median step ms, tokens/s, MFU (``model_flops`` over 989 TFLOP/s),
      peak memory, and the checkpoint's MB and save / write / restore ms;
@@ -136,7 +136,36 @@ Phases, each failing loudly (nothing is caught):
    its graph captures and replays, relaunched and replayed steps, MB
    uploaded per decode token, missed experts converted on the host, the
    prefetch counters (with the copy stream's event-timed upload time) and
-   its peak device memory;
+   its peak device memory.
+   Every ``RotaryEngine`` and ``ServingEngine`` path runs with a
+   ``repro_torch.obs.Tracer``; its trace of the path's measured run is
+   written to ``build/traces/<label>.json`` and audited right after it
+   (``repro_torch.obs.audit``: one launch and one pull per miss-free unit,
+   rotation after the pull, prefetch ships between launch and pull, no KV
+   page used after release); any violation fails the path. The path prints
+   units checked, miss-free units, launches, pulls, rotations, prefetch
+   spans, KV events, events recorded, the span-derived overlap beside
+   ``stats.overlap_ms``, and the file's size. The units must be those the
+   path ran: each fused decode step or window (counted around the engine's
+   calls) and each fused prefill chunk (the walks open none), and each
+   serving tick that launched (one launch and one pull each); on ``full``,
+   ``full-spec4``, ``full-chunk``, ``serve-full`` and ``serve-full-group``
+   every unit is miss-free; on a prefetch path the spans' overlap is
+   ``stats.overlap_ms`` within 1%; on a paged serving path the pool was
+   traced and the request lanes are the submitted uids, each with
+   ``queued``, ``prefill`` and ``finish`` (the group tick's with
+   ``queued`` and ``prefill``, as in the reference). Two controls must be
+   flagged: ``full``'s trace with one ``pull`` copied into a miss-free
+   unit, and ``serve-full``'s with one ``kv_use`` moved past its pages'
+   ``kv_release``. ``full``'s request runs again untraced on an engine of
+   the same weights: the same tokens and counters, and the median step ms
+   of both runs printed (not gated: the host varies 2x between runs).
+   Then ``repro_torch.launch.serve.main`` once, in process: ``--engine
+   batch`` on qwen36 at published widths, 2 layers, 4 rows, 4 requests of
+   8 new tokens, ``--trace-out build/traces/cli.json`` and
+   ``--metrics-port`` on a free loopback port; its trace must audit with
+   exit code 0 through ``repro_torch.obs``'s ``main``, and its one scrape
+   must show the ``ttft_ms`` and ``itl_ms`` histograms;
 5. after each path, check the engine's prefill logits and its decode logits
    against a plain full-residency forward of the same weights on the card
    (``kernels/ref.py`` called directly; for a quantized path the weights
@@ -186,6 +215,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor peak (data sheet)
 F32_FLOPS = 67e12                  # H100 SXM f32 peak outside the tensor cores (data sheet)
+TRACE_DIR = ROOT / "build" / "traces"
 LAYERS = 8
 PROMPT, NEW, REQUESTS, CACHE = 512, 64, 2, 1024
 SLOTS = 96
@@ -210,6 +240,7 @@ class PathSpec(NamedTuple):
     same_prompt: bool = False   # every request the first one again: the streams must be equal
     prefill_twin: Optional[str] = None      # the path whose prefill logits this one equals
     quant_check: int = 0        # experts of layer 0 held to the CPU quantizer (0: all)
+    untraced_twin: bool = False  # the run again untraced: the same tokens and counters
 
 
 CHUNK = 128
@@ -218,7 +249,7 @@ PATHS = (
     PathSpec("bf16", None, SLOTS, False, REQUESTS, NEW, True, None),
     PathSpec("int4", "int4", SLOTS, False, REQUESTS, NEW, True, None),
     PathSpec("int8", "int8", SLOTS, False, 1, 16, False, None),
-    PathSpec("full", None, 0, False, 1, NEW, False, None),
+    PathSpec("full", None, 0, False, 1, NEW, False, None, untraced_twin=True),
     PathSpec("bf16-prefetch", None, SLOTS, True, REQUESTS, NEW, False, "bf16"),
     PathSpec("int4-prefetch", "int4", SLOTS, True, 1, 16, False, "int4"),
     PathSpec("bf16-walk", None, SLOTS, False, 1, 32, False, "bf16", fused_decode=False),
@@ -1369,9 +1400,9 @@ def describe(path: PathSpec) -> str:
     return text
 
 
-def make_engine(dev, cfg, params, path: PathSpec):
+def make_engine(dev, cfg, params, path: PathSpec, trace=None):
     """The path's ``RotaryEngine``: its residency, slot format and switches,
-    batch 1, cache_len CACHE."""
+    batch 1, cache_len CACHE, traced by ``trace`` (a Tracer) if given."""
     from repro_torch.config import ResidencyConfig
     from repro_torch.core.engine import RotaryEngine
     from repro_torch.models.transformer import Runtime
@@ -1382,7 +1413,7 @@ def make_engine(dev, cfg, params, path: PathSpec):
     return RotaryEngine(cfg, params, rescfg, rt=Runtime(cache_len=CACHE), batch=1, seed=0,
                         prefetch=path.prefetch, host_routing=path.host_routing,
                         fused_decode=path.fused_decode, spec_k=path.spec_k,
-                        prefill_chunk=path.chunk or None, device=dev)
+                        prefill_chunk=path.chunk or None, trace=trace, device=dev)
 
 
 def sampler_of(path: PathSpec):
@@ -1434,6 +1465,118 @@ def decode_request(engine, logits, new, spec: bool, sampler=None):
     return toks, got, [t for t, _ in iters], [n for _, n in iters]
 
 
+# ---------------------------------------------------------------------------
+# the traces: every engine path's measured run audited (repro_torch.obs)
+# ---------------------------------------------------------------------------
+MISS_FREE_PATHS = ("full", "full-spec4", "full-chunk", "serve-full", "serve-full-group")
+KV_EVENTS = ("kv_reserve", "kv_ensure", "kv_release", "kv_use")
+
+
+def int_counters(stats) -> dict:
+    """Every count of an ``EngineStats`` (its ints, per layer too): what a
+    traced and an untraced run of the same inputs share (the floats are
+    times)."""
+    out = {k: v for k, v in dataclasses.asdict(stats).items() if isinstance(v, int)}
+    out["layers"] = {l: dataclasses.asdict(ls) for l, ls in stats.layers.items()}
+    return out
+
+
+def audit_path(label: str, tracer, trace: dict, overlap_ms: float, units: int, *,
+               prefetch: bool, paged: Optional[bool] = None, uids=()) -> dict:
+    """Audit ``trace`` (``tracer``'s export right after the path's measured
+    run, whose ``stats.overlap_ms`` was ``overlap_ms``), write it to
+    ``build/traces/<label>.json`` and print its numbers. Fails on a
+    violation, on a ring that overflowed, on other than ``units`` units, on
+    a missed unit of a MISS_FREE_PATHS path, on a prefetch path whose spans'
+    overlap is not ``overlap_ms`` within 1%; for a serving path (``paged``
+    True, or False for the group tick) also on a unit without exactly one
+    launch and one pull, on lanes other than ``uids`` or one without
+    ``queued`` and ``prefill`` (and ``finish``, paged), and a paged path on
+    an untraced pool. Returns the audit's summary with the trace's size."""
+    from repro_torch.obs import audit
+
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    out = TRACE_DIR / f"{label}.json"
+    out.write_text(json.dumps(trace))
+    mb = out.stat().st_size / 2**20
+    n_events = sum(e["ph"] != "M" for e in trace["traceEvents"])
+    rep = audit(trace)
+    s = rep.summary()
+    log(f"  trace: {s['units_checked']} units checked ({units} run), {s['miss_free_units']} "
+        f"miss-free, {s['launches']} launches, {s['pulls']} pulls, {s['rotations']} rotations, "
+        f"{s['prefetch_spans']} prefetch spans, {s['kv_events']} KV events; {n_events} events "
+        f"recorded (ring of {tracer.capacity}); overlap {rep.overlap_ms:.3f} ms from the spans, "
+        f"stats.overlap_ms {overlap_ms:.3f}; {mb:.2f} MB in {out.relative_to(ROOT)}; "
+        f"{s['violations']} violations")
+    rep.raise_for_violations()
+    problems = []
+    if n_events >= tracer.capacity:
+        problems.append(f"{n_events} events filled the ring: its first units are lost")
+    if rep.units_checked != units:
+        problems.append(f"{rep.units_checked} units checked, {units} run")
+    if label in MISS_FREE_PATHS and rep.miss_free_units != rep.units_checked:
+        problems.append(f"{rep.units_checked - rep.miss_free_units} units missed")
+    if prefetch and (rep.prefetch_spans <= 0 or abs(rep.overlap_ms - overlap_ms) > 0.01 * overlap_ms):
+        problems.append(f"{rep.prefetch_spans} prefetch spans, overlap {rep.overlap_ms:.3f} ms "
+                        f"against stats.overlap_ms {overlap_ms:.3f}")
+    if paged is not None:
+        if not rep.launches == rep.pulls == rep.units_checked:
+            problems.append(f"{rep.launches} launches and {rep.pulls} pulls in "
+                            f"{rep.units_checked} ticks")
+        lanes = {}
+        for e in trace["traceEvents"]:
+            if e.get("pid") == 2 and e["ph"] != "M":
+                lanes.setdefault(e["tid"], set()).add(e["name"])
+        want = {"queued", "prefill", "finish"} if paged else {"queued", "prefill"}
+        if set(lanes) != set(uids) or any(not want <= names for names in lanes.values()):
+            problems.append(f"lanes {sorted(lanes)} for requests {sorted(uids)}, events "
+                            f"{sorted(set().union(*lanes.values())) if lanes else []}")
+        if paged and rep.kv_events <= 0:
+            problems.append("no KV page event")
+    if problems:
+        raise AssertionError(f"{label}: trace: " + "; ".join(problems))
+    return dict(s, events=n_events, trace_mb=mb, overlap_stats_ms=overlap_ms)
+
+
+def control_flagged(label: str, planted: dict, what: str, want: str) -> None:
+    """A planted fault (``what``) the auditor must report (``want`` in a
+    violation), so that the check shown can fail."""
+    from repro_torch.obs import audit
+
+    rep = audit(planted)
+    log(f"  control ({what}): the auditor reports {len(rep.violations)} violation(s)"
+        f"{': ' + rep.violations[0] if rep.violations else ''}")
+    if not any(want in v for v in rep.violations):
+        raise AssertionError(f"{label}: the auditor passed a trace with {what}")
+
+
+def plant_second_pull(trace: dict) -> dict:
+    """``trace`` with a copy of one ``pull`` span added to its miss-free unit."""
+    events = trace["traceEvents"]
+    exempt = {e["args"]["unit"] for e in events if e["ph"] != "M" and (
+        e["name"] in ("miss", "replay") or e["args"].get("kind") == "relaunch")}
+    pull = next(e for e in events if e.get("name") == "pull" and e["args"]["unit"] > 0
+                and e["args"]["unit"] not in exempt)
+    return dict(trace, traceEvents=events + [dict(pull, ts=pull["ts"] + pull["dur"])])
+
+
+def plant_use_after_release(trace: dict) -> dict:
+    """``trace`` with one ``kv_use`` moved past the ``kv_release`` of a page
+    it names, before the next page event."""
+    events = trace["traceEvents"]
+    kv = sorted((e for e in events if e.get("name") in KV_EVENTS), key=lambda e: e["ts"])
+    for i, rel in enumerate(kv):
+        if rel["name"] != "kv_release":
+            continue
+        later = [e["ts"] for e in kv[i + 1:] if e["ts"] > rel["ts"]]
+        use = next((e for e in reversed(kv[:i]) if e["name"] == "kv_use"
+                    and set(e["args"]["pages"]) & set(rel["args"]["pages"])), None)
+        if use is not None:
+            moved = dict(use, ts=(rel["ts"] + later[0]) / 2 if later else rel["ts"] + 1.0)
+            return dict(trace, traceEvents=[moved if e is use else e for e in events])
+    raise AssertionError("no kv_use before a kv_release of its pages")
+
+
 def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     """Phase 4 and 5 for one path: build the engine, drive its requests of
     PROMPT tokens and ``new`` greedy tokens each with the launch counters
@@ -1449,6 +1592,7 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
     from repro_torch.core.slots import quantize_experts
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
+    from repro_torch.obs import Tracer
 
     label, quantization, requests, new = path.label, path.quantization, path.requests, path.new
     spec = path.spec_k > 1
@@ -1464,7 +1608,8 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         f"{new} new), batch 1, {'sampled' if sampler else 'greedy'}, cache_len {CACHE}")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, dev, expert_device="cpu")
-    engine = make_engine(dev, cfg, params, path)
+    tracer = Tracer()
+    engine = make_engine(dev, cfg, params, path, trace=tracer)
     warehouse = sum(t.numel() * t.element_size() for hw in engine.host_experts
                     for t in hw.values())
     log(f"  set-up {time.perf_counter() - t0:.1f} s (weights on the card, warehouse to pinned "
@@ -1483,7 +1628,8 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
                                      f"from the CPU quantizer's")
         log(f"  layer 0 quantized on the card equals the CPU quantizer byte for byte "
             f"({len(cpu)} planes, CPU pass {time.perf_counter() - t0:.1f} s)")
-    del params
+    if not path.untraced_twin:
+        del params
     rng = np.random.default_rng(0)          # request i's first tokens are the same on every path
     prompts = [rng.integers(0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)[:, :n]
                for n in lens]
@@ -1511,6 +1657,8 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         runs.append((prompt, toks, got, t_prefill, step_s, step_n))
     counts = ops.launch_counts()
     symbols = ops.symbol_launch_counts()
+    # the measured run's trace and counts, before anything else runs on the engine
+    trace, overlap_ms, counters = tracer.chrome_trace(), st.overlap_ms, int_counters(st)
     entries = symbols["topk_gate"]
     peak = torch.cuda.max_memory_allocated()
     host_computed = sum(l.host_computed for l in st.layers.values())
@@ -1619,6 +1767,26 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
                              f"steps, not 4 a layer")
     if path.lru and not loads:
         raise AssertionError(f"{label}: LRU made no load")
+    # the units: each fused decode step or window, each fused prefill chunk
+    fused_chunks = path.chunk and engine._fused_decode and engine._chunk_prefill_fused_ok
+    units = ((sum(len(r[4]) for r in runs) if engine._fused_decode else 0)
+             + (st.prefill_chunks if fused_chunks else 0))
+    traced = audit_path(label, tracer, trace, overlap_ms, units, prefetch=path.prefetch)
+    if path.untraced_twin:
+        control_flagged(label, plant_second_pull(trace), "a second pull in a miss-free unit",
+                        "primary pulls")
+        twin = make_engine(dev, cfg, params, path)
+        del params
+        logits = twin.prefill(runs[0][0])
+        toks, _, step_s, _ = decode_request(twin, logits, new, spec, sampler)
+        same = (twin._tr is None and toks == runs[0][1] and int_counters(twin.stats) == counters)
+        traced["untraced_median_ms"] = 1e3 * float(np.median(step_s[1:]))
+        log(f"  the request again untraced on an engine of the same weights: tokens and "
+            f"counters equal: {same}; median step {1e3 * np.median(runs[0][4][1:]):.4f} ms traced, "
+            f"{traced['untraced_median_ms']:.4f} ms untraced")
+        del twin
+        if not same:
+            raise AssertionError(f"{label}: the untraced run differs from the traced one")
 
     log(f"[5/{label}] engine vs plain full-residency forward on the card")
     if host_computed != st.misses:
@@ -1661,7 +1829,7 @@ def run_path(dev, cfg, depth, path: PathSpec, done: dict) -> dict:
         overlapped_pulls=st.overlapped_pulls, windows=st.spec_windows,
         accept_rate=st.accept_rate if st.spec_windows else None,
         prompts=prompts, prefill_logits=[p[0] for p in pre],
-        prefill_chunks=st.prefill_chunks, prefill_replays=st.prefill_replays)
+        prefill_chunks=st.prefill_chunks, prefill_replays=st.prefill_replays, trace=traced)
     if path.same_prompt:
         if any(r[1] != runs[0][1] for r in runs):
             raise AssertionError(f"{label}: the same request sampled twice gave other tokens: "
@@ -1766,9 +1934,10 @@ SERVE_PATHS = (
 )
 
 
-def make_server(dev, cfg, params, spec: ServeSpec):
+def make_server(dev, cfg, params, spec: ServeSpec, trace=None):
     """The path's ``ServingEngine``: 4 rows, the path's cache_len, pages of
-    PAGE (paged), speculative windows up to SPEC_CAP (KV-only stacks)."""
+    PAGE (paged), speculative windows up to SPEC_CAP (KV-only stacks),
+    traced by ``trace`` if given."""
     from repro_torch.config import ResidencyConfig
     from repro_torch.models.transformer import Runtime
     from repro_torch.serving import SamplerConfig, ServingEngine
@@ -1783,7 +1952,7 @@ def make_server(dev, cfg, params, spec: ServeSpec):
         smp = SamplerConfig(temperature=t, top_k=k, top_p=p, seed=seed)
     return ServingEngine(cfg, params, rt=Runtime(cache_len=spec.cache), num_slots=SERVE_ROWS,
                          residency=res, sampler=smp, spec_cap=SPEC_CAP, paged=spec.paged,
-                         kv_page_size=PAGE, prefetch=spec.prefetch, device=dev)
+                         kv_page_size=PAGE, prefetch=spec.prefetch, trace=trace, device=dev)
 
 
 class _Weights(NamedTuple):
@@ -1820,6 +1989,7 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
 
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
+    from repro_torch.obs import Tracer
 
     label = spec.label
     if cfg.has_moe:
@@ -1832,7 +2002,8 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
            else "greedy")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, dev, expert_device="cpu")
-    engine = make_server(dev, cfg, params, spec)
+    tracer = Tracer()
+    engine = make_server(dev, cfg, params, spec, trace=tracer)
     del params
     setup_s = time.perf_counter() - t0
     tick = (f"pages of {PAGE}" if engine._paged else
@@ -1876,6 +2047,7 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
     tokens, reqs = serve(range(SERVE_REQUESTS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    trace, overlap_ms = tracer.chrome_trace(), st.overlap_ms
     counts = ops.launch_counts()
     symbols = ops.symbol_launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1928,6 +2100,12 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
                              f"contiguous {contiguous}, launches {counts}, tokens per request "
                              f"{[len(t) for t in tokens]}, pages "
                              f"{st.kv_pages_allocated}/{st.kv_pages_released}")
+    traced = audit_path(label, tracer, trace, overlap_ms,
+                        st.windows if engine._paged else st.sync_pulls, prefetch=spec.prefetch,
+                        paged=engine._paged, uids=[r.uid for r in reqs])
+    if label == "serve-full":
+        control_flagged(label, plant_use_after_release(trace),
+                        "a kv_use moved past its pages' kv_release", "after release")
 
     log(f"[5/{label}] first-token logits (the admission prefill) vs the plain full-residency "
         f"forward on the card")
@@ -1964,7 +2142,7 @@ def run_serve_path(dev, cfg, depth, spec: ServeSpec, done: dict) -> dict:
         windows=st.windows, spec_windows=st.spec_windows, accept_rate=st.accept_rate,
         misses_per_token=st.misses / committed, hwm=st.kv_pages_hwm, mb_per_token=mb_per_token,
         peak_gib=peak / 2**30, capture_ms=engine.graph_capture_s * 1e3, graphs=graphs,
-        transitions=transitions, tick_ms=window_ms)
+        transitions=transitions, tick_ms=window_ms, trace=traced)
     if spec.isolated:
         # a row's logits and draws do not depend on the other live rows: each
         # request alone must give its concurrent stream bit for bit
@@ -2492,6 +2670,47 @@ def run_train_path(dev, cfg, depth: int, spec: TrainSpec) -> dict:
                 dropped=dropped, layers=cfg.num_layers)
 
 
+def cli_phase() -> dict:
+    """``repro_torch.launch.serve.main`` once, in process: the batch engine
+    on qwen36 at published widths, 2 layers, with ``--trace-out`` and
+    ``--metrics-port`` (a free loopback port). Its trace must audit through
+    ``repro_torch.obs``'s ``main`` with exit code 0 and its one scrape show
+    the ``ttft_ms`` and ``itl_ms`` histograms."""
+    import contextlib
+    import io
+    import re
+    import socket
+
+    from repro_torch.launch import serve
+    from repro_torch.obs.audit import main as audit_main
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    out = TRACE_DIR / "cli.json"
+    argv = ["--engine", "batch", "--arch", "qwen36-35b-a3b", "--full-width", "--layers", "2",
+            "--batch-slots", "4", "--requests", "4", "--max-new", "8",
+            "--trace-out", str(out), "--metrics-port", str(port)]
+    log(f"[4/cli] python -m repro_torch.launch.serve {' '.join(argv)} (in process)")
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        serve.main(argv)
+        rc = audit_main([str(out)])
+    wall = time.perf_counter() - t0
+    text = text.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("stats:", "metrics:", "trace:", "audit:", "VIOLATION")):
+            log(f"  {line}")
+    hists = re.search(r"histograms (.*)$", text, re.M)
+    names = set(hists.group(1).split(", ")) if hists else set()
+    log(f"  {wall:.1f} s; audit exit code {rc}; histograms in the scrape: {sorted(names)}")
+    if rc != 0 or not {"ttft_ms", "itl_ms"} <= names:
+        raise AssertionError(f"the serve CLI: audit exit code {rc}, histograms {sorted(names)}")
+    return dict(wall_s=wall, audit_rc=rc, histograms=sorted(names))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2579,6 +2798,7 @@ def main() -> int:
     dbrx = get_config("dbrx-132b")
     add(run_path(dev, dataclasses.replace(dbrx, segments=((("attn_moe",), DBRX_LAYERS),)),
                  dbrx.num_layers, DBRX_PATH, done))
+    cli_phase()
     n_paths = (len(PATHS) + len(SERVE_PATHS) + len(FRONT_PATHS) + len(DECODE_PATHS)
                + len(TRAIN_PATHS) + 1)
     multi = {counter for counter, _ in ENTRY.values()}          # kernels with several entries
@@ -2636,6 +2856,19 @@ def main() -> int:
             f"{r['loss0_f32']:.4f}) -> {r['losses'][-1]:.4f}, grad norm {r['gnorm0']:.4f} (f32 "
             f"{r['gnorm0_f32']:.4f}); checkpoint {r['ckpt_mb']:.0f} MB, {r['save_ms']:.0f} / "
             f"{r['write_ms']:.0f} / {r['restore_ms']:.0f} ms")
+    log(f"  {card}: traces of the engine paths (units checked, miss-free; launches, pulls, "
+        f"rotations, prefetch spans, KV events; events recorded; overlap ms from the spans / "
+        f"stats.overlap_ms; MB; 0 violations on every path)")
+    for r in done.values():
+        t = r.get("trace")
+        if t is None:
+            continue
+        twin = (f", median step {r['median_ms'][0]:.4f} ms traced / "
+                f"{t['untraced_median_ms']:.4f} untraced" if "untraced_median_ms" in t else "")
+        log(f"  {r['label']:>23}: {t['units_checked']} units, {t['miss_free_units']} miss-free; "
+            f"{t['launches']} / {t['pulls']} / {t['rotations']} / {t['prefetch_spans']} / "
+            f"{t['kv_events']}; {t['events']} events; {t['overlap_ms_from_spans']:.3f} / "
+            f"{t['overlap_stats_ms']:.3f} ms; {t['trace_mb']:.2f} MB{twin}")
     for name in ("decode_attention", "decode_attention_paged"):
         if entry_launches(symbols, name) <= 0:
             raise AssertionError(f"entry {name} never launched on any path")

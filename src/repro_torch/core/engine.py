@@ -1162,6 +1162,9 @@ class RotaryEngine:
         tr = self._tr
         if tr is not None:
             tr.new_unit("window")
+            if self._spec_needs_rollback:
+                # the KV snapshot is the window graph's first operation
+                tr.instant("kv_snapshot", "launch", args={"k": k})
             t_trace = time.perf_counter()
         self._set_inputs(tok, cur_len0)
         if self._spec_needs_rollback:

@@ -38,12 +38,21 @@ cache position, so a seed reproduces its tokens bit for bit. ``--device``
 defaults to ``cuda``; a missing card is an error. On the card the decode
 step, each window size and sampler, and each chunk length run as CUDA graph
 replays.
+
+Observability, as in the reference CLI: ``--trace-out PATH`` (either
+engine) records the run with a ``repro_torch.obs.Tracer`` and writes its
+Chrome trace-event JSON (Perfetto; ``python -m repro_torch.obs PATH``
+audits it); ``--metrics-port PORT`` (``--engine batch``) serves the
+engine's Prometheus exposition on ``127.0.0.1:PORT/metrics`` while it runs,
+scrapes it once at the end and stops the server.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from pathlib import Path
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -52,7 +61,7 @@ import numpy as np
 QUANT_CHOICES = {"none": None, "int8": "int8", "int4": "int4"}
 
 
-def main() -> None:
+def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--engine", default="rotary", choices=["rotary", "batch"],
@@ -118,14 +127,21 @@ def main() -> None:
                          "submitted on a seeded arrival trace while the engine ticks")
     ap.add_argument("--warmup", action="store_true",
                     help="batch engine: capture the window graphs before serving")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record the run's events and write Chrome trace-event JSON to PATH "
+                         "(Perfetto; audit with `python -m repro_torch.obs PATH`)")
+    ap.add_argument("--metrics-port", type=int, default=0,
+                    help="batch engine: serve Prometheus metrics on 127.0.0.1:PORT/metrics "
+                         "while the run is in flight (0 = off)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(list(argv) if argv is not None else None)
 
     from repro_torch.config import ResidencyConfig, get_config
     from repro_torch.configs import reduce_for_smoke
     from repro_torch.core.engine import RotaryEngine, resolve_device
     from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.obs import Tracer
     from repro_torch.serving.sampler import SamplerConfig
 
     device = resolve_device(args.device)
@@ -143,8 +159,9 @@ def main() -> None:
     rescfg = ResidencyConfig(mode=args.residency, num_slots=slots,
                              quantization=QUANT_CHOICES[args.quantization],
                              quant_group_size=args.quant_group)
+    tracer = Tracer() if args.trace_out else None
     if args.engine == "batch":
-        _serve_batch(args, cfg, params, rescfg if cfg.has_moe else None, device)
+        _serve_batch(args, cfg, params, rescfg if cfg.has_moe else None, device, tracer)
         return
     b = max(1, args.batch)
     eng = RotaryEngine(
@@ -152,7 +169,7 @@ def main() -> None:
         rt=Runtime(cache_len=args.cache_len), batch=b, seed=args.seed,
         host_routing=args.host_routing, fused_decode=args.fused_decode,
         spec_k=max(1, args.spec_k), prefetch=args.prefetch,
-        prefill_chunk=args.prefill_chunk or None, device=device,
+        prefill_chunk=args.prefill_chunk or None, trace=tracer, device=device,
     )
     sampler = None
     if args.temperature > 0.0:
@@ -169,11 +186,20 @@ def main() -> None:
     print("stats:", eng.stats.summary())
     print("per-layer residency:")
     print(eng.stats.per_layer_table())
+    _write_trace(tracer, args.trace_out)
 
 
-def _serve_batch(args, cfg, params, rescfg, device) -> None:
+def _write_trace(tracer, path) -> None:
+    if tracer is not None:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        tracer.write(path)
+        print(f"trace: {len(tracer)} events -> {path}")
+
+
+def _serve_batch(args, cfg, params, rescfg, device, tracer) -> None:
     """``--engine batch``: the ServingEngine over mixed prompt lengths."""
     from repro_torch.models.transformer import Runtime
+    from repro_torch.obs import serve_metrics
     from repro_torch.serving import SamplerConfig, ServingEngine
 
     eng = ServingEngine(
@@ -183,7 +209,11 @@ def _serve_batch(args, cfg, params, rescfg, device) -> None:
                               top_p=args.top_p,
                               seed=args.seed if args.sample_seed is None else args.sample_seed),
         spec_cap=max(1, args.spec_cap), kv_page_size=args.kv_page_size,
-        kv_pages=args.kv_pages or None, prefetch=args.prefetch, device=device)
+        kv_pages=args.kv_pages or None, prefetch=args.prefetch, trace=tracer, device=device)
+    metrics_server = None
+    if args.metrics_port:
+        metrics_server = serve_metrics(eng.metrics_registry, args.metrics_port)
+        print(f"metrics: http://127.0.0.1:{args.metrics_port}/metrics")
     if args.warmup:
         print(f"warmup: {eng.warmup()} graphs captured")
     rng = np.random.default_rng(args.seed)
@@ -213,6 +243,20 @@ def _serve_batch(args, cfg, params, rescfg, device) -> None:
     for r in done:
         print(f"req {r.uid}: prompt_len={len(r.prompt)} -> {r.output}")
     print("stats:", eng.summary())
+    if metrics_server is not None:
+        # one scrape of the live exposition, then the server stops
+        from urllib.request import urlopen
+
+        try:
+            body = urlopen(f"http://127.0.0.1:{args.metrics_port}/metrics").read().decode()
+        finally:
+            metrics_server.shutdown()
+            metrics_server.server_close()
+        hists = sorted(line.split()[2] for line in body.splitlines()
+                       if line.startswith("# TYPE ") and line.endswith(" histogram"))
+        print(f"metrics: scraped {len(body.splitlines())} exposition lines; histograms "
+              f"{', '.join(hists)}")
+    _write_trace(tracer, args.trace_out)
 
 
 if __name__ == "__main__":

@@ -76,7 +76,19 @@ the single step and each window size are one CUDA graph over the fixed
 batch. A stack without attention (xLSTM) raises: the reference cannot
 build it either; its path is ``prefill_model`` + ``decode_model``.
 
-Out of scope here: the trace spans; the Prometheus server.
+**Tracing** (``trace=`` a ``repro_torch.obs.Tracer``): the reference's
+events at the same points of each tick, on the same tracks and lanes. Each
+tick that launches is one contract unit (``new_unit("tick")``) holding its
+``launch`` span (the graph replay), its ``pull`` span (the one blocking
+device-to-host read), ``kv_use`` (the pages the window touches), the
+``kv_snapshot`` / ``miss`` / ``kv_rollback`` instants and the residency's
+``rotation`` and ``prefetch_ship`` spans; each request has a lane (pid 2,
+tid its uid) with ``queued``, ``prefill``, ``token``, ``decode`` and
+``finish``; the pool records ``kv_reserve`` / ``kv_ensure`` /
+``kv_release``. Every argument comes from host state (page tables,
+scheduler, residency bookkeeping): a trace call never reads a device
+tensor, so it adds no synchronisation. ``None`` or a disabled tracer
+leaves no tracer at all (every emission site is guarded).
 """
 from __future__ import annotations
 
@@ -102,6 +114,7 @@ from repro_torch.models.layers import Params
 from repro_torch.models.sampling import SampleParams
 from repro_torch.models.transformer import Runtime
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.tracer import resolve_tracer
 from repro_torch.serving.kv_pool import KVPagePool
 from repro_torch.serving.sampler import Sampler, SamplerConfig, stochastic_accept
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -123,6 +136,7 @@ class ServingEngine:
         kv_page_size: int = 16,
         kv_pages: Optional[int] = None,
         prefetch: bool = False,
+        trace=None,
         device="cuda",
     ):
         """``params`` as ``tfm.init_params`` (experts on the host or the
@@ -136,6 +150,8 @@ class ServingEngine:
         ``kv_page_size`` (clamped to the largest divisor of the cache
         capacity) and ``kv_pages`` (default: ``num_slots`` full rows) size
         the pool. ``prefetch`` needs rotary residency and the paged pool.
+        ``trace`` (a ``repro_torch.obs.Tracer``) records the ticks, the
+        request lanes, the pool's page events and the residency's spans.
         The reference's rules raise here before anything is built."""
         if cfg.attention is None:
             raise ValueError(
@@ -186,6 +202,8 @@ class ServingEngine:
         self.eos = eos
         self.sampler = Sampler(sampler or SamplerConfig())
         self.stats = EngineStats()
+        self._tr = resolve_tracer(trace)
+        self.tracer = self._tr
         self.metrics = MetricsRegistry()
         self._sampled = self.sampler.cfg.temperature > 0.0
         self._sample_params: Optional[SampleParams] = None
@@ -212,7 +230,7 @@ class ServingEngine:
         self.pool_state: Optional[List[Dict[str, torch.Tensor]]] = None
         self.state: Optional[List[Dict[str, torch.Tensor]]] = None
         if self._paged:
-            self.pool = KVPagePool(pages, page_size, row_pages)
+            self.pool = KVPagePool(pages, page_size, row_pages, tracer=self._tr)
             self.pool_state = tfm.paged_zero_state(cfg, pages + 1, page_size, dev)
         else:
             self.state = tfm.zero_state(cfg, num_slots, self.rt.cache_len, dev)
@@ -261,7 +279,7 @@ class ServingEngine:
                          if self.pool is not None else num_slots)
             self.res_mgr = RotaryResidencyManager(
                 cfg, residency, experts, batch=batch_eff, cache_len=self.rt.cache_len,
-                device=dev, stats=self.stats, metrics=self.metrics)
+                device=dev, stats=self.stats, tracer=self._tr, metrics=self.metrics)
             self.host_experts = self.res_mgr.host_experts
             self.predictor = DemandPredictor(routers, ema=residency.predictor_ema)
             if prefetch:
@@ -401,9 +419,19 @@ class ServingEngine:
             self.stats.kv_pages_hwm = max(self.stats.kv_pages_hwm, self.pool.pages_in_use)
 
     def _release_request(self, req: Request) -> None:
-        """A finished row leaves the window: its pages return to the pool
-        now, for the next queued request at the next tick."""
-        self.stats.kv_pages_released += self.pool.release(req.uid)
+        """A finished row leaves the window: its lane closes and its pages
+        return to the pool now, for the next queued request at the next
+        tick."""
+        tr = self._tr
+        if tr is not None:
+            # lane phase 3: first token -> finished (the decode stretch)
+            t1 = req.finished_at or time.perf_counter()
+            if req.first_token_at:
+                tr.complete("decode", "request", req.first_token_at, t1, lane=req.uid,
+                            args={"tokens": len(req.output)})
+            tr.instant("finish", "request", lane=req.uid, args={"tokens": len(req.output)})
+        if self.pool is not None:
+            self.stats.kv_pages_released += self.pool.release(req.uid)
 
     # ------------------------------------------------------------------
     # the launches: static inputs, graphs, telemetry
@@ -601,7 +629,13 @@ class ServingEngine:
         over the live rows. Public so arrival-driven loops can interleave
         submissions with ticks on the wall clock."""
         now = time.perf_counter()
+        tr = self._tr
         admitted = self.scheduler.admit(now, pool=self.pool)
+        if tr is not None:
+            for req in admitted:
+                # lane phase 1: submission -> admission (queueing delay)
+                tr.complete("queued", "request", req.submitted_at, now, lane=req.uid,
+                            args={"prompt": len(req.prompt)})
         prefilled = self._prefill_admitted(admitted)
         # the first token's time stamp follows its prefill (the reference
         # stamps it with the tick's start, which leaves the prefill out of TTFT)
@@ -626,10 +660,13 @@ class ServingEngine:
             self.active[req.slot] = True
             self.stats.tokens += len(req.prompt)
             self.scheduler.step_done(req.slot, tok, t_first, self.eos)
+            if tr is not None:
+                # lane phase 2: admission -> spliced + first token drawn
+                tr.complete("prefill", "request", req.admitted_at, time.perf_counter(),
+                            lane=req.uid, args={"prompt": len(req.prompt)})
             if req.done:
                 self.active[req.slot] = False
-                if self._paged:
-                    self._release_request(req)
+                self._release_request(req)
         if not self.scheduler.running:
             return
         if self._paged:
@@ -658,7 +695,10 @@ class ServingEngine:
         live = [s for s in sorted(sch.running) if self.active[s]]
         if not live:
             return
+        tr = self._tr
         t_tick = time.perf_counter()
+        if tr is not None:
+            tr.new_unit("tick")
         k = 1
         if self._spec_ok:
             k = max(1, min(min(sch.spec_len(s) for s in live), self._spec_cap_eff))
@@ -683,9 +723,22 @@ class ServingEngine:
         # rows its demand program averages over
         bucket = 1 << max(0, len(live) - 1).bit_length()
         st = self._set_inputs(tok, lens, bucket, pt, keys)
+        if tr is not None:
+            # every physical page this window will read or write, for the
+            # auditor's use-after-release replay (from the host tables)
+            tr.instant("kv_use", "kv_pool", args={
+                "pages": sorted({int(p) for row in pt[:len(live)] for p in row if p}),
+                "rows": len(live)})
         if self.res_mgr is not None:
             self.stats.device_dispatches += 1     # the KV snapshot, the window's first op
+            if tr is not None:
+                tr.instant("kv_snapshot", "kv_pool", args={"rows": len(live)})
+        if tr is not None:
+            t_launch = time.perf_counter()
         out = self._window_launch(k)
+        if tr is not None:
+            tr.complete("launch", "launch", t_launch, time.perf_counter(),
+                        args={"rows": len(live), "k": k})
         self.stats.device_dispatches += 1
         self.stats.windows += 1
         if k > 1:
@@ -696,7 +749,12 @@ class ServingEngine:
             # into the shadow generation under it
             self.res_mgr.begin_prefetch(self.predictor)
         bufs = self._pull_buffers()
+        if tr is not None:
+            t_pull = time.perf_counter()
         bufs["draft"][:k].copy_(out["draft"])                # THE queue-draining pull
+        if tr is not None:
+            tr.complete("pull", "pull", t_pull, time.perf_counter(),
+                        args={"rows": len(live), "k": k})
         self.stats.sync_pulls += 1
         draft_np = bufs["draft"][:k].numpy().copy()          # [K, rows]
         accepted = np.zeros((rows,), np.int32)
@@ -708,6 +766,9 @@ class ServingEngine:
             any_miss = step_row_miss.any(axis=0)
             first = np.where(any_miss, step_row_miss.argmax(axis=0), k)
             accepted[:len(live)] = np.maximum(first[:len(live)], 1)
+            if tr is not None and bool(any_miss[:len(live)].any()):
+                tr.instant("miss", "launch", args={"rows": int(any_miss[:len(live)].sum()),
+                                                   "k": k})
         if self._sampled:
             # stochastic accept over the pulled distributions: self-drafting
             # passes the same array as draft and verifier (every position
@@ -732,6 +793,9 @@ class ServingEngine:
             tfm.rollback_kv_window(self.pool_state, out["saved"], st["inputs"][rows:2 * rows], k,
                                    keep, page_table=st["pt"])
             self.stats.device_dispatches += 1
+            if tr is not None:
+                tr.instant("kv_rollback", "kv_pool",
+                           args={"accepted": [int(a) for a in accepted[:len(live)]]})
         now = time.perf_counter()
         fed_total = 0
         k_committed = 0
@@ -746,6 +810,8 @@ class ServingEngine:
                 self.next_token[s] = t
                 sch.step_done(s, t, now, self.eos)
                 fed += 1
+                if tr is not None:
+                    tr.instant("token", "request", lane=req.uid, args={"tok": t})
                 if req.done:
                     self.active[s] = False
                     self._release_request(req)
@@ -771,13 +837,24 @@ class ServingEngine:
         free row's state is overwritten whole by the next splice); the host
         ``Sampler`` picks each row's token; rotation from the step's
         telemetry."""
+        tr = self._tr
         t_tick = time.perf_counter()
+        if tr is not None:
+            tr.new_unit("tick")
         self._set_inputs(self.next_token, self.lengths, self._rows)
+        if tr is not None:
+            t_launch = time.perf_counter()
         out = self._launch(("step",), self._step_body)
+        if tr is not None:
+            tr.complete("launch", "launch", t_launch, time.perf_counter())
         self.stats.device_dispatches += 1
         self._pull_telemetry(out, None)
         bufs = self._pull_buffers()
+        if tr is not None:
+            t_pull = time.perf_counter()
         bufs["logits"].copy_(out["logits"])                  # THE queue-draining pull
+        if tr is not None:
+            tr.complete("pull", "pull", t_pull, time.perf_counter())
         self.stats.sync_pulls += 1
         logits_np = bufs["logits"].numpy().copy()
         self.lengths += self.active
@@ -807,16 +884,29 @@ class ServingEngine:
         drops misses); rejected positions' KV slots roll back from the
         window's contiguous snapshot (per-row ``keep``) and re-draft next
         tick, after rotation."""
+        tr = self._tr
         t_tick = time.perf_counter()
+        if tr is not None:
+            tr.new_unit("tick")
         st = self._set_inputs(self.next_token, self.lengths, self._rows)
         if self.res_mgr is not None:
             self.stats.device_dispatches += 1     # the KV snapshot, the window's first op
+            if tr is not None:
+                tr.instant("kv_snapshot", "kv_pool")
+        if tr is not None:
+            t_launch = time.perf_counter()
         out = self._window_launch(k)
+        if tr is not None:
+            tr.complete("launch", "launch", t_launch, time.perf_counter(), args={"k": k})
         self.stats.device_dispatches += 1
         self.stats.spec_windows += 1
         self._pull_telemetry(out, k)
         bufs = self._pull_buffers()
+        if tr is not None:
+            t_pull = time.perf_counter()
         bufs["draft"][:k].copy_(out["draft"])                # THE queue-draining pull
+        if tr is not None:
+            tr.complete("pull", "pull", t_pull, time.perf_counter(), args={"k": k})
         self.stats.sync_pulls += 1
         draft_np = bufs["draft"][:k].numpy().copy()          # [K, B]
         accepted = np.where(self.active, k, 0).astype(np.int32)
@@ -827,6 +917,9 @@ class ServingEngine:
             any_miss = step_row_miss.any(axis=0)
             first = np.where(any_miss, step_row_miss.argmax(axis=0), k)
             accepted = np.where(self.active, np.maximum(first, 1), 0).astype(np.int32)
+            if tr is not None and bool((any_miss & self.active).any()):
+                tr.instant("miss", "launch", args={"rows": int((any_miss & self.active).sum()),
+                                                   "k": k})
         sch = self.scheduler
         offered: Dict[int, int] = {}
         for slot, req in sch.running.items():
@@ -839,6 +932,8 @@ class ServingEngine:
             tfm.rollback_kv_window(self.state, out["saved"], st["inputs"][self._rows:2 * self._rows],
                                    k, keep)
             self.stats.device_dispatches += 1
+            if tr is not None:
+                tr.instant("kv_rollback", "kv_pool")
         self.lengths += accepted
         now = time.perf_counter()
         fed_total = 0

@@ -1239,7 +1239,7 @@ def test_paged_pad_rows_leave_valid_rows_untouched(card):
     assert {tuple(ix) for ix in changed.nonzero().tolist()} <= written
 
 
-def _reduced_server(device, slots=6, dtype="float32", prefetch=False, sample=None):
+def _reduced_server(device, slots=6, dtype="float32", prefetch=False, sample=None, trace=None):
     from repro_torch.config import ResidencyConfig, get_config
     from repro_torch.configs import reduce_for_smoke
     from repro_torch.models.transformer import Runtime, init_params
@@ -1250,7 +1250,7 @@ def _reduced_server(device, slots=6, dtype="float32", prefetch=False, sample=Non
     smp = SamplerConfig(temperature=0.8, top_k=20, top_p=0.95, seed=3) if sample else None
     return cfg, ServingEngine(cfg, init_params(cfg, 0, "cpu"), rt=Runtime(cache_len=64),
                               num_slots=3, residency=res, sampler=smp, spec_cap=4,
-                              kv_page_size=8, prefetch=prefetch, device=device)
+                              kv_page_size=8, prefetch=prefetch, trace=trace, device=device)
 
 
 def _serve_all(eng, vocab, n=4, new=10):
@@ -1324,6 +1324,45 @@ def test_serving_replay_after_a_moved_plane_raises(card):
     eng.pool_state[0]["k"] = eng.pool_state[0]["k"].clone()
     with pytest.raises(RuntimeError, match="moved"):
         _serve_all(eng, cfg.vocab_size, n=1, new=3)
+
+
+def test_traced_engines_pass_the_auditor_and_equal_untraced(card):
+    """Traced on the card, every launch a graph replay: a RotaryEngine with
+    prefetch and windows of 2 at 3 of 8 slots (misses, relaunches, shadow
+    uploads) and a paged ServingEngine at 6 of 8 (misses dropped, pages
+    rolled back). Each trace passes the port's auditor, with one unit per
+    window or tick and the prefetch spans inside their units' overlap
+    windows; tokens and every counter equal an untraced run's."""
+    from repro_torch.obs import Tracer, audit
+
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 12)).astype(np.int32)
+    runs = {}
+    for traced in (True, False):
+        trs = (Tracer(), Tracer()) if traced else (None, None)
+        _, eng = _reduced_engine(card, 3, prefetch=True, spec_k=2, trace=trs[0])
+        toks = eng.generate(prompt, 12)
+        cfg, srv = _reduced_server(card, 6, "bfloat16", prefetch=True, trace=trs[1])
+        outs = _serve_all(srv, cfg.vocab_size)
+        stats = [{k: v for k, v in dataclasses.asdict(e.stats).items() if k not in _MEASURED}
+                 for e in (eng, srv)]
+        runs[traced] = (toks, outs, stats, trs, eng, srv)
+    toks, outs, stats, (tr_eng, tr_srv), eng, srv = runs[True]
+    np.testing.assert_array_equal(toks, runs[False][0])
+    assert outs == runs[False][1] and stats == runs[False][2]
+    assert runs[False][4]._tr is None and runs[False][5]._tr is None
+    rep = audit(tr_eng)
+    rep.raise_for_violations()
+    assert rep.units_checked >= eng.stats.spec_windows > 0 and rep.prefetch_spans > 0
+    assert eng.stats.relaunched_steps + eng.stats.replayed_steps > 0
+    assert eng.graph_replays > 0
+    assert rep.overlap_ms == pytest.approx(eng.stats.overlap_ms, rel=0.01, abs=1e-3)
+    rep = audit(tr_srv)
+    rep.raise_for_violations()
+    assert rep.units_checked == rep.launches == rep.pulls == srv.stats.windows > 0
+    assert rep.prefetch_spans > 0 and rep.kv_events > 0 and rep.rotations > 0
+    assert srv.stats.misses > 0
+    assert srv.graph_replays > 0
+    assert rep.overlap_ms == pytest.approx(srv.stats.overlap_ms, rel=0.01, abs=1e-3)
 
 
 # ---------------------------------------------------------------------------
