@@ -35,7 +35,12 @@ Phases, each failing loudly (nothing is caught):
    its chunk entry at dh 160, and K2's contiguous and paged entries at dh 96
    g 1, dh 160 g 4, dh 128 g 9 and g 12, each held to its plain version and
    timed beside SDPA; the JSON row gives ``width_launches``, the launches on
-   the paths that run that width;
+   the paths that run that width. At the sharded paths' shapes: K1's tiled
+   grouped entry as ``moe_epsum_local`` calls it (a rank's 64 experts at
+   capacity 80, x [64, 80, 2048] @ W [64, 2048, 768], beside ``bmm`` over
+   the gathered experts) and K4's chunk entry as ``_sp_attention`` calls it
+   (768 queries of 10 heads at dh 256 at offsets 0 and 2,304 against 3,072
+   keys, window 2,048, beside band-masked SDPA);
 4. run twenty paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at
    its published widths, cut to the first 8 of its 48 layers (the depth is
    the only cut: 8 layers of host warehouse are 9.7 GB, the whole model's
@@ -117,6 +122,36 @@ Phases, each failing loudly (nothing is caught):
      run's end; no kernel launched (none has a backward). Each prints
      median step ms, tokens/s, MFU (``model_flops`` over 989 TFLOP/s),
      peak memory, and the checkpoint's MB and save / write / restore ms;
+   * the sharded paths, each a world of ranks on the card started by
+     ``repro_torch.distributed.world.run_world`` (spawned processes, a
+     FileStore rendezvous, gloo: the ranks share the card; a rank that
+     fails or outlives DIST_TIMEOUT fails the path), then checked in this
+     process against an unsharded run of the same weights:
+     ``ep-qwen36`` (qwen36's 8-layer cut, mesh data 2 x model 2, each rank
+     64 of 128 experts a layer: ``prefill_model`` of 4 x 512 tokens, two rows
+     a data rank, through ``moe_epsum_local``, then 32 greedy
+     ``decode_model`` steps through ``moe_epsum_decode_local``; the model
+     ranks of a data rank bitwise equal; against one process holding the
+     whole store, ``moe_sorted`` at the epsum capacity in prefill and
+     ``moe_apply_routed`` in decode, fed the sharded run's greedy ids and
+     top-k choices: each step's RMS(diff) / RMS(logits) <= EP_RMS_TOL and
+     the greedy ids equal wherever the unsharded top-2 margin exceeds twice
+     the step's largest |diff|), ``sp-recurrentgemma-2b`` (26 layers, mesh
+     1 x 4, one 3,072-token prompt: each ``local_attn`` layer's queries split
+     over the ranks, ``_sp_attention`` through K4's chunk entry at window
+     2,048; logits and every KV cache against the unsharded
+     ``prefill_model``, within the kernel tolerance, bitwise printed) and
+     ``pod-train-qwen36`` (1 of 48 layers, 2 pods, 2 x 512 topic tokens a
+     pod, 4 steps of ``make_train_step(pod_compression=True)``: the pods'
+     parameters bitwise equal after every step,
+     step 0's int8 payloads of every leaf up to 2**24 elements bitwise a
+     plain numpy recomputation, and step 0's loss within TRAIN_LOSS_TOL of
+     one process taking the 4 x 512 batch uncompressed in two
+     microbatches). Every ep rank must launch K3's fused entry and K1's
+     tiled grouped entry, every sp rank K4's chunk entry; the ranks'
+     launches count with the run's. Each prints its backend, ranks, mesh,
+     prefill / decode / step times, peak GiB a rank, and the collectives'
+     host-timed ms;
    * ``dbrx-int4``: dbrx-132b at published widths, the first 2 of 40
      layers (its 16 experts of 198M parameters are 12.7 GB a layer pair
      in bf16), RotaryEngine with 12 of 16 int4 slots, 1 request of 512 +
@@ -604,6 +639,7 @@ def kernel_phase(dev):
         shape=f"q [1,{PROMPT},{h},{dh}] k/v [1,{PROMPT},{hkv},{dh}] bf16, causal (prefill)",
     )
     rows["flash_attention_chunk"] = chunk_row(dev, g)
+    rows.update(sharded_rows(dev, g))
     rows.update(ragged_rows(dev, g, dict(up=w_up, down=w_down), slot_of))
     del w_up, w_down, caches
     rows.update(dense_rows(dev, g))
@@ -950,6 +986,93 @@ def k2_rows(dev, g, dh, h, hkv):
     return out
 
 
+# the sharded paths' shapes: (row, the paths that run it)
+SHARDED_ROWS = {"slot_gmm_tiled_epsum": ("ep-qwen36",),
+                "flash_attention_chunk_sp": ("sp-recurrentgemma-2b",)}
+EP_EXPERTS, EP_TOKENS = 64, 2 * PROMPT          # a rank's experts and tokens on ep-qwen36
+SP_RANKS = 4
+
+
+def sharded_rows(dev, g):
+    """Phase 3 at the sharded paths' shapes. K1's tiled grouped entry as
+    ``moe_epsum_local`` calls it on ``ep-qwen36``: a rank's 64 of 128
+    experts over its data rank's 2 x 512 tokens, x [64, C, 2048] @ W [64,
+    2048, 768] bf16, LUT the identity, C the reference's capacity
+    ``max(k, ceil(T k / E x 1.25))`` = 80 (bound: W, x and out once, 2 C D F
+    operations a group: the entry computes every row of the buffer; library:
+    ``bmm`` over the gathered experts). K4's chunk entry as
+    ``_sp_attention`` calls it on ``sp-recurrentgemma-2b``: 768 queries of
+    10 heads (dh 256) at offsets 0 and 2,304 against the full 3,072 keys
+    of 1 KV head, window 2,048, held to its plain version at both offsets
+    and timed at 2,304 (bound: q, out and the keys inside some query's
+    band once, 4 H dh operations a (query, key) pair in the band; library:
+    SDPA over those keys with an explicit band mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import capacity
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    rows = {}
+    mcfg = get_config("qwen36-35b-a3b").moe
+    d, f, e = 2048, mcfg.expert_d_ff, EP_EXPERTS
+    cap = capacity(mcfg, EP_TOKENS)
+    w = randn(e, d, f, scale=d ** -0.5)
+    x = randn(e, cap, d)
+    lut = torch.arange(e, dtype=torch.int32, device=dev)
+    err = check_close("slot_gmm tiled grouped (epsum)", gmm.slot_gmm(x, w, lut),
+                      ref.slot_gmm_ref(x, w, lut), **KERNEL_TOL)
+    nbytes = (e * d * f + e * cap * (d + f)) * 2
+    b_ms, b_by = bound(nbytes, 2 * e * cap * d * f)
+    rows["slot_gmm_tiled_epsum"] = dict(
+        max_abs_err=err, base="slot_gmm_tiled",
+        **timed(20, kernel=lambda: gmm.slot_gmm(x, w, lut),
+                plain=lambda: ref.slot_gmm_ref(x, w, lut),
+                library=lambda: torch.bmm(x, w.index_select(0, lut.long()))),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=2 * e * cap * d * f,
+        shape=f"x [{e},{cap},{d}] @ w [{e},{d},{f}] bf16, LUT the identity (moe_epsum_local: a "
+              f"rank's {e} experts at capacity {cap} over {EP_TOKENS} tokens)")
+    del w, x
+    h, hkv, dh, s = 10, 1, 256, RG_LONG
+    c = s // SP_RANKS
+    k, v = randn(1, s, hkv, dh), randn(1, s, hkv, dh)
+    q = randn(1, c, h, dh)
+    err = 0.0
+    for cur in (0, s - c):
+        cl = torch.tensor(cur, device=dev)
+        err = max(err, check_close(f"flash_attention_chunk SP offset {cur}",
+                                   fa.flash_attention_chunk(q, k, v, cl, window=RG_WINDOW),
+                                   ref.flash_attention_chunk_ref(q, k, v, cl, window=RG_WINDOW),
+                                   **KERNEL_TOL))
+    cur = s - c
+    cl = torch.tensor(cur, device=dev)
+    qpos = cur + torch.arange(c, device=dev)
+    lo = max(0, cur - RG_WINDOW + 1)
+    kpos = torch.arange(lo, s, device=dev)
+    band = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] > qpos[:, None] - RG_WINDOW)
+    pairs = int(band.sum())
+    nbytes = (2 * c * h * dh + 2 * (s - lo) * hkv * dh) * 2
+    b_ms, b_by = bound(nbytes, 4 * pairs * h * dh)
+    qt, kt, vt = q.transpose(1, 2), k[:, lo:].transpose(1, 2), v[:, lo:].transpose(1, 2)
+    rows["flash_attention_chunk_sp"] = dict(
+        max_abs_err=err, base="flash_attention_chunk",
+        **timed(20, kernel=lambda: fa.flash_attention_chunk(q, k, v, cl, window=RG_WINDOW),
+                plain=lambda: ref.flash_attention_chunk_ref(q, k, v, cl, window=RG_WINDOW),
+                library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                               enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * pairs * h * dh,
+        shape=f"q [1,{c},{h},{dh}] at offsets 0 and {cur} vs k/v [1,{s},{hkv},{dh}] bf16, window "
+              f"{RG_WINDOW} (_sp_attention's last rank of {SP_RANKS}: {pairs} band pairs); "
+              f"library: SDPA over the {s - lo} keys in some query's band, explicit band mask")
+    return rows
+
+
 def dense_rows(dev, g):
     """Phase 3 at the dense and recurrent families' widths: K4's causal
     entry at 512 queries for dh 64 (musicgen, 32/32 heads), 96 (phi3,
@@ -975,6 +1098,8 @@ def dense_rows(dev, g):
 
 def width_paths(name: str):
     """The paths that run the width of phase-3 row ``name`` (and no other)."""
+    if name in SHARDED_ROWS:
+        return SHARDED_ROWS[name]
     for row, _, _, _, paths in K4_WIDTHS:
         if name == row:
             return paths
@@ -2670,6 +2795,575 @@ def run_train_path(dev, cfg, depth: int, spec: TrainSpec) -> dict:
                 dropped=dropped, layers=cfg.num_layers)
 
 
+# ---------------------------------------------------------------------------
+# the sharded paths: ranks on the card through distributed/world.py
+# ---------------------------------------------------------------------------
+class DistSpec(NamedTuple):
+    label: str
+    arch: str
+    layers: int                 # the first N units (the depth cut; 0: all)
+    mesh: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    rows: int                   # the global batch
+    prompt: int
+    steps: int                  # greedy decode steps (EP) or train steps (pod)
+
+
+DIST_PATHS = (
+    DistSpec("ep-qwen36", "qwen36-35b-a3b", LAYERS, (2, 2), ("data", "model"), 4, PROMPT, 32),
+    DistSpec("sp-recurrentgemma-2b", "recurrentgemma-2b", 0, (1, SP_RANKS), ("data", "model"), 1,
+             RG_LONG, 0),
+    DistSpec("pod-train-qwen36", "qwen36-35b-a3b", 1, (2,), ("pod",), 4, PROMPT, 4),
+)
+DIST_TIMEOUT = 600              # seconds for a world, weights and builds included
+DIST_DEVICE = "cuda"
+# RMS(sharded - unsharded) / RMS(unsharded logits), a step: a sound run reads 0.0073 on an
+# H100 (the all-reduce rounds bf16 partial sums once more than one f32 sum does)
+EP_RMS_TOL = 0.02
+SP_TOL = KERNEL_TOL             # sp logits and caches against the unsharded prefill
+PAYLOAD_MAX = 1 << 24           # leaves up to this many elements have their payload checked
+WARM = 16                       # the ep ranks' warm-up prefill (positions) before the timed run
+
+
+def _dist_cfg(spec: DistSpec):
+    from repro_torch.config import get_config
+
+    cfg = get_config(spec.arch)
+    if spec.layers:
+        cfg = dataclasses.replace(cfg, segments=((cfg.segments[0][0], spec.layers),))
+    return cfg
+
+
+def _dist_tokens(cfg, spec: DistSpec):
+    import numpy as np
+
+    return np.random.default_rng(0).integers(0, cfg.vocab_size, (spec.rows, spec.prompt))
+
+
+def _rank_setup(spec: DistSpec):
+    """This rank's device, mesh and collective timer (every ``all_reduce``
+    and ``all_gather`` timed on the host between two synchronizations)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if DIST_DEVICE == "cuda"
+           else torch.device(DIST_DEVICE))
+    mesh = make_mesh(spec.mesh, spec.axes, device=DIST_DEVICE)
+    coll = {"ms": 0.0, "calls": 0}
+    for name in ("all_reduce", "all_gather"):
+        fn = getattr(dist, name)
+
+        def timed_call(*a, _fn=fn, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            coll["calls"] += 1
+            return out
+
+        setattr(dist, name, timed_call)
+    return dev, mesh, coll
+
+
+def _rank_close(summary: dict, coll: dict) -> dict:
+    import torch
+
+    from repro_torch.kernels import ops
+
+    summary.update(counts=ops.launch_counts(), symbols=ops.symbol_launch_counts(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   coll_ms=coll["ms"], coll_calls=coll["calls"])
+    return summary
+
+
+def _ep_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
+    """ep-qwen36 on one rank: this rank's 64 experts a layer (``shard_params``)
+    and its data rank's 2 rows; ``prefill_model`` (``moe_epsum_local``,
+    K1's tiled grouped entry, K3's fused entry), then greedy
+    ``decode_model`` steps (``moe_epsum_decode_local``)."""
+    import torch
+
+    from repro_torch.config import ShardingConfig
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    dev, mesh, coll = _rank_setup(spec)
+    cfg = _dist_cfg(spec)
+    sh = ShardingConfig(moe_impl="epsum")
+    rt = tfm.Runtime(sharding=sh, mesh=mesh, cache_len=CACHE)
+    t0 = time.perf_counter()
+    params = tfm.shard_params(tfm.init_params(cfg, 0, dev), rt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    rows_spec = shr.batch_spec(sh, mesh, spec.rows)
+    tokens = shr.shard_tensor(torch.from_numpy(_dist_tokens(cfg, spec)).to(dev), rows_spec, mesh)
+    setup_s = time.perf_counter() - t0
+    _, warm = tfm.prefill_model(cfg, params, tokens[:, :WARM], CACHE, rt=rt)
+    tfm.decode_model(cfg, params, tokens[:, 0], warm, WARM, rt=rt)
+    del warm
+    routes, route = [], moe_mod.route
+
+    def recording(p, x2d, mcfg):                 # each MoE layer's top-k, for the check
+        ids, w = route(p, x2d, mcfg)
+        routes.append(ids.cpu())
+        return ids, w
+
+    moe_mod.route = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    coll.update(ms=0.0, calls=0)
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill_model(cfg, params, tokens, CACHE, rt=rt)
+    out = [logits.float().cpu()]
+    prefill_s = time.perf_counter() - t0
+    prefill_coll = dict(coll)
+    t0 = time.perf_counter()
+    for j in range(spec.steps - 1):
+        lg, _ = tfm.decode_model(cfg, params, out[-1].argmax(-1).to(dev), state,
+                                 spec.prompt + j, rt=rt)
+        out.append(lg.float().cpu())
+    decode_s = time.perf_counter() - t0
+    logits = torch.stack(out, 1)                                  # [rows, steps, V]
+    moe_mod.route = route
+    return _rank_close(dict(
+        rank=rank, coord=mesh.get_coordinate(), rows=shr.shard_bounds(spec.rows, rows_spec[0], mesh),
+        logits=logits, ids=logits.argmax(-1), routes=routes, setup_s=setup_s, weight_gb=weight_gb,
+        prefill_s=prefill_s, decode_s=decode_s, prefill_coll_ms=prefill_coll["ms"],
+        prefill_coll_calls=prefill_coll["calls"]), coll)
+
+
+def _sp_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
+    """sp-recurrentgemma-2b on one rank: ``prefill_model`` of the whole
+    prompt, each ``local_attn`` layer's queries split over the 4 ranks
+    (``_sp_attention``, K4's chunk entry at offset rank x 768)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    dev, mesh, coll = _rank_setup(spec)
+    cfg = _dist_cfg(spec)
+    rt = tfm.Runtime(mesh=mesh, cache_len=RG_CACHE)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, dev)
+    tokens = torch.from_numpy(_dist_tokens(cfg, spec)).to(dev)
+    setup_s = time.perf_counter() - t0
+    tfm.prefill_model(cfg, params, tokens, RG_CACHE, rt=rt)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    coll.update(ms=0.0, calls=0)
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill_model(cfg, params, tokens, RG_CACHE, rt=rt)
+    logits = logits.float().cpu()
+    prefill_s = time.perf_counter() - t0
+    caches = {f"{n}/{li}": st[n].cpu() for li, st in enumerate(state) for n in ("k", "v")
+              if n in st}
+    return _rank_close(dict(rank=rank, logits=logits, caches=caches, setup_s=setup_s,
+                            prefill_s=prefill_s), coll)
+
+
+def _recording(quantize, records: list):
+    """``compression.quantize`` recording, for each leaf of at most
+    ``PAYLOAD_MAX`` elements, (corrected gradient, shared max, int8 payload)
+    on the host."""
+    def recording(gf, amax):
+        q, scale = quantize(gf, amax)
+        if gf.numel() <= PAYLOAD_MAX:
+            records.append((gf.cpu(), float(amax), q.cpu()))
+        return q, scale
+
+    return recording
+
+
+def _bits_equal(params, group, n: int, chunk: int = 1 << 24) -> bool:
+    """Whether every rank of ``group`` holds the same bits in every
+    parameter leaf (each leaf's bits all-gathered a chunk at a time)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.tree import leaves
+
+    for p in leaves(params):
+        flat = p.detach().reshape(-1)
+        for lo in range(0, flat.numel(), chunk):
+            mine = flat[lo:lo + chunk].contiguous()
+            parts = [torch.empty_like(mine) for _ in range(n)]
+            dist.all_gather(parts, mine, group=group)      # gloo moves bf16, not int16
+            bits = [q.view(torch.int16) for q in parts]
+            if not all(torch.equal(bits[0], b) for b in bits[1:]):
+                return False
+    return True
+
+
+def _pod_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
+    """pod-train-qwen36 on one rank (one pod): its pod's rows of each
+    step's global batch, ``make_train_step(pod_compression=True)``; the
+    pods' parameters compared bit for bit after every step; step 0's int8
+    payloads recorded for the plain recomputation."""
+    import torch
+
+    from repro_torch.config import RunConfig, ShardingConfig
+    from repro_torch.data import SyntheticSpec, batch_at_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import compression, init_train_state, make_train_step
+
+    dev, mesh, coll = _rank_setup(spec)
+    cfg = _dist_cfg(spec)
+    sh = ShardingConfig(remat_policy="dots_saveable", moe_impl="sorted",
+                        grad_compression="int8_ef")
+    rt = tfm.Runtime(sharding=sh, mesh=mesh)
+    run = RunConfig(**TRAIN_LR)
+    data = SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=spec.prompt,
+                         global_batch=spec.rows, kind="topic", seed=0)
+    pod = mesh.get_local_rank("pod")
+    half = slice(pod * spec.rows // 2, (pod + 1) * spec.rows // 2)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tfm.init_params(cfg, 0, dev), sh)
+    step_fn = make_train_step(cfg, rt, run, pod_compression=True, pod_count=spec.mesh[0])
+    setup_s = time.perf_counter() - t0
+    records, quantize = [], compression.quantize
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    coll.update(ms=0.0, calls=0)
+    losses, times, same, step_coll = [], [], [], []
+    for i in range(spec.steps):
+        tokens, labels = (torch.from_numpy(a[half]).to(dev) for a in batch_at_step(data, i))
+        compression.quantize = _recording(quantize, records) if i == 0 else quantize
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), coll["ms"]
+        state, m = step_fn(state, tokens, labels)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        step_coll.append(coll["ms"] - c0)
+        kept = dict(coll)                    # the check's gathers are not the step's
+        same.append(_bits_equal(state["params"], mesh.get_group("pod"), spec.mesh[0]))
+        coll.update(kept)
+    return _rank_close(dict(rank=rank, losses=losses, times=times, same=same,
+                            step_coll_ms=step_coll, payloads=records, setup_s=setup_s,
+                            ef=[tuple(t.shape) for t in _leaves(state["ef"])]), coll)
+
+
+def _ep_unsharded(cfg, params, tokens, ids, routes, spec: DistSpec):
+    """One process, the whole expert store: the prefill of ``tokens`` [R, S]
+    through K4 and, in each MoE layer, ``moe_sorted`` at the epsum capacity
+    (the R x S tokens' ``max(k, ceil(T k / E cf))``), then ``decode_model``
+    (``moe_apply_routed``) fed ``ids`` [R, steps]: logits [R, steps, V] f32
+    on the host. Every MoE layer takes the sharded run's top-k choice
+    (``routes``, in call order) with its own gate weights: a near-tie that
+    two sums of one router GEMM break apart would otherwise move the drops
+    (prefill) or swap an expert (decode), a difference of routing and not of
+    the expert-parallel arithmetic this check holds."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    replay = iter(routes)
+    route = moe_mod.route
+
+    def replayed(p, x2d, mcfg):
+        chosen = next(replay).to(x2d.device).long()
+        probs = torch.softmax(moe_mod.router_logits(p, x2d), dim=-1)
+        w = probs.gather(1, chosen)
+        if mcfg.norm_topk_prob:
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return chosen.to(torch.int32), w
+
+    moe_mod.route = replayed
+    try:
+        with torch.no_grad():
+            x = tfm.embed_tokens(params, tokens)
+            state = tfm.zero_state(cfg, tokens.shape[0], CACHE, tokens.device)
+            for li, p in enumerate(params["layers"]):
+                x_mid, h2, _ = tfm.attn_half(cfg, p, x, "prefill", state[li], 0, CACHE)
+                routing = moe_mod.Routing(next(replay).to(tokens.device).long(), replay=True)
+                y2, _ = moe_mod.moe_forward(p["moe"], cfg.moe, h2.reshape(x_mid.shape),
+                                            "sorted", routing)
+                x = x_mid + y2
+            out = [tfm.lm_logits(cfg, params, x[:, -1:])[:, 0].float().cpu()]
+            for j in range(spec.steps - 1):
+                lg, _ = tfm.decode_model(cfg, params, ids[:, j], state, spec.prompt + j)
+                out.append(lg.float().cpu())
+    finally:
+        moe_mod.route = route
+    return torch.stack(out, 1)
+
+
+def _ep_check(dev, spec: DistSpec, ranks: list) -> dict:
+    """The model ranks of a data rank agree bit for bit; each data rank's
+    logits against ``_ep_unsharded`` of the same weights fed the sharded
+    path's greedy ids and top-k choices: per step RMS(diff) / RMS(logits)
+    <= EP_RMS_TOL, and
+    the sharded greedy id is the unsharded argmax wherever the unsharded
+    top-2 margin exceeds twice that step's largest |diff|."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = _dist_cfg(spec)
+    groups = {}
+    for r in ranks:
+        groups.setdefault(tuple(r["rows"]), []).append(r)
+    for rows, rs in groups.items():
+        if not all(torch.equal(r["logits"], rs[0]["logits"]) for r in rs[1:]):
+            raise AssertionError(f"{spec.label}: the model ranks of rows {rows} disagree")
+    params = tfm.init_params(cfg, 0, dev)
+    tokens = torch.from_numpy(_dist_tokens(cfg, spec)).to(dev)
+    worst_rms = worst_abs = 0.0
+    sure = parted = 0
+    rms_steps = []
+    t0 = time.perf_counter()
+    for (lo, hi), rs in sorted(groups.items()):
+        got = rs[0]["logits"]
+        want = _ep_unsharded(cfg, params, tokens[lo:hi], rs[0]["ids"].to(dev), rs[0]["routes"],
+                             spec)
+        diff = got - want
+        rms = diff.square().mean(dim=(0, 2)).sqrt() / want.square().mean(dim=(0, 2)).sqrt()
+        rms_steps.append(rms)
+        worst_rms = max(worst_rms, float(rms.max()))
+        step_max = diff.abs().amax(dim=(0, 2))                       # [steps]
+        worst_abs = max(worst_abs, float(step_max.max()))
+        top2 = want.topk(2, dim=-1).values
+        ok = (top2[..., 0] - top2[..., 1]) > 2 * step_max[None, :]
+        sure += int(ok.sum())
+        parted += int((ok & (got.argmax(-1) != want.argmax(-1))).sum())
+    unsharded_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = spec.rows * spec.steps
+    per_step = torch.stack(rms_steps).amax(0)
+    log(f"[5/{spec.label}] against one process of the same weights unsharded (moe_sorted at the "
+        f"epsum capacity, moe_apply_routed in decode; {unsharded_s:.1f} s): worst step RMS(diff) "
+        f"/ RMS(logits) {worst_rms:.5f} (tolerance {EP_RMS_TOL}; by step "
+        f"{' '.join(f'{x:.4f}' for x in per_step.tolist())}), largest |diff| "
+        f"{worst_abs:.4f}; greedy ids equal at {sure - parted} of {sure} sure positions "
+        f"({n - sure} of {n} under the margin guard)")
+    if not worst_rms <= EP_RMS_TOL:
+        raise AssertionError(f"{spec.label}: logits part from the unsharded run")
+    if parted:
+        raise AssertionError(f"{spec.label}: {parted} greedy ids differ at sure positions")
+    return dict(rms_rel=worst_rms, max_abs=worst_abs, sure=sure, positions=n)
+
+
+def _sp_check(dev, spec: DistSpec, ranks: list) -> dict:
+    """Every rank holds the same logits and caches; they match the unsharded
+    ``prefill_model`` of the same weights (K4's causal entry over the whole
+    prompt) within SP_TOL."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = _dist_cfg(spec)
+    for r in ranks[1:]:
+        if not (torch.equal(r["logits"], ranks[0]["logits"])
+                and all(torch.equal(r["caches"][k], v) for k, v in ranks[0]["caches"].items())):
+            raise AssertionError(f"{spec.label}: rank {r['rank']} disagrees with rank 0")
+    params = tfm.init_params(cfg, 0, dev)
+    tokens = torch.from_numpy(_dist_tokens(cfg, spec)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill_model(cfg, params, tokens, RG_CACHE)
+    torch.cuda.synchronize()
+    unsharded_ms = (time.perf_counter() - t0) * 1e3
+    got = ranks[0]
+    err = check_close(f"{spec.label} logits", got["logits"], logits.float().cpu(), **SP_TOL)
+    bitwise = torch.equal(got["logits"], logits.float().cpu())
+    cache_err = 0.0
+    for li, st in enumerate(state):
+        for n in ("k", "v"):
+            if n in st:
+                want = st[n].cpu()
+                cache_err = max(cache_err, check_close(f"{spec.label} cache {n}/{li}",
+                                                       got["caches"][f"{n}/{li}"], want, **SP_TOL))
+                bitwise = bitwise and torch.equal(got["caches"][f"{n}/{li}"], want)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[5/{spec.label}] against the unsharded prefill_model ({unsharded_ms:.1f} ms): logits "
+        f"max |diff| {err:.3e}, {len(got['caches'])} caches max |diff| {cache_err:.3e}, bitwise "
+        f"{bitwise}")
+    return dict(max_abs=err, cache_max_abs=cache_err, bitwise=bitwise,
+                unsharded_ms=unsharded_ms)
+
+
+def _pod_check(dev, spec: DistSpec, ranks: list) -> dict:
+    """The pods' parameters equal after every step (checksums) and their
+    losses equal; step 0's int8 payloads of every leaf up to PAYLOAD_MAX
+    elements bitwise a plain numpy recomputation; against one process taking
+    the same global batch uncompressed (``make_train_step(num_micro=2)``:
+    the pods' halves as microbatches, their f32 gradients averaged): step
+    0's loss within TRAIN_LOSS_TOL, the later losses printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import RunConfig, ShardingConfig
+    from repro_torch.data import SyntheticSpec, batch_at_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = _dist_cfg(spec)
+    if not all(all(r["same"]) for r in ranks):
+        raise AssertionError(f"{spec.label}: the pods' parameters part: "
+                             f"{[r['same'] for r in ranks]}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"{spec.label}: the pods' losses differ")
+    if any(s[0] != 1 for r in ranks for s in r["ef"]):
+        raise AssertionError(f"{spec.label}: a residual is not this pod's [1, *shape] slice")
+    checked = 0
+    for r in ranks:
+        for gf, amax, q in r["payloads"]:
+            scale = np.float32(amax) / np.float32(127.0) + np.float32(1e-12)
+            plain = np.clip(np.rint(gf.numpy() / scale), -127, 127).astype(np.int8)
+            if not np.array_equal(plain, q.numpy()):
+                raise AssertionError(f"{spec.label}: an int8 payload differs from the plain one")
+            checked += gf.numel()
+    sh = ShardingConfig(remat_policy="dots_saveable", moe_impl="sorted")
+    data = SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=spec.prompt,
+                         global_batch=spec.rows, kind="topic", seed=0)
+    state = init_train_state(cfg, tfm.init_params(cfg, 0, dev))
+    step_fn = make_train_step(cfg, tfm.Runtime(sharding=sh), RunConfig(**TRAIN_LR),
+                              num_micro=spec.mesh[0])
+    plain_losses, plain_times = [], []
+    for i in range(spec.steps):
+        tokens, labels = (torch.from_numpy(a).to(dev) for a in batch_at_step(data, i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, tokens, labels)
+        plain_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        plain_times.append(time.perf_counter() - t0)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = ranks[0]["losses"]
+    log(f"[5/{spec.label}] pods' parameters bitwise equal after each of {spec.steps} steps; "
+        f"{checked} int8 payload elements (leaves up to {PAYLOAD_MAX}) bitwise the plain "
+        f"recomputation; losses {' '.join(f'{x:.5f}' for x in losses)} against one process "
+        f"uncompressed {' '.join(f'{x:.5f}' for x in plain_losses)} (step 0 |diff| "
+        f"{abs(losses[0] - plain_losses[0]):.5f}, tolerance {TRAIN_LOSS_TOL}); uncompressed "
+        f"step ms {' '.join(f'{1e3 * x:.1f}' for x in plain_times)}")
+    if checked == 0:
+        raise AssertionError(f"{spec.label}: no payload was checked")
+    if not abs(losses[0] - plain_losses[0]) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"{spec.label}: step 0's loss parts from the uncompressed step")
+    return dict(payload_elements=checked, plain_losses=plain_losses,
+                plain_median_ms=float(np.median(plain_times[1:])) * 1e3)
+
+
+DIST_RANKS = {"ep-qwen36": (_ep_rank, _ep_check), "sp-recurrentgemma-2b": (_sp_rank, _sp_check),
+              "pod-train-qwen36": (_pod_rank, _pod_check)}
+
+
+def dist_line(r: dict) -> str:
+    """A sharded path's summary on one line (phase 6)."""
+    head = f"{r['label']:>23}: {r['backend']}, {r['world']} ranks, mesh {r['mesh']}; "
+    if r["label"] == "ep-qwen36":
+        body = (f"prefill {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.0f} tok/s), decode "
+                f"{r['decode_tok_s']:.1f} tok/s ({r['step_ms']:.2f} ms a step); logits RMS "
+                f"{r['rms_rel']:.5f} of the unsharded run's, ids equal at {r['sure']} sure of "
+                f"{r['positions']}")
+    elif r["label"] == "sp-recurrentgemma-2b":
+        body = (f"prefill {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.0f} tok/s; unsharded "
+                f"{r['unsharded_ms']:.1f} ms); logits max |diff| {r['max_abs']:.3e}, caches "
+                f"{r['cache_max_abs']:.3e}, bitwise {r['bitwise']}")
+    else:
+        body = (f"step {r['step_ms']:.1f} ms ({r['tok_s']:.0f} tokens/s; uncompressed "
+                f"{r['plain_median_ms']:.1f} ms), collectives {r['step_coll_ms']:.1f} ms a step; "
+                f"losses {' '.join(f'{x:.4f}' for x in r['losses'])} (uncompressed "
+                f"{' '.join(f'{x:.4f}' for x in r['plain_losses'])})")
+    return (f"{head}{body}; peak {r['peak_gib']:.2f} GiB a rank, collectives "
+            f"{r['coll_ms']:.1f} ms over {r['coll_calls']} calls")
+
+
+def run_dist_path(dev, spec: DistSpec) -> dict:
+    """Phases 4 and 5 for a sharded path: its ranks through
+    ``distributed/world.py`` (a rank that fails or outlives DIST_TIMEOUT
+    fails the path), each rank's kernel launches counted from a reset just
+    before its work; the check against the unsharded run in this process
+    after the world has exited (its memory freed). Every rank must launch
+    the path's kernels: K3's fused entry and K1's tiled grouped entry on
+    every ep rank, K4's chunk entry on every sp rank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.world import choose_backend, run_world
+
+    fn, check = DIST_RANKS[spec.label]
+    nprocs = int(np.prod(spec.mesh))
+    backend, _ = choose_backend("cuda", nprocs)          # run_world prints its choice
+    log(f"[4/{spec.label}] {spec.arch}, mesh {dict(zip(spec.axes, spec.mesh))}, {nprocs} ranks")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = run_world(fn, nprocs, args=(spec,), device="cuda", timeout=DIST_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    counts, symbols = {}, {}
+    for r in ranks:
+        for name, n in r["counts"].items():
+            counts[name] = counts.get(name, 0) + n
+        for name, syms in r["symbols"].items():
+            for sym, n in syms.items():
+                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
+        need = {"ep-qwen36": ("router_topk", "slot_gmm_tiled"),
+                "sp-recurrentgemma-2b": ("flash_attention_chunk",)}.get(spec.label, ())
+        for entry in need:
+            got = (entry_launches(r["symbols"], entry) if entry in ENTRY
+                   else r["counts"][entry])
+            if got <= 0:
+                raise AssertionError(f"{spec.label}: rank {r['rank']} never launched {entry}")
+    peak = max(r["peak_gib"] for r in ranks)
+    coll_ms = max(r["coll_ms"] for r in ranks)
+    summary = dict(label=spec.label, dist=True, counts=counts, symbols=symbols, backend=backend,
+                   world=nprocs, mesh=dict(zip(spec.axes, spec.mesh)), world_s=world_s,
+                   peak_gib=peak, coll_ms=coll_ms, coll_calls=ranks[0]["coll_calls"],
+                   setup_s=max(r["setup_s"] for r in ranks))
+    if spec.label == "ep-qwen36":
+        pre = max(r["prefill_s"] for r in ranks)
+        dec = max(r["decode_s"] for r in ranks)
+        summary.update(prefill_ms=pre * 1e3, prefill_tok_s=spec.rows * spec.prompt / pre,
+                       decode_tok_s=spec.rows * (spec.steps - 1) / dec,
+                       step_ms=dec / (spec.steps - 1) * 1e3,
+                       prefill_coll_ms=max(r["prefill_coll_ms"] for r in ranks),
+                       weight_gb=ranks[0]["weight_gb"])
+        what = (f"prefill {summary['prefill_ms']:.1f} ms ({summary['prefill_tok_s']:.0f} tok/s "
+                f"over {spec.rows} x {spec.prompt}), decode {summary['decode_tok_s']:.1f} tok/s "
+                f"over {spec.rows} rows ({summary['step_ms']:.2f} ms a step), weights a rank "
+                f"{summary['weight_gb']:.2f} GB")
+    elif spec.label == "sp-recurrentgemma-2b":
+        pre = max(r["prefill_s"] for r in ranks)
+        summary.update(prefill_ms=pre * 1e3, prefill_tok_s=spec.prompt / pre)
+        what = f"prefill {summary['prefill_ms']:.1f} ms of {spec.prompt} tokens"
+    else:
+        times = ranks[0]["times"]
+        med = float(np.median(times[1:]))
+        summary.update(step_ms=med * 1e3, tok_s=spec.rows * spec.prompt / med, losses=ranks[0]["losses"],
+                       step_coll_ms=float(np.median(ranks[0]["step_coll_ms"][1:])))
+        what = (f"median step {med * 1e3:.1f} ms ({summary['tok_s']:.0f} tokens/s over "
+                f"{spec.rows} x {spec.prompt}), collectives {summary['step_coll_ms']:.1f} ms a "
+                f"step; step ms {' '.join(f'{1e3 * x:.1f}' for x in times)}")
+    log(f"  world {world_s:.1f} s (set-up {summary['setup_s']:.1f} s a rank); {what}; peak "
+        f"{peak:.2f} GiB a rank; collectives {coll_ms:.1f} ms over {summary['coll_calls']} calls "
+        f"(host-timed, {backend}); kernel launches {counts}")
+    summary.update(check(dev, spec, ranks))
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def cli_phase() -> dict:
     """``repro_torch.launch.serve.main`` once, in process: the batch engine
     on qwen36 at published widths, 2 layers, with ``--trace-out`` and
@@ -2795,12 +3489,14 @@ def main() -> int:
         if spec.layers:
             arch = dataclasses.replace(arch, segments=((arch.segments[0][0], spec.layers),))
         add(run_train_path(dev, arch, get_config(spec.arch).num_layers, spec))
+    for spec in DIST_PATHS:
+        add(run_dist_path(dev, spec))
     dbrx = get_config("dbrx-132b")
     add(run_path(dev, dataclasses.replace(dbrx, segments=((("attn_moe",), DBRX_LAYERS),)),
                  dbrx.num_layers, DBRX_PATH, done))
     cli_phase()
     n_paths = (len(PATHS) + len(SERVE_PATHS) + len(FRONT_PATHS) + len(DECODE_PATHS)
-               + len(TRAIN_PATHS) + 1)
+               + len(TRAIN_PATHS) + len(DIST_PATHS) + 1)
     multi = {counter for counter, _ in ENTRY.values()}          # kernels with several entries
     log(f"  kernel launches over the {n_paths} paths: {counts}; by entry: "
         f"{ {name: syms for name, syms in symbols.items() if name in multi and syms} }")
@@ -2815,7 +3511,7 @@ def main() -> int:
         "relaunched of decode steps; MB uploaded per decode token; host conversion; loads; "
         "overlapped pulls; windows and accept rate)")
     for r in done.values():
-        if r["label"].startswith("serve-") or r.get("frontend") or r.get("train"):
+        if r["label"].startswith("serve-") or r.get("frontend") or r.get("train") or r.get("dist"):
             continue
         accept = f"{r['accept_rate']:.3f}" if r["accept_rate"] is not None else "-"
         log(f"  {r['label']:>19}: decode {' / '.join(f'{x:.2f}' for x in r['tok_s'])} tok/s "
@@ -2856,6 +3552,10 @@ def main() -> int:
             f"{r['loss0_f32']:.4f}) -> {r['losses'][-1]:.4f}, grad norm {r['gnorm0']:.4f} (f32 "
             f"{r['gnorm0_f32']:.4f}); checkpoint {r['ckpt_mb']:.0f} MB, {r['save_ms']:.0f} / "
             f"{r['write_ms']:.0f} / {r['restore_ms']:.0f} ms")
+    log(f"  {card}: sharded paths (backend, ranks, mesh; tokens/s or ms; peak GiB a rank; "
+        f"collective ms, host-timed; the check against the unsharded run)")
+    for spec in DIST_PATHS:
+        log(f"  {dist_line(done[spec.label])}")
     log(f"  {card}: traces of the engine paths (units checked, miss-free; launches, pulls, "
         f"rotations, prefetch spans, KV events; events recorded; overlap ms from the spans / "
         f"stats.overlap_ms; MB; 0 violations on every path)")

@@ -1,6 +1,6 @@
 from repro_torch.config.base import (
     AttentionConfig, ModelConfig, MoEConfig, RecurrentConfig, ResidencyConfig, RunConfig,
-    ShardingConfig,
+    ShapeConfig, ShardingConfig,
 )
 from repro_torch.config.registry import get_config, list_archs, register
 
@@ -11,6 +11,7 @@ __all__ = [
     "RecurrentConfig",
     "ResidencyConfig",
     "RunConfig",
+    "ShapeConfig",
     "ShardingConfig",
     "get_config",
     "list_archs",

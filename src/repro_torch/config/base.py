@@ -2,7 +2,8 @@
 
 Every architecture in ``repro_torch.configs`` builds a :class:`ModelConfig`;
 the engine pairs it with a :class:`ResidencyConfig`, the trainer with a
-:class:`ShardingConfig` (its training fields) and a :class:`RunConfig`.
+:class:`RunConfig`, the trainer and the sharded paths with a
+:class:`ShardingConfig`.
 Configs are plain data, so they can be constructed and diffed without
 touching device state.
 """
@@ -230,21 +231,31 @@ MOE_IMPLS = ("dense", "sorted", "epsum")
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """The training fields of the reference's ``ShardingConfig``.
+    """The reference's ``ShardingConfig``, without its XLA-only switches
+    (``scan_layers``, ``use_pallas``).
 
+    Mesh axes (``distributed/sharding.py``): ``dp_axes`` carry the batch
+    (``("pod", "data")`` on a multi-pod mesh), ``tp_axis`` the experts (EP)
+    and, in the sharded prefill, the query positions (SP); ``seq_axis`` is
+    the reference's sequence axis for long prefill; ``zero1`` shards the
+    optimizer moments over the dp axes (a rule of ``opt_spec``).
     ``remat_policy``: per-layer activation checkpointing in training
     (``none``; ``full`` recomputes the layer; ``dots_saveable`` keeps the
-    matmul outputs and recomputes the rest). ``moe_impl``: the training
-    forward's MoE dispatch, ``dense`` (GShard one-hot einsums) or ``sorted``
-    (sort + gather); ``epsum`` is the reference's expert-parallel dispatch,
-    which falls back to ``sorted`` without a device mesh, as here (one
-    device). ``grad_compression="int8_ef"`` is the cross-pod gradient
-    compression of the distributed slice, not ported yet.
+    matmul outputs and recomputes the rest). ``moe_impl``: the MoE dispatch,
+    ``dense`` (GShard one-hot einsums), ``sorted`` (sort + gather) or
+    ``epsum`` (expert parallelism over ``tp_axis``), which falls back to
+    ``sorted`` without a device mesh, as in the reference.
+    ``grad_compression="int8_ef"``: the cross-pod int8 gradient reduction
+    with error feedback (``training/compression.py``).
     """
 
+    dp_axes: Tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
+    seq_axis: Optional[str] = "data"
     remat_policy: str = "dots_saveable"
-    moe_impl: str = "epsum"
     grad_compression: Optional[str] = None     # None | "int8_ef"
+    zero1: bool = True
+    moe_impl: str = "epsum"
 
     def __post_init__(self) -> None:
         if self.remat_policy not in REMAT_POLICIES:
@@ -253,6 +264,21 @@ class ShardingConfig:
             raise ValueError(f"unknown moe impl {self.moe_impl!r}")
         if self.grad_compression not in (None, "int8_ef"):
             raise ValueError(f"unknown grad compression {self.grad_compression!r}")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (the reference's ``ShapeConfig``): the batch the
+    sharding rules split over the dp axes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                                  # "train" | "prefill" | "decode"
+
+    def __post_init__(self) -> None:
+        if self.kind not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown shape kind {self.kind!r}")
 
 
 @dataclass(frozen=True)

@@ -206,21 +206,30 @@ def attention_prefill(
         q, k, v, causal=True, window=acfg.window, soft_cap=acfg.logit_soft_cap
     )
     y = ctx.reshape(b, s, -1) @ p["wo"]
+    return y, write_cache(acfg, k, v, cache_len, cache)
+
+
+def write_cache(acfg: AttentionConfig, k: torch.Tensor, v: torch.Tensor, cache_len: int,
+                cache: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """A prefill's K/V [B, S, Hkv, dh] into a ``cache_len`` cache: ``cache``
+    zeroed and written in place (None: a new one); a window's ring cache
+    holds the last ``cap`` positions at slots ``pos % cap``."""
+    b, s = k.shape[0], k.shape[1]
     if cache is None:
-        cache = zero_cache(acfg, b, cache_len, k.dtype, x.device)
+        cache = zero_cache(acfg, b, cache_len, k.dtype, k.device)
     else:
         cache["k"].zero_()
         cache["v"].zero_()
     cap = cache["k"].shape[1]
     if acfg.window is not None and s > cap:
-        slots = (s - cap + torch.arange(cap, device=x.device)) % cap
+        slots = (s - cap + torch.arange(cap, device=k.device)) % cap
         cache["k"][:, slots] = k[:, -cap:]
         cache["v"][:, slots] = v[:, -cap:]
     else:
         n = min(s, cap)
         cache["k"][:, :n] = k[:, :n]
         cache["v"][:, :n] = v[:, :n]
-    return y, cache
+    return cache
 
 
 def attention_prefill_chunk(

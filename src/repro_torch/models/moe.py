@@ -34,6 +34,13 @@ carries the sorted dispatch and a gather the combine (each token's k
 outputs summed in k order), so on the card the backward gathers, or
 accumulates by sorted index, never by atomics in a varying order: two runs
 give the same bits.
+
+Expert parallelism over a mesh axis (the reference's ``epsum``), each rank
+holding E/ep routed experts: ``moe_epsum_local`` (the sharded prefill: the
+sorted dispatch over the local experts at the reference's capacity, the
+local FFN through K1's tiled grouped entry, one all-reduce) and
+``moe_epsum_decode_local`` (decode: K1's GEMV over the picks that route to
+local experts, one all-reduce).
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
@@ -322,18 +330,29 @@ def moe_sorted(p: Params, mcfg: MoEConfig, x2d: torch.Tensor, cap: Optional[int]
     buf, dest, _ = sorted_dispatch(x2d, ids, e, cap)
     out = expert_ffn_dense(p["experts"], buf).reshape(e * cap, d)
     valid = dest >= 0
-    spread = torch.arange(t * k, device=x2d.device) % (e * cap)
-    rows = torch.where(valid, dest, spread).reshape(t, k)
-    valid = valid.reshape(t, k)
-    contrib = out[rows] * (weights * valid).to(out.dtype)[..., None]          # [T, k, D]
-    y = contrib[:, 0].float()
-    for j in range(1, k):
-        y = y + contrib[:, j].float()
-    y = y.to(x2d.dtype)
+    y = combine(out, dest, valid, weights).to(x2d.dtype)
     if mcfg.num_shared_experts > 0:
         y = y + shared_ffn(p, x2d)
     aux["dropped_frac"] = 1.0 - valid.float().mean()
     return y, aux
+
+
+def combine(out: torch.Tensor, dest: torch.Tensor, valid: torch.Tensor,
+            weights: torch.Tensor) -> torch.Tensor:
+    """The sorted dispatch's combine: out [N, D] expert rows, ``dest``
+    [T*k] each assignment's row, ``valid`` [T*k] whether it was kept,
+    weights [T, k] -> f32 [T, D]. Each token gathers its k outputs, weighted
+    in out's type and summed in f32 in k order; an assignment not kept
+    gathers a row of its own (N >= T*k rows, so the gradient's
+    accumulation meets no hot index) times a zero weight."""
+    t, k = weights.shape
+    spread = torch.arange(t * k, device=out.device) % out.shape[0]
+    rows = torch.where(valid, dest, spread).reshape(t, k)
+    contrib = out[rows] * (weights * valid.reshape(t, k)).to(out.dtype)[..., None]  # [T, k, D]
+    y = contrib[:, 0].float()
+    for j in range(1, k):
+        y = y + contrib[:, j].float()
+    return y
 
 
 def moe_dense(p: Params, mcfg: MoEConfig, x: torch.Tensor,
@@ -366,14 +385,96 @@ def moe_dense(p: Params, mcfg: MoEConfig, x: torch.Tensor,
     return y, aux
 
 
+# ---------------------------------------------------------------------------
+# Expert parallelism over a mesh axis (the reference's ``epsum``)
+# ---------------------------------------------------------------------------
+def _local_experts(p_local: Params, mesh, ep_axis: str) -> Tuple[int, int]:
+    """(the first global expert this rank holds, how many): the experts are
+    split on E in mesh order over ``ep_axis``."""
+    e_loc = int(p_local["experts"]["w_up"].shape[0])
+    return mesh.get_local_rank(ep_axis) * e_loc, e_loc
+
+
+def moe_epsum_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, *, mesh,
+                    ep_axis: str = "model") -> Tuple[torch.Tensor, Aux]:
+    """Expert-parallel MoE over the ``DeviceMesh`` axis ``ep_axis`` (the
+    reference's ``moe_epsum_local``): x_local [T, D] are this data rank's
+    tokens, the same on every rank of the axis; ``p_local`` holds the
+    router and shared experts whole and this rank's E/ep routed experts.
+
+    Every rank routes the tokens alike (K3's fused entry), runs the sorted
+    dispatch over its local experts only at the reference's capacity
+    ``max(k, ceil(T*k/E * cf))`` (assignments to other ranks' experts sort
+    into a bucket that is cut off; the drops are the reference's), the local
+    expert FFN as one grouped product ``x[g] @ W[g]`` through K1's tiled
+    grouped entry (the [E/ep, C, D] buffer), and the combine; the partial
+    outputs (in x's type) are summed by one ``all_reduce`` over the axis.
+    Each token's expert work happens once, on the expert's owner. Shared
+    experts run on every rank. Returns (y [T, D], {}): routing through K3
+    gives no router losses (the reference's aux is unused by its prefill,
+    and training under a tensor axis is not ported)."""
+    lo, e_loc = _local_experts(p_local, mesh, ep_axis)
+    t, d = x_local.shape
+    ids, weights = route(p_local, x_local, mcfg)
+    ids = ids.long()
+    mine = (ids >= lo) & (ids < lo + e_loc)
+    local_ids = torch.where(mine, ids - lo, torch.full_like(ids, e_loc))
+    cap = capacity(mcfg, t)
+    buf, dest, _ = sorted_dispatch(x_local, local_ids, e_loc + 1, cap)
+    lut = torch.arange(e_loc, dtype=torch.int32, device=x_local.device)
+    out = expert_ffn(p_local["experts"], buf[:e_loc], lut).reshape(e_loc * cap, d)
+    valid = (dest >= 0) & (dest < e_loc * cap)
+    y = combine(out, dest, valid, weights).to(x_local.dtype)
+    dist.all_reduce(y, group=mesh.get_group(ep_axis))
+    if mcfg.num_shared_experts > 0:
+        y = y + shared_ffn(p_local, x_local)
+    return y, {}
+
+
+def moe_epsum_decode_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor,
+                           ids: torch.Tensor, weights: torch.Tensor, *, mesh,
+                           ep_axis: str = "model") -> torch.Tensor:
+    """Expert-parallel decode (the reference's ``moe_epsum_decode_local``):
+    x_local [T, D] this data rank's decode tokens, routed already (ids,
+    weights [T, k]); each rank applies its local experts to the picks that
+    route to them and one [T, D] ``all_reduce`` over the axis sums the
+    partials; shared experts on every rank.
+
+    The reference multiplies every token by every local expert (the whole
+    local store read once a step). Here each (token, pick) is a group of
+    K1's GEMV body, its LUT entry the pick's local expert: a step reads the
+    picked experts only (at qwen36's widths and two tokens a rank, about 8
+    of 64 local experts a layer). A pick of another rank's expert reads
+    local expert 0 (hot in L2 after the first) and is weighted 0. The sum
+    is the reference's up to the order of f32 additions."""
+    lo, e_loc = _local_experts(p_local, mesh, ep_axis)
+    t, k = ids.shape
+    ids = ids.long()
+    mine = (ids >= lo) & (ids < lo + e_loc)
+    lut = torch.where(mine, ids - lo, torch.zeros_like(ids)).reshape(-1)
+    xs = x_local.repeat_interleave(k, dim=0)[:, None, :]                 # [T*k, 1, D]
+    outs = expert_ffn(p_local["experts"], xs, lut)[:, 0]                 # [T*k, D]
+    w_eff = weights.float() * mine
+    y = (outs.float().reshape(t, k, -1) * w_eff[..., None]).sum(dim=1).to(x_local.dtype)
+    dist.all_reduce(y, group=mesh.get_group(ep_axis))
+    if mcfg.num_shared_experts > 0:
+        y = y + shared_ffn(p_local, x_local)
+    return y
+
+
 def moe_forward(p: Params, mcfg: MoEConfig, x: torch.Tensor, impl: str = "dense",
-                routing: Optional[Routing] = None) -> Tuple[torch.Tensor, Aux]:
-    """The training forward's MoE half: x [B, S, D] -> ([B, S, D], aux).
-    ``epsum`` (expert parallelism) falls back to ``sorted`` without a device
-    mesh, as in the reference."""
+                routing: Optional[Routing] = None, mesh=None,
+                ep_axis: str = "model") -> Tuple[torch.Tensor, Aux]:
+    """The MoE half over x [B, S, D] -> ([B, S, D], aux) with a capacity:
+    the training forward's (``dense``, ``sorted``) and the sharded
+    prefill's (``epsum`` on ``mesh``, :func:`moe_epsum_local`). ``epsum``
+    falls back to ``sorted`` without a mesh, as in the reference."""
     b, s, d = x.shape
     if impl == "dense":
         return moe_dense(p, mcfg, x, routing)
+    if impl == "epsum" and mesh is not None:
+        y, aux = moe_epsum_local(p, mcfg, x.reshape(-1, d), mesh=mesh, ep_axis=ep_axis)
+        return y.reshape(b, s, d), aux
     if impl in ("sorted", "epsum"):
         y, aux = moe_sorted(p, mcfg, x.reshape(-1, d), routing=routing)
         return y.reshape(b, s, d), aux

@@ -49,6 +49,17 @@ have no backward): ``attn_half`` in ``train`` mode
 state dropped; each layer under the run's remat policy
 (``torch.utils.checkpoint``); the loss chunked over the sequence, each
 chunk recomputed in the backward, so no [B, S, V] tensor is kept.
+
+The sharded paths (``Runtime.mesh``, a ``DeviceMesh``): each rank holds its
+data rank's rows and its parameters (``shard_params``: an MoE layer's routed
+experts split on E over the tensor axis, everything else whole).
+``prefill_model`` then runs the reference's whole-batch prefill with each
+MoE layer expert-parallel (``moe.moe_epsum_local``) and, for a long prompt
+whose heads the tensor axis does not divide, each attention layer's queries
+split over the axis (``_sp_attention``: K4's chunk entry at the rank's
+offset, then an all-gather); ``decode_model`` runs each MoE layer's
+expert-parallel decode (``moe.moe_epsum_decode_local``). Rows split over the
+data axis need no collective.
 """
 from __future__ import annotations
 
@@ -57,9 +68,12 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.config.base import KV_KINDS, ModelConfig, ShardingConfig
+from repro_torch.distributed.sharding import shard_tensor
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -74,15 +88,37 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch
 
 @dataclass(frozen=True)
 class Runtime:
-    """Execution context: the KV cache capacity decode runs against; for
-    training, the sharding config's training fields and the chunk lengths of
-    attention (queries, keys) and of the loss (positions)."""
+    """Execution context: the KV cache capacity decode runs against; the
+    sharding config; the chunk lengths of training attention (queries, keys)
+    and of the loss (positions); and ``mesh``, a ``DeviceMesh`` this process
+    belongs to (None: one device). Under a mesh ``prefill_model`` and
+    ``decode_model`` take the sharded paths, given this rank's rows and
+    this rank's parameters (``shard_params``)."""
 
     cache_len: int = 2048
     sharding: ShardingConfig = field(default_factory=ShardingConfig)
     q_chunk: int = 512
     kv_chunk: int = 512
     loss_chunk: int = 512
+    mesh: Optional[Any] = None
+
+    def tp_size(self) -> int:
+        """The tensor axis' length; a mesh without that axis raises."""
+        names = tuple(self.mesh.mesh_dim_names or ())
+        if self.sharding.tp_axis not in names:
+            raise ValueError(f"the sharded paths split over the tensor axis "
+                             f"{self.sharding.tp_axis!r}; the mesh has {names}")
+        return int(self.mesh.size(names.index(self.sharding.tp_axis)))
+
+    def ep_axis(self) -> str:
+        """The axis an MoE layer's experts are split over under the mesh:
+        the tensor axis, with ``moe_impl="epsum"`` (every other dispatch
+        needs the whole expert store on each rank)."""
+        if self.sharding.moe_impl != "epsum":
+            raise ValueError(f"under a mesh the MoE half runs expert parallelism "
+                             f"(moe_impl='epsum'), got {self.sharding.moe_impl!r}")
+        self.tp_size()
+        return self.sharding.tp_axis
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -215,12 +251,16 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     scalar or per-row [B]; with ``page_table``, ``state`` is a layer of the
     paged pool); ``chunk`` appends x's C positions to ``state`` in place at
     ``cur_len``; ``train`` keeps no state (``attention_train`` at ``rt``'s
-    chunk lengths, no kernel)."""
+    chunk lengths, no kernel). Under ``rt.mesh`` a long ``prefill`` whose
+    heads do not divide the tensor axis splits its queries over the axis
+    (:func:`_sp_attention`)."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     if mode == "train":
         rt = rt or Runtime()
         y = attn.attention_train(p["attn"], cfg.attention, h,
                                  q_chunk=rt.q_chunk, kv_chunk=rt.kv_chunk)
+    elif mode == "prefill" and _use_sp(cfg, rt, x.shape[1]):
+        y, state = _sp_attention(p["attn"], cfg.attention, rt, h, cache_len, state)
     elif mode == "prefill":
         y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len, state)
     elif mode == "decode":
@@ -232,6 +272,42 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     x_mid = x + y
     h2 = apply_norm(cfg.norm, p["ln2"], x_mid).reshape(-1, x.shape[-1])
     return x_mid, h2, state
+
+
+def _use_sp(cfg: ModelConfig, rt: Optional[Runtime], s: int) -> bool:
+    """The reference's condition for sequence-parallel prefill attention:
+    a mesh, heads that the tensor axis does not divide (no head split),
+    and at least 2,048 positions that it does."""
+    if rt is None or rt.mesh is None:
+        return False
+    tp = rt.tp_size()
+    return cfg.attention.num_heads % tp != 0 and s % tp == 0 and s >= 2048
+
+
+def _sp_attention(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache_len: int,
+                  cache: Optional[Dict[str, torch.Tensor]]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sequence-parallel prefill attention (the reference's ``_sp_attention``):
+    h [B, S, D], the same on every rank of the tensor axis. Rank r scores
+    queries ``[r*S/tp, (r+1)*S/tp)`` against the full K/V through K4's
+    chunk-append entry at offset ``r*S/tp`` (causal by position, with the
+    window and soft-cap), the slices are all-gathered over the axis, and
+    the output projection and the KV cache (written in place, ring-indexed
+    for a window, as ``attention_prefill``'s) are computed whole on every
+    rank. Returns (y [B, S, D], cache)."""
+    b, s, _ = h.shape
+    tp = rt.tp_size()
+    r = rt.mesh.get_local_rank(rt.sharding.tp_axis)
+    s_loc = s // tp
+    q, k, v = attn._project_qkv(p, acfg, h, torch.arange(s, device=h.device)[None, :])
+    ctx = ops.flash_attention_chunk(
+        q[:, r * s_loc:(r + 1) * s_loc].contiguous(), k, v,
+        torch.full((), r * s_loc, dtype=torch.int64, device=h.device),
+        window=acfg.window, soft_cap=acfg.logit_soft_cap)
+    parts = [torch.empty_like(ctx) for _ in range(tp)]
+    dist.all_gather(parts, ctx, group=rt.mesh.get_group(rt.sharding.tp_axis))
+    y = torch.cat(parts, dim=1).reshape(b, s, -1) @ p["wo"]
+    return y, attn.write_cache(acfg, k, v, cache_len, cache)
 
 
 def mlp_half(cfg: ModelConfig, p: Params, x_mid: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
@@ -282,8 +358,12 @@ def decode_model(
     cur_len: Union[int, torch.Tensor],  # tokens already in the cache (int, device scalar or [B])
     residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
     page_table: Optional[torch.Tensor] = None,
+    rt: Optional[Runtime] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over every layer: returns (logits [B, V], aux).
+    Under ``rt.mesh`` (this rank's rows and parameters, no residency) each
+    MoE layer runs expert-parallel decode
+    (``moe.moe_epsum_decode_local``: local experts, one all-reduce).
     ``page_table`` [B, pages]: ``state`` is the serving engine's paged pool
     (:func:`paged_zero_state`) instead of per-row caches.
 
@@ -309,7 +389,7 @@ def decode_model(
         if isinstance(cur_len, torch.Tensor) and cur_len.numel() > 1:
             cur_len = torch.cat([cur_len, cur_len.new_zeros(rows - b)])
     x = embed_tokens(params, token[:, None])
-    x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency, page_table)
+    x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency, page_table, rt)
     return lm_logits(cfg, params, x[:b, -1:])[:, 0], aux
 
 
@@ -326,6 +406,7 @@ def prefill_model(
     frontend: Optional[torch.Tensor] = None,
     rows: Optional[int] = None,
     moe_capacity: Optional[int] = None,
+    rt: Optional[Runtime] = None,
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """The serving engine's admission prefill (the reference's
     ``prefill_model`` under its scan over rows): returns (logits [B, V] at
@@ -362,7 +443,14 @@ def prefill_model(
     the rest (their gate weight zeroed), as the reference's sorted dispatch
     does over a batch-1 bucket whose capacity this is
     (``moe.capacity(mcfg, bucket)``: the bucket's pads sort after the row's
-    tokens, so only the capacity carries the bucket); None is dropless."""
+    tokens, so only the capacity carries the bucket); None is dropless.
+
+    ``rt`` with a mesh: the sharded prefill (:func:`_prefill_sharded`)."""
+    if rt is not None and rt.mesh is not None:
+        if any(a is not None for a in (residency, correct, experts, moe_capacity)):
+            raise ValueError("the sharded prefill takes no residency, correction, expert "
+                             "store or capacity: it runs the reference's epsum dispatch")
+        return _prefill_sharded(cfg, params, tokens, cache_len, rt, last_index, frontend, rows)
     b = tokens.shape[0]
     n_front = cfg.frontend_len if cfg.frontend is not None else 0
     last = ([tokens.shape[1] + n_front - 1] * b if last_index is None
@@ -398,6 +486,70 @@ def prefill_model(
     return logits, state
 
 
+def _prefill_sharded(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cache_len: int,
+                     rt: Runtime, last_index: Optional[torch.Tensor],
+                     frontend: Optional[torch.Tensor], rows: Optional[int]
+                     ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """The reference's ``prefill_model`` under a mesh, on this rank's rows
+    (``tokens`` [B, S], the same on every rank of the tensor axis; rows on
+    other data ranks need no collective) and this rank's parameters
+    (:func:`shard_params`). The whole batch goes through each layer at
+    once, as in the reference: attention per row, split over the tensor
+    axis by query positions where :func:`_use_sp` holds; each MoE layer
+    expert-parallel over the B*S tokens at the reference's capacity
+    (``moe.moe_forward(impl="epsum")``, so pads count as tokens, as they do
+    there); a recurrent layer's cell over the batch. Returns (logits [B, V]
+    at ``last_index`` (default the last position), the state)."""
+    b = tokens.shape[0]
+    x = prepend_frontend(cfg, params, embed_tokens(params, tokens), frontend)
+    state = zero_state(cfg, rows or b, cache_len, tokens.device)
+    for li, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
+        layer = {n: t[:b] for n, t in state[li].items()}
+        if kind not in KV_KINDS:
+            x, new = recurrent_block(cfg, kind, p, x, "prefill", None)
+            _store(layer, new)
+            continue
+        x_mid, h2, _ = attn_half(cfg, p, x, "prefill", layer, 0, cache_len, rt=rt)
+        if "moe" not in p:
+            x = mlp_half(cfg, p, x_mid, h2)
+            continue
+        y2, _ = moe_mod.moe_forward(p["moe"], cfg.moe, h2.reshape(x_mid.shape), "epsum",
+                                    mesh=rt.mesh, ep_axis=rt.ep_axis())
+        x = x_mid + y2
+    last = x[:, -1] if last_index is None else x[torch.arange(b, device=x.device),
+                                                    last_index.reshape(-1).long()]
+    return lm_logits(cfg, params, last[:, None])[:, 0], state
+
+
+def moe_param_specs(p_moe: Params, tp_axis: str) -> Params:
+    """An MoE layer's storage under a mesh (the reference's
+    ``_moe_param_specs``): routed experts split on E over ``tp_axis``, the
+    router and shared experts replicated."""
+    specs: Params = {"router": (None, None),
+                     "experts": {n: (tp_axis, None, None) for n in p_moe["experts"]}}
+    if "shared" in p_moe:
+        specs["shared"] = {n: (None, None) for n in p_moe["shared"]}
+        specs["shared_gate"] = (None, None)
+    return specs
+
+
+def shard_params(params: Params, rt: Runtime) -> Params:
+    """This rank's parameters for the sharded forward: each MoE layer as
+    :func:`moe_param_specs` cuts it (the local experts a copy, so the whole
+    store can be freed), every other tensor shared with ``params``."""
+    axis = rt.sharding.tp_axis
+    layers = []
+    for p in params["layers"]:
+        if "moe" in p:
+            specs = moe_param_specs(p["moe"], axis)
+            moe = {n: ({w: shard_tensor(t, specs[n][w], rt.mesh) for w, t in v.items()}
+                       if isinstance(v, dict) else v)
+                   for n, v in p["moe"].items()}
+            p = {**p, "moe": moe}
+        layers.append(p)
+    return {**params, "layers": layers}
+
+
 def prefill_chunk_model(
     cfg: ModelConfig,
     params: Params,
@@ -425,14 +577,22 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
                state: List[Dict[str, torch.Tensor]], cur_len: Union[int, torch.Tensor],
                residency: Optional[List[Tuple[Params, torch.Tensor]]],
                page_table: Optional[torch.Tensor] = None,
+               rt: Optional[Runtime] = None,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every layer in ``mode`` (``decode`` or ``chunk``): attention, then
     the dense MLP, or routing and the routed experts through the MoE
     layer's residency; a recurrent layer's cell, its state written in
     place. Returns the last hidden [B, S, D] and the routing telemetry
     stacked over the MoE layers (none for a stack without MoE layers).
-    ``page_table`` (decode): ``state`` is the paged pool."""
+    ``page_table`` (decode): ``state`` is the paged pool. ``rt.mesh``
+    (decode, no residency): the MoE half is expert-parallel."""
     d = x.shape[-1]
+    ep_axis = None
+    if rt is not None and rt.mesh is not None:
+        if mode != "decode" or residency is not None:
+            raise ValueError("under a mesh the stack runs decode steps without residency")
+        if cfg.has_moe:
+            ep_axis = rt.ep_axis()
     tel: Dict[str, List[torch.Tensor]] = {n: [] for n in ("ids", "weights", "miss", "h", "x")}
     for li, (kind, p, mi) in enumerate(zip(cfg.layer_kinds, params["layers"],
                                            moe_ordinals(params))):
@@ -446,9 +606,14 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
             x = mlp_half(cfg, p, x_mid, h2)
             continue
         ids, weights = moe_mod.route(p["moe"], h2, cfg.moe)
-        slots, lut = residency[mi] if residency is not None else (None, None)
-        y2, miss = moe_mod.moe_apply_routed(p["moe"], h2, ids, weights,
-                                            slot_buffer=slots, lut=lut)
+        if ep_axis is not None:
+            y2 = moe_mod.moe_epsum_decode_local(p["moe"], cfg.moe, h2, ids, weights,
+                                                mesh=rt.mesh, ep_axis=ep_axis)
+            miss = torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
+        else:
+            slots, lut = residency[mi] if residency is not None else (None, None)
+            y2, miss = moe_mod.moe_apply_routed(p["moe"], h2, ids, weights,
+                                                slot_buffer=slots, lut=lut)
         x = x_mid + y2.reshape(x_mid.shape)
         for n, v in (("ids", ids), ("weights", weights), ("miss", miss), ("h", h2),
                      ("x", x_in.reshape(-1, d))):

@@ -39,3 +39,22 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") ->
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree))
     return fn(prefix[:-1], tree)
+
+
+def replace_leaves(tree: Any, values: List[Any]) -> Any:
+    """``tree`` with its leaves replaced by ``values``, given in
+    :func:`items` order (dict keys sorted), the structure kept."""
+    it = iter(values)
+
+    def walk(t: Any) -> Any:
+        if isinstance(t, dict):
+            new = {k: walk(t[k]) for k in sorted(t)}
+            return {k: new[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return next(it)
+
+    out = walk(tree)
+    if next(it, None) is not None:
+        raise ValueError("more values than leaves")
+    return out

@@ -314,11 +314,19 @@ def test_loss_decreases(arch):
 
 
 def test_distributed_compression_raises():
+    """``int8_ef`` adds this rank's [1, *shape] bf16 residual slice of zeros
+    beside every parameter; the pod-compressed step raises before anything
+    is built without a mesh that has a "pod" axis (the multi-rank step is
+    ``tests/test_torch_distributed.py``)."""
     _, tc = _configs("starcoder2-3b")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        init_train_state(tc, ttfm.init_params(tc, 0, "cpu"),
-                         ShardingConfig(grad_compression="int8_ef"))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    params = ttfm.init_params(tc, 0, "cpu")
+    state = init_train_state(tc, params, ShardingConfig(grad_compression="int8_ef"))
+    ef = leaves(state["ef"])
+    assert len(ef) == len(leaves(params))
+    for e, p in zip(ef, leaves(params)):
+        assert e.shape == (1,) + tuple(p.shape) and e.dtype == torch.bfloat16
+        assert not e.any()
+    with pytest.raises(ValueError, match="'pod' axis"):
         make_train_step(tc, ttfm.Runtime(), RunConfig(), pod_compression=True)
 
 
