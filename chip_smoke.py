@@ -320,6 +320,7 @@ REPLACES = {
     "slot_gmm_int4_tiled": "src/repro/kernels/moe_gmm.py:78",
     "decode_attention": "src/repro/kernels/decode_attention.py:70",
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:70",
+    "decode_attention_partial": "src/repro/kernels/decode_attention.py:70",
     "topk_gate": "src/repro/kernels/topk_gate.py:81",
     "router_topk": "src/repro/kernels/topk_gate.py:81",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
@@ -337,6 +338,7 @@ SOURCE = {
     "slot_gmm_int4_tiled": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "decode_attention_paged": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "decode_attention_partial": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "topk_gate": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "router_topk": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -349,6 +351,7 @@ ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", 
          "decode_attention": ("decode_attention", ("decode_attention_bf16",
                                                    "decode_attention_f32")),
          "decode_attention_paged": ("decode_attention", "decode_attention_paged_"),
+         "decode_attention_partial": ("decode_attention", "decode_attention_partial_"),
          **{f"slot_gmm{q}_{e}": (f"slot_gmm{q}_tiled", f"slot_gmm{q}_{e}_")
             for q in ("", "_int8", "_int4") for e in ("tiled", "ragged")}}
 ROUTE_MARGIN = 1e-6                # probability gap that a summation order cannot close
@@ -988,7 +991,10 @@ def k2_rows(dev, g, dh, h, hkv):
 
 # the sharded paths' shapes: (row, the paths that run it)
 SHARDED_ROWS = {"slot_gmm_tiled_epsum": ("ep-qwen36",),
-                "flash_attention_chunk_sp": ("sp-recurrentgemma-2b",)}
+                "flash_attention_chunk_sp": ("sp-recurrentgemma-2b",),
+                "decode_attention_partial": ("tp-qwen3-4b",)}
+TP_SLICE = CACHE // 2                           # a rank's positions on tp-qwen3-4b (model 2)
+PARTIAL_LENS = (0, 1, 300, TP_SLICE)            # checked: an empty slice, one position, ...
 EP_EXPERTS, EP_TOKENS = 64, 2 * PROMPT          # a rank's experts and tokens on ep-qwen36
 SP_RANKS = 4
 
@@ -1070,7 +1076,73 @@ def sharded_rows(dev, g):
         shape=f"q [1,{c},{h},{dh}] at offsets 0 and {cur} vs k/v [1,{s},{hkv},{dh}] bf16, window "
               f"{RG_WINDOW} (_sp_attention's last rank of {SP_RANKS}: {pairs} band pairs); "
               f"library: SDPA over the {s - lo} keys in some query's band, explicit band mask")
+    rows["decode_attention_partial"] = partial_row(dev, g)
     return rows
+
+
+def partial_row(dev, g, h=32, hkv=8, dh=128):
+    """K2's partial entry at ``tp-qwen3-4b``'s slice: every query head of
+    qwen3-4b (32 on 8 KV heads, dh 128) against a rank's 512 of 1,024
+    positions, bf16. Held to its plain version (context and lse, with and
+    without a soft cap) at local lengths 0 / 1 / 300 / 512 (an empty slice:
+    lse -inf, context 0, no NaN), and the merge of two slices to the
+    contiguous entry over the whole cache; timed at the path's shape, its 2
+    rows at 512 / 512 (rank 0's full slice through decode). Bound: the
+    valid K/V, q and the f32 rows out once; library: the aten flash SDPA that
+    returns the lse (``_scaled_dot_product_flash_attention``) over the same
+    slice with K/V expanded for GQA."""
+    import torch
+
+    from repro_torch.distributed.parallel import merge_partials
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    bf = torch.bfloat16
+    b = len(PARTIAL_LENS)
+    k = torch.randn((b, TP_SLICE, hkv, dh), generator=g, device=dev).to(bf)
+    v = torch.randn((b, TP_SLICE, hkv, dh), generator=g, device=dev).to(bf)
+    q = torch.randn((b, h, dh), generator=g, device=dev).to(bf)
+    lens = torch.tensor(PARTIAL_LENS, dtype=torch.int32, device=dev)
+    err = 0.0
+    for cap in (None, 30.0):
+        got = dec.decode_attention_partial(q, k, v, lens, soft_cap=cap)
+        want = ref.decode_attention_partial_ref(q, k, v, lens, soft_cap=cap)
+        if torch.isnan(got).any() or not torch.isinf(got[0, :, -1]).all() or got[0, :, :-1].any():
+            raise AssertionError("decode_attention_partial: an empty slice must give lse -inf, "
+                                 "context 0 and no NaN")
+        err = max(err, check_close("decode_attention_partial context", got[1:, :, :-1],
+                                   want[1:, :, :-1], **KERNEL_TOL),
+                  check_close("decode_attention_partial lse", got[1:, :, -1], want[1:, :, -1],
+                              **KERNEL_TOL))
+    k2, v2 = torch.randn_like(k.float()).to(bf), torch.randn_like(v.float()).to(bf)
+    whole = torch.tensor([1, TP_SLICE, TP_SLICE + 1, 2 * TP_SLICE], dtype=torch.int32, device=dev)
+    parts = torch.stack([dec.decode_attention_partial(q, kk, vv, torch.clamp(
+        whole - r * TP_SLICE, 0, TP_SLICE).to(torch.int32)) for r, (kk, vv) in
+        enumerate(((k, v), (k2, v2)))])
+    err = max(err, check_close("decode_attention_partial merged", merge_partials(parts, bf),
+                               dec.decode_attention(q, torch.cat([k, k2], 1),
+                                                    torch.cat([v, v2], 1), whole), **KERNEL_TOL))
+    tq, tk, tv, tl = q[:2], k[:2], v[:2], torch.full((2,), TP_SLICE, dtype=torch.int32,
+                                                       device=dev)
+    qe = tq[:, :, None]                                            # [2, H, 1, dh]
+    ke = tk.transpose(1, 2).repeat_interleave(h // hkv, dim=1)     # [2, H, S, dh]
+    ve = tv.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    nbytes = 2 * 2 * TP_SLICE * hkv * dh * 2 + 2 * h * dh * 2 + 2 * h * (dh + 1) * 4
+    flops = 4 * 2 * TP_SLICE * h * dh
+    b_ms, b_by = bound(nbytes, flops)
+    plan = dec.decode_plan(TP_SLICE, dh, h // hkv, bf)
+    return dict(
+        max_abs_err=err, base="decode_attention_partial",
+        **timed(kernel=lambda: dec.decode_attention_partial(tq, tk, tv, tl),
+                plain=lambda: ref.decode_attention_partial_ref(tq, tk, tv, tl),
+                library=lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    qe, ke, ve, return_debug_mask=False)[:2]),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops,
+        shape=f"q [2,{h},{dh}] vs a slice [2,{TP_SLICE},{hkv},{dh}] bf16 (tp-qwen3-4b: a rank's "
+              f"{TP_SLICE} of {CACHE} positions), timed at local lengths {TP_SLICE}/{TP_SLICE}, "
+              f"checked at {'/'.join(map(str, PARTIAL_LENS))} and merged over two slices; f32 "
+              f"rows [.., {dh + 1}] out; the tensor-core body (tile {plan.tile}, {plan.splits} "
+              f"spans); library: aten flash SDPA with lse, K/V expanded for GQA")
 
 
 def dense_rows(dev, g):
@@ -2814,6 +2886,8 @@ DIST_PATHS = (
     DistSpec("sp-recurrentgemma-2b", "recurrentgemma-2b", 0, (1, SP_RANKS), ("data", "model"), 1,
              RG_LONG, 0),
     DistSpec("pod-train-qwen36", "qwen36-35b-a3b", 1, (2,), ("pod",), 4, PROMPT, 4),
+    DistSpec("tp-qwen3-4b", "qwen3-4b", LAYERS, (2, 2), ("data", "model"), 4, PROMPT, 32),
+    DistSpec("dp-train-qwen36", "qwen36-35b-a3b", 1, (2, 1), ("data", "model"), 4, PROMPT, 3),
 )
 DIST_TIMEOUT = 600              # seconds for a world, weights and builds included
 DIST_DEVICE = "cuda"
@@ -2853,17 +2927,23 @@ def _rank_setup(spec: DistSpec):
     dev = (torch.device("cuda", torch.cuda.current_device()) if DIST_DEVICE == "cuda"
            else torch.device(DIST_DEVICE))
     mesh = make_mesh(spec.mesh, spec.axes, device=DIST_DEVICE)
-    coll = {"ms": 0.0, "calls": 0}
-    for name in ("all_reduce", "all_gather"):
-        fn = getattr(dist, name)
+    coll = {"ms": 0.0, "calls": 0, "by": {}}
+    for name in ("all_reduce", "all_gather", "reduce_scatter_single", "reduce_scatter_tensor"):
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
 
-        def timed_call(*a, _fn=fn, **k):
+        def timed_call(*a, _fn=fn, _name=name, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = _fn(*a, **k)
             torch.cuda.synchronize()
-            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3
+            coll["ms"] += ms
             coll["calls"] += 1
+            by = coll["by"].setdefault(_name, [0.0, 0])
+            by[0] += ms
+            by[1] += 1
             return out
 
         setattr(dist, name, timed_call)
@@ -2877,13 +2957,15 @@ def _rank_close(summary: dict, coll: dict) -> dict:
 
     summary.update(counts=ops.launch_counts(), symbols=ops.symbol_launch_counts(),
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   coll_ms=coll["ms"], coll_calls=coll["calls"])
+                   coll_ms=coll["ms"], coll_calls=coll["calls"],
+                   coll_by={n: tuple(v) for n, v in coll["by"].items()})
     return summary
 
 
 def _ep_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
-    """ep-qwen36 on one rank: this rank's 64 experts a layer (``shard_params``)
-    and its data rank's 2 rows; ``prefill_model`` (``moe_epsum_local``,
+    """ep-qwen36 on one rank: every leaf at its ``param_spec`` (``shard_params``:
+    64 of 128 experts a layer, half of each attention projection and of the
+    vocabulary) and its data rank's 2 rows; ``prefill_model`` (``moe_epsum_local``,
     K1's tiled grouped entry, K3's fused entry), then greedy
     ``decode_model`` steps (``moe_epsum_decode_local``)."""
     import torch
@@ -2899,7 +2981,7 @@ def _ep_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
     sh = ShardingConfig(moe_impl="epsum")
     rt = tfm.Runtime(sharding=sh, mesh=mesh, cache_len=CACHE)
     t0 = time.perf_counter()
-    params = tfm.shard_params(tfm.init_params(cfg, 0, dev), rt)
+    params = tfm.shard_params(cfg, tfm.init_params(cfg, 0, dev), rt)
     gc.collect()
     torch.cuda.empty_cache()
     weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
@@ -3054,6 +3136,121 @@ def _pod_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
     return _rank_close(dict(rank=rank, losses=losses, times=times, same=same,
                             step_coll_ms=step_coll, payloads=records, setup_s=setup_s,
                             ef=[tuple(t.shape) for t in _leaves(state["ef"])]), coll)
+
+
+def _tp_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
+    """tp-qwen3-4b on one rank: every leaf at its ``param_spec``
+    (``shard_params``: 16 of 32 query heads and 4 of 8 KV heads, half of
+    each MLP's columns / rows and of the vocabulary) and its data rank's 2
+    rows; ``prefill_model`` (K4 on the rank's heads, the caches left split
+    by sequence: a rank's 512 of 1,024 positions), then greedy
+    ``decode_model`` steps (K2's partial entry over the rank's slice with
+    every query head, one all-gather and the merge). Returns the logits,
+    the greedy ids and the rank's cache slices."""
+    import torch
+
+    from repro_torch.config import ShardingConfig
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    dev, mesh, coll = _rank_setup(spec)
+    cfg = _dist_cfg(spec)
+    sh = ShardingConfig(moe_impl="epsum")
+    rt = tfm.Runtime(sharding=sh, mesh=mesh, cache_len=CACHE)
+    t0 = time.perf_counter()
+    params = tfm.shard_params(cfg, tfm.init_params(cfg, 0, dev), rt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    rows_spec = shr.batch_spec(sh, mesh, spec.rows)
+    tokens = shr.shard_tensor(torch.from_numpy(_dist_tokens(cfg, spec)).to(dev), rows_spec, mesh)
+    setup_s = time.perf_counter() - t0
+    _, warm = tfm.prefill_model(cfg, params, tokens[:, :WARM], CACHE, rt=rt)
+    tfm.decode_model(cfg, params, tokens[:, 0], warm, WARM, rt=rt)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    coll.update(ms=0.0, calls=0, by={})
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill_model(cfg, params, tokens, CACHE, rt=rt)
+    out = [logits.float().cpu()]
+    prefill_s = time.perf_counter() - t0
+    prefill_coll = dict(coll)
+    prefill_launches = ops.symbol_launch_counts()
+    t0 = time.perf_counter()
+    for j in range(spec.steps - 1):
+        lg, _ = tfm.decode_model(cfg, params, out[-1].argmax(-1).to(dev), state,
+                                 spec.prompt + j, rt=rt)
+        out.append(lg.float().cpu())
+    decode_s = time.perf_counter() - t0
+    logits = torch.stack(out, 1)                                  # [rows, steps, V]
+    caches = {f"{n}/{li}": st[n].cpu() for li, st in enumerate(state) for n in ("k", "v")}
+    return _rank_close(dict(
+        rank=rank, coord=mesh.get_coordinate(), tp_rank=rt.tp_rank(),
+        rows=shr.shard_bounds(spec.rows, rows_spec[0], mesh), logits=logits,
+        ids=logits.argmax(-1), caches=caches, setup_s=setup_s, weight_gb=weight_gb,
+        prefill_s=prefill_s, decode_s=decode_s, prefill_coll_ms=prefill_coll["ms"],
+        prefill_coll_calls=prefill_coll["calls"], prefill_symbols=prefill_launches), coll)
+
+
+def _dpt_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
+    """dp-train-qwen36 on one rank: its data rank's rows of each step's
+    global batch (``trainer.data_rows``), ``make_train_step`` over the
+    (data 2) mesh with ZeRO-1 (the moments at ``opt_spec``, gradients
+    reduce-scattered or all-reduced, AdamW on the shards, parameters
+    all-gathered); the data ranks' parameters compared bit for bit after
+    every step."""
+    import torch
+
+    from repro_torch.config import RunConfig, ShardingConfig
+    from repro_torch.data import SyntheticSpec, batch_at_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.trainer import data_rows
+
+    dev, mesh, coll = _rank_setup(spec)
+    cfg = _dist_cfg(spec)
+    sh = ShardingConfig(remat_policy="dots_saveable", moe_impl="epsum", zero1=True)
+    rt = tfm.Runtime(sharding=sh, mesh=mesh)
+    data = SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=spec.prompt,
+                         global_batch=spec.rows, kind="topic", seed=0)
+    dp, r = spec.mesh[0], mesh.get_local_rank("data")
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tfm.init_params(cfg, 0, dev), sh, mesh=mesh)
+    step_fn = make_train_step(cfg, rt, RunConfig(**TRAIN_LR))
+    setup_s = time.perf_counter() - t0
+    moment_gb = sum(t.numel() * t.element_size() for key in ("m", "v")
+                    for t in _leaves(state["opt"][key])) / 1e9
+    whole_gb = 2 * 4 * sum(p.numel() for p in _leaves(state["params"])) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    coll.update(ms=0.0, calls=0, by={})
+    losses, xents, norms, times, same, step_coll = [], [], [], [], [], []
+    for i in range(spec.steps):
+        tokens, labels = (data_rows(torch.from_numpy(a), 1, r, dp).to(dev)
+                          for a in batch_at_step(data, i))
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), coll["ms"]
+        state, m = step_fn(state, tokens, labels)
+        losses.append(float(m["loss"]))
+        xents.append(float(m["lm_xent"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        step_coll.append(coll["ms"] - c0)
+        kept = {"ms": coll["ms"], "calls": coll["calls"],
+                "by": {n: list(v) for n, v in coll["by"].items()}}
+        same.append(_bits_equal(state["params"], mesh.get_group("data"), dp))
+        coll.update(kept)                    # the check's gathers are not the step's
+    return _rank_close(dict(rank=rank, losses=losses, xents=xents, norms=norms, times=times,
+                            same=same, step_coll_ms=step_coll, setup_s=setup_s,
+                            moment_gb=moment_gb, whole_moment_gb=whole_gb,
+                            moment_shapes=[tuple(t.shape) for t in _leaves(state["opt"]["m"])]),
+                       coll)
 
 
 def _ep_unsharded(cfg, params, tokens, ids, routes, spec: DistSpec):
@@ -3264,18 +3461,153 @@ def _pod_check(dev, spec: DistSpec, ranks: list) -> dict:
                 plain_median_ms=float(np.median(plain_times[1:])) * 1e3)
 
 
+def _tp_check(dev, spec: DistSpec, ranks: list) -> dict:
+    """The model ranks of a data rank hold the same logits bit for bit; each
+    data rank's logits against one process of the same weights unsharded
+    (``prefill_model``, then ``decode_model`` fed the sharded run's greedy
+    ids): per step RMS(diff) / RMS(logits) <= EP_RMS_TOL, the greedy ids
+    equal wherever the unsharded top-2 margin exceeds twice the step's
+    largest |diff|; each rank's slice of every KV cache against the same
+    positions of the unsharded cache, RMS(diff) / RMS(cache) <= EP_RMS_TOL
+    (bitwise slices counted)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = _dist_cfg(spec)
+    groups = {}
+    for r in ranks:
+        groups.setdefault(tuple(r["rows"]), []).append(r)
+    for rows, rs in groups.items():
+        if not all(torch.equal(r["logits"], rs[0]["logits"]) for r in rs[1:]):
+            raise AssertionError(f"{spec.label}: the model ranks of rows {rows} disagree")
+    params = tfm.init_params(cfg, 0, dev)
+    tokens = torch.from_numpy(_dist_tokens(cfg, spec)).to(dev)
+    worst_rms = worst_abs = cache_rms = 0.0
+    sure = parted = slices = bitwise = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for (lo, hi), rs in sorted(groups.items()):
+            got, ids = rs[0]["logits"], rs[0]["ids"].to(dev)
+            logits, state = tfm.prefill_model(cfg, params, tokens[lo:hi], CACHE)
+            out = [logits.float().cpu()]
+            for j in range(spec.steps - 1):
+                lg, _ = tfm.decode_model(cfg, params, ids[:, j], state, spec.prompt + j)
+                out.append(lg.float().cpu())
+            want = torch.stack(out, 1)
+            diff = got - want
+            rms = diff.square().mean(dim=(0, 2)).sqrt() / want.square().mean(dim=(0, 2)).sqrt()
+            worst_rms = max(worst_rms, float(rms.max()))
+            step_max = diff.abs().amax(dim=(0, 2))
+            worst_abs = max(worst_abs, float(step_max.max()))
+            top2 = want.topk(2, dim=-1).values
+            ok = (top2[..., 0] - top2[..., 1]) > 2 * step_max[None, :]
+            sure += int(ok.sum())
+            parted += int((ok & (got.argmax(-1) != want.argmax(-1))).sum())
+            for r in rs:
+                for key, mine in r["caches"].items():
+                    n, li = key.split("/")
+                    c = mine.shape[1]
+                    whole = state[int(li)][n][:, r["tp_rank"] * c:(r["tp_rank"] + 1) * c].cpu()
+                    err = (mine.float() - whole.float()).square().mean().sqrt() / max(
+                        float(whole.float().square().mean().sqrt()), 1e-30)
+                    cache_rms = max(cache_rms, float(err))
+                    slices += 1
+                    bitwise += torch.equal(mine, whole)
+            del state
+    unsharded_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = spec.rows * spec.steps
+    log(f"[5/{spec.label}] against one process of the same weights unsharded "
+        f"({unsharded_s:.1f} s): worst step RMS(diff) / RMS(logits) {worst_rms:.5f} (tolerance "
+        f"{EP_RMS_TOL}), largest |diff| {worst_abs:.4f}; greedy ids equal at {sure - parted} of "
+        f"{sure} sure positions ({n - sure} of {n} under the margin guard); {slices} cache "
+        f"slices, worst RMS(diff) / RMS(cache) {cache_rms:.5f}, {bitwise} bitwise")
+    if not worst_rms <= EP_RMS_TOL:
+        raise AssertionError(f"{spec.label}: logits part from the unsharded run")
+    if parted:
+        raise AssertionError(f"{spec.label}: {parted} greedy ids differ at sure positions")
+    if not cache_rms <= EP_RMS_TOL:
+        raise AssertionError(f"{spec.label}: a cache slice parts from the unsharded cache")
+    return dict(rms_rel=worst_rms, max_abs=worst_abs, sure=sure, positions=n,
+                cache_rms=cache_rms, cache_slices=slices, cache_bitwise=bitwise)
+
+
+def _dpt_check(dev, spec: DistSpec, ranks: list) -> dict:
+    """The data ranks' parameters equal after every step and their losses
+    equal; against one process taking the same global batch
+    (``make_train_step(num_micro=2)``: each data rank's rows a microbatch,
+    so each keeps the same MoE capacity as that rank): step 0's loss within
+    TRAIN_LOSS_TOL, the later losses printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import RunConfig, ShardingConfig
+    from repro_torch.data import SyntheticSpec, batch_at_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = _dist_cfg(spec)
+    if not all(all(r["same"]) for r in ranks):
+        raise AssertionError(f"{spec.label}: the data ranks' parameters part: "
+                             f"{[r['same'] for r in ranks]}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"{spec.label}: the data ranks' losses differ")
+    sh = ShardingConfig(remat_policy="dots_saveable", moe_impl="sorted")
+    data = SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=spec.prompt,
+                         global_batch=spec.rows, kind="topic", seed=0)
+    state = init_train_state(cfg, tfm.init_params(cfg, 0, dev))
+    step_fn = make_train_step(cfg, tfm.Runtime(sharding=sh), RunConfig(**TRAIN_LR),
+                              num_micro=spec.mesh[0])
+    plain_losses, plain_times = [], []
+    for i in range(spec.steps):
+        tokens, labels = (torch.from_numpy(a).to(dev) for a in batch_at_step(data, i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, tokens, labels)
+        plain_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        plain_times.append(time.perf_counter() - t0)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = ranks[0]["losses"]
+    log(f"[5/{spec.label}] data ranks' parameters bitwise equal after each of {spec.steps} "
+        f"steps; losses {' '.join(f'{x:.5f}' for x in losses)} (cross-entropy "
+        f"{' '.join(f'{x:.5f}' for x in ranks[0]['xents'])}) against one process "
+        f"{' '.join(f'{x:.5f}' for x in plain_losses)} (step 0 |diff| "
+        f"{abs(losses[0] - plain_losses[0]):.5f}, tolerance {TRAIN_LOSS_TOL}); one process's "
+        f"step ms {' '.join(f'{1e3 * x:.1f}' for x in plain_times)}")
+    if not abs(losses[0] - plain_losses[0]) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"{spec.label}: step 0's loss parts from the one-process step")
+    return dict(plain_losses=plain_losses,
+                plain_median_ms=float(np.median(plain_times[1:])) * 1e3)
+
+
 DIST_RANKS = {"ep-qwen36": (_ep_rank, _ep_check), "sp-recurrentgemma-2b": (_sp_rank, _sp_check),
-              "pod-train-qwen36": (_pod_rank, _pod_check)}
+              "pod-train-qwen36": (_pod_rank, _pod_check), "tp-qwen3-4b": (_tp_rank, _tp_check),
+              "dp-train-qwen36": (_dpt_rank, _dpt_check)}
 
 
 def dist_line(r: dict) -> str:
     """A sharded path's summary on one line (phase 6)."""
     head = f"{r['label']:>23}: {r['backend']}, {r['world']} ranks, mesh {r['mesh']}; "
-    if r["label"] == "ep-qwen36":
+    if r["label"] in ("ep-qwen36", "tp-qwen3-4b"):
         body = (f"prefill {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.0f} tok/s), decode "
-                f"{r['decode_tok_s']:.1f} tok/s ({r['step_ms']:.2f} ms a step); logits RMS "
-                f"{r['rms_rel']:.5f} of the unsharded run's, ids equal at {r['sure']} sure of "
-                f"{r['positions']}")
+                f"{r['decode_tok_s']:.1f} tok/s ({r['step_ms']:.2f} ms a step); weights "
+                f"{r['weight_gb']:.2f} GB a rank; logits RMS {r['rms_rel']:.5f} of the unsharded "
+                f"run's, ids equal at {r['sure']} sure of {r['positions']}")
+        if "cache_rms" in r:
+            body += (f"; cache slices RMS {r['cache_rms']:.5f}, {r['cache_bitwise']} of "
+                     f"{r['cache_slices']} bitwise")
+    elif r["label"] == "dp-train-qwen36":
+        body = (f"step {r['step_ms']:.1f} ms ({r['tok_s']:.0f} tokens/s; one process "
+                f"{r['plain_median_ms']:.1f} ms), collectives {r['step_coll_ms']:.1f} ms a step "
+                f"({r['coll_split']}); moments {r['moment_gb']:.2f} GB a rank of "
+                f"{r['whole_moment_gb']:.2f} GB; losses {' '.join(f'{x:.4f}' for x in r['losses'])} "
+                f"(one process {' '.join(f'{x:.4f}' for x in r['plain_losses'])})")
     elif r["label"] == "sp-recurrentgemma-2b":
         body = (f"prefill {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.0f} tok/s; unsharded "
                 f"{r['unsharded_ms']:.1f} ms); logits max |diff| {r['max_abs']:.3e}, caches "
@@ -3317,8 +3649,9 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
         for name, syms in r["symbols"].items():
             for sym, n in syms.items():
                 symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
-        need = {"ep-qwen36": ("router_topk", "slot_gmm_tiled"),
-                "sp-recurrentgemma-2b": ("flash_attention_chunk",)}.get(spec.label, ())
+        need = {"ep-qwen36": ("router_topk", "slot_gmm_tiled", "decode_attention_partial"),
+                "sp-recurrentgemma-2b": ("flash_attention_chunk",),
+                "tp-qwen3-4b": ("flash_attention", "decode_attention_partial")}.get(spec.label, ())
         for entry in need:
             got = (entry_launches(r["symbols"], entry) if entry in ENTRY
                    else r["counts"][entry])
@@ -3330,7 +3663,7 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
                    world=nprocs, mesh=dict(zip(spec.axes, spec.mesh)), world_s=world_s,
                    peak_gib=peak, coll_ms=coll_ms, coll_calls=ranks[0]["coll_calls"],
                    setup_s=max(r["setup_s"] for r in ranks))
-    if spec.label == "ep-qwen36":
+    if spec.label in ("ep-qwen36", "tp-qwen3-4b"):
         pre = max(r["prefill_s"] for r in ranks)
         dec = max(r["decode_s"] for r in ranks)
         summary.update(prefill_ms=pre * 1e3, prefill_tok_s=spec.rows * spec.prompt / pre,
@@ -3339,9 +3672,16 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
                        prefill_coll_ms=max(r["prefill_coll_ms"] for r in ranks),
                        weight_gb=ranks[0]["weight_gb"])
         what = (f"prefill {summary['prefill_ms']:.1f} ms ({summary['prefill_tok_s']:.0f} tok/s "
-                f"over {spec.rows} x {spec.prompt}), decode {summary['decode_tok_s']:.1f} tok/s "
-                f"over {spec.rows} rows ({summary['step_ms']:.2f} ms a step), weights a rank "
+                f"over {spec.rows} x {spec.prompt}; collectives {summary['prefill_coll_ms']:.1f} "
+                f"ms), decode {summary['decode_tok_s']:.1f} tok/s over {spec.rows} rows "
+                f"({summary['step_ms']:.2f} ms a step), weights a rank "
                 f"{summary['weight_gb']:.2f} GB")
+        if spec.label == "tp-qwen3-4b":
+            per = [(r["rank"], entry_launches(r["symbols"], "decode_attention_partial"),
+                    r["counts"]["flash_attention"]) for r in ranks]
+            summary["rank_launches"] = per
+            what += "; K2 partial / K4 launches a rank " + ", ".join(
+                f"rank {k}: {a} / {b}" for k, a, b in per)
     elif spec.label == "sp-recurrentgemma-2b":
         pre = max(r["prefill_s"] for r in ranks)
         summary.update(prefill_ms=pre * 1e3, prefill_tok_s=spec.prompt / pre)
@@ -3351,6 +3691,12 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
         med = float(np.median(times[1:]))
         summary.update(step_ms=med * 1e3, tok_s=spec.rows * spec.prompt / med, losses=ranks[0]["losses"],
                        step_coll_ms=float(np.median(ranks[0]["step_coll_ms"][1:])))
+        if spec.label == "dp-train-qwen36":
+            by = ranks[0]["coll_by"]
+            summary.update(moment_gb=ranks[0]["moment_gb"],
+                           whole_moment_gb=ranks[0]["whole_moment_gb"],
+                           coll_split=", ".join(f"{n} {v[0]:.1f} ms / {v[1]} calls"
+                                                for n, v in sorted(by.items())))
         what = (f"median step {med * 1e3:.1f} ms ({summary['tok_s']:.0f} tokens/s over "
                 f"{spec.rows} x {spec.prompt}), collectives {summary['step_coll_ms']:.1f} ms a "
                 f"step; step ms {' '.join(f'{1e3 * x:.1f}' for x in times)}")
@@ -3569,7 +3915,7 @@ def main() -> int:
             f"{t['launches']} / {t['pulls']} / {t['rotations']} / {t['prefetch_spans']} / "
             f"{t['kv_events']}; {t['events']} events; {t['overlap_ms_from_spans']:.3f} / "
             f"{t['overlap_stats_ms']:.3f} ms; {t['trace_mb']:.2f} MB{twin}")
-    for name in ("decode_attention", "decode_attention_paged"):
+    for name in ("decode_attention", "decode_attention_paged", "decode_attention_partial"):
         if entry_launches(symbols, name) <= 0:
             raise AssertionError(f"entry {name} never launched on any path")
     kernels = []

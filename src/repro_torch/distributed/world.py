@@ -15,9 +15,10 @@ traceback. ``fn`` and ``args`` must pickle (a module-level function).
 The backend is chosen explicitly and printed (:func:`choose_backend`):
 ``gloo`` for CPU ranks; ``nccl`` when each rank has its own card; ``gloo``
 when the ranks share fewer cards than there are ranks, because NCCL refuses
-two ranks on one device. gloo takes CUDA tensors for ``all_reduce`` and
-``all_gather`` (the only collectives the sharded paths make), staging them
-through host memory.
+two ranks on one device. gloo takes CUDA tensors for ``all_reduce``,
+``all_gather`` and ``reduce_scatter_single`` (the collectives the sharded
+paths and ZeRO-1 make), staging them through host memory
+(``tools/torch_gloo_probe.py`` checks every collective on the card).
 """
 from __future__ import annotations
 

@@ -50,6 +50,15 @@
 // cross page boundaries anywhere), never the plan, the scoring or the
 // merge. So it is bitwise the contiguous entry on the gathered view and
 // keeps its batch invariance.
+//
+// The partial entry (decode_attention_partial_*) scores one slice of a
+// cache split by sequence over ranks (the cross-rank split-KV decode of a
+// cache sharded by state_spec): the contiguous entry over the slice, with
+// per-row local lengths that may be 0 (an empty slice: o 0, lse -inf, no
+// NaN). It writes f32 rows [B, H, dh + 1]: the normalized context, then the
+// natural-log sum of exponentials of the scores, M + log2(L) in base 2
+// times ln 2 from the cluster merge's (M, L), one store a (row, head). The
+// caller all-gathers those rows and merges the slices.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -63,6 +72,7 @@ constexpr int DA_MAXG = 16;          // query heads per KV head
 constexpr int DA_MAXSPLITS = 16;     // the blocks of one (non-portable) cluster
 constexpr int DA_PAD = 16;           // bytes of padding per shared row (ldmatrix without conflicts)
 constexpr float DA_LOG2E = 1.4426950408889634f;
+constexpr float DA_LN2 = 0.6931471805599453f;
 
 struct DecodeArgs {
     const void* q;
@@ -75,6 +85,7 @@ struct DecodeArgs {
     int npages, ps;              // the paged entry's table width and page size
     float scale;     // 1/sqrt(dh)
     float soft_cap;  // 0: none
+    int partial;     // the partial entry: f32 out rows [B, H, dh + 1], the lse last
 };
 
 // Where row b's cache starts, and its page table: the contiguous cache
@@ -126,16 +137,24 @@ __device__ void merge_splits(const DecodeArgs& a, const Partial& part, const flo
             L += ek * ml[1][k][tid];
         }
         inv[tid] = 1.f / fmaxf(L, 1e-30f);
+        if (a.partial && split == 0)                      // lse = ln(2^M L); -inf when empty
+            static_cast<float*>(a.out)[((size_t)b * a.H + (size_t)hk * g + tid) * (a.dh + 1)
+                                       + a.dh] =
+                L > 0.f ? (M + log2f(L)) * DA_LN2 : __int_as_float(0xff800000);
     }
     __syncthreads();
     const int dh = a.dh;
     T* out = static_cast<T*>(a.out) + ((size_t)b * a.H + (size_t)hk * g) * dh;
+    float* pout = static_cast<float*>(a.out) + ((size_t)b * a.H + (size_t)hk * g) * (dh + 1);
     for (int i = split * DA_THREADS + tid; i < g * dh; i += DA_THREADS * splits) {
         const int h = i / dh;
         float o = 0.f;
 #pragma unroll 4
         for (int k = 0; k < live; ++k) o += e[k][h] * cluster.map_shared_rank(Os, k)[i];
-        out[i] = from_f<T>(o * inv[h]);
+        if (a.partial)
+            pout[h * (dh + 1) + i % dh] = o * inv[h];
+        else
+            out[i] = from_f<T>(o * inv[h]);
     }
     cluster.sync();                                       // keep the partials alive for the readers
 }
@@ -542,14 +561,14 @@ static int launch_decode(const void* q, const void* k, const void* v, const void
                          const void* page_table, int npages, int ps,
                          int B, int H, int Hkv, int S, int dh, float scale, float soft_cap,
                          int splits, int tile, int span, int tensor_cores, int vec, void* out,
-                         void* stream) {
+                         void* stream, int partial = 0) {
     if (!plan_ok(B, H, Hkv, S, dh, splits, tile, span, tensor_cores, vec, (int)sizeof(T)))
         return (int)cudaErrorInvalidValue;
     if (page_table && (npages < 1 || ps < 1 || (long)npages * ps != S))
         return (int)cudaErrorInvalidValue;
     const DecodeArgs a{q, k, v, static_cast<const int32_t*>(lengths),
                        static_cast<const int32_t*>(page_table), out,
-                       H, Hkv, S, dh, span, npages, ps, scale, soft_cap};
+                       H, Hkv, S, dh, span, npages, ps, scale, soft_cap, partial};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (sizeof(T) == 2) {
         if (tensor_cores) {
@@ -603,4 +622,26 @@ extern "C" int decode_attention_paged_f32(const void* q, const void* k, const vo
     return launch_decode<float>(q, k, v, lengths, page_table, npages, ps, B, H, Hkv, npages * ps,
                                 dh, scale, soft_cap, splits, tile, span, tensor_cores, vec, out,
                                 stream);
+}
+
+// The partial entry: the contiguous entry over one slice of a cache split by
+// sequence, ``lengths`` the slice's per-row local lengths (0 allowed), out
+// f32 [B, H, dh + 1]: the normalized context and the lse of each head.
+extern "C" int decode_attention_partial_bf16(const void* q, const void* k, const void* v,
+                                             const void* lengths, int B, int H, int Hkv, int S,
+                                             int dh, float scale, float soft_cap, int splits,
+                                             int tile, int span, int tensor_cores, int vec,
+                                             void* out, void* stream) {
+    return launch_decode<__nv_bfloat16>(q, k, v, lengths, nullptr, 0, 0, B, H, Hkv, S, dh, scale,
+                                        soft_cap, splits, tile, span, tensor_cores, vec, out,
+                                        stream, 1);
+}
+
+extern "C" int decode_attention_partial_f32(const void* q, const void* k, const void* v,
+                                            const void* lengths, int B, int H, int Hkv, int S,
+                                            int dh, float scale, float soft_cap, int splits,
+                                            int tile, int span, int tensor_cores, int vec,
+                                            void* out, void* stream) {
+    return launch_decode<float>(q, k, v, lengths, nullptr, 0, 0, B, H, Hkv, S, dh, scale,
+                                soft_cap, splits, tile, span, tensor_cores, vec, out, stream, 1);
 }

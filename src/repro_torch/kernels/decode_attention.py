@@ -17,6 +17,14 @@ engine's KV pool: shared planes [P, ps, Hkv, dh] read through each row's
 page table by the kernel itself (no gathered copy), with the contiguous
 entry's plan at S = pages * ps, so it gives the contiguous entry's bits on
 the gathered view. Plain version: ``kernels.ref.decode_attention_paged_ref``.
+
+The partial entry (:func:`decode_attention_partial`) scores one slice of a
+cache split by sequence over ranks: the contiguous entry's plan and body at
+the slice's length, per-row local lengths that may be 0, and f32 rows [B, H,
+dh + 1] out, each head's normalized context followed by its log-sum-exp
+(``-inf`` for an empty slice), which the caller all-gathers and merges
+(``distributed/parallel.py:merge_partials``). Plain version:
+``kernels.ref.decode_attention_partial_ref``.
 """
 from __future__ import annotations
 
@@ -44,10 +52,13 @@ _PAGED = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
 KERNEL = CudaKernel("decode_attention", "decode_attention.cu", {
     "decode_attention_bf16": _CONTIGUOUS, "decode_attention_f32": _CONTIGUOUS,
     "decode_attention_paged_bf16": _PAGED, "decode_attention_paged_f32": _PAGED,
+    "decode_attention_partial_bf16": _CONTIGUOUS, "decode_attention_partial_f32": _CONTIGUOUS,
 })
 _SYMBOL = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
 PAGED_SYMBOLS = {torch.bfloat16: "decode_attention_paged_bf16",
                  torch.float32: "decode_attention_paged_f32"}
+PARTIAL_SYMBOLS = {torch.bfloat16: "decode_attention_partial_bf16",
+                   torch.float32: "decode_attention_partial_f32"}
 
 
 @dataclass(frozen=True)
@@ -94,7 +105,11 @@ def decode_attention(
     lengths: torch.Tensor,      # [B] int: valid positions per row, >= 1
     *,
     soft_cap: Optional[float] = None,
+    partial: bool = False,
 ) -> torch.Tensor:
+    """K2's contiguous entry: [B, H, dh] in q's type. ``partial``: the
+    partial entry (lengths may be 0), f32 [B, H, dh + 1], each head's
+    normalized context and then its log-sum-exp."""
     _check_q(q, k, v)
     b, h, dh = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh or v.shape != k.shape:
@@ -107,13 +122,24 @@ def decode_attention(
     plan = decode_plan(s, dh, h // hkv, q.dtype)
     vec = (dh * q.element_size()) % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (q, k, v))
-    out = torch.empty_like(q)
-    KERNEL(_SYMBOL[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           lengths.data_ptr(), b, h, hkv, s, dh, 1.0 / math.sqrt(dh),
+    if partial:
+        out = torch.empty((b, h, dh + 1), dtype=torch.float32, device=q.device)
+    else:
+        out = torch.empty_like(q)
+    KERNEL((PARTIAL_SYMBOLS if partial else _SYMBOL)[q.dtype], q.device, q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), lengths.data_ptr(), b, h, hkv, s, dh, 1.0 / math.sqrt(dh),
            float(soft_cap) if soft_cap is not None else 0.0,
            plan.splits, plan.tile, plan.span, int(plan.tensor_cores and vec), int(vec),
            out.data_ptr())
     return out
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             lengths: torch.Tensor, *,
+                             soft_cap: Optional[float] = None) -> torch.Tensor:
+    """K2's partial entry over one slice k/v [B, S_loc, Hkv, dh] at local
+    ``lengths`` [B] (0 .. S_loc): f32 [B, H, dh + 1], context then lse."""
+    return decode_attention(q, k, v, lengths, soft_cap=soft_cap, partial=True)
 
 
 def decode_attention_paged(

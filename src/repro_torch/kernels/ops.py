@@ -134,6 +134,19 @@ def decode_attention(
     return out[:, None]
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             lengths: torch.Tensor,
+                             soft_cap: Optional[float] = None) -> torch.Tensor:
+    """One slice of a cache split by sequence: q [B, H, dh] (every query
+    head) against the slice k/v [B, S_loc, Hkv, dh] at local ``lengths``
+    [B] (0 .. S_loc, on q's device) -> f32 [B, H, dh + 1], each head's
+    normalized context, then its log-sum-exp (``-inf`` where the slice is
+    empty). On the card, K2's partial entry."""
+    if _on_card(q):
+        return _dec.decode_attention_partial(q, k, v, lengths, soft_cap=soft_cap)
+    return ref.decode_attention_partial_ref(q, k, v, lengths, soft_cap=soft_cap)
+
+
 def topk_gate(
     logits: torch.Tensor, k: int, *, normalize: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -90,6 +90,35 @@ def decode_attention_ref(
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+def decode_attention_partial_ref(
+    q: torch.Tensor,           # [B, H, dh]
+    k: torch.Tensor,           # [B, S_loc, Hkv, dh] one slice of a cache split by sequence
+    v: torch.Tensor,
+    lengths: torch.Tensor,     # [B] int: the slice's valid positions, 0 .. S_loc
+    *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """The partial entry's plain version: f32 [B, H, dh + 1], each head's
+    softmax-normalized context over the slice's valid positions, then the
+    log-sum-exp of its scores; an empty slice gives context 0 and lse
+    ``-inf``."""
+    b, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, dh).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(dh)
+    if soft_cap is not None:
+        logits = soft_cap * torch.tanh(logits / soft_cap)
+    valid = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, -float("inf")))
+    lse = torch.logsumexp(logits, dim=-1)                         # -inf where empty
+    probs = torch.exp(logits - torch.where(torch.isfinite(lse), lse,
+                                           torch.zeros_like(lse))[..., None])
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v.float())
+    return torch.cat([out.reshape(b, h, dh), lse.reshape(b, h, 1)], dim=-1)
+
+
 def decode_attention_paged_ref(
     q: torch.Tensor,           # [B, H, dh]
     k: torch.Tensor,           # [P, ps, Hkv, dh] shared planes

@@ -69,9 +69,12 @@ def init_attention(gen: torch.Generator, d_model: int, acfg: AttentionConfig,
 def _project_qkv(
     p: Params, acfg: AttentionConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> q [B, S, H, dh], k/v [B, S, Hkv, dh] with RoPE + optional qk-norm."""
+    """x [B, S, D] -> q [B, S, H, dh], k/v [B, S, Hkv, dh] with RoPE + optional qk-norm.
+    The head counts are the projections' (``wq`` / ``wk`` columns over dh):
+    a rank of the tensor axis holding its heads' columns projects those."""
     b, s, _ = x.shape
-    h, hkv, dh = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+    dh = acfg.head_dim
+    h, hkv = p["wq"].shape[1] // dh, p["wk"].shape[1] // dh
     q = (x @ p["wq"]).reshape(b, s, h, dh)
     k = (x @ p["wk"]).reshape(b, s, hkv, dh)
     v = (x @ p["wv"]).reshape(b, s, hkv, dh)

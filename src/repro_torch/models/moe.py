@@ -388,6 +388,28 @@ def moe_dense(p: Params, mcfg: MoEConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Expert parallelism over a mesh axis (the reference's ``epsum``)
 # ---------------------------------------------------------------------------
+def _shared_split(p_local: Params, mcfg: MoEConfig) -> bool:
+    """Whether the shared experts hold this rank's columns / rows only
+    (``param_spec`` cuts them as a dense MLP over the tensor axis)."""
+    return ("shared" in p_local and p_local["shared"]["w_down"].shape[0]
+            < mcfg.shared_d_ff * mcfg.num_shared_experts)
+
+
+def _add_shared(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, y: torch.Tensor,
+                group) -> torch.Tensor:
+    """The routed experts' partial output ``y`` summed over ``group`` with
+    the shared experts: their partial sum joins ``y`` before the one
+    all-reduce where they are split over the axis, else they run whole on
+    every rank after it."""
+    split = _shared_split(p_local, mcfg)
+    if split:
+        y = y + shared_ffn(p_local, x_local)
+    dist.all_reduce(y, group=group)
+    if mcfg.num_shared_experts > 0 and not split:
+        y = y + shared_ffn(p_local, x_local)
+    return y
+
+
 def _local_experts(p_local: Params, mesh, ep_axis: str) -> Tuple[int, int]:
     """(the first global expert this rank holds, how many): the experts are
     split on E in mesh order over ``ep_axis``."""
@@ -410,7 +432,9 @@ def moe_epsum_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, *, 
     grouped entry (the [E/ep, C, D] buffer), and the combine; the partial
     outputs (in x's type) are summed by one ``all_reduce`` over the axis.
     Each token's expert work happens once, on the expert's owner. Shared
-    experts run on every rank. Returns (y [T, D], {}): routing through K3
+    experts run on every rank, whole or (split by the rules over the axis)
+    as a partial sum inside the same all-reduce. Returns (y [T, D], {}):
+    routing through K3
     gives no router losses (the reference's aux is unused by its prefill,
     and training under a tensor axis is not ported)."""
     lo, e_loc = _local_experts(p_local, mesh, ep_axis)
@@ -425,10 +449,7 @@ def moe_epsum_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, *, 
     out = expert_ffn(p_local["experts"], buf[:e_loc], lut).reshape(e_loc * cap, d)
     valid = (dest >= 0) & (dest < e_loc * cap)
     y = combine(out, dest, valid, weights).to(x_local.dtype)
-    dist.all_reduce(y, group=mesh.get_group(ep_axis))
-    if mcfg.num_shared_experts > 0:
-        y = y + shared_ffn(p_local, x_local)
-    return y, {}
+    return _add_shared(p_local, mcfg, x_local, y, mesh.get_group(ep_axis)), {}
 
 
 def moe_epsum_decode_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor,
@@ -438,7 +459,8 @@ def moe_epsum_decode_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tens
     x_local [T, D] this data rank's decode tokens, routed already (ids,
     weights [T, k]); each rank applies its local experts to the picks that
     route to them and one [T, D] ``all_reduce`` over the axis sums the
-    partials; shared experts on every rank.
+    partials; shared experts on every rank (whole, or split inside the
+    all-reduce).
 
     The reference multiplies every token by every local expert (the whole
     local store read once a step). Here each (token, pick) is a group of
@@ -456,10 +478,7 @@ def moe_epsum_decode_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tens
     outs = expert_ffn(p_local["experts"], xs, lut)[:, 0]                 # [T*k, D]
     w_eff = weights.float() * mine
     y = (outs.float().reshape(t, k, -1) * w_eff[..., None]).sum(dim=1).to(x_local.dtype)
-    dist.all_reduce(y, group=mesh.get_group(ep_axis))
-    if mcfg.num_shared_experts > 0:
-        y = y + shared_ffn(p_local, x_local)
-    return y
+    return _add_shared(p_local, mcfg, x_local, y, mesh.get_group(ep_axis))
 
 
 def moe_forward(p: Params, mcfg: MoEConfig, x: torch.Tensor, impl: str = "dense",

@@ -51,15 +51,27 @@ state dropped; each layer under the run's remat policy
 chunk recomputed in the backward, so no [B, S, V] tensor is kept.
 
 The sharded paths (``Runtime.mesh``, a ``DeviceMesh``): each rank holds its
-data rank's rows and its parameters (``shard_params``: an MoE layer's routed
-experts split on E over the tensor axis, everything else whole).
-``prefill_model`` then runs the reference's whole-batch prefill with each
-MoE layer expert-parallel (``moe.moe_epsum_local``) and, for a long prompt
-whose heads the tensor axis does not divide, each attention layer's queries
-split over the axis (``_sp_attention``: K4's chunk entry at the rank's
-offset, then an all-gather); ``decode_model`` runs each MoE layer's
-expert-parallel decode (``moe.moe_epsum_decode_local``). Rows split over the
-data axis need no collective.
+data rank's rows and its shard of every parameter (``shard_params``: each
+leaf cut by the rules, ``distributed/sharding.py:make_param_shardings``) and
+of the decode state (``shard_state``: KV caches split by sequence over the
+tensor axis, ``make_state_shardings``). Over the tensor axis: the
+vocabulary-parallel embedding and head (``distributed/parallel.py``);
+Megatron-style attention where the heads divide the axis (``wq`` / ``wo``
+by query heads, ``wk`` / ``wv`` by KV heads, each only where its count
+divides; with whole ``wk`` / ``wv`` a rank uses the KV heads of its own
+query groups), K4 on the local heads and one all-reduce after the
+row-parallel ``wo``; column- and row-parallel MLPs (one all-reduce); each
+MoE layer expert-parallel (``moe.moe_epsum_local``, ``moe_epsum_decode_local``);
+for a long prompt whose heads the axis does not divide, the queries split
+over the axis (``_sp_attention``). Prefill leaves the KV caches in the
+``state_spec`` layout (the K/V gathered over the head split, each rank
+keeping its positions); decode scores its slice with every query head
+through K2's partial entry and merges the slices' partials after one
+all-gather (``_tp_decode``). Rows split over the data axis need no
+collective. A ring cache, or a recurrent stack's decode, under a tensor
+axis longer than 1 raises before anything is built (a recurrent stack's
+prefill keeps its caches whole, as the sequence-parallel prefill makes
+them).
 """
 from __future__ import annotations
 
@@ -71,8 +83,11 @@ import torch
 import torch.distributed as dist
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.config.base import KV_KINDS, ModelConfig, ShardingConfig
-from repro_torch.distributed.sharding import shard_tensor
+from repro_torch.config.base import KV_KINDS, ModelConfig, ShapeConfig, ShardingConfig
+from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import (
+    make_param_shardings, make_state_shardings, shard_tensor,
+)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -109,6 +124,12 @@ class Runtime:
             raise ValueError(f"the sharded paths split over the tensor axis "
                              f"{self.sharding.tp_axis!r}; the mesh has {names}")
         return int(self.mesh.size(names.index(self.sharding.tp_axis)))
+
+    def tp_rank(self) -> int:
+        return self.mesh.get_local_rank(self.sharding.tp_axis)
+
+    def tp_group(self):
+        return self.mesh.get_group(self.sharding.tp_axis)
 
     def ep_axis(self) -> str:
         """The axis an MoE layer's experts are split over under the mesh:
@@ -209,6 +230,21 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
 
+def _tensor_axis(rt: Optional[Runtime]) -> bool:
+    """Whether ``rt`` has a mesh with a tensor axis longer than 1."""
+    return (rt is not None and rt.mesh is not None
+            and rt.sharding.tp_axis in (rt.mesh.mesh_dim_names or ()) and rt.tp_size() > 1)
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           rt: Optional[Runtime]) -> torch.Tensor:
+    """``embed_tokens``, vocabulary-parallel where ``embed`` holds this
+    rank's rows only."""
+    if _tensor_axis(rt) and params["embed"].shape[0] < cfg.vocab_size:
+        return parallel.vocab_embed(params["embed"], tokens, rt.tp_rank(), rt.tp_group())
+    return embed_tokens(params, tokens)
+
+
 def prepend_frontend(cfg: ModelConfig, params: Params, x: torch.Tensor,
                      frontend: Optional[torch.Tensor]) -> torch.Tensor:
     """The frontend's precomputed embeddings [B, F, frontend_dim] (cast to
@@ -235,10 +271,17 @@ def moe_ordinals(params: Params) -> List[Optional[int]]:
     return out
 
 
-def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
+              rt: Optional[Runtime] = None) -> torch.Tensor:
+    """The final norm and the head: logits [..., V]. A head holding this
+    rank's vocabulary columns only (``rt``'s tensor axis) gives its local
+    logits, all-gathered in rank order."""
     h = apply_norm(cfg.norm, params["final_norm"], h)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    logits = h @ head
+    if _tensor_axis(rt) and head.shape[1] < cfg.vocab_size:
+        return parallel.gather_vocab(logits, rt.tp_group(), rt.tp_size())
+    return logits
 
 
 def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: Any = None,
@@ -251,16 +294,22 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     scalar or per-row [B]; with ``page_table``, ``state`` is a layer of the
     paged pool); ``chunk`` appends x's C positions to ``state`` in place at
     ``cur_len``; ``train`` keeps no state (``attention_train`` at ``rt``'s
-    chunk lengths, no kernel). Under ``rt.mesh`` a long ``prefill`` whose
-    heads do not divide the tensor axis splits its queries over the axis
-    (:func:`_sp_attention`)."""
+    chunk lengths, no kernel). Under ``rt.mesh`` a ``prefill`` runs
+    :func:`_tp_prefill` (or, long with heads the tensor axis does not
+    divide, :func:`_sp_attention`) and a ``decode`` :func:`_tp_decode`,
+    each on this rank's shards."""
     h = apply_norm(cfg.norm, p["ln1"], x)
+    sharded = rt is not None and rt.mesh is not None
     if mode == "train":
         rt = rt or Runtime()
         y = attn.attention_train(p["attn"], cfg.attention, h,
                                  q_chunk=rt.q_chunk, kv_chunk=rt.kv_chunk)
     elif mode == "prefill" and _use_sp(cfg, rt, x.shape[1]):
         y, state = _sp_attention(p["attn"], cfg.attention, rt, h, cache_len, state)
+    elif mode == "prefill" and sharded:
+        y, state = _tp_prefill(p["attn"], cfg.attention, rt, h, cache_len, state)
+    elif mode == "decode" and sharded:
+        y = _tp_decode(p["attn"], cfg.attention, rt, h, state, cur_len)
     elif mode == "prefill":
         y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len, state)
     elif mode == "decode":
@@ -292,9 +341,10 @@ def _sp_attention(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache_len: int,
     queries ``[r*S/tp, (r+1)*S/tp)`` against the full K/V through K4's
     chunk-append entry at offset ``r*S/tp`` (causal by position, with the
     window and soft-cap), the slices are all-gathered over the axis, and
-    the output projection and the KV cache (written in place, ring-indexed
-    for a window, as ``attention_prefill``'s) are computed whole on every
-    rank. Returns (y [B, S, D], cache)."""
+    the output projection is computed whole on every rank, and the KV cache
+    written in place (:func:`_write_local`: this rank's positions where the
+    state splits them, else whole, ring-indexed for a window, as
+    ``attention_prefill``'s). Returns (y [B, S, D], cache)."""
     b, s, _ = h.shape
     tp = rt.tp_size()
     r = rt.mesh.get_local_rank(rt.sharding.tp_axis)
@@ -307,12 +357,147 @@ def _sp_attention(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache_len: int,
     parts = [torch.empty_like(ctx) for _ in range(tp)]
     dist.all_gather(parts, ctx, group=rt.mesh.get_group(rt.sharding.tp_axis))
     y = torch.cat(parts, dim=1).reshape(b, s, -1) @ p["wo"]
-    return y, attn.write_cache(acfg, k, v, cache_len, cache)
+    return y, _write_local(acfg, rt, k, v, cache_len, cache)
 
 
-def mlp_half(cfg: ModelConfig, p: Params, x_mid: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
-    """A dense layer's FFN half: x_mid + MLP(h2 [T, D]), in x_mid's shape."""
-    return x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
+def _seq_offset(acfg, rt: Runtime, local_cap: int) -> Optional[int]:
+    """The first position of this rank's cache slice where the state splits
+    the sequence over the tensor axis (``state_spec``), None where each rank
+    holds the whole cache (``rt.cache_len``'s capacity)."""
+    cap = attn.cache_capacity(acfg, rt.cache_len)
+    if local_cap == cap:
+        return None
+    if local_cap * rt.tp_size() != cap:
+        raise ValueError(f"a cache slice of {local_cap} positions is neither the whole "
+                         f"capacity {cap} (rt.cache_len {rt.cache_len}) nor its 1/{rt.tp_size()}")
+    return rt.tp_rank() * local_cap
+
+
+def _write_local(acfg, rt: Runtime, k: torch.Tensor, v: torch.Tensor, cache_len: int,
+                 cache: Optional[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """A prefill's whole K/V [B, S, Hkv, dh] into this rank's cache: the
+    positions of its slice (zeroed first) where the state splits the
+    sequence, else the whole cache (``attention.write_cache``)."""
+    off = None if cache is None else _seq_offset(acfg, rt, cache["k"].shape[1])
+    if off is None:
+        return attn.write_cache(acfg, k, v, cache_len, cache)
+    cache["k"].zero_()
+    cache["v"].zero_()
+    n = max(0, min(k.shape[1], off + cache["k"].shape[1]) - off)
+    cache["k"][:, :n] = k[:, off:off + n]
+    cache["v"][:, :n] = v[:, off:off + n]
+    return cache
+
+
+def _query_kv(acfg, rt: Runtime, k: torch.Tensor, v: torch.Tensor,
+              hq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V heads this rank's ``hq`` query heads read: its own KV heads
+    when ``wk`` / ``wv`` are split with the queries (or nothing is split),
+    else (whole K/V, split queries) the KV heads of its query groups."""
+    g = acfg.num_heads // acfg.num_kv_heads
+    if hq == acfg.num_heads or k.shape[2] < acfg.num_kv_heads:
+        return k, v
+    lo = rt.tp_rank() * hq
+    if g % hq == 0:
+        sel = slice(lo // g, lo // g + 1)
+    elif hq % g == 0:
+        sel = slice(lo // g, (lo + hq) // g)
+    else:
+        raise ValueError(f"{hq} query heads a rank do not tile groups of {g}")
+    return k[:, :, sel], v[:, :, sel]
+
+
+def _tp_prefill(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache_len: int,
+                cache: Optional[Dict[str, torch.Tensor]]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill attention on this rank's heads (the projections as
+    ``shard_params`` cut them; whole where the rules keep them whole): K4
+    over the local query heads and the KV heads they read, the
+    row-parallel ``wo`` and one all-reduce where ``wo`` is split. The cache
+    takes every KV head: the local ones all-gathered over the axis where
+    ``wk`` / ``wv`` are split, then this rank's positions kept
+    (:func:`_write_local`). Returns (y [B, S, D], cache)."""
+    b, s, _ = h.shape
+    q, k, v = attn._project_qkv(p, acfg, h, torch.arange(s, device=h.device)[None, :])
+    kq, vq = _query_kv(acfg, rt, k, v, q.shape[2])
+    ctx = ops.flash_attention(q, kq, vq, causal=True, window=acfg.window,
+                              soft_cap=acfg.logit_soft_cap)
+    y = ctx.reshape(b, s, -1) @ p["wo"]
+    group, tp = rt.tp_group(), rt.tp_size()
+    if p["wo"].shape[0] < acfg.num_heads * acfg.head_dim:
+        y = parallel.all_reduce_f32(y, group)
+    if k.shape[2] < acfg.num_kv_heads:
+        k = parallel.all_gather_dim(k, 2, group, tp)
+        v = parallel.all_gather_dim(v, 2, group, tp)
+    return y, _write_local(acfg, rt, k, v, cache_len, cache)
+
+
+def _tp_decode(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cur_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One decode step's attention on this rank's shards, against its cache
+    slice (``state_spec``: the sequence split over the tensor axis, rank r
+    holding positions ``[r C/tp, (r+1) C/tp)`` of every KV head).
+
+    The new token's K/V is all-gathered over the KV-head split (a few KB)
+    and written only by the rank whose slice holds position ``cur_len``; q
+    is all-gathered over the head split. Each rank scores every query head
+    over its slice at local length ``clamp(cur_len + 1 - r C/tp, 0, C/tp)``
+    (K2's partial entry: normalized context and lse; an empty slice gives
+    lse ``-inf``), one all-gather of [tp, B, H, dh + 1] follows and each
+    rank merges the slices in rank order (``parallel.merge_partials``), so
+    the model ranks hold the same bits. A rank then keeps its heads'
+    context for the row-parallel ``wo`` (one all-reduce). A state holding
+    the whole cache (a capacity the axis does not divide) scores it whole
+    with K2's contiguous entry. h [B, 1, D] -> y [B, 1, D]."""
+    b = h.shape[0]
+    nh, nkv, dh = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+    group, tp, r = rt.tp_group(), rt.tp_size(), rt.tp_rank()
+    cl = torch.as_tensor(cur_len, device=h.device).to(torch.int64).reshape(-1).expand(b)
+    q, k_new, v_new = attn._project_qkv(p, acfg, h, cl[:, None])
+    hq = q.shape[2]
+    if k_new.shape[2] < nkv:
+        k_new = parallel.all_gather_dim(k_new, 2, group, tp)
+        v_new = parallel.all_gather_dim(v_new, 2, group, tp)
+    if hq < nh:
+        q = parallel.all_gather_dim(q, 2, group, tp)
+    ck, cv = cache["k"], cache["v"]
+    c_loc = ck.shape[1]
+    off = _seq_offset(acfg, rt, c_loc)
+    rows = torch.arange(b, device=h.device)
+    if off is None:
+        slot = torch.remainder(cl, c_loc)
+        ck.index_put_((rows, slot), k_new[:, 0])
+        cv.index_put_((rows, slot), v_new[:, 0])
+        lengths = torch.clamp(cl.to(torch.int32) + 1, max=c_loc)
+        ctx = ops.decode_attention(q, ck, cv, lengths=lengths, soft_cap=acfg.logit_soft_cap)
+    else:
+        local = cl - off
+        own = ((local >= 0) & (local < c_loc))[:, None, None]
+        slot = torch.clamp(local, 0, c_loc - 1)
+        ck.index_put_((rows, slot), torch.where(own, k_new[:, 0], ck[rows, slot]))
+        cv.index_put_((rows, slot), torch.where(own, v_new[:, 0], cv[rows, slot]))
+        lengths = torch.clamp(cl + 1 - off, 0, c_loc).to(torch.int32)
+        part = ops.decode_attention_partial(q[:, 0], ck, cv, lengths=lengths,
+                                            soft_cap=acfg.logit_soft_cap)
+        parts = parallel.all_gather_dim(part[None], 0, group, tp)
+        ctx = parallel.merge_partials(parts, q.dtype)[:, None]
+    if hq < nh:
+        ctx = ctx[:, :, r * hq:(r + 1) * hq]
+    y = ctx.reshape(b, 1, hq * dh) @ p["wo"]
+    if p["wo"].shape[0] < nh * dh:
+        y = parallel.all_reduce_f32(y, group)
+    return y
+
+
+def mlp_half(cfg: ModelConfig, p: Params, x_mid: torch.Tensor, h2: torch.Tensor,
+             rt: Optional[Runtime] = None) -> torch.Tensor:
+    """A dense layer's FFN half: x_mid + MLP(h2 [T, D]), in x_mid's shape.
+    Column-parallel ``w_gate`` / ``w_up`` and row-parallel ``w_down`` (this
+    rank's shards, ``rt``'s tensor axis) give a partial sum, all-reduced."""
+    y = apply_mlp(cfg.mlp, p["mlp"], h2)
+    if _tensor_axis(rt) and p["mlp"]["w_down"].shape[0] < cfg.d_ff:
+        y = parallel.all_reduce_f32(y, rt.tp_group())
+    return x_mid + y.reshape(x_mid.shape)
 
 
 def recurrent_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, mode: str,
@@ -361,9 +546,11 @@ def decode_model(
     rt: Optional[Runtime] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over every layer: returns (logits [B, V], aux).
-    Under ``rt.mesh`` (this rank's rows and parameters, no residency) each
-    MoE layer runs expert-parallel decode
-    (``moe.moe_epsum_decode_local``: local experts, one all-reduce).
+    Under ``rt.mesh`` (this rank's rows, parameters and state slice, no
+    residency): each attention layer :func:`_tp_decode`, each dense MLP
+    tensor-parallel, each MoE layer expert-parallel decode
+    (``moe.moe_epsum_decode_local``: local experts, one all-reduce), the
+    embedding and head vocabulary-parallel (logits all-gathered).
     ``page_table`` [B, pages]: ``state`` is the serving engine's paged pool
     (:func:`paged_zero_state`) instead of per-row caches.
 
@@ -382,15 +569,17 @@ def decode_model(
     with 0) and only the given rows' logits return (aux covers every
     row), so each matmul runs at the state's row count, whatever rows are
     live."""
+    if rt is not None and rt.mesh is not None:
+        _check_mesh_stack(cfg, rt, rt.cache_len, decode=True)
     b = token.shape[0]
     rows = b if page_table is not None else next(iter(state[0].values())).shape[0]
     if rows > b:
         token = torch.cat([token, token.new_zeros(rows - b)])
         if isinstance(cur_len, torch.Tensor) and cur_len.numel() > 1:
             cur_len = torch.cat([cur_len, cur_len.new_zeros(rows - b)])
-    x = embed_tokens(params, token[:, None])
+    x = _embed(cfg, params, token[:, None], rt)
     x, aux = _run_stack(cfg, params, x, "decode", state, cur_len, residency, page_table, rt)
-    return lm_logits(cfg, params, x[:b, -1:])[:, 0], aux
+    return lm_logits(cfg, params, x[:b, -1:], rt)[:, 0], aux
 
 
 def prefill_model(
@@ -494,15 +683,18 @@ def _prefill_sharded(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cac
     (``tokens`` [B, S], the same on every rank of the tensor axis; rows on
     other data ranks need no collective) and this rank's parameters
     (:func:`shard_params`). The whole batch goes through each layer at
-    once, as in the reference: attention per row, split over the tensor
-    axis by query positions where :func:`_use_sp` holds; each MoE layer
-    expert-parallel over the B*S tokens at the reference's capacity
+    once, as in the reference: attention on this rank's heads
+    (:func:`_tp_prefill`), or split over the tensor axis by query positions
+    where :func:`_use_sp` holds; each dense MLP tensor-parallel; each MoE
+    layer expert-parallel over the B*S tokens at the reference's capacity
     (``moe.moe_forward(impl="epsum")``, so pads count as tokens, as they do
     there); a recurrent layer's cell over the batch. Returns (logits [B, V]
-    at ``last_index`` (default the last position), the state)."""
+    at ``last_index`` (default the last position), the state: this rank's
+    slice of each KV cache (:func:`_sharded_zero_state`))."""
+    _check_mesh_stack(cfg, rt, cache_len)
     b = tokens.shape[0]
-    x = prepend_frontend(cfg, params, embed_tokens(params, tokens), frontend)
-    state = zero_state(cfg, rows or b, cache_len, tokens.device)
+    x = prepend_frontend(cfg, params, _embed(cfg, params, tokens, rt), frontend)
+    state = _sharded_zero_state(cfg, rows or b, cache_len, rt, tokens.device)
     for li, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
         layer = {n: t[:b] for n, t in state[li].items()}
         if kind not in KV_KINDS:
@@ -511,43 +703,94 @@ def _prefill_sharded(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cac
             continue
         x_mid, h2, _ = attn_half(cfg, p, x, "prefill", layer, 0, cache_len, rt=rt)
         if "moe" not in p:
-            x = mlp_half(cfg, p, x_mid, h2)
+            x = mlp_half(cfg, p, x_mid, h2, rt)
             continue
         y2, _ = moe_mod.moe_forward(p["moe"], cfg.moe, h2.reshape(x_mid.shape), "epsum",
                                     mesh=rt.mesh, ep_axis=rt.ep_axis())
         x = x_mid + y2
     last = x[:, -1] if last_index is None else x[torch.arange(b, device=x.device),
                                                     last_index.reshape(-1).long()]
-    return lm_logits(cfg, params, last[:, None])[:, 0], state
+    return lm_logits(cfg, params, last[:, None], rt)[:, 0], state
 
 
-def moe_param_specs(p_moe: Params, tp_axis: str) -> Params:
-    """An MoE layer's storage under a mesh (the reference's
-    ``_moe_param_specs``): routed experts split on E over ``tp_axis``, the
-    router and shared experts replicated."""
-    specs: Params = {"router": (None, None),
-                     "experts": {n: (tp_axis, None, None) for n in p_moe["experts"]}}
-    if "shared" in p_moe:
-        specs["shared"] = {n: (None, None) for n in p_moe["shared"]}
-        specs["shared_gate"] = (None, None)
-    return specs
+def _check_mesh_stack(cfg: ModelConfig, rt: Runtime, cache_len: int, *,
+                     decode: bool = False) -> None:
+    """Raise, before anything is built, for what the sharded serving paths
+    do not run under a tensor axis longer than 1: a recurrent stack's
+    decode (the rules split a recurrent layer's width: a later slice) and a
+    ring cache (a window shorter than ``cache_len``) in a KV-only stack."""
+    if not _tensor_axis(rt):
+        return
+    if decode and any(kind not in KV_KINDS for kind in cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: a recurrent stack's decode under a tensor axis of "
+                         f"{rt.tp_size()} is not ported (the width split of its layers)")
+    if cfg.attention is not None and all(kind in KV_KINDS for kind in cfg.layer_kinds):
+        cap = attn.cache_capacity(cfg.attention, cache_len)
+        if cap < cache_len:
+            raise ValueError(f"{cfg.name}: a ring cache (window {cfg.attention.window} < "
+                             f"cache_len {cache_len}) under a tensor axis of {rt.tp_size()} "
+                             f"is not ported")
 
 
-def shard_params(params: Params, rt: Runtime) -> Params:
-    """This rank's parameters for the sharded forward: each MoE layer as
-    :func:`moe_param_specs` cuts it (the local experts a copy, so the whole
-    store can be freed), every other tensor shared with ``params``."""
-    axis = rt.sharding.tp_axis
-    layers = []
-    for p in params["layers"]:
-        if "moe" in p:
-            specs = moe_param_specs(p["moe"], axis)
-            moe = {n: ({w: shard_tensor(t, specs[n][w], rt.mesh) for w, t in v.items()}
-                       if isinstance(v, dict) else v)
-                   for n, v in p["moe"].items()}
-            p = {**p, "moe": moe}
-        layers.append(p)
-    return {**params, "layers": layers}
+def _sharded_zero_state(cfg: ModelConfig, rows: int, cache_len: int, rt: Optional[Runtime],
+                       device) -> List[Dict[str, torch.Tensor]]:
+    """:func:`zero_state` for ``rows`` local rows, each KV cache cut to this
+    rank's slice of the sequence where ``state_spec`` splits it over the
+    tensor axis (a KV-only stack and a capacity the axis divides; else
+    whole on each rank)."""
+    a = cfg.attention
+    kv_only = a is not None and all(kind in KV_KINDS for kind in cfg.layer_kinds)
+    cap = attn.cache_capacity(a, cache_len) if a is not None else 0
+    if not (_tensor_axis(rt) and kv_only and cap % rt.tp_size() == 0):
+        return zero_state(cfg, rows, cache_len, device)
+    shape = (rows, cap // rt.tp_size(), a.num_kv_heads, a.head_dim)
+    return [{"k": torch.zeros(shape, dtype=torch_dtype(cfg), device=device),
+             "v": torch.zeros(shape, dtype=torch_dtype(cfg), device=device)}
+            for _ in cfg.layer_kinds]
+
+
+def shard_params(cfg: ModelConfig, params: Params, rt: Runtime) -> Params:
+    """This rank's parameters for the sharded forward: every leaf cut by
+    the rules (``make_param_shardings``, sanitized, the sizes the mesh's):
+    routed experts on E, attention by heads where the head counts divide the
+    tensor axis, MLPs and shared experts column / row parallel, ``embed``
+    and ``lm_head`` by vocabulary; a cut leaf is a copy (the whole one can
+    be freed), a whole one shared with ``params``. A recurrent layer the
+    rules would cut raises (its width split is not ported)."""
+    specs = make_param_shardings(cfg, rt.mesh, rt.sharding, params)
+    kinds = {f"layers/{i}/": kind for i, kind in enumerate(cfg.layer_kinds)}
+    for path, spec in specs.items():
+        kind = next((k for pre, k in kinds.items() if path.startswith(pre)), None)
+        if kind is not None and kind not in KV_KINDS and any(e is not None for e in spec):
+            raise ValueError(f"{cfg.name}: {path} would be cut to {spec}; the width split of "
+                             f"a recurrent layer is not ported")
+
+    def cut(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: cut(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cut(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+        return shard_tensor(tree, specs[prefix[:-1]], rt.mesh)
+
+    return cut(params)
+
+
+def shard_state(cfg: ModelConfig, state: List[Dict[str, torch.Tensor]],
+                rt: Runtime) -> List[Dict[str, torch.Tensor]]:
+    """This rank's shard of a whole decode state (every row, every
+    position) by the rules (``make_state_shardings``: rows over the data
+    axes where they divide the batch, each KV cache's sequence over the
+    tensor axis where it divides the capacity): the layout the sharded
+    prefill leaves. A recurrent stack under a tensor axis longer than 1
+    raises (the rules split its width)."""
+    if _tensor_axis(rt) and any(kind not in KV_KINDS for kind in cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: a recurrent state under a tensor axis of "
+                         f"{rt.tp_size()} is not ported (the rules split its width)")
+    rows = next(iter(state[0].values())).shape[0]
+    cell = ShapeConfig(name="decode", seq_len=rt.cache_len, global_batch=rows, kind="decode")
+    specs = make_state_shardings(cfg, rt.mesh, rt.sharding, state, cell)
+    return [{n: shard_tensor(t, specs[f"{li}/{n}"], rt.mesh) for n, t in layer.items()}
+            for li, layer in enumerate(state)]
 
 
 def prefill_chunk_model(
@@ -601,9 +844,9 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
             _store(state[li], new)
             continue
         x_in = x
-        x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0, page_table)
+        x_mid, h2, _ = attn_half(cfg, p, x, mode, state[li], cur_len, 0, page_table, rt)
         if mi is None:
-            x = mlp_half(cfg, p, x_mid, h2)
+            x = mlp_half(cfg, p, x_mid, h2, rt)
             continue
         ids, weights = moe_mod.route(p["moe"], h2, cfg.moe)
         if ep_axis is not None:
@@ -844,6 +1087,12 @@ def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor,
     return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
 
 
+def loss_targets(cfg: ModelConfig, labels: torch.Tensor) -> torch.Tensor:
+    """The labels the loss scores: every token under a frontend, else
+    ``labels[:, 1:]`` (position i predicts label i + 1)."""
+    return labels if cfg.frontend is not None and cfg.frontend_len > 0 else labels[:, 1:]
+
+
 def lm_loss(
     cfg: ModelConfig,
     params: Params,
@@ -852,6 +1101,8 @@ def lm_loss(
     rt: Runtime,
     frontend: Optional[torch.Tensor] = None,
     routes: Optional[List[moe_mod.Routing]] = None,
+    count: Optional[torch.Tensor] = None,
+    aux_weight: float = 1.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (the reference's ``lm_loss``): the head and
     the log-softmax over ``rt.loss_chunk`` positions at a time, each chunk
@@ -861,10 +1112,15 @@ def lm_loss(
     predicts label i + 1. An MoE model adds ``router_aux_coef`` x the
     load-balance loss and ``router_z_coef`` x the z-loss, each summed over
     the layers and divided by ``num_layers``. Returns (loss, aux with
-    ``lm_loss``)."""
+    ``lm_loss``, the loss, and ``lm_xent``, its cross-entropy part).
+
+    Data parallelism (``training/trainer.py``): ``count`` replaces the
+    count of valid labels in the divisor (the whole batch's, over every
+    data rank) and ``aux_weight`` scales the MoE terms (1 / the data
+    ranks), so the ranks' losses sum to the global batch's."""
     h, aux = forward_train(cfg, params, tokens, rt, frontend, routes)
     f = cfg.frontend_len if cfg.frontend is not None else 0
-    pred_h, tgt = (h[:, f - 1:-1], labels) if f > 0 else (h[:, :-1], labels[:, 1:])
+    pred_h, tgt = h[:, f - 1:-1] if f > 0 else h[:, :-1], loss_targets(cfg, labels)
     s = pred_h.shape[1]
     chunk = min(rt.loss_chunk, s)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -874,10 +1130,11 @@ def lm_loss(
     for start in range(0, s, chunk):
         l, c = loss_fn(hn[:, start:start + chunk], tgt[:, start:start + chunk], head)
         tot, cnt = tot + l, cnt + c
-    loss = tot / torch.clamp(cnt, min=1.0)
+    loss = xent = tot / torch.clamp(cnt if count is None else count, min=1.0)
     if cfg.has_moe:
         m, n = cfg.moe, max(cfg.num_layers, 1)
-        loss = loss + m.router_aux_coef * aux.get("moe_load_balance", 0.0) / n
-        loss = loss + m.router_z_coef * aux.get("moe_router_z", 0.0) / n
+        loss = loss + aux_weight * m.router_aux_coef * aux.get("moe_load_balance", 0.0) / n
+        loss = loss + aux_weight * m.router_z_coef * aux.get("moe_router_z", 0.0) / n
     aux["lm_loss"] = loss
+    aux["lm_xent"] = xent.detach()
     return loss, aux

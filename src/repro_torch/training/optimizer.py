@@ -9,7 +9,7 @@ most of the card: a copy would not fit beside it) and returned.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -49,13 +49,26 @@ def adamw_update(params: Any, grads: Any, opt: OptState,
     """One AdamW step: gradients scaled by ``min(1, grad_clip / (norm +
     1e-9))``, decoupled weight decay on every parameter. Returns (params,
     opt, {grad_norm, lr}), both updated in place."""
-    step = int(opt["step"]) + 1
     gnorm = global_norm(grads)
+    lr = adamw_apply(leaves(params), leaves(grads), leaves(opt["m"]), leaves(opt["v"]),
+                     opt, run, gnorm)
+    return params, opt, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_apply(ps: List[torch.Tensor], gs: List[torch.Tensor], ms: List[torch.Tensor],
+                vs: List[torch.Tensor], opt: OptState, run: RunConfig,
+                gnorm: torch.Tensor) -> torch.Tensor:
+    """AdamW's arithmetic on parallel lists of parameters (or views of
+    their shards), gradients and moments, given the global gradient norm;
+    each ``p`` written in place, the step count advanced. Returns the
+    learning rate (a 0-d f32 tensor). ZeRO-1 runs it on a rank's shards."""
+    step = int(opt["step"]) + 1
     scale = torch.clamp(run.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(run, step)
     b1, b2 = run.beta1, run.beta2
     bc1, bc2 = 1.0 - b1 ** step, 1.0 - b2 ** step
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt["m"]), leaves(opt["v"])):
+    for p, g, m, v in zip(ps, gs, ms, vs):
         g = g.float() * scale                  # a new f32 temporary, reused in
         m.mul_(b1).add_(g, alpha=1 - b1)       # place: the update is memory-bound
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
@@ -64,5 +77,4 @@ def adamw_update(params: Any, grads: Any, opt: OptState,
         p32 = p.float()
         p.copy_(p32.sub_(delta.add_(p32, alpha=run.weight_decay), alpha=lr))
     opt["step"].fill_(step)
-    lr_t = torch.tensor(lr, dtype=torch.float32)
-    return params, opt, {"grad_norm": gnorm, "lr": lr_t}
+    return torch.tensor(lr, dtype=torch.float32)

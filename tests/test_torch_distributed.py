@@ -18,7 +18,9 @@ reference's layout for JAX. Configs are reduced and f32.
   ``moe_impl="epsum"``.
 * SP prefill: 3,072 tokens at mesh (1, 3), where 4 heads do not divide 3:
   qwen36 with 9 stored experts (3 a rank; the ninth never routed) and
-  recurrentgemma (window 16, ring caches): logits and every KV cache.
+  recurrentgemma (window 16, ring caches): logits and every KV cache
+  (qwen36's a rank's slice of the sequence, the state's layout under the
+  tensor axis; recurrentgemma's whole on every rank).
 * Pod compression at 2 pods: the int8 payload bitwise the plain numpy
   computation, the dequantized mean, the residual identity; 20 steps of
   error feedback at one pod against JAX's ``compressed_psum_pod`` (as
@@ -232,7 +234,7 @@ def _ep_case(shape, inputs):
     cfg = _torch_cfg("ep")
     sh = ShardingConfig(moe_impl="epsum")
     rt = tfm.Runtime(sharding=sh, mesh=mesh, cache_len=EP_CACHE)
-    params = tfm.shard_params(_torch_params("ep"), rt)
+    params = tfm.shard_params(cfg, _torch_params("ep"), rt)
     rows = shr.batch_spec(sh, mesh, EP_B)
     tokens = shr.shard_tensor(torch.from_numpy(inputs["ep_tokens"]), rows, mesh)
     logits, state = tfm.prefill_model(cfg, params, tokens, EP_CACHE, rt=rt)
@@ -256,10 +258,10 @@ def _sp_case(arch, inputs):
     name = f"sp-{arch}"
     cfg = _torch_cfg(name)
     rt = tfm.Runtime(sharding=ShardingConfig(moe_impl="epsum"), mesh=mesh, cache_len=SP_LEN)
-    params = tfm.shard_params(_torch_params(name), rt)
+    params = tfm.shard_params(cfg, _torch_params(name), rt)
     logits, state = tfm.prefill_model(cfg, params, torch.from_numpy(inputs["sp_tokens"]),
                                       SP_LEN, rt=rt)
-    return {"logits": logits.numpy(),
+    return {"logits": logits.numpy(), "tp_rank": rt.tp_rank(),
             "cache": {f"{n}/{li}": st[n].numpy() for li, st in enumerate(state)
                       for n in ("k", "v") if n in st}}
 
@@ -431,7 +433,11 @@ def test_sp_prefill_matches_jax(runs, arch):
         np.testing.assert_allclose(res["logits"], ref[f"sp-{arch}/logits"], **TOL)
         assert res["cache"]
         for key, cache in res["cache"].items():
-            np.testing.assert_allclose(cache, ref[f"sp-{arch}/{key}"], **TOL)
+            want = ref[f"sp-{arch}/{key}"]
+            if cache.shape[1] < want.shape[1]:         # this rank's slice of the sequence
+                n = cache.shape[1]
+                want = want[:, res["tp_rank"] * n:(res["tp_rank"] + 1) * n]
+            np.testing.assert_allclose(cache, want, **TOL)
     attn_layers = sum(k in ("attn_moe", "attn_mlp", "local_attn")
                       for k in _torch_cfg(f"sp-{arch}").layer_kinds)
     moe_layers = sum(k == "attn_moe" for k in _torch_cfg(f"sp-{arch}").layer_kinds)

@@ -502,6 +502,33 @@ def test_decode_attention_groups_head_dims_and_types(card, g, dh, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [96, 128])
+def test_decode_attention_partial_entry_matches_plain(card, dtype, dh):
+    """K2's partial entry (tensor cores at dh 128 bf16, CUDA cores else) at
+    local lengths 0 / 1 / 130 / 256 of a 256-position slice: the context
+    and lse against the plain version, an empty slice lse -inf and context
+    0, and two slices merged against the contiguous entry over both."""
+    from repro_torch.distributed.parallel import merge_partials
+    from repro_torch.kernels import decode_attention as dec
+
+    q, k, v = _decode_inputs(4, 256, 8, 2, dh, dtype, card)
+    _, k2, v2 = _decode_inputs(4, 256, 8, 2, dh, dtype, card, seed=3)
+    lengths = torch.tensor([0, 1, 130, 256], dtype=torch.int32, device=card)
+    for cap in (None, 20.0):
+        out = dec.decode_attention_partial(q, k, v, lengths, soft_cap=cap)
+        torch.cuda.synchronize()
+        exp = ref.decode_attention_partial_ref(q, k, v, lengths, soft_cap=cap)
+        assert torch.isinf(out[0, :, -1]).all() and not out[0, :, :-1].any()
+        assert not torch.isnan(out).any()
+        torch.testing.assert_close(out[1:], exp[1:], **TOL[dtype])
+    whole = torch.tensor([1, 256, 300, 512], dtype=torch.int32, device=card)
+    parts = torch.stack([dec.decode_attention_partial(q, kk, vv, torch.clamp(
+        whole - r * 256, 0, 256).to(torch.int32)) for r, (kk, vv) in enumerate(((k, v), (k2, v2)))])
+    exp = dec.decode_attention(q, torch.cat([k, k2], 1), torch.cat([v, v2], 1), whole)
+    torch.testing.assert_close(merge_partials(parts, dtype).float(), exp.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention_is_bitwise_stable_and_batch_invariant(card, dtype):
     """The plan reads S, dh, g and the type only and the merge runs in span
     order: two launches give the same bits, and row b of a B = 3 launch with

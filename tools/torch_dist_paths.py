@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s sharded paths alone, on the cards of this machine.
 
-    python3 tools/torch_dist_paths.py [--paths ep-qwen36,sp-recurrentgemma-2b,pod-train-qwen36]
-                                      [--no-rows]
+    python3 tools/torch_dist_paths.py [--paths ep-qwen36,sp-recurrentgemma-2b,pod-train-qwen36,
+                                               tp-qwen3-4b,dp-train-qwen36] [--no-rows]
 
 Builds the kernels, runs the phase-3 rows at the sharded paths' shapes
 (``chip_smoke.sharded_rows``: K1's tiled grouped entry as
 ``moe_epsum_local`` calls it, K4's chunk entry as ``_sp_attention`` calls
-it; ``--no-rows`` skips them), then each path of ``--paths`` exactly as
+it, K2's partial entry at ``tp-qwen3-4b``'s cache slice; ``--no-rows``
+skips them), then each path of ``--paths`` (default: every sharded path of
+``chip_smoke.DIST_PATHS``) exactly as
 ``chip_smoke.py`` runs it (``chip_smoke.run_dist_path``: its ranks through
 ``distributed/world.py``, then the check against the unsharded run), and
 prints each path's line with the cards' names and power limits. The
@@ -29,7 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--paths", default="ep-qwen36,sp-recurrentgemma-2b,pod-train-qwen36")
+    ap.add_argument("--paths", default=None)
     ap.add_argument("--no-rows", action="store_true")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
@@ -60,7 +62,7 @@ def main() -> int:
                                                    "plain_device_ms", "library_ms",
                                                    "library_device_ms", "bound_ms", "bound_by")}
     specs = {s.label: s for s in cs.DIST_PATHS}
-    for label in args.paths.split(","):
+    for label in (args.paths.split(",") if args.paths else list(specs)):
         r = cs.run_dist_path(dev, specs[label])
         cs.log(f"  {cards[0]}: {cs.dist_line(r)}")
         out["paths"][label] = {k: v for k, v in r.items() if k not in ("symbols",)}
