@@ -147,7 +147,21 @@ Phases, each failing loudly (nothing is caught):
      step 0's int8 payloads of every leaf up to 2**24 elements bitwise a
      plain numpy recomputation, and step 0's loss within TRAIN_LOSS_TOL of
      one process taking the 4 x 512 batch uncompressed in two
-     microbatches). Every ep rank must launch K3's fused entry and K1's
+     microbatches), ``mp-train-qwen36`` (1 of 48 layers, mesh data 2 x
+     model 2, 4 x 512 topic tokens, 3 steps of ``make_train_step`` over
+     the model axis: heads, experts (``moe_epsum_train``) and the
+     vocabulary split, ZeRO-1; then 3 steps from the same seed with FSDP
+     storage) and ``sp-train-qwen3-4b`` (1 of 36 layers, mesh 1 x 3, one
+     row of 3,072 tokens, 2 steps: 32 heads do not divide 3, so attention
+     trains sequence-parallel), each held to one process training the
+     same global batch unsharded (run before the world): step 0's loss
+     and cross-entropy within MP_LOSS_TOL, its gradient norm within
+     MP_GNORM_TOL, the parameters after step 0
+     within MP_RMS_TOL relative RMS, the leaves every model rank holds
+     whole bitwise equal across the model ranks and the data ranks'
+     parameters bitwise equal after step 0, FSDP's losses and final
+     parameters against the run without it (MP_FSDP_TOL); no kernel
+     launched (none has a backward). Every ep rank must launch K3's fused entry and K1's
      tiled grouped entry, every sp rank K4's chunk entry; the ranks'
      launches count with the run's. Each prints its backend, ranks, mesh,
      prefill / decode / step times, peak GiB a rank, and the collectives'
@@ -2888,6 +2902,8 @@ DIST_PATHS = (
     DistSpec("pod-train-qwen36", "qwen36-35b-a3b", 1, (2,), ("pod",), 4, PROMPT, 4),
     DistSpec("tp-qwen3-4b", "qwen3-4b", LAYERS, (2, 2), ("data", "model"), 4, PROMPT, 32),
     DistSpec("dp-train-qwen36", "qwen36-35b-a3b", 1, (2, 1), ("data", "model"), 4, PROMPT, 3),
+    DistSpec("mp-train-qwen36", "qwen36-35b-a3b", 1, (2, 2), ("data", "model"), 4, PROMPT, 3),
+    DistSpec("sp-train-qwen3-4b", "qwen3-4b", 1, (1, 3), ("data", "model"), 1, 3 * 1024, 2),
 )
 DIST_TIMEOUT = 600              # seconds for a world, weights and builds included
 DIST_DEVICE = "cuda"
@@ -2897,6 +2913,15 @@ EP_RMS_TOL = 0.02
 SP_TOL = KERNEL_TOL             # sp logits and caches against the unsharded prefill
 PAYLOAD_MAX = 1 << 24           # leaves up to this many elements have their payload checked
 WARM = 16                       # the ep ranks' warm-up prefill (positions) before the timed run
+# the model-axis training worlds against their unsharded twin (bf16; set from a CPU rehearsal
+# at reduced widths in bf16, tools/torch_mp_rehearsal.py, with a margin over its readings)
+MP_LOSS_TOL = 0.002             # |step-0 loss (and cross-entropy) - the twin's|, nats
+MP_GNORM_TOL = 0.01             # |step-0 grad norm / the twin's - 1|
+# RMS(params - twin's) / RMS(twin's) after step 0. AdamW's first step moves each element by
+# lr x sign(g), so an element moves apart only where rounding flips a near-zero gradient's
+# sign (2 lr): ~1% gradient noise flips ~0.4% of them, ~1e-3 at full width
+MP_RMS_TOL = 0.005
+MP_FSDP_TOL = 0.002             # FSDP against the same world without it: losses (nats), RMS
 
 
 def _dist_cfg(spec: DistSpec):
@@ -3253,6 +3278,186 @@ def _dpt_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
                        coll)
 
 
+def _mp_cfg_sh(spec: DistSpec):
+    from repro_torch.config import ShardingConfig
+
+    return _dist_cfg(spec), ShardingConfig(remat_policy="dots_saveable", moe_impl="epsum")
+
+
+def _mp_data(cfg, spec: DistSpec):
+    from repro_torch.data import SyntheticSpec
+
+    return SyntheticSpec(vocab_size=cfg.vocab_size, seq_len=spec.prompt,
+                         global_batch=spec.rows, kind="topic", seed=0)
+
+
+def _mp_twin(dev, spec: DistSpec, path: str) -> dict:
+    """One process, the whole model: ``make_train_step`` on the world's
+    global batch, each data rank's rows a microbatch (so each keeps that
+    rank's MoE capacity); step 0's cross-entropy (``lm_loss``'s
+    ``lm_xent`` before the step), every step's loss and time, and the
+    parameters after step 0 saved to ``path`` for the ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import RunConfig, ShardingConfig
+    from repro_torch.data import batch_at_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg, sh = _mp_cfg_sh(spec)
+    sh = dataclasses.replace(sh, moe_impl="sorted")
+    data, micro = _mp_data(cfg, spec), spec.mesh[0]
+    rt = tfm.Runtime(sharding=sh)
+    state = init_train_state(cfg, tfm.init_params(cfg, 0, dev))
+    step_fn = make_train_step(cfg, rt, RunConfig(**TRAIN_LR), num_micro=micro)
+    losses, norms, times, xent = [], [], [], None
+    for i in range(spec.steps):
+        tokens, labels = (torch.from_numpy(a).to(dev) for a in batch_at_step(data, i))
+        if i == 0:
+            mb = spec.rows // micro
+            with torch.no_grad():
+                xent = float(np.mean([float(tfm.lm_loss(
+                    cfg, state["params"], tokens[j * mb:(j + 1) * mb],
+                    labels[j * mb:(j + 1) * mb], rt)[1]["lm_xent"]) for j in range(micro)]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, tokens, labels)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            torch.save([p.detach().cpu() for p in leaves(state["params"])], path)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, norms=norms, xent0=xent, times=times)
+
+
+def _sq_pieces(pairs, layout, mesh, tp_rank: int, dp_rank: int):
+    """[sum of (a - b)^2, sum of b^2, all bitwise] over each element once:
+    ``pairs`` (this rank's stored shard a, the reference's same piece b)
+    per leaf; a leaf whole on the model ranks counts on model rank 0, one
+    whole on the data ranks on data rank 0; summed over the world."""
+    import torch
+    import torch.distributed as dist
+
+    acc = torch.zeros(3, dtype=torch.float64, device=pairs[0][0].device)
+    for (a, b), lay in zip(pairs, layout.values()):
+        if (lay.tp is None and tp_rank) or (lay.fsdp is None and dp_rank):
+            continue
+        a32, b32 = a.detach().float(), b.float()
+        acc[0] += float(torch.sum(torch.square(a32 - b32)))
+        acc[1] += float(torch.sum(torch.square(b32)))
+        acc[2] += 0.0 if torch.equal(a.detach(), b) else 1.0
+    dist.all_reduce(acc)
+    return acc
+
+
+def _mpt_rank(rank: int, nprocs: int, spec: DistSpec, twin_path: str) -> dict:
+    """mp-train-qwen36 / sp-train-qwen3-4b on one rank: its data rank's rows
+    of each step's global batch (``trainer.data_rows``), ``make_train_step``
+    over the (data, model) mesh from ``init_train_state(mesh=)`` (each leaf
+    at its ``param_spec``, moments at ``opt_spec``: ZeRO-1); after step 0
+    its stored shards against the twin's parameters (``_sq_pieces``), the
+    leaves whole over the model axis compared bit for bit across the model
+    ranks and every leaf across the data ranks. mp-train-qwen36 then runs
+    the same steps from the seed with FSDP storage (``fsdp=True``) and
+    compares its shards with the first run's."""
+    import torch
+
+    from repro_torch.config import RunConfig
+    from repro_torch.data import batch_at_step
+    from repro_torch.distributed.sharding import shard_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.trainer import data_rows, state_layout
+    from repro_torch.tree import leaves
+
+    dev, mesh, coll = _rank_setup(spec)
+    cfg, sh = _mp_cfg_sh(spec)
+    rt = tfm.Runtime(sharding=sh, mesh=mesh)
+    data = _mp_data(cfg, spec)
+    dp, r = spec.mesh[0], mesh.get_local_rank("data")
+    tp_rank = rt.tp_rank()
+    out, first = {}, None
+    for fsdp in ((False, True) if dp > 1 else (False,)):
+        layout = state_layout(cfg, mesh, sh, fsdp=fsdp)
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, tfm.init_params(cfg, 0, dev), sh, mesh=mesh, fsdp=fsdp)
+        step_fn = make_train_step(cfg, rt, RunConfig(**TRAIN_LR), fsdp=fsdp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        ps = leaves(state["params"])               # in the layout's order
+        if any(p.device.type != DIST_DEVICE for p in ps):
+            raise AssertionError(f"{spec.label}: a parameter is off the card")
+        weight_gb = sum(p.numel() * p.element_size() for p in ps) / 1e9
+        moment_gb = sum(t.numel() * t.element_size() for key in ("m", "v")
+                        for t in _leaves(state["opt"][key])) / 1e9
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        coll.update(ms=0.0, calls=0, by={})
+        res = dict(losses=[], xents=[], norms=[], times=[], step_coll_ms=[])
+        for i in range(spec.steps):
+            tokens, labels = (data_rows(torch.from_numpy(a), 1, r, dp).to(dev)
+                              for a in batch_at_step(data, i))
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), coll["ms"]
+            state, m = step_fn(state, tokens, labels)
+            res["losses"].append(float(m["loss"]))
+            res["xents"].append(float(m["lm_xent"]))
+            res["norms"].append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            res["times"].append(time.perf_counter() - t0)
+            res["step_coll_ms"].append(coll["ms"] - c0)
+            if i == 0 and not fsdp:
+                kept = {"ms": coll["ms"], "calls": coll["calls"],
+                        "by": {n: list(v) for n, v in coll["by"].items()}}
+                twin = torch.load(twin_path, mmap=True)
+                pairs = [(p, shard_tensor(t, lay.pspec, mesh, device=dev))
+                         for p, t, lay in zip(ps, twin, layout.values())]
+                res["twin_acc"] = _sq_pieces(pairs, layout, mesh, tp_rank, r).tolist()
+                del pairs, twin
+                whole = [p for p, lay in zip(ps, layout.values()) if lay.tp is None]
+                res["same_tp"] = _bits_equal(whole, rt.tp_group(), spec.mesh[1])
+                res["same_dp"] = dp == 1 or _bits_equal(ps, mesh.get_group("data"), dp)
+                coll.update(kept)                # the checks' collectives are not the step's
+        res.update(setup_s=setup_s, weight_gb=weight_gb, moment_gb=moment_gb,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   counts=ops.launch_counts(), coll_ms=coll["ms"], coll_calls=coll["calls"],
+                   coll_by={n: tuple(v) for n, v in coll["by"].items()})
+        if not fsdp:
+            first = (layout, [p.detach() for p in ps])
+            del state, step_fn, ps
+        else:
+            lay0, ps0 = first
+            pairs = []
+            for p, q, lay in zip(ps, ps0, layout.values()):
+                if lay.fsdp is not None:
+                    n = p.shape[lay.fsdp]
+                    q = q.narrow(lay.fsdp, r * n, n)
+                pairs.append((p, q))
+            res["first_acc"] = _sq_pieces(pairs, layout, mesh, tp_rank, r).tolist()
+            del state, step_fn, ps, pairs, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fsdp" if fsdp else "whole"] = res
+    whole = out["whole"]
+    summary = dict(rank=rank, coord=mesh.get_coordinate(), fsdp=out.get("fsdp"), **{
+        k: v for k, v in whole.items() if k not in ("counts", "coll_ms", "coll_calls",
+                                                    "coll_by", "peak_gib")})
+    summary.update(counts=whole["counts"], symbols=ops.symbol_launch_counts(),
+                   peak_gib=max(res["peak_gib"] for res in out.values()),
+                   coll_ms=whole["coll_ms"], coll_calls=whole["coll_calls"],
+                   coll_by=whole["coll_by"])
+    return summary
+
+
 def _ep_unsharded(cfg, params, tokens, ids, routes, spec: DistSpec):
     """One process, the whole expert store: the prefill of ``tokens`` [R, S]
     through K4 and, in each MoE layer, ``moe_sorted`` at the epsum capacity
@@ -3586,9 +3791,68 @@ def _dpt_check(dev, spec: DistSpec, ranks: list) -> dict:
                 plain_median_ms=float(np.median(plain_times[1:])) * 1e3)
 
 
+def _mpt_check(dev, spec: DistSpec, ranks: list, twin: dict) -> dict:
+    """Every rank's losses equal; the whole leaves bitwise across the model
+    ranks and the data ranks' parameters bitwise after step 0; step 0's
+    loss and cross-entropy within MP_LOSS_TOL of the twin's, the
+    parameters after step 0 within MP_RMS_TOL relative RMS; with FSDP: its
+    losses within MP_FSDP_TOL of the run without it and its final
+    parameters within MP_FSDP_TOL relative RMS; no kernel launched."""
+    import numpy as np
+
+    r0 = ranks[0]
+    if any(r["losses"] != r0["losses"] for r in ranks):
+        raise AssertionError(f"{spec.label}: the ranks' losses differ")
+    if not all(r["same_tp"] and r["same_dp"] for r in ranks):
+        raise AssertionError(f"{spec.label}: replicated parameters part across ranks: "
+                             f"{[(r['same_tp'], r['same_dp']) for r in ranks]}")
+    for r in ranks:
+        for res in (r, r["fsdp"] or {}):
+            if any(res.get("counts", {}).values()):
+                raise AssertionError(f"{spec.label}: a kernel launched on the training path: "
+                                     f"{res['counts']}")
+    acc = r0["twin_acc"]
+    rms = float(np.sqrt(acc[0] / acc[1]))
+    d_loss, d_xent = abs(r0["losses"][0] - twin["losses"][0]), abs(r0["xents"][0] - twin["xent0"])
+    d_norm = abs(r0["norms"][0] / twin["norms"][0] - 1)
+    out = dict(twin_losses=twin["losses"], twin_xent0=twin["xent0"], twin_rms=rms,
+               twin_leaves_differing=int(acc[2]), d_loss0=d_loss, d_xent0=d_xent, d_norm0=d_norm,
+               plain_median_ms=float(np.median(twin["times"][1:])) * 1e3)
+    what = (f"step 0 loss {r0['losses'][0]:.5f} (twin {twin['losses'][0]:.5f}, |diff| {d_loss:.5f}),"
+            f" cross-entropy {r0['xents'][0]:.5f} (twin {twin['xent0']:.5f}, |diff| {d_xent:.5f}), "
+            f"grad norm {r0['norms'][0]:.4f} (twin {twin['norms'][0]:.4f}, ratio - 1 {d_norm:.2e}); "
+            f"parameters after step 0 RMS {rms:.2e} of the twin's ({int(acc[2])} leaves not "
+            f"bitwise); later losses {' '.join(f'{x:.5f}' for x in r0['losses'][1:])} (twin "
+            f"{' '.join(f'{x:.5f}' for x in twin['losses'][1:])}); twin step ms "
+            f"{' '.join(f'{1e3 * x:.1f}' for x in twin['times'])}")
+    fs = r0["fsdp"]
+    if fs is not None:
+        fa = fs["first_acc"]
+        f_rms = float(np.sqrt(fa[0] / max(fa[1], 1e-30)))
+        f_loss = max(abs(a - b) for a, b in zip(fs["losses"], r0["losses"]))
+        out.update(fsdp_rms=f_rms, fsdp_d_loss=f_loss, fsdp_leaves_differing=int(fa[2]))
+        what += (f"; FSDP: losses {' '.join(f'{x:.5f}' for x in fs['losses'])} (largest |diff| "
+                 f"{f_loss:.2e}), final parameters RMS {f_rms:.2e} of the run without it "
+                 f"({int(fa[2])} leaves not bitwise)")
+    log(f"[5/{spec.label}] tolerances: loss {MP_LOSS_TOL} nats, grad norm {MP_GNORM_TOL}, RMS "
+        f"{MP_RMS_TOL}, FSDP {MP_FSDP_TOL}; {what}")
+    if not (d_loss <= MP_LOSS_TOL and d_xent <= MP_LOSS_TOL):
+        raise AssertionError(f"{spec.label}: step 0's loss parts from the twin's")
+    if not d_norm <= MP_GNORM_TOL:
+        raise AssertionError(f"{spec.label}: step 0's gradient norm parts from the twin's")
+    if not rms <= MP_RMS_TOL:
+        raise AssertionError(f"{spec.label}: the parameters after step 0 part from the twin's")
+    if fs is not None and not (out["fsdp_d_loss"] <= MP_FSDP_TOL and out["fsdp_rms"] <= MP_FSDP_TOL):
+        raise AssertionError(f"{spec.label}: FSDP storage parts from the run without it")
+    return out
+
+
 DIST_RANKS = {"ep-qwen36": (_ep_rank, _ep_check), "sp-recurrentgemma-2b": (_sp_rank, _sp_check),
               "pod-train-qwen36": (_pod_rank, _pod_check), "tp-qwen3-4b": (_tp_rank, _tp_check),
-              "dp-train-qwen36": (_dpt_rank, _dpt_check)}
+              "dp-train-qwen36": (_dpt_rank, _dpt_check),
+              "mp-train-qwen36": (_mpt_rank, _mpt_check),
+              "sp-train-qwen3-4b": (_mpt_rank, _mpt_check)}
+DIST_TWINS = {"mp-train-qwen36": _mp_twin, "sp-train-qwen3-4b": _mp_twin}
 
 
 def dist_line(r: dict) -> str:
@@ -3608,6 +3872,20 @@ def dist_line(r: dict) -> str:
                 f"({r['coll_split']}); moments {r['moment_gb']:.2f} GB a rank of "
                 f"{r['whole_moment_gb']:.2f} GB; losses {' '.join(f'{x:.4f}' for x in r['losses'])} "
                 f"(one process {' '.join(f'{x:.4f}' for x in r['plain_losses'])})")
+    elif r["label"] in DIST_TWINS:
+        body = (f"step {r['step_ms']:.1f} ms ({r['tok_s']:.0f} tokens/s; one process "
+                f"{r['plain_median_ms']:.1f} ms), collectives {r['step_coll_ms']:.1f} ms a step "
+                f"({r['coll_split']}); weights {r['weight_gb']:.2f} GB and moments "
+                f"{r['moment_gb']:.2f} GB a rank; step 0 loss |diff| {r['d_loss0']:.5f} of the "
+                f"twin's, parameters RMS {r['twin_rms']:.2e}; losses "
+                f"{' '.join(f'{x:.4f}' for x in r['losses'])} (twin "
+                f"{' '.join(f'{x:.4f}' for x in r['twin_losses'])})")
+        if r.get("fsdp_step_ms") is not None:
+            body += (f"; FSDP: step {r['fsdp_step_ms']:.1f} ms, collectives "
+                     f"{r['fsdp_step_coll_ms']:.1f} ms, weights {r['fsdp_weight_gb']:.2f} GB and "
+                     f"moments {r['fsdp_moment_gb']:.2f} GB a rank, peak "
+                     f"{r['fsdp_peak_gib']:.2f} GiB, RMS {r['fsdp_rms']:.2e} of the run without "
+                     f"it")
     elif r["label"] == "sp-recurrentgemma-2b":
         body = (f"prefill {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.0f} tok/s; unsharded "
                 f"{r['unsharded_ms']:.1f} ms); logits max |diff| {r['max_abs']:.3e}, caches "
@@ -3634,14 +3912,24 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
 
     from repro_torch.distributed.world import choose_backend, run_world
 
+    import tempfile
+
     fn, check = DIST_RANKS[spec.label]
     nprocs = int(np.prod(spec.mesh))
     backend, _ = choose_backend("cuda", nprocs)          # run_world prints its choice
     log(f"[4/{spec.label}] {spec.arch}, mesh {dict(zip(spec.axes, spec.mesh))}, {nprocs} ranks")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ranks = run_world(fn, nprocs, args=(spec,), device="cuda", timeout=DIST_TIMEOUT)
-    world_s = time.perf_counter() - t0
+    twin, args = None, (spec,)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_twin_") as tdir:
+        if spec.label in DIST_TWINS:                     # the unsharded twin first, then freed
+            t0 = time.perf_counter()
+            path = os.path.join(tdir, "twin_params.pt")
+            twin = DIST_TWINS[spec.label](dev, spec, path)
+            args = (spec, path)
+            log(f"  twin: one process, {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranks = run_world(fn, nprocs, args=args, device="cuda", timeout=DIST_TIMEOUT)
+        world_s = time.perf_counter() - t0
     counts, symbols = {}, {}
     for r in ranks:
         for name, n in r["counts"].items():
@@ -3691,19 +3979,29 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
         med = float(np.median(times[1:]))
         summary.update(step_ms=med * 1e3, tok_s=spec.rows * spec.prompt / med, losses=ranks[0]["losses"],
                        step_coll_ms=float(np.median(ranks[0]["step_coll_ms"][1:])))
+        by = ranks[0]["coll_by"]
+        summary["coll_split"] = ", ".join(f"{n} {v[0]:.1f} ms / {v[1]} calls"
+                                          for n, v in sorted(by.items()))
         if spec.label == "dp-train-qwen36":
-            by = ranks[0]["coll_by"]
             summary.update(moment_gb=ranks[0]["moment_gb"],
-                           whole_moment_gb=ranks[0]["whole_moment_gb"],
-                           coll_split=", ".join(f"{n} {v[0]:.1f} ms / {v[1]} calls"
-                                                for n, v in sorted(by.items())))
+                           whole_moment_gb=ranks[0]["whole_moment_gb"])
+        if spec.label in DIST_TWINS:
+            fs = ranks[0]["fsdp"]
+            summary.update(weight_gb=ranks[0]["weight_gb"], moment_gb=ranks[0]["moment_gb"],
+                           fsdp_step_ms=None if fs is None else float(
+                               np.median(fs["times"][1:])) * 1e3)
+            if fs is not None:
+                summary.update(fsdp_step_coll_ms=float(np.median(fs["step_coll_ms"][1:])),
+                               fsdp_weight_gb=fs["weight_gb"], fsdp_moment_gb=fs["moment_gb"],
+                               fsdp_peak_gib=max(r["fsdp"]["peak_gib"] for r in ranks),
+                               fsdp_losses=fs["losses"])
         what = (f"median step {med * 1e3:.1f} ms ({summary['tok_s']:.0f} tokens/s over "
                 f"{spec.rows} x {spec.prompt}), collectives {summary['step_coll_ms']:.1f} ms a "
                 f"step; step ms {' '.join(f'{1e3 * x:.1f}' for x in times)}")
     log(f"  world {world_s:.1f} s (set-up {summary['setup_s']:.1f} s a rank); {what}; peak "
         f"{peak:.2f} GiB a rank; collectives {coll_ms:.1f} ms over {summary['coll_calls']} calls "
         f"(host-timed, {backend}); kernel launches {counts}")
-    summary.update(check(dev, spec, ranks))
+    summary.update(check(dev, spec, ranks) if twin is None else check(dev, spec, ranks, twin))
     del ranks
     gc.collect()
     torch.cuda.empty_cache()

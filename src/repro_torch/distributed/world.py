@@ -1,7 +1,8 @@
 """Start a world of ranks: the one way the tests and ``chip_smoke.py`` run
 code on several processes.
 
-``run_world(fn, nprocs, args=..., device=...)`` spawns ``nprocs`` fresh
+``run_world(fn, nprocs, args=..., device=...)`` (``device`` "cuda" unless
+the caller asks for "cpu") spawns ``nprocs`` fresh
 interpreters (``multiprocessing``'s ``spawn``: nothing is inherited but the
 arguments), each of which starts a process group through a
 ``torch.distributed.FileStore`` in a temporary directory (never a fixed TCP
@@ -88,10 +89,12 @@ def _read(directory: str, rank: int) -> Optional[dict]:
         return pickle.load(f)
 
 
-def run_world(fn: Callable, nprocs: int, *, args: Sequence[Any] = (), device: str = "cpu",
+def run_world(fn: Callable, nprocs: int, *, args: Sequence[Any] = (), device: str = "cuda",
               timeout: float = 120.0) -> List[Any]:
     """``fn(rank, nprocs, *args)`` on ``nprocs`` ranks, the backend
-    :func:`choose_backend`'s; returns the ranks' results in rank order."""
+    :func:`choose_backend`'s; returns the ranks' results in rank order.
+    The ranks run on the card unless ``device="cpu"`` asks for the CPU; with
+    no card present a CUDA world raises before any rank starts."""
     backend, why = choose_backend(device, nprocs)
     print(f"world: {nprocs} ranks on {device}, backend {backend} ({why})", flush=True)
     directory = tempfile.mkdtemp(prefix="repro_world_")

@@ -40,7 +40,9 @@ holding E/ep routed experts: ``moe_epsum_local`` (the sharded prefill: the
 sorted dispatch over the local experts at the reference's capacity, the
 local FFN through K1's tiled grouped entry, one all-reduce) and
 ``moe_epsum_decode_local`` (decode: K1's GEMV over the picks that route to
-local experts, one all-reduce).
+local experts, one all-reduce). Training over the mesh runs
+``moe_epsum_train``: the same dispatch in plain, differentiable PyTorch,
+with the router losses.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, dense_init, gelu
 
@@ -388,7 +391,7 @@ def moe_dense(p: Params, mcfg: MoEConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Expert parallelism over a mesh axis (the reference's ``epsum``)
 # ---------------------------------------------------------------------------
-def _shared_split(p_local: Params, mcfg: MoEConfig) -> bool:
+def shared_split(p_local: Params, mcfg: MoEConfig) -> bool:
     """Whether the shared experts hold this rank's columns / rows only
     (``param_spec`` cuts them as a dense MLP over the tensor axis)."""
     return ("shared" in p_local and p_local["shared"]["w_down"].shape[0]
@@ -401,7 +404,7 @@ def _add_shared(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, y: torc
     the shared experts: their partial sum joins ``y`` before the one
     all-reduce where they are split over the axis, else they run whole on
     every rank after it."""
-    split = _shared_split(p_local, mcfg)
+    split = shared_split(p_local, mcfg)
     if split:
         y = y + shared_ffn(p_local, x_local)
     dist.all_reduce(y, group=group)
@@ -434,9 +437,8 @@ def moe_epsum_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, *, 
     Each token's expert work happens once, on the expert's owner. Shared
     experts run on every rank, whole or (split by the rules over the axis)
     as a partial sum inside the same all-reduce. Returns (y [T, D], {}):
-    routing through K3
-    gives no router losses (the reference's aux is unused by its prefill,
-    and training under a tensor axis is not ported)."""
+    routing through K3 gives no router losses (the reference's aux is
+    unused by its prefill; training runs :func:`moe_epsum_train`)."""
     lo, e_loc = _local_experts(p_local, mesh, ep_axis)
     t, d = x_local.shape
     ids, weights = route(p_local, x_local, mcfg)
@@ -450,6 +452,43 @@ def moe_epsum_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, *, 
     valid = (dest >= 0) & (dest < e_loc * cap)
     y = combine(out, dest, valid, weights).to(x_local.dtype)
     return _add_shared(p_local, mcfg, x_local, y, mesh.get_group(ep_axis)), {}
+
+
+def moe_epsum_train(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor, group,
+                    rank: int, routing: Optional[Routing] = None) -> Tuple[torch.Tensor, Aux]:
+    """:func:`moe_epsum_local` in training (the reference's
+    ``moe_epsum_local`` under its ``shard_map``), plain and differentiable
+    (K1 and K3 have no backward): x_local [T, D] this data rank's tokens,
+    replicated over ``group`` (the tensor axis; this rank ``rank`` holds
+    routed experts ``[rank E/tp, (rank+1) E/tp)``). Every rank routes alike
+    (``topk_route_aux``, with the load-balance and z losses), runs the
+    sorted dispatch over its local experts at the reference's capacity
+    ``max(k, ceil(T k / E cf))`` (drops in its order), the local SwiGLU as
+    batched products (``expert_ffn_dense``) and the combine; the partial
+    outputs (with split shared experts' partial sums) are summed by
+    ``reduce_from_tp``, whole shared experts added after it. x enters
+    through ``copy_to_tp`` (its gradient, like the router's, is partial on
+    each rank); the aux losses, alike on every rank, pass their gradient on
+    rank 0 only (``count_once``). Returns (y [T, D], aux)."""
+    t, d = x_local.shape
+    e_loc = int(p_local["experts"]["w_up"].shape[0])
+    lo = rank * e_loc
+    x_in = parallel.copy_to_tp(x_local, group)
+    ids, weights, aux = topk_route_aux(router_logits(p_local, x_in), mcfg, routing)
+    mine = (ids >= lo) & (ids < lo + e_loc)
+    local_ids = torch.where(mine, ids - lo, torch.full_like(ids, e_loc))
+    cap = capacity(mcfg, t)
+    buf, dest, _ = sorted_dispatch(x_in, local_ids, e_loc + 1, cap)
+    out = expert_ffn_dense(p_local["experts"], buf[:e_loc]).reshape(e_loc * cap, d)
+    valid = (dest >= 0) & (dest < e_loc * cap)
+    y = combine(out, dest, valid, weights).to(x_local.dtype)
+    split = shared_split(p_local, mcfg)
+    if split:
+        y = y + shared_ffn(p_local, x_in)
+    y = parallel.reduce_from_tp(y, group)
+    if mcfg.num_shared_experts > 0 and not split:
+        y = y + shared_ffn(p_local, x_local)
+    return y, {n: parallel.count_once(v, rank) for n, v in aux.items()}
 
 
 def moe_epsum_decode_local(p_local: Params, mcfg: MoEConfig, x_local: torch.Tensor,

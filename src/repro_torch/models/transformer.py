@@ -72,6 +72,15 @@ collective. A ring cache, or a recurrent stack's decode, under a tensor
 axis longer than 1 raises before anything is built (a recurrent stack's
 prefill keeps its caches whole, as the sequence-parallel prefill makes
 them).
+
+Training under the mesh (``forward_train`` / ``lm_loss`` with ``rt.mesh``,
+driven by ``training/trainer.py``) runs plain, differentiable forms through
+the collectives of ``distributed/parallel.py``: attention split by heads, or
+by query positions (:func:`_tp_train_attention`), column- / row-parallel
+MLPs, expert-parallel MoE with its router losses (``moe.moe_epsum_train``),
+the vocabulary-parallel embedding and cross-entropy
+(:func:`_vocab_chunk_loss`), and, for FSDP storage, each layer's shards
+gathered at use inside its remat'd block.
 """
 from __future__ import annotations
 
@@ -152,10 +161,12 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda", *,
 
     ``expert_device="cpu"`` generates each layer's routed experts on
     ``device`` and moves them to (pinned) host memory at once, so a
-    full-width warehouse never sits on the card whole."""
+    full-width warehouse never sits on the card whole. ``device="meta"``
+    gives every leaf's shape and type without memory."""
     device = torch.device(device)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     layers = [_init_block(gen, kind, cfg, dtype, device, expert_device)
               for kind in cfg.layer_kinds]
     p: Params = {
@@ -300,7 +311,9 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     each on this rank's shards."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     sharded = rt is not None and rt.mesh is not None
-    if mode == "train":
+    if mode == "train" and _tensor_axis(rt):
+        y = _tp_train_attention(cfg, p["attn"], rt, h)
+    elif mode == "train":
         rt = rt or Runtime()
         y = attn.attention_train(p["attn"], cfg.attention, h,
                                  q_chunk=rt.q_chunk, kv_chunk=rt.kv_chunk)
@@ -489,14 +502,100 @@ def _tp_decode(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache: Dict[str, t
     return y
 
 
+def _tp_train_attention(cfg: ModelConfig, p: Params, rt: Runtime,
+                        h: torch.Tensor) -> torch.Tensor:
+    """Training attention over the tensor axis, h [B, S, D] replicated over
+    it -> y [B, S, D], plain and differentiable (K4 has no backward), as
+    the reference trains (``use_pallas=False``):
+
+    * sequence-parallel where :func:`_use_sp` holds (the reference's
+      ``_sp_attention``): q, k and v whole on every rank, rank r attends
+      its query chunk ``[r S/tp, (r+1) S/tp)`` over the whole K/V
+      (``chunked_attention`` at that offset), the chunks all-gathered
+      (``gather_from_tp``) and ``wo`` applied whole;
+    * head-parallel where ``wq`` holds this rank's heads (as
+      :func:`_tp_prefill`, with ``attention_train``'s dataflow), one f32
+      all-reduce after the row-parallel ``wo`` (``reduce_from_tp``);
+    * else whole on every rank (``attention_train``).
+
+    ``copy_to_tp`` sums the ranks' partial gradients of h; the replicated
+    leaves each rank uses for its share only are :func:`tp_partial_leaves`."""
+    acfg = cfg.attention
+    b, s, _ = h.shape
+    group, tp, r = rt.tp_group(), rt.tp_size(), rt.tp_rank()
+    kw = dict(causal=True, window=acfg.window, soft_cap=acfg.logit_soft_cap)
+    positions = torch.arange(s, device=h.device)[None, :]
+    if _use_sp(cfg, rt, s):
+        s_loc = s // tp
+        q, k, v = attn._project_qkv(p, acfg, parallel.copy_to_tp(h, group), positions)
+        ctx = attn.chunked_attention(q[:, r * s_loc:(r + 1) * s_loc], k, v,
+                                     q_chunk=min(rt.q_chunk, s_loc), kv_chunk=rt.kv_chunk,
+                                     q_offset=r * s_loc, **kw)
+        ctx = parallel.gather_from_tp(ctx, 1, group, tp, r)
+        return ctx.reshape(b, s, -1) @ p["wo"]
+    if p["wq"].shape[1] == acfg.num_heads * acfg.head_dim:
+        return attn.attention_train(p, acfg, h, q_chunk=rt.q_chunk, kv_chunk=rt.kv_chunk)
+    q, k, v = attn._project_qkv(p, acfg, parallel.copy_to_tp(h, group), positions)
+    k, v = _query_kv(acfg, rt, k, v, q.shape[2])
+    if s <= max(rt.q_chunk, 128):
+        ctx = attn.reference_attention(q, k, v, **kw)
+    else:
+        ctx = attn.chunked_attention(q, k, v, q_chunk=rt.q_chunk, kv_chunk=rt.kv_chunk, **kw)
+    return parallel.reduce_from_tp(ctx.reshape(b, s, -1) @ p["wo"], group)
+
+
+def tp_partial_leaves(cfg: ModelConfig, params: Params, rt: Optional[Runtime],
+                      seq_len: int) -> List[str]:
+    """The paths of the leaves that are whole on every rank of ``rt``'s
+    tensor axis but whose gradient a rank's training forward over
+    ``seq_len`` positions computes for its share of the work only, so the
+    trainer sums it over the axis: under sequence parallelism ``wq``,
+    ``wk``, ``wv`` and the qk-norms (each rank scores its queries), under a
+    head split the qk-norms and a whole ``wk`` / ``wv`` (each rank reads its
+    heads), under expert parallelism the router (each rank combines its
+    experts' outputs) and, with shared experts split, their gate. ``wo``
+    under SP, whole MLPs, the norms, the embedding and the head take whole
+    gradients on every rank (not summed)."""
+    if not _tensor_axis(rt):
+        return []
+    a, out = cfg.attention, []
+    for li, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
+        pre = f"layers/{li}/"
+        if kind not in KV_KINDS:
+            continue
+        names = [n for n in ("wq", "wk", "wv", "q_norm", "k_norm") if n in p["attn"]]
+        if _use_sp(cfg, rt, seq_len):
+            out += [f"{pre}attn/{n}" for n in names]
+        elif p["attn"]["wq"].shape[1] < a.num_heads * a.head_dim:
+            out += [f"{pre}attn/{n}" for n in names if n in ("q_norm", "k_norm") or (
+                n in ("wk", "wv") and p["attn"][n].shape[1] == a.num_kv_heads * a.head_dim)]
+        if "moe" in p and _expert_parallel(cfg, p, rt):
+            out.append(f"{pre}moe/router")
+            if moe_mod.shared_split(p["moe"], cfg.moe):
+                out.append(f"{pre}moe/shared_gate")
+    return out
+
+
+def _expert_parallel(cfg: ModelConfig, p: Params, rt: Optional[Runtime]) -> bool:
+    """Whether an MoE layer's routed experts are split over the tensor axis
+    (this rank holds E/tp of them); raises unless ``moe_impl`` is epsum."""
+    if not _tensor_axis(rt) or p["moe"]["experts"]["w_up"].shape[0] == cfg.moe.storage_experts:
+        return False
+    rt.ep_axis()
+    return True
+
+
 def mlp_half(cfg: ModelConfig, p: Params, x_mid: torch.Tensor, h2: torch.Tensor,
              rt: Optional[Runtime] = None) -> torch.Tensor:
     """A dense layer's FFN half: x_mid + MLP(h2 [T, D]), in x_mid's shape.
     Column-parallel ``w_gate`` / ``w_up`` and row-parallel ``w_down`` (this
-    rank's shards, ``rt``'s tensor axis) give a partial sum, all-reduced."""
-    y = apply_mlp(cfg.mlp, p["mlp"], h2)
-    if _tensor_axis(rt) and p["mlp"]["w_down"].shape[0] < cfg.d_ff:
-        y = parallel.all_reduce_f32(y, rt.tp_group())
+    rank's shards, ``rt``'s tensor axis) give a partial sum, all-reduced in
+    f32; differentiable (``copy_to_tp`` in, ``reduce_from_tp`` out)."""
+    if not (_tensor_axis(rt) and p["mlp"]["w_down"].shape[0] < cfg.d_ff):
+        return x_mid + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(x_mid.shape)
+    group = rt.tp_group()
+    y = parallel.reduce_from_tp(apply_mlp(cfg.mlp, p["mlp"], parallel.copy_to_tp(h2, group)),
+                                group)
     return x_mid + y.reshape(x_mid.shape)
 
 
@@ -749,19 +848,24 @@ def _sharded_zero_state(cfg: ModelConfig, rows: int, cache_len: int, rt: Optiona
             for _ in cfg.layer_kinds]
 
 
-def shard_params(cfg: ModelConfig, params: Params, rt: Runtime) -> Params:
+def shard_params(cfg: ModelConfig, params: Params, rt: Runtime, *,
+                 fsdp: bool = False) -> Params:
     """This rank's parameters for the sharded forward: every leaf cut by
     the rules (``make_param_shardings``, sanitized, the sizes the mesh's):
     routed experts on E, attention by heads where the head counts divide the
     tensor axis, MLPs and shared experts column / row parallel, ``embed``
-    and ``lm_head`` by vocabulary; a cut leaf is a copy (the whole one can
-    be freed), a whole one shared with ``params``. A recurrent layer the
-    rules would cut raises (its width split is not ported)."""
-    specs = make_param_shardings(cfg, rt.mesh, rt.sharding, params)
+    and ``lm_head`` by vocabulary; with ``fsdp`` (training's storage) also
+    over the data axes where ``param_spec(fsdp=True)`` puts them. A cut leaf
+    is a copy (the whole one can be freed), a whole one shared with
+    ``params``. A recurrent layer the rules would cut over the tensor axis
+    raises (its width split is not ported)."""
+    specs = make_param_shardings(cfg, rt.mesh, rt.sharding, params, fsdp=fsdp)
     kinds = {f"layers/{i}/": kind for i, kind in enumerate(cfg.layer_kinds)}
+    tp = rt.sharding.tp_axis
     for path, spec in specs.items():
         kind = next((k for pre, k in kinds.items() if path.startswith(pre)), None)
-        if kind is not None and kind not in KV_KINDS and any(e is not None for e in spec):
+        if kind is not None and kind not in KV_KINDS and any(
+                e == tp or (isinstance(e, tuple) and tp in e) for e in spec):
             raise ValueError(f"{cfg.name}: {path} would be cut to {spec}; the width split of "
                              f"a recurrent layer is not ported")
 
@@ -1033,17 +1137,26 @@ def _remat(fn: Callable, policy: str) -> Callable:
 
 
 def _train_block(cfg: ModelConfig, rt: Runtime, kind: str, p: Params,
-                 routing: Optional[moe_mod.Routing],
+                 routing: Optional[moe_mod.Routing], gather: Optional[Callable[[Params], Params]],
                  x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One layer's train form (the reference's ``_apply_block`` in mode
     ``train``): x [B, S, D] -> (x out, aux: the MoE layer's losses). The
     blocks the engines run, with ``train`` attention, a recurrent cell's
-    prefill without its state, and the MoE half through ``moe_forward``."""
+    prefill without its state, and the MoE half through ``moe_forward``, or
+    expert-parallel (``moe.moe_epsum_train``) where ``rt``'s tensor axis
+    splits the experts. ``gather`` (FSDP) makes the layer's stored shards
+    whole first, inside the remat'd block, so the backward gathers again."""
+    if gather is not None:
+        p = gather(p)
     if kind not in KV_KINDS:
         return recurrent_block(cfg, kind, p, x, "prefill", None)[0], {}
     x_mid, h2, _ = attn_half(cfg, p, x, "train", rt=rt)
     if kind != "attn_moe":
-        return mlp_half(cfg, p, x_mid, h2), {}
+        return mlp_half(cfg, p, x_mid, h2, rt), {}
+    if _expert_parallel(cfg, p, rt):
+        y, aux = moe_mod.moe_epsum_train(p["moe"], cfg.moe, h2, rt.tp_group(), rt.tp_rank(),
+                                         routing)
+        return x_mid + y.reshape(x_mid.shape), aux
     y, aux = moe_mod.moe_forward(p["moe"], cfg.moe, h2.reshape(x_mid.shape),
                                  rt.sharding.moe_impl, routing)
     return x_mid + y, aux
@@ -1056,22 +1169,29 @@ def forward_train(
     rt: Runtime,
     frontend: Optional[torch.Tensor] = None,
     routes: Optional[List[moe_mod.Routing]] = None,
+    gather: Optional[Callable[[str, Any], Any]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens [B, S_tok] -> (hidden [B, S_total, D] before the final norm,
     aux): the MoE losses summed over the layers (``moe_load_balance``,
     ``moe_router_z``; ``moe_dropped_frac`` under sorted dispatch).
     ``routes``: one ``moe.Routing`` per MoE layer, recording each layer's
-    top-k choice or replaying it."""
-    x = prepend_frontend(cfg, params, embed_tokens(params, tokens), frontend)
+    top-k choice or replaying it. Under ``rt.mesh`` (this rank's rows and
+    parameter shards) the layers take their tensor-parallel train forms and
+    the embedding is vocabulary-parallel where ``embed`` holds this rank's
+    rows. ``gather(path, subtree)`` (FSDP storage) gives a subtree's leaves
+    whole over the data axis; each layer calls it inside its remat'd block."""
+    embed = params["embed"] if gather is None else gather("embed", params["embed"])
+    x = prepend_frontend(cfg, params, _embed(cfg, {"embed": embed}, tokens, rt), frontend)
     policy = rt.sharding.remat_policy
     aux_tot: Dict[str, torch.Tensor] = {}
     mi = 0
-    for kind, p in zip(cfg.layer_kinds, params["layers"]):
+    for li, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
         routing = None
         if kind == "attn_moe":
             routing = routes[mi] if routes is not None else None
             mi += 1
-        x, aux = _remat(functools.partial(_train_block, cfg, rt, kind, p, routing), policy)(x)
+        at = None if gather is None else functools.partial(gather, f"layers/{li}")
+        x, aux = _remat(functools.partial(_train_block, cfg, rt, kind, p, routing, at), policy)(x)
         for n, v in aux.items():
             aux_tot[f"moe_{n}"] = aux_tot[f"moe_{n}"] + v if f"moe_{n}" in aux_tot else v
     return x, aux_tot
@@ -1085,6 +1205,16 @@ def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor,
     gold = torch.gather(logits, -1, torch.clamp(tc, min=0).long()[..., None])[..., 0]
     valid = (tc >= 0).float()
     return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
+
+
+def _vocab_chunk_loss(rank: int, group, hc: torch.Tensor, tc: torch.Tensor,
+                      head: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_chunk_loss` over a head holding this rank's vocabulary
+    columns [D, V/tp] (``parallel.vocab_parallel_xent``): the [.., V/tp]
+    logits of this rank only, hc's partial gradients summed over the axis."""
+    logits = (parallel.copy_to_tp(hc, group) @ head).float()
+    valid = (tc >= 0).float()
+    return (parallel.vocab_parallel_xent(logits, tc, rank, group) * valid).sum(), valid.sum()
 
 
 def loss_targets(cfg: ModelConfig, labels: torch.Tensor) -> torch.Tensor:
@@ -1103,6 +1233,7 @@ def lm_loss(
     routes: Optional[List[moe_mod.Routing]] = None,
     count: Optional[torch.Tensor] = None,
     aux_weight: float = 1.0,
+    gather: Optional[Callable[[str, Any], Any]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (the reference's ``lm_loss``): the head and
     the log-softmax over ``rt.loss_chunk`` positions at a time, each chunk
@@ -1117,15 +1248,23 @@ def lm_loss(
     Data parallelism (``training/trainer.py``): ``count`` replaces the
     count of valid labels in the divisor (the whole batch's, over every
     data rank) and ``aux_weight`` scales the MoE terms (1 / the data
-    ranks), so the ranks' losses sum to the global batch's."""
-    h, aux = forward_train(cfg, params, tokens, rt, frontend, routes)
+    ranks), so the ranks' losses sum to the global batch's. Under
+    ``rt.mesh`` a head holding this rank's vocabulary columns scores each
+    chunk vocabulary-parallel (:func:`_vocab_chunk_loss`); ``gather`` as in
+    :func:`forward_train` (the head gathered once, before the chunks)."""
+    h, aux = forward_train(cfg, params, tokens, rt, frontend, routes, gather)
     f = cfg.frontend_len if cfg.frontend is not None else 0
     pred_h, tgt = h[:, f - 1:-1] if f > 0 else h[:, :-1], loss_targets(cfg, labels)
     s = pred_h.shape[1]
     chunk = min(rt.loss_chunk, s)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head = params[name] if gather is None else gather(name, params[name])
+    head = head.T if cfg.tie_embeddings else head
     hn = apply_norm(cfg.norm, params["final_norm"], pred_h)
     loss_fn = _remat(_chunk_loss, "full")
+    if _tensor_axis(rt) and head.shape[1] < cfg.vocab_size:
+        loss_fn = _remat(functools.partial(_vocab_chunk_loss, rt.tp_rank(), rt.tp_group()),
+                         "full")
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for start in range(0, s, chunk):
         l, c = loss_fn(hn[:, start:start + chunk], tgt[:, start:start + chunk], head)

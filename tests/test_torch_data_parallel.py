@@ -235,7 +235,7 @@ def runs():
         jax_side = subprocess.Popen([sys.executable, "-c", code, in_path, ref_path,
                                      str(ROOT / "tests"), str(ROOT / "src")], env=env)
         try:
-            results = run_world(_rank_cases, WORLD, args=(d,), timeout=TIMEOUT)
+            results = run_world(_rank_cases, WORLD, args=(d,), device="cpu", timeout=TIMEOUT)
             left = max(0.1, TIMEOUT - (time.monotonic() - start))
             assert jax_side.wait(timeout=left) == 0, "the JAX side failed"
         finally:

@@ -383,7 +383,7 @@ def runs():
         jax_side = subprocess.Popen([sys.executable, "-c", code, in_path, ref_path,
                                      str(ROOT / "tests"), str(ROOT / "src")], env=env)
         try:
-            results = run_world(_rank_cases, WORLD, args=(in_path,), timeout=TIMEOUT)
+            results = run_world(_rank_cases, WORLD, args=(in_path,), device="cpu", timeout=TIMEOUT)
             left = max(0.1, TIMEOUT - (time.monotonic() - start))     # its own TIMEOUT
             assert jax_side.wait(timeout=left) == 0, "the JAX side failed"
         finally:

@@ -161,7 +161,7 @@ def elastic():
     from repro_torch.checkpoint import CheckpointManager
     with tempfile.TemporaryDirectory() as d:
         CheckpointManager(d, async_save=False).save(3, _tree())
-        yield run_world(_elastic_ranks, WORLD, args=(d,), timeout=TIMEOUT)
+        yield run_world(_elastic_ranks, WORLD, args=(d,), device="cpu", timeout=TIMEOUT)
 
 
 def test_restore_onto_two_ranks_cuts_each_shard(elastic):
@@ -224,7 +224,7 @@ def _sleeps(rank, nprocs):
 def test_a_failing_rank_ends_the_world():
     start = time.monotonic()
     with pytest.raises(WorldError, match="rank 1 of 2 failed") as err:
-        run_world(_one_raises, 2, timeout=60)
+        run_world(_one_raises, 2, device="cpu", timeout=60)
     assert "ValueError: rank one gives up" in str(err.value)
     assert time.monotonic() - start < 45
 
@@ -232,7 +232,7 @@ def test_a_failing_rank_ends_the_world():
 def test_a_world_past_its_timeout_is_killed():
     start = time.monotonic()
     with pytest.raises(WorldError, match="outlived its 5 s timeout"):
-        run_world(_sleeps, 2, timeout=5)
+        run_world(_sleeps, 2, device="cpu", timeout=5)
     assert time.monotonic() - start < 30
 
 

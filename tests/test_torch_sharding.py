@@ -158,8 +158,8 @@ def test_meshes_raise_without_their_world():
 
 def test_sharded_runtime_refuses_what_is_not_ported():
     """Under a mesh: an MoE layer needs ``moe_impl="epsum"`` and the tensor
-    axis; training refuses a tensor axis longer than 1 (data parallelism
-    takes the data axes only)."""
+    axis; pod compression refuses a tensor or data axis inside the pod (the
+    model axis trains without it)."""
     from repro_torch.config import RunConfig
     from repro_torch.training import make_train_step
 
@@ -167,18 +167,18 @@ def test_sharded_runtime_refuses_what_is_not_ported():
         mesh_dim_names = ("data",)
         shape = (1,)
 
-    class FakeTensorMesh:
-        mesh_dim_names = ("data", "model")
-        shape = (1, 2)
+    class FakePodMesh:
+        mesh_dim_names = ("pod", "model")
+        shape = (2, 2)
 
     rt = ttfm.Runtime(mesh=FakeMesh())
     with pytest.raises(ValueError, match="tensor axis"):
         rt.tp_size()
     with pytest.raises(ValueError, match="epsum"):
         dataclasses.replace(rt, sharding=ShardingConfig(moe_impl="sorted")).ep_axis()
-    with pytest.raises(ValueError, match="tensor axis of 2"):
-        make_train_step(treduce(tget("starcoder2-3b")), ttfm.Runtime(mesh=FakeTensorMesh()),
-                        RunConfig())
+    with pytest.raises(ValueError, match="inside a pod are not ported"):
+        make_train_step(treduce(tget("starcoder2-3b")), ttfm.Runtime(mesh=FakePodMesh()),
+                        RunConfig(), pod_compression=True)
     with pytest.raises(ValueError, match="'pod' axis"):
         make_train_step(treduce(tget("starcoder2-3b")), rt, RunConfig(), pod_compression=True)
 

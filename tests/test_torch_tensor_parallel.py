@@ -25,8 +25,8 @@ logits and its slice of every KV cache are held to the reference within
 1e-4 (absolute and relative), as the port's unsharded parity tests; K2's
 partial plain version and the merge to the Pallas kernel over the whole
 cache within 1e-5. ``shard_params`` / ``shard_state`` are held to the
-sanitized specs exactly, and a model axis > 1 must raise for training, a
-recurrent stack's decode and width, and a ring cache.
+sanitized specs exactly, and a model axis > 1 must raise for training a
+recurrent stack, a recurrent stack's decode and width, and a ring cache.
 """
 import dataclasses
 import traceback
@@ -198,7 +198,8 @@ def _serve_case(shape, inputs, weights):
 
 
 def _raises_case(weights):
-    """What a model axis > 1 refuses before anything is built."""
+    """What a model axis > 1 refuses before anything is built (training a
+    recurrent stack: the width split of its layers is not ported)."""
     from repro_torch.config import RunConfig, ShardingConfig, get_config
     from repro_torch.configs import reduce_for_smoke
     from repro_torch.launch.mesh import make_debug_mesh
@@ -214,7 +215,7 @@ def _raises_case(weights):
     params = tfm.init_params(cfg, 0, "cpu")
     tokens = torch.zeros((2, S), dtype=torch.long)
     calls = {
-        "train": lambda: make_train_step(cfg, rt, RunConfig()),
+        "train recurrent": lambda: make_train_step(rg, rt, RunConfig()),
         "recurrent width": lambda: tfm.shard_params(rg, tfm.init_params(rg, 0, "cpu"), rt),
         "recurrent decode": lambda: tfm.decode_model(rg, params, tokens[:, 0], [], S, rt=rt),
         "recurrent state": lambda: tfm.shard_state(rg, tfm.zero_state(rg, 2, CACHE, "cpu"), rt),
@@ -253,7 +254,7 @@ def runs():
     inputs = _inputs()
     ref = _reference(inputs)
     weights = {arch: r.pop("params") for arch, r in ref.items()}
-    results = run_world(_rank_cases, WORLD, args=(inputs, weights), timeout=TIMEOUT)
+    results = run_world(_rank_cases, WORLD, args=(inputs, weights), device="cpu", timeout=TIMEOUT)
     return results, ref
 
 

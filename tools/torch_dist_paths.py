@@ -2,7 +2,8 @@
 """``chip_smoke.py``'s sharded paths alone, on the cards of this machine.
 
     python3 tools/torch_dist_paths.py [--paths ep-qwen36,sp-recurrentgemma-2b,pod-train-qwen36,
-                                               tp-qwen3-4b,dp-train-qwen36] [--no-rows]
+                                               tp-qwen3-4b,dp-train-qwen36,mp-train-qwen36,
+                                               sp-train-qwen3-4b] [--no-rows]
 
 Builds the kernels, runs the phase-3 rows at the sharded paths' shapes
 (``chip_smoke.sharded_rows``: K1's tiled grouped entry as
