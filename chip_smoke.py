@@ -40,7 +40,12 @@ Phases, each failing loudly (nothing is caught):
    capacity 80, x [64, 80, 2048] @ W [64, 2048, 768], beside ``bmm`` over
    the gathered experts) and K4's chunk entry as ``_sp_attention`` calls it
    (768 queries of 10 heads at dh 256 at offsets 0 and 2,304 against 3,072
-   keys, window 2,048, beside band-masked SDPA);
+   keys, window 2,048, beside band-masked SDPA), K2's partial entry at
+   ``tp-qwen3-4b``'s slice and K4's partial chunk entry as ``_tp_chunk``
+   calls it on ``mp-rotary-qwen36`` (the 128-token chunk at 512-639 against
+   a rank's 576 of 1,152 positions, at offsets 0 and 576 and merged over
+   the two slices against the chunk entry, beside the aten
+   memory-efficient SDPA with lse and a causal-offset bias);
 4. run twenty paths of ``RotaryEngine.generate`` on ``qwen36-35b-a3b`` at
    its published widths, cut to the first 8 of its 48 layers (the depth is
    the only cut: 8 layers of host warehouse are 9.7 GB, the whole model's
@@ -129,7 +134,7 @@ Phases, each failing loudly (nothing is caught):
      process against an unsharded run of the same weights:
      ``ep-qwen36`` (qwen36's 8-layer cut, mesh data 2 x model 2, each rank
      64 of 128 experts a layer: ``prefill_model`` of 4 x 512 tokens, two rows
-     a data rank, through ``moe_epsum_local``, then 32 greedy
+     a data rank, through ``moe_epsum_local``, then 16 greedy
      ``decode_model`` steps through ``moe_epsum_decode_local``; the model
      ranks of a data rank bitwise equal; against one process holding the
      whole store, ``moe_sorted`` at the epsum capacity in prefill and
@@ -142,7 +147,7 @@ Phases, each failing loudly (nothing is caught):
      2,048; logits and every KV cache against the unsharded
      ``prefill_model``, within the kernel tolerance, bitwise printed) and
      ``pod-train-qwen36`` (1 of 48 layers, 2 pods, 2 x 512 topic tokens a
-     pod, 4 steps of ``make_train_step(pod_compression=True)``: the pods'
+     pod, 3 steps of ``make_train_step(pod_compression=True)``: the pods'
      parameters bitwise equal after every step,
      step 0's int8 payloads of every leaf up to 2**24 elements bitwise a
      plain numpy recomputation, and step 0's loss within TRAIN_LOSS_TOL of
@@ -161,8 +166,22 @@ Phases, each failing loudly (nothing is caught):
      whole bitwise equal across the model ranks and the data ranks'
      parameters bitwise equal after step 0, FSDP's losses and final
      parameters against the run without it (MP_FSDP_TOL); no kernel
-     launched (none has a backward). Every ep rank must launch K3's fused entry and K1's
-     tiled grouped entry, every sp rank K4's chunk entry; the ranks'
+     launched (none has a backward); and ``mp-rotary-qwen36`` (the first 4
+     of 48 layers, mesh data 1 x model 2: ``RotaryEngine`` over the model
+     axis, each rank's slots split on F (384 of 768 expert columns), its
+     heads, vocabulary columns and 576 of 1,152 cache positions; one
+     640-token prompt in chunks of 128, the fifth straddling the slices,
+     then 32 greedy steps, for full residency, rotary at ROT_SLOTS and
+     rotary in windows of 4, each held to the ranks bitwise (tokens,
+     logits, telemetry, routing, transitions), to the f32 truth under
+     ``judge`` fed the run's committed routing (its top-k apart: a pick
+     only at a near-tie), rotary to full's and spec 4 to spec 1's greedy
+     ids under the margin guard, a miss corrected and a suffix replayed,
+     and rotary's logits to the unsharded RotaryEngine on the card at the
+     positions both route alike, within ROT_RMS_TOL). Every ep rank must
+     launch K3's fused entry and K1's tiled grouped entry, every sp rank
+     K4's chunk entry, every mp-rotary rank K3's fused entry, K1's GEMV
+     and ragged entry and the partial entries of K2 and K4; the ranks'
      launches count with the run's. Each prints its backend, ranks, mesh,
      prefill / decode / step times, peak GiB a rank, and the collectives'
      host-timed ms;
@@ -339,6 +358,7 @@ REPLACES = {
     "router_topk": "src/repro/kernels/topk_gate.py:81",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
     "flash_attention_chunk": "src/repro/kernels/flash_attention.py:88",
+    "flash_attention_chunk_partial": "src/repro/kernels/flash_attention.py:88",
     "slot_gmm_ragged": "src/repro/kernels/moe_gmm.py:111",
     "slot_gmm_int8_ragged": "src/repro/kernels/moe_gmm.py:59",
     "slot_gmm_int4_ragged": "src/repro/kernels/moe_gmm.py:78",
@@ -357,6 +377,7 @@ SOURCE = {
     "router_topk": "src/repro_torch/kernels/csrc/topk_gate.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_chunk": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_chunk_partial": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "slot_gmm_ragged": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "slot_gmm_int8_ragged": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     "slot_gmm_int4_ragged": "src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -366,6 +387,10 @@ ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", 
                                                    "decode_attention_f32")),
          "decode_attention_paged": ("decode_attention", "decode_attention_paged_"),
          "decode_attention_partial": ("decode_attention", "decode_attention_partial_"),
+         "flash_attention_chunk": ("flash_attention_chunk", ("flash_attention_chunk_bf16",
+                                                             "flash_attention_chunk_f32")),
+         "flash_attention_chunk_partial": ("flash_attention_chunk",
+                                           "flash_attention_chunk_partial_"),
          **{f"slot_gmm{q}_{e}": (f"slot_gmm{q}_tiled", f"slot_gmm{q}_{e}_")
             for q in ("", "_int8", "_int4") for e in ("tiled", "ragged")}}
 ROUTE_MARGIN = 1e-6                # probability gap that a summation order cannot close
@@ -1006,7 +1031,8 @@ def k2_rows(dev, g, dh, h, hkv):
 # the sharded paths' shapes: (row, the paths that run it)
 SHARDED_ROWS = {"slot_gmm_tiled_epsum": ("ep-qwen36",),
                 "flash_attention_chunk_sp": ("sp-recurrentgemma-2b",),
-                "decode_attention_partial": ("tp-qwen3-4b",)}
+                "decode_attention_partial": ("tp-qwen3-4b",),
+                "flash_attention_chunk_partial": ("mp-rotary-qwen36",)}
 TP_SLICE = CACHE // 2                           # a rank's positions on tp-qwen3-4b (model 2)
 PARTIAL_LENS = (0, 1, 300, TP_SLICE)            # checked: an empty slice, one position, ...
 EP_EXPERTS, EP_TOKENS = 64, 2 * PROMPT          # a rank's experts and tokens on ep-qwen36
@@ -1091,6 +1117,7 @@ def sharded_rows(dev, g):
               f"{RG_WINDOW} (_sp_attention's last rank of {SP_RANKS}: {pairs} band pairs); "
               f"library: SDPA over the {s - lo} keys in some query's band, explicit band mask")
     rows["decode_attention_partial"] = partial_row(dev, g)
+    rows["flash_attention_chunk_partial"] = chunk_partial_row(dev, g)
     return rows
 
 
@@ -1157,6 +1184,93 @@ def partial_row(dev, g, h=32, hkv=8, dh=128):
               f"checked at {'/'.join(map(str, PARTIAL_LENS))} and merged over two slices; f32 "
               f"rows [.., {dh + 1}] out; the tensor-core body (tile {plan.tile}, {plan.splits} "
               f"spans); library: aten flash SDPA with lse, K/V expanded for GQA")
+
+
+# mp-rotary-qwen36: a rank's slice of the 1,152-position cache (model 2), and the
+# chunk of a 640-token prompt that straddles the slices' edge (positions 512-639)
+ROT_CACHE, ROT_CUR = 1152, 512
+ROT_SLICE = ROT_CACHE // 2
+
+
+def chunk_partial_row(dev, g, h=32, hkv=4, dh=128):
+    """K4's partial chunk entry at ``mp-rotary-qwen36``'s shape: a 128-token
+    chunk of qwen36's heads (32 on 4 KV heads, dh 128) at positions 512-639
+    against a rank's 576 of 1,152 cache positions, bf16. Held to its plain
+    version (context and lse, with and without a soft cap) as rank 0 (offset
+    0: every query sees the whole slice up to its position), rank 1 (offset
+    576: the first 64 queries see nothing, lse -inf, context 0, no NaN) and
+    a chunk at 0 against rank 1's slice (nothing visible); the two slices'
+    rows merged (``merge_partials``) against K4's chunk entry over the whole
+    cache. Timed as rank 0 calls it (its 64 x 576 + 64 x 576 visible pairs,
+    clipped by causality). Bound: q, the slice's visible K/V and the f32
+    rows out once, 4 H dh operations a visible (query, key) pair; library:
+    the aten memory-efficient SDPA that returns the lse
+    (``_scaled_dot_product_efficient_attention``) over the same slice with
+    an explicit causal-offset bias, K/V expanded for GQA."""
+    import torch
+
+    from repro_torch.distributed.parallel import merge_partials
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    c = CHUNK
+    kv = [(randn(1, ROT_SLICE, hkv, dh), randn(1, ROT_SLICE, hkv, dh)) for _ in range(2)]
+    q = randn(1, c, h, dh)
+    cl = torch.tensor(ROT_CUR, device=dev)
+    err = 0.0
+    for cap in (None, 30.0):
+        for cur, r in ((ROT_CUR, 0), (ROT_CUR, 1), (0, 1)):
+            off = r * ROT_SLICE
+            cur_t = torch.tensor(cur, device=dev)
+            got = fa.flash_attention_chunk_partial(q, *kv[r], cur_t, off, soft_cap=cap)
+            want = ref.flash_attention_chunk_partial_ref(q, *kv[r], cur_t, off, soft_cap=cap)
+            empty = torch.isinf(want[..., -1])
+            if (torch.isnan(got).any() or not torch.equal(torch.isinf(got[..., -1]), empty)
+                    or got[empty][:, :-1].any()):
+                raise AssertionError("flash_attention_chunk_partial: a query that sees no key "
+                                     "must give lse -inf, context 0 and no NaN")
+            seen = ~empty
+            if not seen.any():
+                continue
+            err = max(err, check_close(f"flash_attention_chunk_partial context cur {cur} rank {r}",
+                                       got[seen][:, :-1], want[seen][:, :-1], **KERNEL_TOL),
+                      check_close(f"flash_attention_chunk_partial lse cur {cur} rank {r}",
+                                  got[seen][:, -1], want[seen][:, -1], **KERNEL_TOL))
+    parts = torch.stack([fa.flash_attention_chunk_partial(q, *kv[r], cl, r * ROT_SLICE)
+                         for r in range(2)])
+    whole_k = torch.cat([kv[0][0], kv[1][0]], 1)
+    whole_v = torch.cat([kv[0][1], kv[1][1]], 1)
+    err = max(err, check_close("flash_attention_chunk_partial merged", merge_partials(parts, bf),
+                               fa.flash_attention_chunk(q, whole_k, whole_v, cl), **KERNEL_TOL))
+    k0, v0 = kv[0]
+    qpos = ROT_CUR + torch.arange(c, device=dev)
+    visible = torch.arange(ROT_SLICE, device=dev)[None, :] <= qpos[:, None]      # [C, S_loc]
+    pairs = int(visible.sum())
+    bias = torch.zeros((1, h, c, ROT_SLICE), dtype=bf, device=dev).masked_fill(
+        ~visible, float("-inf"))
+    qe = q.transpose(1, 2)                                              # [1, H, C, dh]
+    ke = k0.transpose(1, 2).repeat_interleave(h // hkv, dim=1)          # [1, H, S, dh]
+    ve = v0.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    nbytes = 2 * c * h * dh + 2 * 2 * ROT_SLICE * hkv * dh + 4 * c * h * (dh + 1)
+    b_ms, b_by = bound(nbytes, 4 * pairs * h * dh)
+    return dict(
+        max_abs_err=err, base="flash_attention_chunk_partial",
+        **timed(kernel=lambda: fa.flash_attention_chunk_partial(q, k0, v0, cl, 0),
+                plain=lambda: ref.flash_attention_chunk_partial_ref(q, k0, v0, cl, 0),
+                library=lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                    qe, ke, ve, bias, True)[:2]),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=4 * pairs * h * dh,
+        shape=f"q [1,{c},{h},{dh}] at cur_len {ROT_CUR} vs a slice [1,{ROT_SLICE},{hkv},{dh}] "
+              f"bf16 at offset 0 ({pairs} visible pairs; mp-rotary-qwen36: a rank's {ROT_SLICE} "
+              f"of {ROT_CACHE} positions, the chunk that straddles the slices), checked at "
+              f"offsets 0 / {ROT_SLICE} and cur_len {ROT_CUR} / 0 and merged over two slices; f32 "
+              f"rows [.., {dh + 1}] out; library: aten memory-efficient SDPA with lse and an "
+              f"explicit causal-offset bias, K/V expanded for GQA")
 
 
 def dense_rows(dev, g):
@@ -1464,16 +1578,17 @@ def float_experts(engine, li, dtype):
     return out
 
 
-def reference_logits(cfg, engine, tokens, dtype):
+def reference_logits(cfg, engine, tokens, dtype, router=None, routes=None):
     """Logits at every position of ``tokens`` [1, S] from a plain forward with
     every expert resident, in ``dtype``, on the engine's weights cast to it
     (a quantized warehouse dequantized first), calling ``kernels/ref.py``
-    directly."""
+    directly (``router``, ``routes``: as :func:`reference_rows`')."""
     s = tokens.shape[1]
-    return reference_rows(cfg, engine, tokens, [list(range(s))], dtype)[0]
+    return reference_rows(cfg, engine, tokens, [list(range(s))], dtype, router=router,
+                          routes=routes)[0]
 
 
-def reference_rows(cfg, engine, tokens, rows, dtype, frontend=None):
+def reference_rows(cfg, engine, tokens, rows, dtype, frontend=None, router=None, routes=None):
     """:func:`reference_logits` over a batch ``tokens`` [B, S] (right-padded
     rows: the forward is causal, so pads reach no earlier position), the
     logits at positions ``rows[b]`` of each row b only, [B, R, V] f32. A
@@ -1481,7 +1596,11 @@ def reference_rows(cfg, engine, tokens, rows, dtype, frontend=None):
     window, a recurrent layer runs the port's plain cell over the rows (a
     causal scan, so pads after a row's positions reach none of them);
     ``frontend`` [B, F, frontend_dim] comes first (``rows`` then count its
-    positions)."""
+    positions). ``router`` (a list): each MoE layer's f32 router logits at
+    the picked positions, [B, R, E], are appended to it. ``routes`` (per MoE
+    layer ids [B, S, k]): each layer takes those experts instead of its own
+    top-k, weighted by its own router probabilities (renormalized as the
+    gate does)."""
     import torch
     import torch.nn.functional as F
 
@@ -1524,8 +1643,18 @@ def reference_rows(cfg, engine, tokens, rows, dtype, frontend=None):
             x = x + apply_mlp(cfg.mlp, p["mlp"], h2).reshape(b, s, d)
             del p
             continue
-        ids, w = ref.topk_gate_ref(h2.float() @ p["moe"]["router"], m.top_k,
-                                   normalize=m.norm_topk_prob)
+        z = h2.float() @ p["moe"]["router"]
+        if router is not None:
+            at = torch.as_tensor(rows, device=dev)
+            router.append(torch.gather(z.reshape(b, s, -1), 1,
+                                       at[..., None].expand(-1, -1, z.shape[-1])).cpu())
+        if routes is None:
+            ids, w = ref.topk_gate_ref(z, m.top_k, normalize=m.norm_topk_prob)
+        else:
+            ids = torch.as_tensor(routes[mi], device=dev).reshape(b * s, -1).long()
+            w = torch.gather(torch.softmax(z, dim=-1), 1, ids)
+            if m.norm_topk_prob:
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
         experts = float_experts(engine, mi, dtype)
         mi += 1
         flat = ids.reshape(-1).long()
@@ -2896,11 +3025,13 @@ class DistSpec(NamedTuple):
 
 
 DIST_PATHS = (
-    DistSpec("ep-qwen36", "qwen36-35b-a3b", LAYERS, (2, 2), ("data", "model"), 4, PROMPT, 32),
+    DistSpec("ep-qwen36", "qwen36-35b-a3b", LAYERS, (2, 2), ("data", "model"), 4, PROMPT, 16),
     DistSpec("sp-recurrentgemma-2b", "recurrentgemma-2b", 0, (1, SP_RANKS), ("data", "model"), 1,
              RG_LONG, 0),
-    DistSpec("pod-train-qwen36", "qwen36-35b-a3b", 1, (2,), ("pod",), 4, PROMPT, 4),
+    DistSpec("pod-train-qwen36", "qwen36-35b-a3b", 1, (2,), ("pod",), 4, PROMPT, 3),
     DistSpec("tp-qwen3-4b", "qwen3-4b", LAYERS, (2, 2), ("data", "model"), 4, PROMPT, 32),
+    DistSpec("mp-rotary-qwen36", "qwen36-35b-a3b", 4, (1, 2), ("data", "model"), 1,
+             PROMPT + CHUNK, 32),
     DistSpec("dp-train-qwen36", "qwen36-35b-a3b", 1, (2, 1), ("data", "model"), 4, PROMPT, 3),
     DistSpec("mp-train-qwen36", "qwen36-35b-a3b", 1, (2, 2), ("data", "model"), 4, PROMPT, 3),
     DistSpec("sp-train-qwen3-4b", "qwen3-4b", 1, (1, 3), ("data", "model"), 1, 3 * 1024, 2),
@@ -3218,6 +3349,318 @@ def _tp_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
         ids=logits.argmax(-1), caches=caches, setup_s=setup_s, weight_gb=weight_gb,
         prefill_s=prefill_s, decode_s=decode_s, prefill_coll_ms=prefill_coll["ms"],
         prefill_coll_calls=prefill_coll["calls"], prefill_symbols=prefill_launches), coll)
+
+
+# mp-rotary-qwen36: RotaryEngine over the model axis (two ranks sharing the card)
+ROT_SLOTS = SLOTS               # each rank's slots, split on F (the twin's the same)
+ROT_RUNS = (("full", 0, 1), ("rotary", ROT_SLOTS, 1), ("rotary-spec4", ROT_SLOTS, 4))
+# RMS(ranks' logits - the unsharded twin's) / RMS(twin's) at a route-sure position: the split
+# sums round bf16 partials once more than one sum does; twice the worst reading of the CPU
+# rehearsal in bf16 at reduced widths (tools/torch_mp_rehearsal.py: 1.88e-2, median 1.04e-2)
+ROT_RMS_TOL = 0.04
+ROT_SURE_MIN = 0.5              # the share of decode positions the twin must route alike
+# a run's routing against the truth fed it: how far below the truth's k-th router logit a pick
+# may lie, against the plain bf16 forward's own worst (judge's form)
+ROUTE_DEPTH_RATIO, ROUTE_DEPTH_SLACK = ERR_RATIO, 0.05
+
+
+def _rot_engine(dev, cfg, params, rt, slots: int, spec_k: int):
+    """mp-rotary-qwen36's engine: rotary (or, ``slots`` 0, full) residency
+    in bf16 slots, synchronous rotation, chunked prefill in chunks of
+    CHUNK, batch 1, cache ``rt.cache_len``; over ``rt.mesh`` when it has
+    one."""
+    from repro_torch.config import ResidencyConfig
+    from repro_torch.core.engine import RotaryEngine
+
+    rescfg = ResidencyConfig(mode="rotary" if slots else "full", num_slots=slots)
+    return RotaryEngine(cfg, params, rescfg, rt=rt, batch=1, seed=0, spec_k=spec_k,
+                        prefill_chunk=CHUNK, device=dev)
+
+
+def _transition_log(engine):
+    """A digest of every rotation's telemetry (ids, weights, misses, demand)
+    and of every LUT after it, fed by wrapping the manager's two rotation
+    entries (the chunk boundaries', the steps' and the windows'). Returns
+    (the digest, a one-element list counting the rotations)."""
+    import hashlib
+
+    import numpy as np
+
+    digest, n = hashlib.sha256(), [0]
+    man = engine.manager
+    for name in ("rotate_from_telemetry", "rotate_window_from_telemetry"):
+        def wrapped(predictor, *arrays, _fn=getattr(man, name), **kw):
+            for arr in arrays[:4]:
+                digest.update(np.ascontiguousarray(arr).tobytes())
+            out = _fn(predictor, *arrays, **kw)
+            for pol in man.policies:
+                digest.update(pol.lut.e2s.tobytes())
+            n[0] += 1
+            return out
+
+        setattr(man, name, wrapped)
+    return digest, n
+
+
+def _rot_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
+    """mp-rotary-qwen36 on one rank: ``RotaryEngine(rt=Runtime(mesh=))``
+    over the model axis (this rank's heads and vocabulary columns, its 576
+    of 1,152 positions of every KV cache, its 384 of 768 expert columns in
+    the warehouse and every slot), for full residency, rotary at
+    ``ROT_SLOTS`` and rotary in windows of 4: the 640-token prompt in
+    chunks of 128 (the fifth straddles the slices' edge), then greedy
+    decode steps in rank 1's slice. Each run's kernel launches and
+    collectives count from a reset just before its prefill."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ShardingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    dev, mesh, coll = _rank_setup(spec)
+    cfg = _dist_cfg(spec)
+    rt = tfm.Runtime(sharding=ShardingConfig(moe_impl="epsum"), mesh=mesh, cache_len=ROT_CACHE)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, dev, expert_device="cpu")
+    prompt = _dist_tokens(cfg, spec).astype(np.int32)
+    setup_s = time.perf_counter() - t0
+    runs, counts, symbols, peak = {}, {}, {}, 0.0
+    for label, slots, k in ROT_RUNS:
+        t0 = time.perf_counter()
+        engine = _rot_engine(dev, cfg, params, rt, slots, k)
+        build_s = time.perf_counter() - t0
+        slot_gb = sum(t.numel() * t.element_size() for s in engine.manager.stores
+                      for t in s.raw_dict().values()) / 1e9
+        weight_gb = sum(t.numel() * t.element_size() for t in _leaves(engine._dparams)) / 1e9
+        digest, rotations = _transition_log(engine)
+        route_log = _recording_routes(engine)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        coll.update(ms=0.0, calls=0, by={})
+        t0 = time.perf_counter()
+        logits = engine.prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_coll = (coll["ms"], coll["calls"])
+        t0 = time.perf_counter()
+        toks, got, step_s, _ = decode_request(engine, logits, spec.steps, spec=k > 1)
+        decode_s = time.perf_counter() - t0
+        for name, n in ops.launch_counts().items():
+            counts[name] = counts.get(name, 0) + n
+        run_symbols = ops.symbol_launch_counts()
+        for name, syms in run_symbols.items():
+            for sym, n in syms.items():
+                symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
+        st = engine.stats
+        layers = st.layers.values()
+        routes = _routes_of(route_log, engine.num_moe_layers, spec.prompt + spec.steps - 1)
+        run_peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = max(peak, run_peak)
+        runs[label] = dict(
+            tokens=toks, logits=got if rt.tp_rank() == 0 else None,
+            logits_sha=hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest(),
+            transitions=digest.hexdigest(), rotations=rotations[0], misses=st.misses,
+            routes=routes if rt.tp_rank() == 0 else None,
+            routes_sha=hashlib.sha256(b"".join(r.tobytes() for r in routes)).hexdigest(),
+            host_computed=sum(l.host_computed for l in layers),
+            loads=sum(l.loads for l in layers), bytes_uploaded=st.bytes_uploaded,
+            replayed=st.replayed_steps, prefill_replays=st.prefill_replays,
+            prefill_chunks=st.prefill_chunks, windows=st.spec_windows,
+            accepted=st.accepted_tokens, drafted=st.drafted_tokens,
+            build_s=build_s, prefill_s=prefill_s, decode_s=decode_s,
+            median_ms=1e3 * float(np.median(step_s[1:] if len(step_s) > 1 else step_s)),
+            tok_s=spec.steps / decode_s, prefill_coll_ms=prefill_coll[0],
+            prefill_coll_calls=prefill_coll[1], coll_ms=coll["ms"], coll_calls=coll["calls"],
+            coll_by={n: tuple(v) for n, v in coll["by"].items()}, peak_gib=run_peak,
+            slot_gb=slot_gb, weight_gb=weight_gb, symbols=run_symbols)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(rank=rank, coord=mesh.get_coordinate(), tp_rank=rt.tp_rank(), runs=runs,
+                counts=counts, symbols=symbols, peak_gib=peak, setup_s=setup_s,
+                coll_ms=sum(r["coll_ms"] for r in runs.values()),
+                coll_calls=sum(r["coll_calls"] for r in runs.values()))
+
+
+def _held_to(what: str, toks, base, truth, plain) -> int:
+    """``toks`` must equal ``base`` up to their first difference, and that
+    position's truth top-2 margin must be under the guard (a near-tie that
+    bf16 rounding may flip). Returns the positions that agree."""
+    import numpy as np
+
+    toks, base = np.asarray(toks), np.asarray(base)
+    diff = np.flatnonzero(toks != base)
+    if diff.size and sure_positions(truth, plain)[diff[0]]:
+        raise AssertionError(f"{what}: greedy ids part at position {diff[0]}, a sure one")
+    return int(diff[0]) if diff.size else len(toks)
+
+
+def _route_flips(ids: list, z: list, k: int):
+    """Where a forward's top-k differs from the routing ``ids`` it was fed
+    (per MoE layer [positions, k]; ``z`` its router logits at the same
+    positions, [1, positions, E] a layer): the (layer, position) pairs whose
+    own top-k differs, and the worst depth of a fed pick below the forward's
+    own k-th logit (0 where none differs): a near-tie is shallow."""
+    import torch
+
+    flips, depth = 0, 0.0
+    for li, (want, zl) in enumerate(zip(ids, z)):
+        zl = zl[0].float()
+        own = zl.topk(k, dim=-1)
+        fed = torch.as_tensor(want, dtype=torch.long)
+        diff = (own.indices.sort(-1).values != fed.sort(-1).values).any(-1)
+        flips += int(diff.sum())
+        if diff.any():
+            below = own.values[:, -1:] - torch.gather(zl, 1, fed)
+            depth = max(depth, float(below[diff].max()))
+    return flips, depth
+
+
+def _routes_of(log: list, layers: int, positions: int):
+    """The routing an engine committed, from its ``record_routing`` calls in
+    order ((layer, ids [T, k]) each: every chunk and committed decode
+    position once a layer, replayed layers with their replay's ids): per MoE
+    layer [positions, k], the first ``positions`` rows (batch 1)."""
+    import numpy as np
+
+    per = [[] for _ in range(layers)]
+    for li, ids in log:
+        per[li].append(ids.reshape(-1, ids.shape[-1]))
+    return [np.concatenate(p)[:positions] for p in per]
+
+
+def _recording_routes(engine) -> list:
+    """Wrap the engine's ``record_routing``: a list of (layer, ids) it fills."""
+    import numpy as np
+
+    log, record = [], engine.manager.record_routing
+
+    def wrapped(layer, ids, miss):
+        log.append((layer, np.array(ids)))
+        return record(layer, ids, miss)
+
+    engine.manager.record_routing = wrapped
+    return log
+
+
+def _rot_check(dev, spec: DistSpec, ranks: list) -> dict:
+    """The ranks of each run hold the same tokens, logits (digests),
+    telemetry, routing and residency transitions bit for bit; the rotary
+    runs corrected a miss and replayed a suffix. Against the f32 truth
+    under ``judge``: a split sum rounds differently from a whole one, so at
+    a near-tie of a router's k-th and (k+1)-th logits the ranks may route
+    another expert than an unsharded forward would, which moves that
+    position's logits by far more than rounding does; so the truth and the
+    plain bf16 forward are fed the run's committed routing (the ranks'
+    ``record_routing``, as ep-qwen36 feeds its twin the ranks' top-k), and
+    the routing is held apart: where the truth's own top-k differs from the
+    run's, the run's pick must lie within ``ROUTE_DEPTH_RATIO`` x the plain
+    forward's own worst such depth + ``ROUTE_DEPTH_SLACK`` below the truth's
+    k-th logit. Rotary's greedy ids are held to full residency's and spec
+    4's to spec 1's under the margin guard. Against the unsharded
+    RotaryEngine on the card (the twin: the same weights and slots, spec 1,
+    fed the ranks' tokens), at each decode position whose routing the twin
+    and the ranks share in every layer (at least ROT_SURE_MIN of them),
+    RMS(diff) / RMS(twin) <= ROT_RMS_TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = _dist_cfg(spec)
+    keys = ("tokens", "logits_sha", "transitions", "rotations", "misses", "host_computed",
+            "loads", "replayed", "prefill_replays", "routes_sha")
+    for label, _, _ in ROT_RUNS:
+        for key in keys:
+            vals = [r["runs"][label][key] for r in ranks]
+            if any(v != vals[0] for v in vals[1:]):
+                raise AssertionError(f"{spec.label} {label}: the model ranks' {key} differ")
+    runs = next(r for r in ranks if r["tp_rank"] == 0)["runs"]
+    for label in ("rotary", "rotary-spec4"):
+        r = runs[label]
+        if r["misses"] <= 0 or r["host_computed"] != r["misses"] or (
+                r["replayed"] + r["prefill_replays"]) <= 0:
+            raise AssertionError(f"{spec.label} {label}: {r['misses']} misses, "
+                                 f"{r['host_computed']} corrected, {r['replayed']} steps and "
+                                 f"{r['prefill_replays']} chunks replayed: a miss must be "
+                                 f"corrected and a suffix replayed")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, dev, expert_device="cpu")
+    twin = _rot_engine(dev, cfg, params, tfm.Runtime(cache_len=ROT_CACHE), ROT_SLOTS, 1)
+    del params
+    twin_log = _recording_routes(twin)
+    prompt = _dist_tokens(cfg, spec).astype(np.int32)
+    n, layers, k = prompt.shape[1], twin.num_moe_layers, cfg.moe.top_k
+    toks = runs["rotary"]["tokens"]
+    rows = [twin.prefill(prompt)[0]]
+    for tok in toks[:-1]:
+        forced = np.zeros((1, cfg.vocab_size), np.float32)
+        forced[0, tok] = 1.0                       # decode takes the argmax: this token
+        twin.decode(forced, 1)
+        rows.append(twin.last_logits[0])
+    want = np.stack(rows)
+    got = runs["rotary"]["logits"]
+    rms = np.sqrt(((got - want) ** 2).mean(1)) / np.sqrt((want ** 2).mean(1))
+    seq_len = n + len(toks) - 1
+    twin_routes = _routes_of(twin_log, layers, seq_len)
+    shared = np.ones(len(toks), bool)          # decode positions n-1 .. routed alike
+    for a, b in zip(twin_routes, runs["rotary"]["routes"]):
+        shared &= (np.sort(a[n - 1:], -1) == np.sort(b[n - 1:], -1)).all(-1)
+    twin_s = time.perf_counter() - t0
+    refs, agree, far, flips = {}, {}, [], {}
+    for label, _, _ in ROT_RUNS:
+        seq = np.concatenate([prompt[0], np.asarray(runs[label]["tokens"][:-1], np.int32)])[None]
+        routes = [torch.as_tensor(r[None]) for r in runs[label]["routes"]]
+        zt, zp = [], []
+        truth = reference_logits(cfg, twin, seq, torch.float32, zt, routes)[n - 1:].cpu().numpy()
+        plain = reference_logits(cfg, twin, seq, torch.bfloat16, zp, routes)[n - 1:].cpu().numpy()
+        refs[label] = (truth, plain)
+        f_run, d_run = _route_flips(runs[label]["routes"], zt, k)
+        f_pl, d_pl = _route_flips([z[0].float().topk(k, dim=-1).indices.numpy() for z in zp],
+                                  zt, k)
+        flips[label] = dict(flips=f_run, depth=d_run, plain_flips=f_pl, plain_depth=d_pl)
+        limit = ROUTE_DEPTH_RATIO * d_pl + ROUTE_DEPTH_SLACK
+        log(f"  {spec.label} {label}: fed its committed routing, the truth's own top-k differs at "
+            f"{f_run} of {layers * seq_len} (layer, position) pairs, the run's pick at most "
+            f"{d_run:.4f} below the truth's k-th router logit (limit {limit:.4f}); the plain "
+            f"bf16 forward's own top-k differs at {f_pl}, at most {d_pl:.4f} below")
+        if d_run > limit:
+            far.append(f"{label} routing")
+        if not judge(f"{spec.label} {label}", runs[label]["logits"], truth, plain):
+            far.append(label)
+    agree["rotary"] = _held_to(f"{spec.label} rotary vs full", runs["rotary"]["tokens"],
+                               runs["full"]["tokens"], *refs["full"])
+    agree["rotary-spec4"] = _held_to(f"{spec.label} spec 4 vs spec 1",
+                                     runs["rotary-spec4"]["tokens"], runs["rotary"]["tokens"],
+                                     *refs["rotary"])
+    spec4_bitwise = runs["rotary-spec4"]["logits_sha"] == runs["rotary"]["logits_sha"]
+    twin_stats = dict(misses=twin.stats.misses, replayed=twin.stats.replayed_steps,
+                      prefill_replays=twin.stats.prefill_replays)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = float(rms[shared].max()) if shared.any() else float("inf")
+    log(f"[5/{spec.label}] ranks bitwise equal in tokens, logits, telemetry, routing and "
+        f"transitions on every run; against the unsharded RotaryEngine on {dev.type} "
+        f"({ROT_SLOTS} slots, fed the rotary run's tokens; {twin_s:.1f} s; its misses "
+        f"{twin_stats['misses']}, replayed {twin_stats['replayed']} steps and "
+        f"{twin_stats['prefill_replays']} chunks): routed alike at {int(shared.sum())} of "
+        f"{len(shared)} positions, worst RMS(diff) / RMS(logits) there {worst:.5f} (median "
+        f"{float(np.median(rms[shared])) if shared.any() else float('nan'):.5f}; tolerance "
+        f"{ROT_RMS_TOL}; over all positions worst {float(rms.max()):.5f}); greedy ids: rotary "
+        f"equals full at {agree['rotary']} of {spec.steps} positions, spec 4 equals spec 1 at "
+        f"{agree['rotary-spec4']} (logits bitwise: {spec4_bitwise})")
+    if far:
+        raise AssertionError(f"{spec.label} {far}: farther from the truth than bf16")
+    if shared.sum() < ROT_SURE_MIN * len(shared) or not worst <= ROT_RMS_TOL:
+        raise AssertionError(f"{spec.label}: logits part from the unsharded twin")
+    return dict(rms_rel=worst, rms_all=float(rms.max()),
+                rms_median=float(np.median(rms[shared])), shared=int(shared.sum()),
+                agree=agree, spec4_bitwise=spec4_bitwise, twin=twin_stats, flips=flips)
 
 
 def _dpt_rank(rank: int, nprocs: int, spec: DistSpec) -> dict:
@@ -3851,7 +4294,8 @@ DIST_RANKS = {"ep-qwen36": (_ep_rank, _ep_check), "sp-recurrentgemma-2b": (_sp_r
               "pod-train-qwen36": (_pod_rank, _pod_check), "tp-qwen3-4b": (_tp_rank, _tp_check),
               "dp-train-qwen36": (_dpt_rank, _dpt_check),
               "mp-train-qwen36": (_mpt_rank, _mpt_check),
-              "sp-train-qwen3-4b": (_mpt_rank, _mpt_check)}
+              "sp-train-qwen3-4b": (_mpt_rank, _mpt_check),
+              "mp-rotary-qwen36": (_rot_rank, _rot_check)}
 DIST_TWINS = {"mp-train-qwen36": _mp_twin, "sp-train-qwen3-4b": _mp_twin}
 
 
@@ -3886,6 +4330,14 @@ def dist_line(r: dict) -> str:
                      f"moments {r['fsdp_moment_gb']:.2f} GB a rank, peak "
                      f"{r['fsdp_peak_gib']:.2f} GiB, RMS {r['fsdp_rms']:.2e} of the run without "
                      f"it")
+    elif r["label"] == "mp-rotary-qwen36":
+        body = "; ".join(
+            f"{label} prefill {x['prefill_ms']:.1f} ms, decode {x['tok_s']:.2f} tok/s "
+            f"({x['median_ms']:.1f} ms), misses {x['misses']}, replayed {x['replayed']} + "
+            f"{x['prefill_replays']} chunks, collectives {x['coll_ms']:.1f} ms"
+            for label, x in r["rot"].items())
+        body += (f"; logits RMS {r['rms_rel']:.5f} of the unsharded twin's (median "
+                 f"{r['rms_median']:.5f}), spec 4 logits bitwise spec 1: {r['spec4_bitwise']}")
     elif r["label"] == "sp-recurrentgemma-2b":
         body = (f"prefill {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.0f} tok/s; unsharded "
                 f"{r['unsharded_ms']:.1f} ms); logits max |diff| {r['max_abs']:.3e}, caches "
@@ -3939,7 +4391,10 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
                 symbols.setdefault(name, {})[sym] = symbols.get(name, {}).get(sym, 0) + n
         need = {"ep-qwen36": ("router_topk", "slot_gmm_tiled", "decode_attention_partial"),
                 "sp-recurrentgemma-2b": ("flash_attention_chunk",),
-                "tp-qwen3-4b": ("flash_attention", "decode_attention_partial")}.get(spec.label, ())
+                "tp-qwen3-4b": ("flash_attention", "decode_attention_partial"),
+                "mp-rotary-qwen36": ("router_topk", "slot_gmm", "slot_gmm_ragged",
+                                     "decode_attention_partial", "flash_attention_chunk_partial"),
+                }.get(spec.label, ())
         for entry in need:
             got = (entry_launches(r["symbols"], entry) if entry in ENTRY
                    else r["counts"][entry])
@@ -3974,6 +4429,30 @@ def run_dist_path(dev, spec: DistSpec) -> dict:
         pre = max(r["prefill_s"] for r in ranks)
         summary.update(prefill_ms=pre * 1e3, prefill_tok_s=spec.prompt / pre)
         what = f"prefill {summary['prefill_ms']:.1f} ms of {spec.prompt} tokens"
+    elif spec.label == "mp-rotary-qwen36":
+        rot = {}
+        for label, _, _ in ROT_RUNS:
+            per = [r["runs"][label] for r in ranks]
+            rot[label] = dict(
+                prefill_ms=1e3 * max(p["prefill_s"] for p in per),
+                tok_s=min(p["tok_s"] for p in per), median_ms=max(p["median_ms"] for p in per),
+                coll_ms=max(p["coll_ms"] for p in per), coll_calls=per[0]["coll_calls"],
+                prefill_coll_ms=max(p["prefill_coll_ms"] for p in per),
+                peak_gib=max(p["peak_gib"] for p in per), coll_by=per[0]["coll_by"],
+                **{k: per[0][k] for k in ("misses", "host_computed", "loads", "bytes_uploaded",
+                                          "replayed", "prefill_replays", "prefill_chunks",
+                                          "windows", "accepted", "drafted", "slot_gb",
+                                          "weight_gb", "build_s")})
+        summary["rot"] = rot
+        what = "; ".join(
+            f"{label}: prefill {r['prefill_ms']:.1f} ms ({r['prefill_chunks']} chunks, "
+            f"{r['prefill_replays']} replayed; collectives {r['prefill_coll_ms']:.1f} ms), decode "
+            f"{r['tok_s']:.2f} tok/s (median {'window' if label.endswith('spec4') else 'step'} "
+            f"{r['median_ms']:.1f} ms; {r['replayed']} steps replayed, windows {r['windows']}), "
+            f"misses {r['misses']}, loads {r['loads']}, collectives {r['coll_ms']:.1f} ms over "
+            f"{r['coll_calls']} calls, slots {r['slot_gb']:.3f} GB and weights "
+            f"{r['weight_gb']:.3f} GB a rank, peak {r['peak_gib']:.2f} GiB"
+            for label, r in rot.items())
     else:
         times = ranks[0]["times"]
         med = float(np.median(times[1:]))
@@ -4213,7 +4692,8 @@ def main() -> int:
             f"{t['launches']} / {t['pulls']} / {t['rotations']} / {t['prefetch_spans']} / "
             f"{t['kv_events']}; {t['events']} events; {t['overlap_ms_from_spans']:.3f} / "
             f"{t['overlap_stats_ms']:.3f} ms; {t['trace_mb']:.2f} MB{twin}")
-    for name in ("decode_attention", "decode_attention_paged", "decode_attention_partial"):
+    for name in ("decode_attention", "decode_attention_paged", "decode_attention_partial",
+                 "flash_attention_chunk_partial"):
         if entry_launches(symbols, name) <= 0:
             raise AssertionError(f"entry {name} never launched on any path")
     kernels = []

@@ -108,6 +108,24 @@ have computed and full and rotary residency still emit the same tokens.
 
 The walks, and the replays of a missed step or chunk, run eagerly, layer by
 layer (the reference jits each half).
+
+**Over a mesh** (``rt.mesh`` with a tensor axis, ``torch.distributed``; one
+engine a rank, every rank of the tensor axis fed the same prompts): each
+rank holds its shard of every non-expert leaf (``tfm.shard_params``:
+attention by heads, the vocabulary split), its slice of every KV cache by
+sequence (``tfm._sharded_zero_state``), and its slice of the expert width F
+in the warehouse and every slot (``RotaryResidencyManager(shard=)``; the
+reference's ``_residency_shardings``). Chunked prefill, the fused step and
+speculative windows run the sharded model functions (``_tp_chunk``,
+``_tp_decode``, the slots' partial sums and one f32 all-reduce a MoE layer);
+a miss is corrected on every rank alike, each rank's host GEMM over its F
+slice and one f32 all-reduce of the correction, then the suffix replay
+through the sharded layers. Routing reads all-reduced hiddens, so every
+rank sees the same telemetry and makes the same transitions (rotation is
+synchronous). Nothing is captured: gloo's collectives cannot be. What is
+not ported under a mesh raises in ``__init__``: host routing, LRU, the hot
+walk, prefetch, int8 / int4 slots, the legacy prefill walk (no
+``prefill_chunk``), rows split over a data axis, a ring cache.
 """
 from __future__ import annotations
 
@@ -120,6 +138,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config.base import ModelConfig, ResidencyConfig
 from repro_torch.core.policies import make_policy
@@ -127,6 +146,7 @@ from repro_torch.core.predictor import DemandPredictor, host_topk_route
 from repro_torch.core.residency import RotaryResidencyManager
 from repro_torch.core.stats import EngineStats
 from repro_torch.core.transfer import CostModel, TransferClock
+from repro_torch.distributed.sharding import axis_sizes
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -185,14 +205,17 @@ def _host_ffn(hw: Dict[str, torch.Tensor], e: int, x: torch.Tensor,
 
 def host_correct(x: torch.Tensor, h2: torch.Tensor, ids: np.ndarray, weights: np.ndarray,
                  miss: np.ndarray, hw: Dict[str, torch.Tensor],
-                 scratch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int, float, int]:
+                 scratch: Dict[str, torch.Tensor],
+                 group=None) -> Tuple[torch.Tensor, int, float, int]:
     """Exact host GEMM correction of a layer's missed picks (the reference's
     ``_host_correct``, shared by both engines): ``x`` [.., D] on the device
     plus, per missed pick ``(t, j)`` of ``miss`` [T, k], its routing weight
     times the pick's expert FFN of ``h2`` row t, computed on the host from
     the warehouse ``hw`` (one GEMM per missed expert over all its rows, summed
-    in pick order). Returns (x, picks corrected, seconds converting weights,
-    experts converted)."""
+    in pick order). ``group`` (the tensor axis; ``hw`` this rank's slice of
+    the expert width): each rank's correction is a partial sum, summed over
+    the group in f32 on the device before it is added. Returns (x, picks
+    corrected, seconds converting weights, experts converted)."""
     h2_host = h2.detach().cpu().float().reshape(ids.shape[0], -1)
     corr = torch.zeros_like(h2_host)
     picks = list(zip(*np.nonzero(miss)))
@@ -207,7 +230,10 @@ def host_correct(x: torch.Tensor, h2: torch.Tensor, ids: np.ndarray, weights: np
         outs.update(zip(tj, y))
     for t_i, j in picks:
         corr[t_i] += float(weights[t_i, j]) * outs[(t_i, j)]
-    x = x + corr.to(device=x.device, dtype=x.dtype).reshape(x.shape)
+    corr = corr.to(device=x.device)
+    if group is not None:
+        dist.all_reduce(corr, group=group)
+    x = x + corr.to(dtype=x.dtype).reshape(x.shape)
     return x, len(picks), convert, len(by_expert)
 
 
@@ -232,7 +258,8 @@ def window_outputs(cfg: ModelConfig, params: Params, tok: torch.Tensor, state: A
                    aux_fn: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]], *,
                    snapshot: bool, sample: Optional[SampleParams] = None,
                    keys: Optional[torch.Tensor] = None,
-                   page_table: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                   page_table: Optional[torch.Tensor] = None,
+                   rt: Optional[Runtime] = None) -> Dict[str, Any]:
     """A ``k``-position window on the device, the body both engines capture
     (the counterpart of ``build_window_fns``): first, with ``snapshot``, the
     pre-window contents of the KV slots it writes (``saved``); then
@@ -240,13 +267,14 @@ def window_outputs(cfg: ModelConfig, params: Params, tok: torch.Tensor, state: A
     position-keyed draws from ``keys``. ``page_table`` (the serving engine):
     ``state`` is the paged pool and ``cur`` per row. Outputs: ``draft``
     [K, B], ``logits`` [K, B, V] f32, the telemetry stacked [K, L, ...] and,
-    sampled, ``sample_probs`` / ``sample_p``."""
+    sampled, ``sample_probs`` / ``sample_p``. ``rt`` (a mesh): the sharded
+    window over this rank's cache slices and shards."""
     out: Dict[str, Any] = {}
     if snapshot:
-        out["saved"] = tfm.snapshot_kv_window(state, cur, k, page_table=page_table)
+        out["saved"] = tfm.snapshot_kv_window(state, cur, k, page_table=page_table, rt=rt)
     draft, logits, aux = tfm.decode_window(cfg, params, tok, state, cur, k, residency,
                                            aux_fn=aux_fn, sample=sample, rng_keys=keys,
-                                           page_table=page_table)
+                                           page_table=page_table, rt=rt)
     return {**out, "draft": draft, "logits": logits, **aux}
 
 
@@ -410,7 +438,11 @@ class RotaryEngine:
         ``local_attn``) with its ``attn_moe`` ones: every path runs a dense
         layer's MLP on the device, without residency, and the residency,
         telemetry and predictor count MoE layers by ordinal. Recurrent
-        layers (the reference's walks take them) are not ported here."""
+        layers (the reference's walks take them) are not ported here.
+
+        ``rt.mesh`` (this process is a rank of it): the engine runs over
+        the tensor axis (the module's "Over a mesh"); what is not ported
+        there raises here, before anything is built."""
         m = cfg.require_moe("RotaryEngine")
         if not cfg.kv_only:
             raise NotImplementedError(
@@ -418,6 +450,11 @@ class RotaryEngine:
                 f"local_attn); recurrent layers are not ported here, got "
                 f"{sorted(set(cfg.layer_kinds))}")
         probe = make_policy(rescfg.mode, m.num_experts, rescfg.num_slots or m.num_experts, rescfg)
+        if rt is not None and rt.mesh is not None:
+            _check_mesh_engine(cfg, rt, rescfg, host_routing=host_routing,
+                               lru=getattr(probe, "needs_sync_resolve", False),
+                               fused_decode=fused_decode, prefetch=prefetch,
+                               prefill_chunk=prefill_chunk)
         self.host_routing = bool(host_routing)
         # LRU answers misses with blocking loads mid-step: that needs the
         # routed ids on the host before the MoE half, i.e. the sync walk
@@ -474,31 +511,39 @@ class RotaryEngine:
 
         host = torch.device("cpu")
         pin = torch.cuda.is_available()
-        # every layer on the device (a MoE layer without its experts); the
-        # residency, predictor and telemetry index MoE layers by ordinal
-        self.layers: List[Params] = []
+        # every layer on the device (a MoE layer without its experts; under a
+        # mesh this rank's shard of it); the residency, predictor and
+        # telemetry index MoE layers by ordinal
+        layers: List[Params] = []
         experts: List[Dict[str, torch.Tensor]] = []
         routers: List[np.ndarray] = []
         for p_l in params["layers"]:
             if "moe" not in p_l:
-                self.layers.append(_to_device(p_l, dev))
+                layers.append(p_l)
                 continue
             hw = dict(p_l["moe"]["experts"])
-            if rescfg.quantization is None:         # else the manager packs them
+            if rescfg.quantization is None and self.rt.mesh is None:
+                # else the manager packs them, or keeps this rank's slice
                 for n, w in hw.items():
                     if w.device != host or (pin and not w.is_pinned()):
                         hw[n] = torch.empty(w.shape, dtype=w.dtype, pin_memory=pin).copy_(w)
             experts.append(hw)
             routers.append(p_l["moe"]["router"].float().cpu().numpy())
-            moe_p = {k: v for k, v in p_l["moe"].items() if k != "experts"}
-            self.layers.append(_to_device({**p_l, "moe": moe_p}, dev))
+            layers.append({**p_l, "moe": {k: v for k, v in p_l["moe"].items() if k != "experts"}})
+        dense = {**{k: params[k] for k in ("embed", "final_norm", "lm_head") if k in params},
+                 "layers": layers}
+        if self.rt.mesh is not None:
+            dense = tfm.shard_params(cfg, dense, self.rt)
+        dense = _to_device(dense, dev)
+        self.layers: List[Params] = dense.pop("layers")
+        self.embed_params = dense
+        # the tensor axis' group where the slots hold this rank's F slice
+        self._tp_group = self.rt.tp_group() if tfm._tensor_axis(self.rt) else None
+        shard = (self.rt.tp_rank(), self.rt.tp_size()) if self._tp_group is not None else None
         # layer index -> MoE ordinal (None: dense), and MoE ordinal -> layer index
         self.moe_of = tfm.moe_ordinals({"layers": self.layers})
         self.moe_pos = [li for li, mi in enumerate(self.moe_of) if mi is not None]
         self.num_moe_layers = len(self.moe_pos)
-        self.embed_params = _to_device(
-            {k: params[k] for k in ("embed", "final_norm", "lm_head") if k in params}, dev
-        )
         self._dparams = {**self.embed_params, "layers": self.layers}
 
         self.predictor = DemandPredictor(routers, ema=rescfg.predictor_ema)
@@ -506,7 +551,7 @@ class RotaryEngine:
             cfg, rescfg, experts,
             batch=batch, cache_len=self.rt.cache_len, device=dev,
             cost=self.cost, stats=self.stats, seed=seed,
-            tracer=self._tr, metrics=self.metrics,
+            tracer=self._tr, metrics=self.metrics, shard=shard,
         )
         del experts
         # the warehouse: float stacks, or packed planes when quantized
@@ -551,8 +596,9 @@ class RotaryEngine:
         self._cost_cache: Dict[str, Tuple[float, float]] = {}
         self._f32_scratch: Dict[str, torch.Tensor] = {}      # host miss GEMM
         # the KV caches, allocated once: prefill rewrites them in place, so a
-        # captured step's addresses hold across requests
-        self.state = tfm.zero_state(cfg, batch, self.rt.cache_len, dev)
+        # captured step's addresses hold across requests (under a mesh, this
+        # rank's slice of each by sequence)
+        self.state = tfm._sharded_zero_state(cfg, batch, self.rt.cache_len, self.rt, dev)
         self.cur_len = 0
         # the step's inputs: [tokens (B), cur_len] in one static device buffer,
         # filled from a pinned host buffer before each launch
@@ -569,7 +615,9 @@ class RotaryEngine:
         # the captured launches (card only): 1 the step, K a greedy window,
         # (K, SampleParams) a sampled one, ("chunk", C, with_head) a chunk,
         # ("draw", SampleParams) the draw between windows
-        self._gs = GraphSet(dev.type == "cuda")   # capture False: eager on the card (parity tests)
+        # capture False: eager on the card (parity tests, and a mesh: gloo's
+        # collectives cannot be captured)
+        self._gs = GraphSet(dev.type == "cuda" and self.rt.mesh is None)
         self.launches = 0                        # fused launches: captures, replays, eager
         # None, or a list each decoded position appends the logits it
         # produced to (``logged_logits``), for checks against a reference
@@ -604,12 +652,12 @@ class RotaryEngine:
 
     def _embed(self, tokens: np.ndarray) -> torch.Tensor:
         self.stats.device_dispatches += 1
-        return tfm.embed_tokens(self.embed_params,
-                                torch.as_tensor(tokens).to(self.device))
+        return tfm._embed(self.cfg, self.embed_params, torch.as_tensor(tokens).to(self.device),
+                          self.rt)
 
     def _lm_head(self, h: torch.Tensor) -> torch.Tensor:
         self.stats.device_dispatches += 1
-        return tfm.lm_logits(self.cfg, self.embed_params, h)
+        return tfm.lm_logits(self.cfg, self.embed_params, h, self.rt)
 
     # ------------------------------------------------------------------
     def _host_correct(self, x: torch.Tensor, moe_li: int, h2: torch.Tensor,
@@ -618,7 +666,7 @@ class RotaryEngine:
         """Exact host GEMM correction for missed experts (:func:`host_correct`)."""
         x, n_host, convert_s, n_experts = host_correct(x, h2, ids, weights, miss,
                                                        self.host_experts[moe_li],
-                                                       self._f32_scratch)
+                                                       self._f32_scratch, self._tp_group)
         self.stats.host_dequant_s += convert_s
         self.stats.host_dequant_experts += n_experts
         self.stats.layer(moe_li).host_computed += n_host
@@ -630,16 +678,17 @@ class RotaryEngine:
         """MoE layer ``mi`` (its ordinal)'s routed experts through its residency."""
         slots, lut = self.manager.layer_residency(mi)
         y2, miss = moe_mod.moe_apply_routed(self.layers[self.moe_pos[mi]]["moe"], h2, ids_dev,
-                                            w_dev, slot_buffer=slots, lut=lut)
+                                            w_dev, slot_buffer=slots, lut=lut,
+                                            tp_group=self._tp_group, mcfg=self.cfg.moe)
         return x_mid + y2.reshape(x_mid.shape), miss
 
     def _dense_layer(self, li: int, x: torch.Tensor, mode: str, cur) -> torch.Tensor:
         """Dense layer ``li`` of a mixed stack: attention, then its MLP, on
         the device (no residency, no routing)."""
         x_mid, h2, _ = tfm.attn_half(self.cfg, self.layers[li], x, mode, self.state[li], cur,
-                                     self.rt.cache_len)
+                                     self.rt.cache_len, rt=self.rt)
         self.stats.device_dispatches += 1
-        return tfm.mlp_half(self.cfg, self.layers[li], x_mid, h2)
+        return tfm.mlp_half(self.cfg, self.layers[li], x_mid, h2, self.rt)
 
     def _suffix(self, start: int) -> List[Tuple[int, Optional[int]]]:
         """(layer index, MoE ordinal or None) of every layer from MoE layer
@@ -834,7 +883,7 @@ class RotaryEngine:
         tok = self._inputs[:self.batch]
         cur = self._inputs[self.batch]
         logits, aux = tfm.decode_model(self.cfg, self._dparams, tok, self.state, cur,
-                                       self._residency)
+                                       self._residency, rt=self.rt)
         return {"logits": logits, **self._telemetry(aux)}
 
     def _window_body(self, k: int, sample: Optional[SampleParams] = None) -> Dict[str, Any]:
@@ -848,7 +897,7 @@ class RotaryEngine:
         return window_outputs(self.cfg, self._dparams, self._inputs[:self.batch], self.state,
                               self._inputs[self.batch], k, self._residency, self._telemetry,
                               snapshot=self._spec_needs_rollback, sample=sample,
-                              keys=self._keys)
+                              keys=self._keys, rt=self.rt)
 
     def _chunk_body(self, c: int, with_head: bool) -> Dict[str, Any]:
         """A prefill chunk of ``c`` tokens on the device from its static token
@@ -859,7 +908,7 @@ class RotaryEngine:
         ``route_*`` [L, B*c, ...]."""
         logits, aux = tfm.prefill_chunk_model(self.cfg, self._dparams, self._chunk_tokens[c][0],
                                               self.state, self._inputs[self.batch],
-                                              self._residency, with_head=with_head)
+                                              self._residency, with_head=with_head, rt=self.rt)
         return aux if logits is None else {"logits": logits, **aux}
 
     def _set_inputs(self, tok: np.ndarray, cur_len: int) -> None:
@@ -1056,7 +1105,8 @@ class RotaryEngine:
                 x = self._dense_layer(layer, x, "decode", cur)
                 continue
             p_l = self.layers[layer]
-            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[layer], cur, 0)
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "decode", self.state[layer], cur, 0,
+                                         rt=self.rt)
             ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
             self.stats.device_dispatches += 2
@@ -1221,7 +1271,7 @@ class RotaryEngine:
         if j_star is not None:
             # reject the suffix: restore the KV slots after j*, then replay
             # position j* from its first missed layer like a missed step
-            tfm.rollback_kv_window(self.state, saved, cur_len0, k, j_star + 1)
+            tfm.rollback_kv_window(self.state, saved, cur_len0, k, j_star + 1, rt=self.rt)
             self.stats.device_dispatches += 1
             if tr is not None:
                 tr.instant("kv_rollback", "launch", args={"j_star": j_star})
@@ -1474,7 +1524,8 @@ class RotaryEngine:
                 x = self._dense_layer(layer, x, "chunk", cur)
                 continue
             p_l = self.layers[layer]
-            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "chunk", self.state[layer], cur, 0)
+            x_mid, h2, _ = tfm.attn_half(cfg, p_l, x, "chunk", self.state[layer], cur, 0,
+                                         rt=self.rt)
             ids_dev, w_dev = moe_mod.route(p_l["moe"], h2, cfg.moe)
             x, miss_dev = self._moe_layer(li, x_mid, h2, ids_dev, w_dev)
             self.stats.device_dispatches += 2
@@ -1629,7 +1680,37 @@ class RotaryEngine:
         return np.stack(rows)
 
 
+def _check_mesh_engine(cfg: ModelConfig, rt: Runtime, rescfg: ResidencyConfig, *,
+                       host_routing: bool, lru: bool, fused_decode: Optional[bool],
+                       prefetch: bool, prefill_chunk: Optional[int]) -> None:
+    """Raise, before anything is built, for what ``RotaryEngine`` does not
+    run over a mesh: the sync walk (host routing, LRU), the hot walk,
+    prefetch and the miss relaunch, quantized slots (the reference lowers
+    only ``cfg.dtype`` slot planes), the legacy prefill walk (no
+    ``prefill_chunk``), rows split over a data axis, and what the sharded
+    stack refuses (a ring cache, a recurrent layer)."""
+    what = [name for name, on in (
+        ("host_routing=True", host_routing), ("LRU residency", lru),
+        ("fused_decode=False (the hot walk)", fused_decode is False),
+        ("prefetch=True", prefetch),
+        (f"{rescfg.quantization} slots", rescfg.quantization is not None),
+        ("prefill_chunk=None (the legacy prefill walk)", prefill_chunk is None)) if on]
+    if what:
+        raise ValueError(f"RotaryEngine over a mesh runs rotary or full residency in "
+                         f"{cfg.dtype} slots on the fused step with chunked prefill; not "
+                         f"ported there: {', '.join(what)}")
+    sizes = axis_sizes(rt.mesh)
+    split = [a for a in rt.sharding.dp_axes if sizes.get(a, 1) > 1]
+    if split:
+        raise ValueError(f"RotaryEngine over a mesh runs every row on each rank; rows split "
+                         f"over {split} are not ported")
+    rt.tp_size()
+    tfm._check_mesh_stack(cfg, rt, rt.cache_len, decode=True)
+
+
 def _to_device(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
     return tree.to(device)

@@ -30,6 +30,12 @@ the compute stream waits on the copy stream's work before the next step.
 ``rotate_window_from_telemetry`` is the boundary of a speculative window:
 the host transitions run once per committed step, in step order, and the
 uploads coalesce to one batch per layer per window.
+
+Under the tensor (model) axis (``shard=(rank, tp)``) the warehouse and every
+store hold this rank's slice of the expert width F (``slots.shard_experts``,
+``SlotStore(shard=)``); the LUTs, rings, predictor and counters are the
+same on every rank, which routes the same all-reduced hiddens and so makes
+the same transitions.
 """
 from __future__ import annotations
 
@@ -43,7 +49,9 @@ import torch
 
 from repro_torch.config.base import ModelConfig, ResidencyConfig
 from repro_torch.core.policies import ResidencyPolicy, make_policy
-from repro_torch.core.slots import SlotStore, quantize_experts, quantized_expert_bytes
+from repro_torch.core.slots import (
+    SlotStore, quantize_experts, quantized_expert_bytes, shard_experts,
+)
 from repro_torch.core.stats import EngineStats
 from repro_torch.core.transfer import CostModel, TransferClock
 from repro_torch.obs.metrics import BYTES_BUCKETS
@@ -147,7 +155,13 @@ class RotaryResidencyManager:
         seed: int = 0,
         tracer=None,
         metrics=None,
+        shard: Optional[Tuple[int, int]] = None,
     ):
+        """``shard=(rank, tp)``: this rank of a tensor axis of ``tp`` keeps
+        its F slice of every expert, in the warehouse and in the slots
+        (unquantized only)."""
+        if shard is not None and rescfg.quantization is not None:
+            raise ValueError("slots split over the tensor axis hold unquantized planes only")
         self.device = torch.device(device)
         # the card's free memory is the ceiling when no budget is configured
         report = check_feasibility(cfg, rescfg, batch=batch, cache_len=cache_len,
@@ -167,6 +181,7 @@ class RotaryResidencyManager:
             slots = m.num_experts
         self.num_slots = slots
         q = rescfg.quantization
+        self.shard = shard
         self.host_experts: List[Dict[str, torch.Tensor]] = []
         self.stores: List[SlotStore] = []
         self.policies: List[ResidencyPolicy] = []
@@ -175,10 +190,15 @@ class RotaryResidencyManager:
             dtype = next(iter(experts.values())).dtype
             # a quantized warehouse keeps only the packed planes, made on the
             # engine's device one layer at a time
-            hw = experts if q is None else quantize_experts(
-                experts, q, rescfg.quant_group_size, device=self.device)
+            if shard is not None:
+                hw = shard_experts(experts, *shard)
+            elif q is None:
+                hw = experts
+            else:
+                hw = quantize_experts(experts, q, rescfg.quant_group_size, device=self.device)
             self.host_experts.append(hw)
-            store = SlotStore(slots, shapes, dtype, self.device, q, rescfg.quant_group_size)
+            store = SlotStore(slots, shapes, dtype, self.device, q, rescfg.quant_group_size,
+                              shard=shard)
             policy = make_policy(rescfg.mode, m.num_experts, slots, rescfg, seed=seed + li)
             if rescfg.mode == "full":
                 every = list(range(m.num_experts))

@@ -40,6 +40,12 @@ that layer's LUT rows (the manager does), a catch-up (``sync_shadow_slots``)
 is a device-to-device row copy, and the grouped matmul reads ``w[lut[g]]``
 unchanged. The LUT's MISS value is the last row of the planes
 (``miss_row``), which stays zero in either layout.
+
+Under the tensor (model) axis a store is built for ``shard=(rank, tp)``: it
+holds only that rank's slice of the expert width F in every slot
+(``w_gate`` / ``w_up`` columns, ``w_down`` rows; ``residency_spec``), and
+its warehouse rows are the same slice (:func:`shard_experts`), so an upload
+copies a contiguous row of the slice. The slot dimension stays whole.
 """
 from __future__ import annotations
 
@@ -164,10 +170,37 @@ def quantize_experts(
     return out
 
 
+def shard_width(name: str, shape: Tuple[int, ...], rank: int, tp: int) -> Tuple[int, int]:
+    """(dimension, [start, stop)) of rank ``rank``'s slice of the expert width
+    F in one expert's plane ``name`` of ``shape`` (``w_down`` [F, D]: rows;
+    ``w_gate`` / ``w_up`` [D, F]: columns); F must divide by ``tp``."""
+    dim = len(shape) - (2 if name == "w_down" else 1)
+    f = shape[dim]
+    if f % tp:
+        raise ValueError(f"{name}: expert width {f} does not split over a tensor axis of {tp}")
+    return dim, (rank * f // tp, (rank + 1) * f // tp)
+
+
+def shard_experts(experts: Params, rank: int, tp: int) -> Params:
+    """This rank's F slice of one layer's float expert stacks (``w_gate`` /
+    ``w_up`` [E, D, F] by columns, ``w_down`` [E, F, D] by rows), each a
+    contiguous copy in host memory, pinned where a card is present: a
+    rank's warehouse."""
+    pin = torch.cuda.is_available()
+    out: Params = {}
+    for name, w in experts.items():
+        dim, (lo, hi) = shard_width(name, tuple(w.shape[1:]), rank, tp)
+        part = w.narrow(dim + 1, lo, hi - lo)
+        out[name] = torch.empty(part.shape, dtype=w.dtype, pin_memory=pin).copy_(part)
+    return out
+
+
 class SlotStore:
     """Rotating device-resident buffer for one MoE layer's routed experts:
     one generation of ``num_slots + 1`` rows per plane, or two folded into
-    one allocation once ``ensure_shadow`` has run."""
+    one allocation once ``ensure_shadow`` has run. ``shard=(rank, tp)``:
+    each slot holds rank ``rank``'s slice of the expert width (unquantized
+    planes only)."""
 
     def __init__(
         self,
@@ -177,9 +210,19 @@ class SlotStore:
         device,
         quantization: Optional[str] = None,
         group_size: int = GROUP_SIZE_DEFAULT,
+        shard: Optional[Tuple[int, int]] = None,
     ):
         if quantization not in QUANTIZATIONS:
             raise ValueError(f"unknown quantization {quantization!r}")
+        if shard is not None:
+            if quantization is not None:
+                raise ValueError("slots split on the expert width hold unquantized planes only")
+            sliced = {}
+            for name, shape in weight_shapes.items():
+                dim, (lo, hi) = shard_width(name, tuple(shape), *shard)
+                sliced[name] = tuple(shape[:dim]) + (hi - lo,) + tuple(shape[dim + 1:])
+            weight_shapes = sliced
+        self.shard = shard
         self.num_slots = num_slots
         self.dtype = dtype
         self.device = torch.device(device)

@@ -30,7 +30,8 @@ both layouts follow the same rules. ZeRO-1 may put the dp axes on a stacked
 free dimension after it.
 
 :func:`shard_tensor` cuts a full tensor to this rank's shard under a spec;
-:func:`gather_tensor` gathers the shards back.
+:func:`gather_tensor` gathers the shards back. :func:`residency_spec` rules
+rotary residency's slot planes and LUTs (split on the expert width F).
 """
 from __future__ import annotations
 
@@ -303,6 +304,41 @@ def make_state_shardings(cfg: ModelConfig, mesh: Any, sh: ShardingConfig, state:
             state_spec(keys, s, cfg, sh, cell, mesh), s, mesh), keys, shape, per_layer)
 
     return {path: spec(path, leaf) for path, leaf in items(state)}
+
+
+# ---------------------------------------------------------------------------
+# Rotary residency: the slot planes and LUTs of the decode step
+# ---------------------------------------------------------------------------
+def residency_spec(name: str, sh: ShardingConfig) -> Spec:
+    """One MoE layer's residency leaf (the reference's ``_residency_shardings``
+    for a layer stacked alone, the leading ``reps`` entry dropped): the slot
+    planes split on F over the tensor axis, ``w_gate`` / ``w_up`` [S+1, D, F]
+    at ``(None, None, tp)`` and ``w_down`` [S+1, F, D] at ``(None, tp,
+    None)``; the slot dimension stays whole, so any expert can land in any
+    slot on every rank. The LUT [E] stays whole."""
+    if name == "lut":
+        return (None,)
+    if name == "w_down":
+        return (None, sh.tp_axis, None)
+    if name in ("w_gate", "w_up"):
+        return (None, None, sh.tp_axis)
+    raise ValueError(f"no residency rule for {name!r} (unquantized slot planes only)")
+
+
+def make_residency_shardings(cfg: ModelConfig, mesh: Any, sh: ShardingConfig,
+                             residency: Sequence[Tuple[Mapping[str, Any], Any]]
+                             ) -> list:
+    """Per MoE layer ``{name: spec}`` for its planes and ``"lut"``
+    (:func:`residency_spec`). Unlike the parameters' rules nothing is
+    sanitized: an expert width F that the tensor axis does not divide
+    raises."""
+    tp = axis_sizes(mesh)[sh.tp_axis]
+    f = cfg.moe.expert_d_ff
+    if f % tp:
+        raise ValueError(f"{cfg.name}: expert width {f} does not split over a tensor axis "
+                         f"of {tp}")
+    return [{**{n: residency_spec(n, sh) for n in planes}, "lut": residency_spec("lut", sh)}
+            for planes, _ in residency]
 
 
 # ---------------------------------------------------------------------------

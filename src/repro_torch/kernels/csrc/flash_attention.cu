@@ -58,6 +58,18 @@
 // slots past it are never read. A query row's sums run over 64-key tiles at
 // absolute positions in one order, so its output does not depend on C or on
 // where in its chunk it sits.
+//
+// Partial chunk entries (chunked prefill over a cache split by sequence over
+// the tensor axis; K2's partial entry for C queries): the chunk's C queries
+// at absolute positions cur_len .. cur_len + C - 1 (cur_len read on the
+// device) against one slice k/v [B, S_loc, Hkv, dh] that holds positions
+// offset .. offset + S_loc - 1, causal, no window. Out: f32 rows
+// [B, C, H, dh + 1], each head's normalized context and then the natural
+// log-sum-exp of its scores; a query that sees no key of the slice gives a
+// zero context and -inf. A simple CUDA-core body for bf16 and f32 alike (the
+// operands converted to f32 in shared memory, f32 sums), 64 queries by 64
+// keys a tile, the key loop ending at the last key some query of the tile
+// can see; the caller all-gathers the rows and merges them.
 #include "common.cuh"
 
 using namespace repro;
@@ -484,4 +496,172 @@ extern "C" int flash_attention_chunk_f32(const void* q, const void* k, const voi
                                          float soft_cap, void* stream) {
     return run_f32(q, k, v, out, B, C, cap, H, Hkv, dh, scale, 1, window, soft_cap,
                    static_cast<const long long*>(cur_len), stream);
+}
+
+// ---------------------------------------------------------------------------
+// partial chunk entries: CUDA cores, f32 shared memory, either input type
+// ---------------------------------------------------------------------------
+namespace part {
+
+constexpr int PB = 64;          // query rows and key rows per tile
+constexpr int PT = 256;         // 16 x 16 threads: 4 query rows x 4 keys each
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T, int MAXDC>    // dh / 16 <= MAXDC
+__global__ void __launch_bounds__(PT)
+chunk_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              float* __restrict__ out, const long long* __restrict__ cur_len, int C, int S,
+              int H, int Hkv, int dh, int k_off, float scale, float soft_cap) {
+    extern __shared__ float smem[];
+    const int ld = dh + 1;
+    float* Qs = smem;                   // [PB, ld]
+    float* Ks = Qs + PB * ld;           // [PB, ld]
+    float* Vs = Ks + PB * ld;           // [PB, dh]
+    float* Ps = Vs + PB * dh;           // [PB, PB + 1]
+    const int q0 = blockIdx.x * PB, h = blockIdx.y, b = blockIdx.z;
+    const int cl = (int)*cur_len;       // absolute position of query 0
+    const int hk = h / (H / Hkv);
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+    for (int i = tid; i < PB * dh; i += PT) {
+        const int r = i / dh, d = i % dh, s = q0 + r;
+        Qs[r * ld + d] = s < C ? to_f(q[(((size_t)b * C + s) * H + h) * dh + d]) : 0.f;
+    }
+    float m[4], l[4], o[4][MAXDC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        m[r] = NEG_INF;
+        l[r] = 0.f;
+#pragma unroll
+        for (int c = 0; c < MAXDC; ++c) o[r][c] = 0.f;
+    }
+    // local keys some query of this tile sees: offset + j <= cl + last query
+    const int k_end = min(S, cl + min(q0 + PB, C) - 1 - k_off + 1);
+    for (int k0 = 0; k0 < k_end; k0 += PB) {
+        __syncthreads();                  // the previous tile's readers are done
+        for (int i = tid; i < PB * dh; i += PT) {
+            const int r = i / dh, d = i % dh, s = k0 + r;
+            const size_t src = (((size_t)b * S + s) * Hkv + hk) * dh + d;
+            Ks[r * ld + d] = s < S ? to_f(k[src]) : 0.f;
+            Vs[r * dh + d] = s < S ? to_f(v[src]) : 0.f;
+        }
+        __syncthreads();
+        float sc[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) sc[r][c] = 0.f;
+        for (int d = 0; d < dh; ++d) {
+            float a[4], bb[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) a[r] = Qs[(ty + 16 * r) * ld + d];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) bb[c] = Ks[(tx + 16 * c) * ld + d];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) sc[r][c] += a[r] * bb[c];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const int qpos = cl + q0 + ty + 16 * r;
+            bool ok[4];
+            float mx = NEG_INF;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int kl = k0 + tx + 16 * c;
+                float s = sc[r][c] * scale;
+                if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
+                ok[c] = kl < S && k_off + kl <= qpos;
+                sc[r][c] = ok[c] ? s : NEG_INF;
+                mx = fmaxf(mx, sc[r][c]);
+            }
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)     // the 16 lanes sharing a row
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m[r], mx);
+            const float corr = expf(m[r] - m_new);
+            float rs = 0.f;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const float p = ok[c] ? expf(sc[r][c] - m_new) : 0.f;
+                Ps[(ty + 16 * r) * (PB + 1) + tx + 16 * c] = p;
+                rs += p;
+            }
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)
+                rs += __shfl_xor_sync(0xffffffffu, rs, off);
+            l[r] = l[r] * corr + rs;
+            m[r] = m_new;
+#pragma unroll
+            for (int c = 0; c < MAXDC; ++c) o[r][c] *= corr;
+        }
+        __syncthreads();
+        const int dc = dh / 16;
+        for (int j = 0; j < PB; ++j) {
+            float vv[MAXDC];
+#pragma unroll
+            for (int c = 0; c < MAXDC; ++c) vv[c] = c < dc ? Vs[j * dh + tx + 16 * c] : 0.f;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const float pp = Ps[(ty + 16 * r) * (PB + 1) + j];
+#pragma unroll
+                for (int c = 0; c < MAXDC; ++c) o[r][c] += pp * vv[c];
+            }
+        }
+    }
+    const int dc = dh / 16;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int row = q0 + ty + 16 * r;
+        if (row >= C) continue;
+        const bool seen = l[r] > 0.f;
+        const float inv_l = seen ? 1.f / l[r] : 0.f;
+        float* dst = out + (((size_t)b * C + row) * H + h) * (dh + 1);
+#pragma unroll
+        for (int c = 0; c < MAXDC; ++c)
+            if (c < dc) dst[tx + 16 * c] = o[r][c] * inv_l;
+        if (tx == 0) dst[dh] = seen ? m[r] + logf(l[r]) : __int_as_float(0xff800000);
+    }
+}
+
+template <typename T>
+static int launch(const void* q, const void* k, const void* v, void* out, const void* cur_len,
+                  int B, int C, int S, int H, int Hkv, int dh, int k_off, float scale,
+                  float soft_cap, void* stream) {
+    if (dh < 16 || dh % 16 || dh > FA_MAXDH || H % Hkv) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(2 * PB * (dh + 1) + PB * dh + PB * (PB + 1)) * sizeof(float);
+    auto kernel = dh <= 128 ? chunk_partial<T, 8> : chunk_partial<T, 16>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((C + PB - 1) / PB, H, B);
+    kernel<<<grid, PT, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<float*>(out), static_cast<const long long*>(cur_len), C, S, H, Hkv, dh, k_off,
+        scale, soft_cap);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace part
+
+// The partial chunk entries: q [B, C, H, dh] at positions *cur_len + i against
+// one slice k/v [B, S, Hkv, dh] holding positions offset .. offset + S - 1;
+// out f32 [B, C, H, dh + 1] (context, then log-sum-exp).
+extern "C" int flash_attention_chunk_partial_bf16(const void* q, const void* k, const void* v,
+                                                  void* out, const void* cur_len, int B, int C,
+                                                  int S, int H, int Hkv, int dh, int offset,
+                                                  float scale, float soft_cap, void* stream) {
+    return part::launch<__nv_bfloat16>(q, k, v, out, cur_len, B, C, S, H, Hkv, dh, offset,
+                                       scale, soft_cap, stream);
+}
+
+extern "C" int flash_attention_chunk_partial_f32(const void* q, const void* k, const void* v,
+                                                 void* out, const void* cur_len, int B, int C,
+                                                 int S, int H, int Hkv, int dh, int offset,
+                                                 float scale, float soft_cap, void* stream) {
+    return part::launch<float>(q, k, v, out, cur_len, B, C, S, H, Hkv, dh, offset, scale,
+                               soft_cap, stream);
 }

@@ -189,3 +189,19 @@ def flash_attention_chunk(
     if _on_card(q):
         return _fa.flash_attention_chunk(q, k, v, cur_len, window=window, soft_cap=soft_cap)
     return ref.flash_attention_chunk_ref(q, k, v, cur_len, window=window, soft_cap=soft_cap)
+
+
+def flash_attention_chunk_partial(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor, offset: int, *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """One slice of a chunk's causal attention over a cache split by
+    sequence: q [B, C, H, dh] at positions ``cur_len ..`` (an int64 scalar
+    on q's device) against the slice k/v [B, S_loc, Hkv, dh] that holds
+    positions ``offset ..`` -> f32 [B, C, H, dh + 1], each head's normalized
+    context, then its log-sum-exp (``-inf`` where no key of the slice is
+    visible), merged over the slices by ``parallel.merge_partials``. On the
+    card, K4's partial chunk entry."""
+    if _on_card(q):
+        return _fa.flash_attention_chunk_partial(q, k, v, cur_len, offset, soft_cap=soft_cap)
+    return ref.flash_attention_chunk_partial_ref(q, k, v, cur_len, offset, soft_cap=soft_cap)

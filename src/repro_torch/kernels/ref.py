@@ -237,3 +237,37 @@ def flash_attention_chunk_ref(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, c, h, dh).to(q.dtype)
+
+
+def flash_attention_chunk_partial_ref(
+    q: torch.Tensor,           # [B, C, H, dh] at positions cur_len .. cur_len + C - 1
+    k: torch.Tensor,           # [B, S_loc, Hkv, dh] one slice: positions offset .. offset + S_loc - 1
+    v: torch.Tensor,
+    cur_len,                   # int or integer scalar tensor
+    offset: int,
+    *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """The chunk entry's partial plain version over one slice of a cache
+    split by sequence: query j at ``cur_len + j`` scores the slice's keys at
+    positions ``<= cur_len + j`` (causal, no window). f32 [B, C, H, dh + 1]:
+    each head's softmax-normalized context over those keys, then the
+    log-sum-exp of its scores; a query that sees no key of the slice gives
+    context 0 and lse ``-inf``."""
+    b, c, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, c, hkv, g, dh).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
+    if soft_cap is not None:
+        logits = soft_cap * torch.tanh(logits / soft_cap)
+    cl = torch.as_tensor(cur_len, device=q.device).to(torch.int64).reshape(())
+    qpos = cl + torch.arange(c, device=q.device)
+    kpos = offset + torch.arange(s, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]                          # [C, S_loc]
+    logits = torch.where(mask, logits, torch.full_like(logits, -float("inf")))
+    lse = torch.logsumexp(logits, dim=-1)                          # [B, Hkv, g, C]
+    probs = torch.exp(logits - torch.where(torch.isfinite(lse), lse,
+                                           torch.zeros_like(lse))[..., None])
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float()).reshape(b, c, h, dh)
+    return torch.cat([out, lse.permute(0, 3, 1, 2).reshape(b, c, h, 1)], dim=-1)

@@ -176,10 +176,21 @@ def moe_apply_routed(
     slot_buffer: Optional[Params] = None,
     lut: Optional[torch.Tensor] = None,   # [E] int: expert -> row, last row = MISS
     include_shared: bool = True,
+    tp_group=None,
+    mcfg: Optional[MoEConfig] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply already-routed experts. Returns (y [T, D], miss [T, k] bool).
     More than ``PER_PICK_MAX`` picks take the ragged grouping (on the
-    device)."""
+    device).
+
+    ``tp_group`` (rotary residency under the tensor axis): ``slot_buffer``
+    holds this rank's slice of the expert width F (``residency_spec``), so
+    the same groupings run on the slice (the SwiGLU is elementwise) and
+    ``w_down``'s F/tp rows give a partial sum; weighted and summed over the
+    picks in f32, it is summed over the axis by one f32 all-reduce before
+    the cast. Shared experts split over the axis (``shared_split`` under
+    ``mcfg``) add their partial sum before it, whole ones after it. The
+    miss mask depends on the LUT alone: the same on every rank."""
     t, k = ids.shape
     ids_l = ids.long()
     if slot_buffer is not None:
@@ -200,7 +211,16 @@ def moe_apply_routed(
         outs = expert_ffn(src, xs, gidx.reshape(-1))[:, 0]          # [T*k, D]
     else:
         outs = _ragged(src, x2d, gidx, num_slots)                  # [T*k, D]
-    y = (outs.float().reshape(t, k, -1) * w_eff[..., None]).sum(dim=1).to(x2d.dtype)
+    y = (outs.float().reshape(t, k, -1) * w_eff[..., None]).sum(dim=1)
+    if tp_group is not None:
+        split = include_shared and shared_split(p, mcfg)
+        if split:
+            y = y + shared_ffn(p, x2d).float()
+        y = parallel.all_reduce_f32(y, tp_group).to(x2d.dtype)
+        if include_shared and "shared" in p and not split:
+            y = y + shared_ffn(p, x2d)
+        return y, miss
+    y = y.to(x2d.dtype)
     if include_shared and "shared" in p:
         y = y + shared_ffn(p, x2d)
     return y, miss

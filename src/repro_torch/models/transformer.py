@@ -67,8 +67,14 @@ over the axis (``_sp_attention``). Prefill leaves the KV caches in the
 ``state_spec`` layout (the K/V gathered over the head split, each rank
 keeping its positions); decode scores its slice with every query head
 through K2's partial entry and merges the slices' partials after one
-all-gather (``_tp_decode``). Rows split over the data axis need no
-collective. A ring cache, or a recurrent stack's decode, under a tensor
+all-gather (``_tp_decode``). Rotary residency under the tensor axis
+(``shard_residency``: each MoE layer's slot planes split on the expert width
+F, the LUT whole) runs decode steps, windows and prefill chunks: the routed
+experts through this rank's F slice and one f32 all-reduce
+(``moe.moe_apply_routed(tp_group=)``), a chunk's attention against the
+rank's cache slice through K4's partial chunk entry and the same merge
+(``_tp_chunk``), and a window's KV snapshot and rollback over the rank's own
+positions. Rows split over the data axis need no collective. A ring cache, or a recurrent stack's decode, under a tensor
 axis longer than 1 raises before anything is built (a recurrent stack's
 prefill keeps its caches whole, as the sequence-parallel prefill makes
 them).
@@ -95,7 +101,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.config.base import KV_KINDS, ModelConfig, ShapeConfig, ShardingConfig
 from repro_torch.distributed import parallel
 from repro_torch.distributed.sharding import (
-    make_param_shardings, make_state_shardings, shard_tensor,
+    make_param_shardings, make_residency_shardings, make_state_shardings, shard_tensor,
 )
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -307,8 +313,8 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
     ``cur_len``; ``train`` keeps no state (``attention_train`` at ``rt``'s
     chunk lengths, no kernel). Under ``rt.mesh`` a ``prefill`` runs
     :func:`_tp_prefill` (or, long with heads the tensor axis does not
-    divide, :func:`_sp_attention`) and a ``decode`` :func:`_tp_decode`,
-    each on this rank's shards."""
+    divide, :func:`_sp_attention`), a ``decode`` :func:`_tp_decode` and a
+    ``chunk`` :func:`_tp_chunk`, each on this rank's shards."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     sharded = rt is not None and rt.mesh is not None
     if mode == "train" and _tensor_axis(rt):
@@ -323,6 +329,8 @@ def attn_half(cfg: ModelConfig, p: Params, x: torch.Tensor, mode: str, state: An
         y, state = _tp_prefill(p["attn"], cfg.attention, rt, h, cache_len, state)
     elif mode == "decode" and sharded:
         y = _tp_decode(p["attn"], cfg.attention, rt, h, state, cur_len)
+    elif mode == "chunk" and sharded:
+        y = _tp_chunk(p["attn"], cfg.attention, rt, h, state, cur_len)
     elif mode == "prefill":
         y, state = attn.attention_prefill(p["attn"], cfg.attention, h, cache_len, state)
     elif mode == "decode":
@@ -376,8 +384,9 @@ def _sp_attention(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache_len: int,
 def _seq_offset(acfg, rt: Runtime, local_cap: int) -> Optional[int]:
     """The first position of this rank's cache slice where the state splits
     the sequence over the tensor axis (``state_spec``), None where each rank
-    holds the whole cache (``rt.cache_len``'s capacity)."""
-    cap = attn.cache_capacity(acfg, rt.cache_len)
+    holds the whole cache (``rt.cache_len``'s capacity, ``acfg=None`` a
+    window-free one)."""
+    cap = rt.cache_len if acfg is None else attn.cache_capacity(acfg, rt.cache_len)
     if local_cap == cap:
         return None
     if local_cap * rt.tp_size() != cap:
@@ -497,6 +506,60 @@ def _tp_decode(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache: Dict[str, t
     if hq < nh:
         ctx = ctx[:, :, r * hq:(r + 1) * hq]
     y = ctx.reshape(b, 1, hq * dh) @ p["wo"]
+    if p["wo"].shape[0] < nh * dh:
+        y = parallel.all_reduce_f32(y, group)
+    return y
+
+
+def _tp_chunk(p: Params, acfg, rt: Runtime, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+              cur_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """A prefill chunk's attention on this rank's shards against its cache
+    slice (the chunk counterpart of :func:`_tp_decode`): q / k / v for the
+    chunk's C positions ``cur_len ..`` on the head split, the new K/V
+    all-gathered over the KV-head split and q over the head split; each
+    rank writes the chunk's positions that fall in its slice (a chunk may
+    straddle two slices: every slot of the slice is rewritten with the
+    chunk's K/V where it holds a chunk position, so a device ``cur_len``
+    needs no host round trip), then scores every query head over its slice
+    through K4's partial chunk entry (normalized context and lse; ``-inf``
+    where the slice holds no visible key), one all-gather of [tp, B, C, H,
+    dh + 1] and the merge in rank order (``parallel.merge_partials``), so
+    the model ranks hold the same bits; the rank keeps its heads' context
+    for the row-parallel ``wo`` and one all-reduce. A state holding the
+    whole cache scores it with K4's chunk entry. The chunk must not wrap
+    the cache (the engine checks it). h [B, C, D] -> y [B, C, D]."""
+    b, c, _ = h.shape
+    nh, nkv, dh = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+    group, tp, r = rt.tp_group(), rt.tp_size(), rt.tp_rank()
+    cl = torch.as_tensor(cur_len, device=h.device).to(torch.int64).reshape(())
+    qpos = cl + torch.arange(c, device=h.device)
+    q, k_new, v_new = attn._project_qkv(p, acfg, h, qpos[None, :])
+    hq = q.shape[2]
+    if k_new.shape[2] < nkv:
+        k_new = parallel.all_gather_dim(k_new, 2, group, tp)
+        v_new = parallel.all_gather_dim(v_new, 2, group, tp)
+    if hq < nh:
+        q = parallel.all_gather_dim(q, 2, group, tp)
+    ck, cv = cache["k"], cache["v"]
+    c_loc = ck.shape[1]
+    off = _seq_offset(acfg, rt, c_loc)
+    if off is None:
+        ck.index_copy_(1, qpos, k_new)
+        cv.index_copy_(1, qpos, v_new)
+        ctx = ops.flash_attention_chunk(q, ck, cv, cl, soft_cap=acfg.logit_soft_cap)
+    else:
+        rel = off + torch.arange(c_loc, device=h.device) - cl      # each slot's chunk index
+        inside = ((rel >= 0) & (rel < c))[None, :, None, None]
+        src = torch.clamp(rel, 0, c - 1)
+        ck.copy_(torch.where(inside, k_new.index_select(1, src), ck))
+        cv.copy_(torch.where(inside, v_new.index_select(1, src), cv))
+        part = ops.flash_attention_chunk_partial(q, ck, cv, cl, off,
+                                                 soft_cap=acfg.logit_soft_cap)
+        parts = parallel.all_gather_dim(part[None], 0, group, tp)
+        ctx = parallel.merge_partials(parts, q.dtype)
+    if hq < nh:
+        ctx = ctx[:, :, r * hq:(r + 1) * hq]
+    y = ctx.reshape(b, c, hq * dh) @ p["wo"]
     if p["wo"].shape[0] < nh * dh:
         y = parallel.all_reduce_f32(y, group)
     return y
@@ -645,11 +708,13 @@ def decode_model(
     rt: Optional[Runtime] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over every layer: returns (logits [B, V], aux).
-    Under ``rt.mesh`` (this rank's rows, parameters and state slice, no
-    residency): each attention layer :func:`_tp_decode`, each dense MLP
-    tensor-parallel, each MoE layer expert-parallel decode
-    (``moe.moe_epsum_decode_local``: local experts, one all-reduce), the
-    embedding and head vocabulary-parallel (logits all-gathered).
+    Under ``rt.mesh`` (this rank's rows, parameters and state slice): each
+    attention layer :func:`_tp_decode`, each dense MLP tensor-parallel, each
+    MoE layer expert-parallel decode (``moe.moe_epsum_decode_local``: local
+    experts, one all-reduce) or, with ``residency`` (``shard_residency``:
+    this rank's F slice of every slot), the slots' partial sums and one f32
+    all-reduce; the embedding and head vocabulary-parallel (logits
+    all-gathered).
     ``page_table`` [B, pages]: ``state`` is the serving engine's paged pool
     (:func:`paged_zero_state`) instead of per-row caches.
 
@@ -879,6 +944,17 @@ def shard_params(cfg: ModelConfig, params: Params, rt: Runtime, *,
     return cut(params)
 
 
+def shard_residency(cfg: ModelConfig, residency: List[Tuple[Params, torch.Tensor]],
+                    rt: Runtime) -> List[Tuple[Params, torch.Tensor]]:
+    """This rank's residency under ``rt``'s tensor axis: each MoE layer's
+    (slot planes, LUT) with the planes cut on the expert width F by
+    ``residency_spec`` (copies) and the LUT whole (shared), the layout the
+    engine's sliced stores hold. F that the axis does not divide raises."""
+    specs = make_residency_shardings(cfg, rt.mesh, rt.sharding, residency)
+    return [({n: shard_tensor(t, spec[n], rt.mesh) for n, t in planes.items()}, lut)
+            for (planes, lut), spec in zip(residency, specs)]
+
+
 def shard_state(cfg: ModelConfig, state: List[Dict[str, torch.Tensor]],
                 rt: Runtime) -> List[Dict[str, torch.Tensor]]:
     """This rank's shard of a whole decode state (every row, every
@@ -905,6 +981,7 @@ def prefill_chunk_model(
     cur_len: Union[int, torch.Tensor],  # tokens already cached (int or device scalar)
     residency: Optional[List[Tuple[Params, torch.Tensor]]] = None,
     with_head: bool = True,
+    rt: Optional[Runtime] = None,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """One prefill chunk: append C prompt positions to the caches (in place)
     through every layer in ``chunk`` mode, the multi-token sibling of
@@ -912,12 +989,16 @@ def prefill_chunk_model(
     fused entry) and, past ``moe.PER_PICK_MAX`` picks, runs K1's ragged
     entry. Returns (logits [B, V] at the chunk's last position, or None with
     ``with_head=False``, and aux), aux as :func:`decode_model`'s with T =
-    B*C."""
-    x = embed_tokens(params, tokens)
-    x, aux = _run_stack(cfg, params, x, "chunk", state, cur_len, residency)
+    B*C. Under ``rt.mesh`` (this rank's parameters, cache slices and
+    residency, as :func:`decode_model`): each attention layer
+    :func:`_tp_chunk`."""
+    if rt is not None and rt.mesh is not None:
+        _check_mesh_stack(cfg, rt, rt.cache_len, decode=True)
+    x = _embed(cfg, params, tokens, rt)
+    x, aux = _run_stack(cfg, params, x, "chunk", state, cur_len, residency, rt=rt)
     if not with_head:
         return None, aux
-    return lm_logits(cfg, params, x[:, -1:])[:, 0], aux
+    return lm_logits(cfg, params, x[:, -1:], rt)[:, 0], aux
 
 
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
@@ -931,14 +1012,17 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
     layer's residency; a recurrent layer's cell, its state written in
     place. Returns the last hidden [B, S, D] and the routing telemetry
     stacked over the MoE layers (none for a stack without MoE layers).
-    ``page_table`` (decode): ``state`` is the paged pool. ``rt.mesh``
-    (decode, no residency): the MoE half is expert-parallel."""
+    ``page_table`` (decode): ``state`` is the paged pool. ``rt.mesh``: the
+    MoE half is expert-parallel, or with ``residency`` runs this rank's F
+    slice of the slots and one all-reduce over the tensor axis."""
     d = x.shape[-1]
-    ep_axis = None
+    ep_axis = group = None
     if rt is not None and rt.mesh is not None:
-        if mode != "decode" or residency is not None:
-            raise ValueError("under a mesh the stack runs decode steps without residency")
-        if cfg.has_moe:
+        if mode not in ("decode", "chunk"):
+            raise ValueError("under a mesh the stack runs decode steps and prefill chunks")
+        if residency is not None:
+            group = rt.tp_group() if _tensor_axis(rt) else None
+        elif cfg.has_moe:
             ep_axis = rt.ep_axis()
     tel: Dict[str, List[torch.Tensor]] = {n: [] for n in ("ids", "weights", "miss", "h", "x")}
     for li, (kind, p, mi) in enumerate(zip(cfg.layer_kinds, params["layers"],
@@ -960,7 +1044,8 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, mode: str,
         else:
             slots, lut = residency[mi] if residency is not None else (None, None)
             y2, miss = moe_mod.moe_apply_routed(p["moe"], h2, ids, weights,
-                                                slot_buffer=slots, lut=lut)
+                                                slot_buffer=slots, lut=lut, tp_group=group,
+                                                mcfg=cfg.moe)
         x = x_mid + y2.reshape(x_mid.shape)
         for n, v in (("ids", ids), ("weights", weights), ("miss", miss), ("h", h2),
                      ("x", x_in.reshape(-1, d))):
@@ -982,6 +1067,7 @@ def decode_window(
     sample: Optional[sampling_mod.SampleParams] = None,
     rng_keys: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
+    rt: Optional[Runtime] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """``k_steps`` self-drafted decode steps (the speculative window; the
     reference's ``decode_window``).
@@ -994,7 +1080,8 @@ def decode_window(
     (``sampling.sample_step``); every position gathers from the same
     ``residency`` and writes its KV slot in place. The serving engine passes
     its paged pool as ``state`` with ``page_table`` [B, pages] and a per-row
-    ``cur_len`` [B]; each row draws at its own positions.
+    ``cur_len`` [B]; each row draws at its own positions. ``rt`` (a mesh):
+    each position is :func:`decode_model`'s sharded step.
     Returns ``(draft [K, B], logits [K, B, V] f32, aux)``: ``draft[j]`` is
     the argmax of ``logits[j]`` (the token position j+1 consumed),
     ``logits[-1]`` is the reference's ``last_logits``, and every aux entry
@@ -1008,7 +1095,8 @@ def decode_window(
     logits_all: List[torch.Tensor] = []
     auxs: List[Dict[str, torch.Tensor]] = []
     for j in range(k_steps):
-        logits, aux = decode_model(cfg, params, tok, state, cur_len + j, residency, page_table)
+        logits, aux = decode_model(cfg, params, tok, state, cur_len + j, residency, page_table,
+                                   rt)
         if aux_fn is not None:
             aux = aux_fn(aux)
         if sample is None:
@@ -1063,22 +1151,47 @@ def _window_index(cache: torch.Tensor, cur_len: Union[int, torch.Tensor], k_step
     return _kv_window_slots_paged(cache, page_table, cur_len, k_steps)
 
 
+def _slice_offset(rt: Optional[Runtime], cache: torch.Tensor) -> Optional[int]:
+    """:func:`_seq_offset` of a window-free ``cache`` [B, n, ...] (rings stay
+    whole: they are refused under a tensor axis), None without one."""
+    return _seq_offset(None, rt, cache.shape[1]) if _tensor_axis(rt) else None
+
+
+def _kv_window_local(cache: torch.Tensor, cur_len: Union[int, torch.Tensor], k_steps: int,
+                     off: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row / slot index tensors [B, 1], [B, K] of a window's positions in a
+    cache slice holding positions ``off ..``: a position outside the slice
+    reads a clamped slot (its copy is never restored)."""
+    b, n = cache.shape[0], cache.shape[1]
+    cl = torch.as_tensor(cur_len, device=cache.device).to(torch.int64).reshape(-1).expand(b)
+    local = cl[:, None] + torch.arange(k_steps, device=cache.device)[None, :] - off
+    return torch.arange(b, device=cache.device)[:, None], torch.clamp(local, 0, n - 1)
+
+
 def snapshot_kv_window(state: List[Dict[str, torch.Tensor]],
                        cur_len: Union[int, torch.Tensor],
                        k_steps: int,
-                       page_table: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
+                       page_table: Optional[torch.Tensor] = None,
+                       rt: Optional[Runtime] = None) -> List[Dict[str, torch.Tensor]]:
     """Pre-window copies of the KV slots the next ``k_steps`` positions
     overwrite, per layer ``{"k", "v"}`` [B, K, Hkv, dh]: what
     :func:`rollback_kv_window` restores (zeros for a full cache, the previous
     lap's entries for a ring cache). ``page_table`` [B, pages]: ``state`` is
-    the paged pool, read through each row's pages. A recurrent layer's
-    entry is empty (nothing of it can be rolled back)."""
+    the paged pool, read through each row's pages. ``rt`` with caches split
+    by sequence over its tensor axis: each rank copies the window positions
+    its slice holds (the others' entries are clamped reads, never
+    restored). A recurrent layer's entry is empty (nothing of it can be
+    rolled back)."""
     out: List[Dict[str, torch.Tensor]] = []
     for cache in state:
         if "k" not in cache:
             out.append({})
             continue
-        rows, slots = _window_index(cache["k"], cur_len, k_steps, page_table)
+        off = None if page_table is not None else _slice_offset(rt, cache["k"])
+        if off is None:
+            rows, slots = _window_index(cache["k"], cur_len, k_steps, page_table)
+        else:
+            rows, slots = _kv_window_local(cache["k"], cur_len, k_steps, off)
         out.append({n: cache[n][rows, slots] for n in ("k", "v")})
     return out
 
@@ -1087,16 +1200,23 @@ def rollback_kv_window(state: List[Dict[str, torch.Tensor]],
                        saved: List[Dict[str, torch.Tensor]],
                        cur_len: Union[int, torch.Tensor], k_steps: int,
                        keep: Union[int, torch.Tensor],
-                       page_table: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
+                       page_table: Optional[torch.Tensor] = None,
+                       rt: Optional[Runtime] = None) -> List[Dict[str, torch.Tensor]]:
     """KV truncate after a partly rejected window, IN PLACE: the slots of
     window offsets ``>= keep`` (scalar or per-row [B]) get their ``saved``
     pre-window contents back, offsets ``< keep`` (the accepted prefix) stay.
     The cache then equals the one a sequential decode holds at length
     ``cur_len + keep``. ``page_table`` [B, pages]: the paged pool, written
     through each row's pages (pad rows' duplicate writes land in the scratch
-    page). Returns ``state``."""
+    page). ``rt`` with caches split by sequence: each rank restores the
+    positions its slice holds (every slot of the slice rewritten, its window
+    offset read from the slot, so no two writes meet). Returns ``state``."""
     for cache, sv in zip(state, saved):
         if not sv:
+            continue
+        off = None if page_table is not None else _slice_offset(rt, cache["k"])
+        if off is not None:
+            _rollback_slice(cache, sv, cur_len, k_steps, keep, off)
             continue
         rows, slots = _window_index(cache["k"], cur_len, k_steps, page_table)
         b = slots.shape[0]
@@ -1106,6 +1226,25 @@ def rollback_kv_window(state: List[Dict[str, torch.Tensor]],
             c = cache[n]
             c[rows, slots] = torch.where(mask, sv[n], c[rows, slots])
     return state
+
+
+def _rollback_slice(cache: Dict[str, torch.Tensor], sv: Dict[str, torch.Tensor],
+                    cur_len: Union[int, torch.Tensor], k_steps: int,
+                    keep: Union[int, torch.Tensor], off: int) -> None:
+    """:func:`rollback_kv_window` on a cache slice holding positions ``off
+    ..``: slot j holds window offset ``off + j - cur_len``; where that offset
+    is in ``[keep, k_steps)`` the slot takes its saved copy back."""
+    b, n = cache["k"].shape[0], cache["k"].shape[1]
+    dev = cache["k"].device
+    cl = torch.as_tensor(cur_len, device=dev).to(torch.int64).reshape(-1).expand(b)
+    kp = torch.as_tensor(keep, device=dev).to(torch.int64).reshape(-1).expand(b)
+    w = off + torch.arange(n, device=dev)[None, :] - cl[:, None]          # [B, n]
+    restore = ((w >= kp[:, None]) & (w < k_steps))[..., None, None]
+    rows = torch.arange(b, device=dev)[:, None]
+    src = torch.clamp(w, 0, k_steps - 1)
+    for name in ("k", "v"):
+        c = cache[name]
+        c.copy_(torch.where(restore, sv[name][rows, src], c))
 
 
 # ---------------------------------------------------------------------------

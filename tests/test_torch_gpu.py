@@ -529,6 +529,43 @@ def test_decode_attention_partial_entry_matches_plain(card, dtype, dh):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_attention_chunk_partial_entry_matches_plain(card, dtype, dh):
+    """K4's partial chunk entry: a chunk of 72 queries at positions 40-111
+    against the two 64-position slices of a 128-position cache (the chunk
+    straddles them; rank 1's slice is invisible to its first 24 queries:
+    lse -inf, context 0, no NaN), with and without a soft cap, against the
+    plain version, and the two slices merged against the chunk entry over
+    the whole cache; one launch counted per call under the chunk kernel."""
+    from repro_torch.distributed.parallel import merge_partials
+    from repro_torch.kernels import flash_attention as fa
+
+    c, cur, n, h, hkv = 72, 40, 64, 8, 2
+    q = _randn((2, c, h, dh), dtype, 0, card)
+    k = _randn((2, 2 * n, hkv, dh), dtype, 1, card)
+    v = _randn((2, 2 * n, hkv, dh), dtype, 2, card)
+    cl = torch.tensor(cur, device=card)
+    for cap in (None, 20.0):
+        parts = []
+        for r in range(2):
+            ks, vs = k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n]
+            ops.reset_launch_counts()
+            out = fa.flash_attention_chunk_partial(q, ks, vs, cl, r * n, soft_cap=cap)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["flash_attention_chunk"] == 1
+            exp = ref.flash_attention_chunk_partial_ref(q, ks, vs, cur, r * n, soft_cap=cap)
+            empty = torch.isinf(exp[..., -1])
+            assert torch.equal(torch.isinf(out[..., -1]), empty) and not out[empty].nan_to_num(
+                neginf=0.0).any() and not torch.isnan(out).any()
+            torch.testing.assert_close(out[~empty], exp[~empty], **TOL[dtype])
+            parts.append(out)
+        assert empty[:, :n - cur].all() and not empty[:, n - cur:].any()
+        whole = ops.flash_attention_chunk(q, k, v, cl, soft_cap=cap)
+        torch.testing.assert_close(merge_partials(torch.stack(parts), dtype).float(),
+                                   whole.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention_is_bitwise_stable_and_batch_invariant(card, dtype):
     """The plan reads S, dh, g and the type only and the merge runs in span
     order: two launches give the same bits, and row b of a B = 3 launch with

@@ -2,13 +2,14 @@
 """``chip_smoke.py``'s sharded paths alone, on the cards of this machine.
 
     python3 tools/torch_dist_paths.py [--paths ep-qwen36,sp-recurrentgemma-2b,pod-train-qwen36,
-                                               tp-qwen3-4b,dp-train-qwen36,mp-train-qwen36,
-                                               sp-train-qwen3-4b] [--no-rows]
+                                               tp-qwen3-4b,mp-rotary-qwen36,dp-train-qwen36,
+                                               mp-train-qwen36,sp-train-qwen3-4b] [--no-rows]
 
 Builds the kernels, runs the phase-3 rows at the sharded paths' shapes
 (``chip_smoke.sharded_rows``: K1's tiled grouped entry as
 ``moe_epsum_local`` calls it, K4's chunk entry as ``_sp_attention`` calls
-it, K2's partial entry at ``tp-qwen3-4b``'s cache slice; ``--no-rows``
+it, K2's partial entry at ``tp-qwen3-4b``'s cache slice, K4's partial chunk
+entry at ``mp-rotary-qwen36``'s straddling chunk; ``--no-rows``
 skips them), then each path of ``--paths`` (default: every sharded path of
 ``chip_smoke.DIST_PATHS``) exactly as
 ``chip_smoke.py`` runs it (``chip_smoke.run_dist_path``: its ranks through
