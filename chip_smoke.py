@@ -393,6 +393,13 @@ ENTRY = {"topk_gate": ("topk_gate", "topk_gate_"), "router_topk": ("topk_gate", 
                                            "flash_attention_chunk_partial_"),
          **{f"slot_gmm{q}_{e}": (f"slot_gmm{q}_tiled", f"slot_gmm{q}_{e}_")
             for q in ("", "_int8", "_int4") for e in ("tiled", "ragged")}}
+# device ms of the bodies that the tensor-core redesigns replaced, at the same
+# phase-3 shapes (this script on an H100 80GB HBM3 at 700 W): K4's partial
+# chunk entry on CUDA cores (f32 tiles), K2's bf16 CUDA-core body at dh 96 / 160
+EARLIER_DEVICE_MS = {"flash_attention_chunk_partial": 0.1723,
+                     "decode_attention_dh96_g1": 0.0380, "decode_attention_paged_dh96_g1": 0.0432,
+                     "decode_attention_dh160_g4": 0.0439,
+                     "decode_attention_paged_dh160_g4": 0.0456}
 ROUTE_MARGIN = 1e-6                # probability gap that a summation order cannot close
 ROUTE_TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -691,6 +698,9 @@ def kernel_phase(dev):
             f"{r['library_ms']:.4f}; device: kernel {r['device_ms']:.4f}, plain "
             f"{fmt_ms(r['plain_device_ms'])}, library {r['library_device_ms']:.4f}; bound_ms "
             f"{r['bound_ms']:.5f} ({r['bound_by']}); {rate(r)}")
+        if name in EARLIER_DEVICE_MS:
+            log(f"    {name}: device {r['device_ms']:.4f} ms, the body it replaced "
+                f"{EARLIER_DEVICE_MS[name]:.4f} ms (CUDA cores; same shape and card model)")
         if "down" in r:
             dn = r["down"]
             log(f"    {name} at {dn['shape']}: kernel_ms {dn['ms']:.4f} per call (wall), "
@@ -1206,7 +1216,8 @@ def chunk_partial_row(dev, g, h=32, hkv=4, dh=128):
     rows out once, 4 H dh operations a visible (query, key) pair; library:
     the aten memory-efficient SDPA that returns the lse
     (``_scaled_dot_product_efficient_attention``) over the same slice with
-    an explicit causal-offset bias, K/V expanded for GQA."""
+    an explicit causal-offset bias, K/V expanded for GQA. bf16 runs the
+    chunk entry's tensor-core body with the partial epilogue."""
     import torch
 
     from repro_torch.distributed.parallel import merge_partials
@@ -1269,7 +1280,8 @@ def chunk_partial_row(dev, g, h=32, hkv=4, dh=128):
               f"bf16 at offset 0 ({pairs} visible pairs; mp-rotary-qwen36: a rank's {ROT_SLICE} "
               f"of {ROT_CACHE} positions, the chunk that straddles the slices), checked at "
               f"offsets 0 / {ROT_SLICE} and cur_len {ROT_CUR} / 0 and merged over two slices; f32 "
-              f"rows [.., {dh + 1}] out; library: aten memory-efficient SDPA with lse and an "
+              f"rows [.., {dh + 1}] out; the tensor-core body; library: aten memory-efficient "
+              f"SDPA with lse and an "
               f"explicit causal-offset bias, K/V expanded for GQA")
 
 
@@ -1278,8 +1290,9 @@ def dense_rows(dev, g):
     entry at 512 queries for dh 64 (musicgen, 32/32 heads), 96 (phi3,
     32/32), 160 (pixtral, 32/8) and 256 (recurrentgemma's 10/1), and at
     recurrentgemma's window 2048 over 3,072 queries; its chunk entry at dh
-    160; K2's two entries at dh 96 g 1 (phi3), dh 160 g 4 (pixtral), dh 128
-    g 9 (starcoder2-7b) and g 12 (starcoder2-3b), and its contiguous entry
+    160; K2's two entries (tensor cores at every width) at dh 96 g 1
+    (phi3), dh 160 g 4 (pixtral), dh 128 g 9 (starcoder2-7b) and g 12
+    (starcoder2-3b), and its contiguous entry
     at dh 256 g 10 over a ring of 2,048 (recurrentgemma). Each row carries
     ``base``, the kernel or entry it is a width of."""
     rows = {}

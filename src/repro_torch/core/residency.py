@@ -40,6 +40,7 @@ the same transitions.
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -47,10 +48,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config.base import ModelConfig, ResidencyConfig
+from repro_torch.config.base import KV_KINDS, ModelConfig, ResidencyConfig, ShardingConfig
 from repro_torch.core.policies import ResidencyPolicy, make_policy
 from repro_torch.core.slots import (
-    SlotStore, quantize_experts, quantized_expert_bytes, shard_experts,
+    SlotStore, quantize_experts, quantized_expert_bytes, shard_experts, shard_width,
 )
 from repro_torch.core.stats import EngineStats
 from repro_torch.core.transfer import CostModel, TransferClock
@@ -86,6 +87,28 @@ def _attention_static_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
     return total * dtype_bytes
 
 
+def _static_split_bytes(cfg: ModelConfig, tp: int, dtype_bytes: int) -> int:
+    """The bytes of the static weights that a rank of a tensor axis of
+    ``tp`` does not hold: each non-expert leaf (shapes from a ``meta``
+    tree) less its share under ``shard_params``' rules (the vocabulary of
+    ``embed`` / ``lm_head``, the heads of each projection where they
+    divide, the MLP and shared-expert columns and rows)."""
+    from repro_torch.distributed.sharding import _axes, make_param_shardings
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import items
+
+    params = init_params(cfg, 0, "meta")
+    sh = ShardingConfig()
+    mesh = {**{a: 1 for a in sh.dp_axes}, sh.tp_axis: tp}
+    specs = make_param_shardings(cfg, mesh, sh, params)
+    off = 0
+    for path, leaf in items(params):
+        if "/experts/" not in path:
+            parts = math.prod(mesh[a] for entry in specs[path] for a in _axes(entry))
+            off += leaf.numel() - leaf.numel() // parts
+    return off * dtype_bytes
+
+
 def check_feasibility(
     cfg: ModelConfig,
     rescfg: ResidencyConfig,
@@ -94,6 +117,7 @@ def check_feasibility(
     cache_len: int,
     dtype_bytes: int = 2,
     device=None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> FeasibilityReport:
     """Two-sided startup check:
 
@@ -101,6 +125,13 @@ def check_feasibility(
     (2) memory ceiling — slots + KV + static weights + activation bound must
         fit ``hbm_budget_bytes``, or, when no budget is set and ``device`` is
         a card, the card's free memory (``torch.cuda.mem_get_info``).
+
+    ``shard=(rank, tp)`` counts what one rank of a tensor axis of ``tp``
+    holds: each slot's F slice (``slots.shard_width``), its slice of every
+    KV cache where ``_sharded_zero_state`` splits it (a KV-only stack whose
+    capacity the axis divides) and its ``shard_params`` share of the static
+    weights. Without it the counts are the whole model's, as the
+    reference's.
     """
     m = cfg.require_moe("expert residency")
     moe_layers = cfg.num_moe_layers
@@ -108,6 +139,10 @@ def check_feasibility(
     shapes = {"w_up": (cfg.d_model, m.expert_d_ff), "w_down": (m.expert_d_ff, cfg.d_model)}
     if cfg.mlp == "swiglu":
         shapes["w_gate"] = (cfg.d_model, m.expert_d_ff)
+    if shard is not None:
+        for name, shape in shapes.items():
+            dim, (lo, hi) = shard_width(name, shape, *shard)
+            shapes[name] = shape[:dim] + (hi - lo,) + shape[dim + 1:]
     expert_bytes = quantized_expert_bytes(shapes, rescfg.quantization, dtype_bytes,
                                           rescfg.quant_group_size)
     slots = rescfg.num_slots or m.num_experts
@@ -117,6 +152,14 @@ def check_feasibility(
     a = cfg.attention
     kv_bytes = cfg.num_layers * 2 * batch * cache_len * a.num_kv_heads * a.head_dim * dtype_bytes
     static_bytes = _attention_static_bytes(cfg, dtype_bytes)
+    if shard is not None:
+        from repro_torch.models.attention import cache_capacity
+
+        tp = shard[1]
+        if (all(kind in KV_KINDS for kind in cfg.layer_kinds)
+                and cache_capacity(a, cache_len) % tp == 0):
+            kv_bytes //= tp
+        static_bytes -= _static_split_bytes(cfg, tp, dtype_bytes)
     act_bytes = 8 * batch * cfg.d_model * dtype_bytes * 16
     total = slot_bytes + kv_bytes + static_bytes + act_bytes
     budget = rescfg.hbm_budget_bytes
@@ -165,7 +208,7 @@ class RotaryResidencyManager:
         self.device = torch.device(device)
         # the card's free memory is the ceiling when no budget is configured
         report = check_feasibility(cfg, rescfg, batch=batch, cache_len=cache_len,
-                                   device=self.device)
+                                   device=self.device, shard=shard)
         if not report.ok:
             raise InitializationError(report.reason)
         self.cfg = cfg

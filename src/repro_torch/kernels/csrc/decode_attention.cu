@@ -28,15 +28,22 @@
 //    2-stage shared ring; tile j+1's copies are issued before tile j is
 //    scored, V_j lands while K_j is scored. Rows past the length are
 //    zero-filled by the copy.
-//  * bf16 (dh 64, 128, 256): tensor cores, mma.sync m16n8k16 with f32 sums.
+//  * bf16 at every dh that is a multiple of 16 up to 256: tensor cores,
+//    mma.sync m16n8k16 with f32 sums.
 //    Scores S^T = K Q^T take KV positions as M and the g query heads as N
 //    (one n8 fragment for g <= 8, padded with zero rows of q; two for
 //    g <= 16); the context O^T = V^T P^T takes dh as M and positions as K,
 //    with P rounded to bf16 through shared memory (the Pallas body's f32
 //    dot rounds its operands to bf16 on the TPU's matrix unit).
-//  * f32, other head dims, or unaligned tensors: a CUDA-core body with the
-//    same spans, ring and merge (tf32 would round q and k, which the
-//    reference keeps in f32).
+//    Where 4 warps do not divide the dh / 16 m-tiles of O^T (6 at dh 96, 10
+//    at dh 160) the last warps skip the tiles past dh: a thread keeps MD x
+//    NG x 4 floats of O (MD = 3 at dh 160, 4 at dh 256), and the ldmatrix
+//    rows of dh + 8 bf16 stay 16-byte aligned and conflict-free at any
+//    multiple of 16; shared memory is (16 + 4 TT) (dh + 8) + 16 (TT + 8)
+//    bf16 and 16 dh f32 (65 KB at dh 96, 104 KB at dh 160, tile 64).
+//  * f32, bf16 at other head dims, or unaligned tensors: a CUDA-core body
+//    with the same spans, ring and merge (tf32 would round q and k, which
+//    the reference keeps in f32).
 // Positions at or past the length score NEG_INF before the max, as in
 // _decode_kernel; the softmax runs in base 2 with log2(e) folded into the
 // scores.
@@ -71,6 +78,7 @@ constexpr int DA_WARPS = DA_THREADS / 32;
 constexpr int DA_MAXG = 16;          // query heads per KV head
 constexpr int DA_MAXSPLITS = 16;     // the blocks of one (non-portable) cluster
 constexpr int DA_PAD = 16;           // bytes of padding per shared row (ldmatrix without conflicts)
+constexpr int DA_TC_MAXDH = 256;     // the tensor-core body's widest head (dh a multiple of 16)
 constexpr float DA_LOG2E = 1.4426950408889634f;
 constexpr float DA_LN2 = 0.6931471805599453f;
 
@@ -542,7 +550,8 @@ static int launch_cc(const DecodeArgs& a, int B, int splits, int vec, cudaStream
 
 // The plan's checks: ``splits`` spans of ``span`` positions (a multiple of
 // the tile) cover S, none of them wholly past it, in one cluster; the
-// tensor-core body takes bf16 at dh 64, 128 or 256 with whole 16-byte rows.
+// tensor-core body takes bf16 at every dh that is a multiple of 16 up to 256
+// (DA_TC_MAXDH), with whole 16-byte rows.
 static bool plan_ok(int B, int H, int Hkv, int S, int dh, int splits, int tile, int span,
                     int tensor_cores, int vec, int elem) {
     if (B < 1 || Hkv < 1 || H % Hkv || H / Hkv > DA_MAXG || S < 1 || dh < 1) return false;
@@ -550,7 +559,7 @@ static bool plan_ok(int B, int H, int Hkv, int S, int dh, int splits, int tile, 
         || span % tile || (long)splits * span < S || (long)(splits - 1) * span >= S)
         return false;
     if (vec && (dh * elem) % 16) return false;
-    if (tensor_cores && (elem != 2 || !vec || (dh != 64 && dh != 128 && dh != 256))) return false;
+    if (tensor_cores && (elem != 2 || !vec || dh % 16 || dh > DA_TC_MAXDH)) return false;
     return true;
 }
 
@@ -573,9 +582,15 @@ static int launch_decode(const void* q, const void* k, const void* v, const void
     if constexpr (sizeof(T) == 2) {
         if (tensor_cores) {
 #define DA_TC_CASE(D)                                                              \
-    if (dh == D) return tile == 64 ? launch_tc<D, 64>(a, B, splits, st)            \
-                                   : launch_tc<D, 32>(a, B, splits, st);
-            DA_TC_CASE(64) DA_TC_CASE(128) DA_TC_CASE(256)
+    case D: return tile == 64 ? launch_tc<D, 64>(a, B, splits, st)                 \
+                              : launch_tc<D, 32>(a, B, splits, st);
+            switch (dh) {
+                DA_TC_CASE(16) DA_TC_CASE(32) DA_TC_CASE(48) DA_TC_CASE(64)
+                DA_TC_CASE(80) DA_TC_CASE(96) DA_TC_CASE(112) DA_TC_CASE(128)
+                DA_TC_CASE(144) DA_TC_CASE(160) DA_TC_CASE(176) DA_TC_CASE(192)
+                DA_TC_CASE(208) DA_TC_CASE(224) DA_TC_CASE(240) DA_TC_CASE(256)
+                default: return (int)cudaErrorInvalidValue;
+            }
 #undef DA_TC_CASE
         }
     }

@@ -66,10 +66,18 @@
 // offset .. offset + S_loc - 1, causal, no window. Out: f32 rows
 // [B, C, H, dh + 1], each head's normalized context and then the natural
 // log-sum-exp of its scores; a query that sees no key of the slice gives a
-// zero context and -inf. A simple CUDA-core body for bf16 and f32 alike (the
-// operands converted to f32 in shared memory, f32 sums), 64 queries by 64
-// keys a tile, the key loop ending at the last key some query of the tile
-// can see; the caller all-gathers the rows and merges them.
+// zero context and -inf. The caller all-gathers the rows and merges them.
+// bf16 runs the tensor-core body above with the slice's key offset (the
+// causal mask and the last tile read compare absolute positions, so tiles
+// past every query of a block are never loaded) and a second epilogue: the
+// f32 context staged in the free K ring and stored row by row, and the lse
+// as (m + log2 l) ln 2 from the base-2 running max and sum, -inf where l is
+// 0 (no division by it). What bound the first body (scalar f32 FMAs over
+// operands converted in shared memory, P V a key at a time, no
+// asynchronous copies) is gone; what is left is the tensor-core body's
+// (one block per query head, so the g heads of a KV head each load its
+// tiles). f32 keeps a CUDA-core body (f32 operands on tensor cores would
+// be TF32): 64 queries by 64 keys a tile, f32 sums.
 #include "common.cuh"
 
 using namespace repro;
@@ -215,6 +223,7 @@ constexpr int BN = 64;          // key rows per tile
 constexpr int THREADS = BM / 16 * 32;
 constexpr int PAD = 8;          // bf16 elements (16 bytes) of padding per shared row
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // rows [r0, r0 + 64) of a [rows, ld] bf16 matrix into a [64, DH + PAD] tile;
 // rows at or past ``nrows`` read as zeros
@@ -229,11 +238,16 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t ld, int
     }
 }
 
+// ``k_off``: the absolute position of key 0 (a slice of a cache split by
+// sequence; 0 for a whole cache). ``partial``: the partial epilogue, f32 rows
+// [B, Sq, H, DH + 1] (normalized context, then the natural lse) instead of
+// bf16 [B, Sq, H, DH].
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          bf16* __restrict__ out, int Sq, int Skv, int H, int Hkv, float scale, int causal,
-          int window, float soft_cap, const long long* __restrict__ q_off) {
+          void* __restrict__ out, int Sq, int Skv, int H, int Hkv, float scale, int causal,
+          int window, float soft_cap, const long long* __restrict__ q_off, int k_off,
+          int partial) {
     constexpr int LDS = DH + PAD, KD = DH / 16, ND = DH / 8, NT = BN / 8;
     constexpr bool Q_REGS = DH <= 128;                  // Q's fragments held in registers
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -252,8 +266,9 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 
     const int qo = q_off ? (int)*q_off : 0;             // absolute position of query 0
     const int q_first = qo + q0, q_last = qo + min(q0 + BM, Sq) - 1;
-    const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-    const int k_begin = window > 0 ? max(0, q_first - window + 1) / BN * BN : 0;
+    // the local keys some query of the tile sees (absolute position k_off + j)
+    const int k_end = causal ? min(Skv, q_last - k_off + 1) : Skv;
+    const int k_begin = window > 0 ? max(0, q_first - window + 1 - k_off) / BN * BN : 0;
     const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
     // commit groups in order: Q + K_0, V_0, K_1, V_1, ...
@@ -313,8 +328,8 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         }
 
         // scale, soft-cap, mask (only where the tile crosses an edge), row max
-        const bool full = k0 + BN <= Skv && (!causal || k0 + BN - 1 <= q_first)
-                          && (window <= 0 || k0 > q_last - window);
+        const bool full = k0 + BN <= Skv && (!causal || k_off + k0 + BN - 1 <= q_first)
+                          && (window <= 0 || k_off + k0 > q_last - window);
         float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
@@ -324,8 +339,9 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
                 if (soft_cap > 0.f) x = soft_cap * tanhf(x / soft_cap);
                 x *= LOG2E;
                 if (!full) {
-                    const int qpos = row0 + (e >> 1) * 8, kpos = k0 + n * 8 + t4 * 2 + (e & 1);
-                    bool valid = kpos < Skv;
+                    const int qpos = row0 + (e >> 1) * 8, kl = k0 + n * 8 + t4 * 2 + (e & 1);
+                    const int kpos = k_off + kl;
+                    bool valid = kl < Skv;
                     if (causal) valid = valid && kpos <= qpos;
                     if (window > 0) valid = valid && kpos > qpos - window;
                     if (!valid) x = NEG_INF;
@@ -385,7 +401,6 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     cp_async_wait<0>();
     __syncthreads();     // every thread's copies into Q have landed (no KV tile: none waited)
 
-    // normalize, stage the warp's 16 rows in its own rows of the Q tile, store
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -393,6 +408,38 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         inv[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
+    if (partial) {
+        // f32 context staged in the warp's share of the free K ring (4 x 16
+        // rows of DH + 4 floats fit in its 2 x 64 x (DH + 8) bf16), then each
+        // row's DH + 1 floats stored by neighbouring lanes; a row with no
+        // visible key (l 0) gives zeros and lse -inf
+        constexpr int LDO = DH + 4;
+        float* Of = reinterpret_cast<float*>(Ks) + warp * 16 * LDO;
+        float* pout = static_cast<float*>(out);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+            const int qpos = q0 + warp * 16 + gq + r * 8;
+            if (t4 == 0 && qpos < Sq)
+                pout[(((size_t)b * Sq + qpos) * H + h) * (DH + 1) + DH] =
+                    l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : __int_as_float(0xff800000);
+        }
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+            *reinterpret_cast<float2*>(Of + gq * LDO + n * 8 + t4 * 2) =
+                make_float2(o[n][0] * inv[0], o[n][1] * inv[0]);
+            *reinterpret_cast<float2*>(Of + (gq + 8) * LDO + n * 8 + t4 * 2) =
+                make_float2(o[n][2] * inv[1], o[n][3] * inv[1]);
+        }
+        __syncwarp();
+        for (int i = lane; i < 16 * DH; i += 32) {
+            const int r = i / DH, c = i % DH, qpos = q0 + warp * 16 + r;
+            if (qpos < Sq)
+                pout[(((size_t)b * Sq + qpos) * H + h) * (DH + 1) + c] = Of[r * LDO + c];
+        }
+        return;
+    }
+    // normalize, stage the warp's 16 rows in its own rows of the Q tile, store
     bf16* Os = Qs + warp * 16 * LDS;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
@@ -406,7 +453,8 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     for (int i = lane; i < 16 * CH; i += 32) {
         const int r = i / CH, c = i % CH, qpos = q0 + warp * 16 + r;
         if (qpos < Sq)
-            *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qpos) * H + h) * DH + c * 8) =
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(out)
+                                      + (((size_t)b * Sq + qpos) * H + h) * DH + c * 8) =
                 *reinterpret_cast<const uint4*>(Os + r * LDS + c * 8);
     }
 }
@@ -414,7 +462,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 template <int DH>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                   int Skv, int H, int Hkv, float scale, int causal, int window, float soft_cap,
-                  const long long* q_off, cudaStream_t stream) {
+                  const long long* q_off, int k_off, int partial, cudaStream_t stream) {
     const size_t smem = (size_t)(BM + 4 * BN) * (DH + PAD) * sizeof(bf16);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -425,7 +473,7 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
     const dim3 grid(H, (Sq + BM - 1) / BM, B);
     flash_fwd<DH><<<grid, THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), Sq, Skv, H, Hkv, scale, causal, window, soft_cap, q_off);
+        out, Sq, Skv, H, Hkv, scale, causal, window, soft_cap, q_off, k_off, partial);
     return (int)cudaGetLastError();
 }
 
@@ -433,12 +481,13 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 static int run_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                     int Skv, int H, int Hkv, int dh, float scale, int causal, int window,
-                    float soft_cap, const long long* q_off, void* stream) {
+                    float soft_cap, const long long* q_off, void* stream, int k_off = 0,
+                    int partial = 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_DH_CASE(D)                                                                      \
     case D:                                                                                \
         return tc::launch<D>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, causal, window,      \
-                             soft_cap, q_off, st);
+                             soft_cap, q_off, k_off, partial, st);
     switch (dh) {
         FA_DH_CASE(16) FA_DH_CASE(32) FA_DH_CASE(48) FA_DH_CASE(64)
         FA_DH_CASE(80) FA_DH_CASE(96) FA_DH_CASE(112) FA_DH_CASE(128)
@@ -499,19 +548,18 @@ extern "C" int flash_attention_chunk_f32(const void* q, const void* k, const voi
 }
 
 // ---------------------------------------------------------------------------
-// partial chunk entries: CUDA cores, f32 shared memory, either input type
+// f32 partial chunk entry: CUDA cores, f32 shared memory (the bf16 entry is
+// the tensor-core body's partial epilogue)
 // ---------------------------------------------------------------------------
 namespace part {
 
 constexpr int PB = 64;          // query rows and key rows per tile
 constexpr int PT = 256;         // 16 x 16 threads: 4 query rows x 4 keys each
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T, int MAXDC>    // dh / 16 <= MAXDC
+template <int MAXDC>            // dh / 16 <= MAXDC
 __global__ void __launch_bounds__(PT)
-chunk_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+chunk_partial(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v,
               float* __restrict__ out, const long long* __restrict__ cur_len, int C, int S,
               int H, int Hkv, int dh, int k_off, float scale, float soft_cap) {
     extern __shared__ float smem[];
@@ -527,7 +575,7 @@ chunk_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
     for (int i = tid; i < PB * dh; i += PT) {
         const int r = i / dh, d = i % dh, s = q0 + r;
-        Qs[r * ld + d] = s < C ? to_f(q[(((size_t)b * C + s) * H + h) * dh + d]) : 0.f;
+        Qs[r * ld + d] = s < C ? q[(((size_t)b * C + s) * H + h) * dh + d] : 0.f;
     }
     float m[4], l[4], o[4][MAXDC];
 #pragma unroll
@@ -544,8 +592,8 @@ chunk_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         for (int i = tid; i < PB * dh; i += PT) {
             const int r = i / dh, d = i % dh, s = k0 + r;
             const size_t src = (((size_t)b * S + s) * Hkv + hk) * dh + d;
-            Ks[r * ld + d] = s < S ? to_f(k[src]) : 0.f;
-            Vs[r * dh + d] = s < S ? to_f(v[src]) : 0.f;
+            Ks[r * ld + d] = s < S ? k[src] : 0.f;
+            Vs[r * dh + d] = s < S ? v[src] : 0.f;
         }
         __syncthreads();
         float sc[4][4];
@@ -627,20 +675,20 @@ chunk_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
 }
 
-template <typename T>
 static int launch(const void* q, const void* k, const void* v, void* out, const void* cur_len,
                   int B, int C, int S, int H, int Hkv, int dh, int k_off, float scale,
                   float soft_cap, void* stream) {
     if (dh < 16 || dh % 16 || dh > FA_MAXDH || H % Hkv) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)(2 * PB * (dh + 1) + PB * dh + PB * (PB + 1)) * sizeof(float);
-    auto kernel = dh <= 128 ? chunk_partial<T, 8> : chunk_partial<T, 16>;
+    auto kernel = dh <= 128 ? chunk_partial<8> : chunk_partial<16>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((C + PB - 1) / PB, H, B);
     kernel<<<grid, PT, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<float*>(out), static_cast<const long long*>(cur_len), C, S, H, Hkv, dh, k_off,
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<const long long*>(cur_len), C, S, H, Hkv, dh, k_off,
         scale, soft_cap);
     return (int)cudaGetLastError();
 }
@@ -648,20 +696,20 @@ static int launch(const void* q, const void* k, const void* v, void* out, const 
 }  // namespace part
 
 // The partial chunk entries: q [B, C, H, dh] at positions *cur_len + i against
-// one slice k/v [B, S, Hkv, dh] holding positions offset .. offset + S - 1;
-// out f32 [B, C, H, dh + 1] (context, then log-sum-exp).
+// one slice k/v [B, S, Hkv, dh] holding positions offset .. offset + S - 1,
+// causal, no window; out f32 [B, C, H, dh + 1] (context, then log-sum-exp).
 extern "C" int flash_attention_chunk_partial_bf16(const void* q, const void* k, const void* v,
                                                   void* out, const void* cur_len, int B, int C,
                                                   int S, int H, int Hkv, int dh, int offset,
                                                   float scale, float soft_cap, void* stream) {
-    return part::launch<__nv_bfloat16>(q, k, v, out, cur_len, B, C, S, H, Hkv, dh, offset,
-                                       scale, soft_cap, stream);
+    return run_bf16(q, k, v, out, B, C, S, H, Hkv, dh, scale, 1, 0, soft_cap,
+                    static_cast<const long long*>(cur_len), stream, offset, 1);
 }
 
 extern "C" int flash_attention_chunk_partial_f32(const void* q, const void* k, const void* v,
                                                  void* out, const void* cur_len, int B, int C,
                                                  int S, int H, int Hkv, int dh, int offset,
                                                  float scale, float soft_cap, void* stream) {
-    return part::launch<float>(q, k, v, out, cur_len, B, C, S, H, Hkv, dh, offset, scale,
-                               soft_cap, stream);
+    return part::launch(q, k, v, out, cur_len, B, C, S, H, Hkv, dh, offset, scale, soft_cap,
+                        stream);
 }

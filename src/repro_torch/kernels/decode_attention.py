@@ -6,10 +6,10 @@ the g query heads of a KV head scored together, per-row valid lengths,
 optional tanh soft-cap, online softmax. One launch and no workspace: the KV
 axis is cut into spans, one block each, and the spans of one (row, KV head)
 form a thread block cluster that merges its partials in span order through
-distributed shared memory. bf16 at dh 64/128/256 runs on tensor cores, the
-rest on CUDA cores. The plan (:func:`decode_plan`) reads S, dh, g and the
-type only, so a row gives the same bits whatever the batch and the other
-rows' lengths. Bound: bytes (each valid K/V element read once). Plain
+distributed shared memory. bf16 at every dh that is a multiple of 16 up to
+256 runs on tensor cores, the rest on CUDA cores. The plan
+(:func:`decode_plan`) reads S, dh, g and the type only, so a row gives the
+same bits whatever the batch and the other rows' lengths. Bound: bytes (each valid K/V element read once). Plain
 version: ``kernels.ref.decode_attention_ref``.
 
 The paged entry (:func:`decode_attention_paged`) scores the serving
@@ -41,7 +41,7 @@ from repro_torch.kernels.build import CudaKernel
 MAX_GROUP = 16      # query heads per KV head; csrc/decode_attention.cu:DA_MAXG
 MAX_SPLITS = 16     # spans of one cluster; DA_MAXSPLITS (non-portable above 8)
 TILES = (32, 64)    # positions per tile the kernel takes
-TENSOR_CORE_DH = (64, 128, 256)
+TENSOR_CORE_DH = tuple(range(16, 257, 16))     # csrc/decode_attention.cu:DA_TC_CASE
 
 _CONTIGUOUS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -78,11 +78,23 @@ def decode_plan(s: int, dh: int, g: int, dtype: torch.dtype) -> DecodePlan:
     """The plan for a cache of ``s`` positions, head dim ``dh``, ``g`` query
     heads per KV head and element type ``dtype``. It reads neither B nor a
     row's length: a row's sum runs in the same order in every batch. Spans of
-    one tile each up to 16 splits (64 positions for bf16 on tensor cores, 32
-    on CUDA cores), longer spans past that."""
+    one tile each up to the split cap, longer spans past that. CUDA cores:
+    tiles of 32, up to 16 splits. Tensor cores: at g > 4 (few KV heads a
+    row: 4 for 32 query heads at g 8) tiles of 64 and up to 16 splits, so
+    one row's few (row, KV head) pairs still fill the card; at g <= 4 (8 or
+    more KV heads) at most max(4, 2 g) splits, since there the pairs alone
+    make hundreds of blocks and each extra split costs a block's fixed cost
+    (Q staged, a cluster merge) for one tile's work, in tiles of 32, or one
+    tile of 64 where the spans are no longer (``tools/torch_kernel_sweep.py
+    --only widths``: over 4 rows of 1024 positions, 4 spans of 256 at dh 96
+    g 1 and 8 of 128 at dh 160 g 4 take 41% and 58% of the time of 16 spans
+    of 64; over tp-qwen3-4b's 2 rows of 512, 8 spans of one 64-position tile
+    beat 8 of two 32-position tiles)."""
     tensor_cores = dtype == torch.bfloat16 and dh in TENSOR_CORE_DH
-    tile = 64 if tensor_cores else 32
-    splits = min(MAX_SPLITS, _cdiv(s, tile))
+    wide = tensor_cores and g > 4
+    cap = MAX_SPLITS if wide or not tensor_cores else max(4, 2 * g)
+    tile = 64 if wide or (tensor_cores and _cdiv(s, cap) <= 64) else 32
+    splits = min(cap, _cdiv(s, tile))
     span = _cdiv(_cdiv(s, splits), tile) * tile
     return DecodePlan(splits=_cdiv(s, span), tile=tile, span=span, tensor_cores=tensor_cores)
 

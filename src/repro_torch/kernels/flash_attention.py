@@ -26,8 +26,9 @@ positions ``offset ..``, causal, and gives f32 rows [B, C, H, dh + 1], each
 head's normalized context and then its log-sum-exp (``-inf`` where no key of
 the slice is visible), which the caller all-gathers and merges
 (``distributed/parallel.py:merge_partials``): K2's partial entry for C
-queries. A simple CUDA-core body for both types. Plain version:
-``kernels.ref.flash_attention_chunk_partial_ref``.
+queries. bf16 runs the chunk entry's tensor-core body with the slice's key
+offset and a partial epilogue (f32 context, natural lse); f32 a CUDA-core
+body. Plain version: ``kernels.ref.flash_attention_chunk_partial_ref``.
 """
 from __future__ import annotations
 
@@ -161,7 +162,7 @@ def flash_attention_chunk_partial(
         raise ValueError(f"a slice's offset must be >= 0, got {offset}")
     b, c, h, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q, k, v)
     out = torch.empty((b, c, h, dh + 1), dtype=torch.float32, device=q.device)
     if b and c:
         CHUNK(PARTIAL_SYMBOLS[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -502,15 +502,17 @@ def test_decode_attention_groups_head_dims_and_types(card, g, dh, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [96, 128])
+@pytest.mark.parametrize("dh", [96, 128, 160])
 def test_decode_attention_partial_entry_matches_plain(card, dtype, dh):
-    """K2's partial entry (tensor cores at dh 128 bf16, CUDA cores else) at
-    local lengths 0 / 1 / 130 / 256 of a 256-position slice: the context
-    and lse against the plain version, an empty slice lse -inf and context
-    0, and two slices merged against the contiguous entry over both."""
+    """K2's partial entry (tensor cores for bf16 at every width, CUDA cores
+    for f32) at local lengths 0 / 1 / 130 / 256 of a 256-position slice:
+    the context and lse against the plain version, an empty slice lse -inf
+    and context 0, and two slices merged against the contiguous entry over
+    both."""
     from repro_torch.distributed.parallel import merge_partials
     from repro_torch.kernels import decode_attention as dec
 
+    assert dec.decode_plan(256, dh, 4, dtype).tensor_cores == (dtype == torch.bfloat16)
     q, k, v = _decode_inputs(4, 256, 8, 2, dh, dtype, card)
     _, k2, v2 = _decode_inputs(4, 256, 8, 2, dh, dtype, card, seed=3)
     lengths = torch.tensor([0, 1, 130, 256], dtype=torch.int32, device=card)
@@ -529,25 +531,28 @@ def test_decode_attention_partial_entry_matches_plain(card, dtype, dh):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 128, 160, 256])
 def test_flash_attention_chunk_partial_entry_matches_plain(card, dtype, dh):
-    """K4's partial chunk entry: a chunk of 72 queries at positions 40-111
-    against the two 64-position slices of a 128-position cache (the chunk
-    straddles them; rank 1's slice is invisible to its first 24 queries:
-    lse -inf, context 0, no NaN), with and without a soft cap, against the
-    plain version, and the two slices merged against the chunk entry over
-    the whole cache; one launch counted per call under the chunk kernel."""
+    """K4's partial chunk entry (bf16: the chunk entry's tensor-core body
+    with a key offset and the partial epilogue; f32: CUDA cores): a chunk of
+    72 queries at positions 40-111 against the three 64-position slices of
+    a 192-position cache, at offsets before the chunk (0), straddling it
+    (64: invisible to its first 24 queries) and past it (128: invisible to
+    all), each lse -inf, context 0 and no NaN where nothing is visible,
+    with and without a soft cap, against the plain version; the three
+    slices merged against the chunk entry over the whole cache; one launch
+    counted per call under the chunk kernel."""
     from repro_torch.distributed.parallel import merge_partials
     from repro_torch.kernels import flash_attention as fa
 
     c, cur, n, h, hkv = 72, 40, 64, 8, 2
     q = _randn((2, c, h, dh), dtype, 0, card)
-    k = _randn((2, 2 * n, hkv, dh), dtype, 1, card)
-    v = _randn((2, 2 * n, hkv, dh), dtype, 2, card)
+    k = _randn((2, 3 * n, hkv, dh), dtype, 1, card)
+    v = _randn((2, 3 * n, hkv, dh), dtype, 2, card)
     cl = torch.tensor(cur, device=card)
     for cap in (None, 20.0):
-        parts = []
-        for r in range(2):
+        parts, empties = [], []
+        for r in range(3):
             ks, vs = k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n]
             ops.reset_launch_counts()
             out = fa.flash_attention_chunk_partial(q, ks, vs, cl, r * n, soft_cap=cap)
@@ -559,20 +564,24 @@ def test_flash_attention_chunk_partial_entry_matches_plain(card, dtype, dh):
                 neginf=0.0).any() and not torch.isnan(out).any()
             torch.testing.assert_close(out[~empty], exp[~empty], **TOL[dtype])
             parts.append(out)
-        assert empty[:, :n - cur].all() and not empty[:, n - cur:].any()
+            empties.append(empty)
+        assert not empties[0].any() and empties[2].all()
+        assert empties[1][:, :n - cur].all() and not empties[1][:, n - cur:].any()
         whole = ops.flash_attention_chunk(q, k, v, cl, soft_cap=cap)
         torch.testing.assert_close(merge_partials(torch.stack(parts), dtype).float(),
                                    whole.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_decode_attention_is_bitwise_stable_and_batch_invariant(card, dtype):
+@pytest.mark.parametrize("dh", [128, 160])
+def test_decode_attention_is_bitwise_stable_and_batch_invariant(card, dtype, dh):
     """The plan reads S, dh, g and the type only and the merge runs in span
     order: two launches give the same bits, and row b of a B = 3 launch with
-    lengths (1, 300, 1024) equals that row launched alone."""
+    lengths (1, 300, 1024) equals that row launched alone (dh 160: the
+    tensor-core body with dh m-tiles that 4 warps do not divide)."""
     from repro_torch.kernels import decode_attention as dec
 
-    q, k, v = _decode_inputs(3, 1024, 32, 4, 128, dtype, card)
+    q, k, v = _decode_inputs(3, 1024, 32, 4, dh, dtype, card)
     lengths = torch.tensor([1, 300, 1024], dtype=torch.int32, device=card)
     first = dec.decode_attention(q, k, v, lengths)
     again = dec.decode_attention(q, k, v, lengths)
@@ -1219,17 +1228,17 @@ def test_sampled_window_graphs_equal_eager_windows(card, spec_k, slots, prefetch
 # ---------------------------------------------------------------------------
 # K2's paged entry and the serving engine's windows
 # ---------------------------------------------------------------------------
-def _paged_case(device, dtype, ps, lens, b=None, seed=0, spare=5):
-    """q [B, 32, 128], planes [P, ps, 4, 128] whose spare pages hold garbage,
+def _paged_case(device, dtype, ps, lens, b=None, seed=0, spare=5, dh=128):
+    """q [B, 32, dh], planes [P, ps, 4, dh] whose spare pages hold garbage,
     a shuffled page table [B, 1024 // ps] and lengths ``lens``."""
     b = b or len(lens)
     n_pages = 1024 // ps
     planes = b * n_pages + 1 + spare
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    kp = (torch.randn((planes, ps, 4, 128), generator=gen) * 3).to(device=device, dtype=dtype)
-    vp = torch.randn((planes, ps, 4, 128), generator=gen).to(device=device, dtype=dtype)
+    kp = (torch.randn((planes, ps, 4, dh), generator=gen) * 3).to(device=device, dtype=dtype)
+    vp = torch.randn((planes, ps, 4, dh), generator=gen).to(device=device, dtype=dtype)
     pt = (torch.randperm(planes - 1, generator=gen)[:b * n_pages] + 1).reshape(b, n_pages)
-    q = torch.randn((b, 32, 128), generator=gen).to(device=device, dtype=dtype)
+    q = torch.randn((b, 32, dh), generator=gen).to(device=device, dtype=dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=device)
     return q, kp, vp, pt.to(device=device, dtype=torch.int32), lengths
 
@@ -1242,14 +1251,18 @@ def _gathered(planes, pt):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ps", [16, 64])
 @pytest.mark.parametrize("soft_cap", [None, 30.0])
-def test_decode_attention_paged_matches_plain_and_contiguous(card, dtype, ps, soft_cap):
+@pytest.mark.parametrize("dh", [128, 96, 160])
+def test_decode_attention_paged_matches_plain_and_contiguous(card, dtype, ps, soft_cap, dh):
     """Lengths on and around page boundaries (and the whole row), pages in
     shuffled order: the paged entry within the tolerance of its plain
-    version, and bitwise the contiguous entry on the gathered view."""
+    version, and bitwise the contiguous entry on the gathered view; bf16
+    on tensor cores at every dh (96 and 160: m-tiles that 4 warps do not
+    divide)."""
     from repro_torch.kernels import decode_attention as dec
 
+    assert dec.decode_plan(1024, dh, 8, dtype).tensor_cores == (dtype == torch.bfloat16)
     lens = [1, ps - 1, ps, ps + 1, 2 * ps, 300, 577, 1024]
-    q, kp, vp, pt, lengths = _paged_case(card, dtype, ps, lens)
+    q, kp, vp, pt, lengths = _paged_case(card, dtype, ps, lens, dh=dh)
     got = dec.decode_attention_paged(q, kp, vp, pt, lengths, soft_cap=soft_cap)
     want = ref.decode_attention_paged_ref(q, kp, vp, pt, lengths, soft_cap=soft_cap)
     contiguous = dec.decode_attention(q, _gathered(kp, pt), _gathered(vp, pt), lengths,
@@ -1490,16 +1503,18 @@ K2_SHAPES = [(96, 1), (96, 4), (160, 1), (160, 4), (128, 9), (128, 12), (64, 9),
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dh,g", K2_SHAPES)
 def test_decode_attention_dense_widths_and_groups(card, dh, g, dtype):
-    """K2 at the dense archs' shapes: dh 96 and 160 (bf16 on the CUDA-core
-    body), query groups 1 (phi3, musicgen), 4 (pixtral), 9 (starcoder2-7b)
-    and 12 (starcoder2-3b) on either tensor-core fragment count, and dh 256
-    g 10 (recurrentgemma: two fragments, the second partly empty). The
-    contiguous entry over rows of lengths 1000 / 77 / 1 against the plain
-    version, row 1 alone bitwise itself among 3; the paged entry bitwise
-    the contiguous entry on the gathered view."""
+    """K2 at the dense archs' shapes: dh 96 and 160 (m-tiles of O that 4
+    warps do not divide), query groups 1 (phi3, musicgen), 4 (pixtral), 9
+    (starcoder2-7b) and 12 (starcoder2-3b) on either tensor-core fragment
+    count, and dh 256 g 10 (recurrentgemma: two fragments, the second
+    partly empty); bf16 on tensor cores at every width. The contiguous
+    entry over rows of lengths 1000 / 77 / 1 against the plain version, row
+    1 alone bitwise itself among 3; the paged entry bitwise the contiguous
+    entry on the gathered view."""
     from repro_torch.kernels import decode_attention as dec
 
     hkv, s, ps = 2, 1024, 16
+    assert dec.decode_plan(s, dh, g, dtype).tensor_cores == (dtype == torch.bfloat16)
     q, k, v = _decode_inputs(3, s, g * hkv, hkv, dh, dtype, card)
     lengths = torch.tensor([1000, 77, 1], dtype=torch.int32, device=card)
     for cap in (None, 20.0):

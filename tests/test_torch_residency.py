@@ -247,3 +247,72 @@ def test_slot_store_write_batch_and_manager_guards():
     assert dataclasses.asdict(tcheck(cfg, TRes(**res), batch=1, cache_len=8)) == \
         dataclasses.asdict(jcheck(reduce_for_smoke(get_config("qwen36-35b-a3b")), JRes(**res),
                                   batch=1, cache_len=8))
+
+
+class _RankMesh:
+    """Rank ``rank`` of a (data 1, model ``tp``) mesh in one process: the
+    axis sizes and coordinate that ``shard_params`` and
+    ``_sharded_zero_state`` read."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, rank, tp):
+        self.rank, self.shape = rank, (1, tp)
+
+    def size(self, i):
+        return self.shape[i]
+
+    def get_local_rank(self, axis):
+        return self.rank if axis == "model" else 0
+
+
+def test_feasibility_under_the_model_axis_counts_a_rank_s_bytes():
+    """``check_feasibility(shard=(rank, tp))`` counts what a rank of the
+    model axis holds: its F slice of every slot (a sliced ``SlotStore``),
+    its slice of every KV cache (``_sharded_zero_state``) and its
+    ``shard_params`` share of the non-expert weights, all at 2 bytes an
+    element as the whole count. Under a budget between the two totals the
+    whole model is refused and a rank of two accepted, by the check and by
+    the manager; the unsharded report stays the reference's."""
+    from repro_torch.models.transformer import (
+        Runtime, _sharded_zero_state, init_params, shard_params,
+    )
+    from repro_torch.tree import items
+
+    cfg, cache = treduce(tget("qwen36-35b-a3b")), 64
+    res = dict(mode="full")
+    whole = tcheck(cfg, TRes(**res), batch=1, cache_len=cache)
+    assert dataclasses.asdict(whole) == dataclasses.asdict(
+        jcheck(reduce_for_smoke(get_config("qwen36-35b-a3b")), JRes(**res), batch=1,
+               cache_len=cache))
+    rank = tcheck(cfg, TRes(**res), batch=1, cache_len=cache, shard=(1, 2))
+    rt = Runtime(cache_len=cache, mesh=_RankMesh(1, 2))
+
+    def static(params):
+        return 2 * sum(t.numel() for path, t in items(params) if "/experts/" not in path)
+
+    params = init_params(cfg, 0, "meta")
+    assert whole.static_bytes == static(params)
+    assert rank.static_bytes == static(shard_params(cfg, params, rt)) < whole.static_bytes
+    kv = _sharded_zero_state(cfg, 1, cache, rt, "cpu")
+    assert rank.kv_bytes == 2 * sum(t.numel() for layer in kv for t in layer.values())
+    assert rank.kv_bytes == whole.kv_bytes // 2
+    shapes = {"w_gate": (cfg.d_model, cfg.moe.expert_d_ff), "w_up": (cfg.d_model, cfg.moe.expert_d_ff),
+              "w_down": (cfg.moe.expert_d_ff, cfg.d_model)}
+    store = SlotStore(cfg.moe.num_experts, shapes, torch.bfloat16, "cpu", shard=(1, 2))
+    per_layer = sum(t.numel() * t.element_size() for t in store.buffers.values())
+    assert rank.slot_bytes == cfg.num_moe_layers * per_layer == whole.slot_bytes // 2
+    assert rank.activation_bytes == whole.activation_bytes
+
+    budget = rank.total_bytes
+    assert whole.total_bytes > budget
+    res["hbm_budget_bytes"] = budget
+    assert not tcheck(cfg, TRes(**res), batch=1, cache_len=cache).ok
+    assert tcheck(cfg, TRes(**res), batch=1, cache_len=cache, shard=(0, 2)).ok
+    rng = np.random.default_rng(5)
+    host = [{n: torch.from_numpy(rng.standard_normal((cfg.moe.num_experts,) + s).astype(np.float32))
+             for n, s in shapes.items()} for _ in range(cfg.num_moe_layers)]
+    with pytest.raises(InitializationError):
+        TManager(cfg, TRes(**res), host, batch=1, cache_len=cache, device="cpu")
+    man = TManager(cfg, TRes(**res), host, batch=1, cache_len=cache, device="cpu", shard=(0, 2))
+    assert man.report.ok and man.report.total_bytes == budget

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Sweep the plans of the port's CUDA kernels on one card.
 
-    python3 tools/torch_kernel_sweep.py [--only gemv,flash,host,decode,tiled,router]
+    python3 tools/torch_kernel_sweep.py [--only gemv,flash,host,decode,widths,tiled,router]
 
 * K1's GEMV body (``slot_gmm`` with C = 1, 8 picks through the LUT, 97 slots
   cycled over 16 LUTs as in ``chip_smoke.py``) at the decode gate/up and
@@ -16,6 +16,12 @@
   every plan of 4, 8 or 16 spans, tiles of 32 or 64 positions, on tensor
   cores or CUDA cores, beside one ``scaled_dot_product_attention`` call on
   the valid positions.
+* ``widths``: K2 the same way at the dense families' serving shape (4 rows
+  of a 1024-position cache at lengths 37 / 300 / 576 / 1024, bf16, 32 query
+  heads) at dh 96 g 1 (phi3), dh 160 g 4 (pixtral), dh 64 g 1 (musicgen)
+  and dh 128 g 4 (qwen3-4b); at tp-qwen3-4b's slice (2 rows of 512, both
+  full, dh 128 g 4); and one row at length 576 for dh 96 g 1 and dh 160
+  g 4; each beside SDPA (GQA) with a length mask.
 * K1's tiled body at the prefill shape of ``chip_smoke.py`` (96 used slots,
   50 rows each, x [96,50,2048] @ [97,2048,768]) in bf16, int8 and int4
   (groups of 64): every tensor-core tile shape (D step 32 or 64, N tile 64
@@ -70,7 +76,7 @@ def main() -> int:
     from repro_torch.quant import quantize_int4_batch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default="gemv,flash,host,decode,tiled,router",
+    ap.add_argument("--only", default="gemv,flash,host,decode,widths,tiled,router",
                     help="comma-separated parts to run")
     only = set(ap.parse_args().only.split(","))
     print(cs.card_line(), flush=True)
@@ -120,6 +126,8 @@ def main() -> int:
 
     if "decode" in only:
         decode_sweep(cs, randn)
+    if "widths" in only:
+        decode_width_sweep(cs, randn)
     if "tiled" in only:
         tiled_sweep(cs, randn, g, dev)
     if "router" in only:
@@ -169,22 +177,60 @@ def decode_sweep(cs, randn) -> None:
                 q[:, :, None], k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2),
                 enable_gqa=True)
 
-        plan_of = dec.decode_plan
-        base = plan_of(s, 128, 8, torch.bfloat16)
-        cells = []
-        for tc in (True, False):
-            for splits in (4, 8, 16):
-                for tile in (32, 64):
-                    span = -(-(-(-s // splits)) // tile) * tile
-                    plan = dec.DecodePlan(-(-s // span), tile, span, tc)
-                    dec.decode_plan = lambda *_, p=plan: p
-                    try:
-                        ms = cs.device_ms(lambda: dec.decode_attention(q, *kv(), lens))
-                    finally:
-                        dec.decode_plan = plan_of
-                    mark = "*" if plan == base else ""
-                    cells.append(f"{mark}{'tc' if tc else 'cc'} {plan.splits}x{span}/{tile} {ms:.4f}")
+        cells = plan_cells(cs, s, 128, 8, lambda: dec.decode_attention(q, *kv(), lens))
         print(f"decode_attention S={s} length={length}: " + ", ".join(cells)
+              + f" ms; sdpa {cs.device_ms(sdpa):.4f} ms (* the wrapper's plan)", flush=True)
+
+
+def plan_cells(cs, s, dh, g, call) -> list:
+    """Device ms of ``call`` under every K2 plan of 4, 8 or 16 spans, tiles
+    of 32 or 64, on tensor cores or CUDA cores (the wrapper's marked *)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dec
+
+    plan_of = dec.decode_plan
+    base = plan_of(s, dh, g, torch.bfloat16)
+    cells = []
+    for tc in (True, False):
+        for splits in (4, 8, 16):
+            for tile in (32, 64):
+                span = -(-(-(-s // splits)) // tile) * tile
+                plan = dec.DecodePlan(-(-s // span), tile, span, tc)
+                dec.decode_plan = lambda *_, p=plan: p
+                try:
+                    ms = cs.device_ms(call)
+                finally:
+                    dec.decode_plan = plan_of
+                mark = "*" if plan == base else ""
+                cells.append(f"{mark}{'tc' if tc else 'cc'} {plan.splits}x{span}/{tile} {ms:.4f}")
+    return cells
+
+
+def decode_width_sweep(cs, randn) -> None:
+    """K2's plans at the dense families' serving shape, beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+
+    serve = (cs.CACHE, cs.PAGED_LENS)
+    shapes = [serve + (96, 32), serve + (160, 8), serve + (64, 32), serve + (128, 8),
+              (512, (512, 512), 128, 8), (cs.CACHE, (576,), 96, 32), (cs.CACHE, (576,), 160, 8)]
+    for s, lens_h, dh, hkv in shapes:
+        b, h = len(lens_h), 32
+        k, v, q = randn(b, s, hkv, dh), randn(b, s, hkv, dh), randn(b, h, dh)
+        lens = torch.tensor(lens_h, dtype=torch.int32, device=q.device)
+        mask = (torch.arange(s, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                                  v.transpose(1, 2), attn_mask=mask,
+                                                  enable_gqa=True)
+
+        cells = plan_cells(cs, s, dh, h // hkv, lambda: dec.decode_attention(q, k, v, lens))
+        print(f"decode_attention dh={dh} g={h // hkv} [{b},{s}] lengths "
+              f"{'/'.join(map(str, lens_h))}: " + ", ".join(cells)
               + f" ms; sdpa {cs.device_ms(sdpa):.4f} ms (* the wrapper's plan)", flush=True)
 
 
